@@ -18,10 +18,10 @@
 
 namespace ikpso {
 
-template <class T>
+template <class T, int C>
 __global__ void fk_fitness_kernel(const float* __restrict__ x,
                                   const float* __restrict__ meta,
-                                  const float* __restrict__ swarm, int K,
+                                  const float* __restrict__ swarm, int K, Scene scene,
                                   float* __restrict__ out, long long total, int P) {
   constexpr int D = T::D;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -30,36 +30,42 @@ __global__ void fk_fitness_kernel(const float* __restrict__ x,
   float xr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) xr[d] = x[t * D + d];
-  out[t] = fk_fitness_eval<T>(xr, meta, swarm + s * K);
+  out[t] = fk_fitness_eval<T, C>(xr, meta, swarm + s * K, scene);
 }
 
-template <class T>
+template <class T, int C>
 static void launch_fk_fitness(const float* x, const float* meta, const float* swarm,
-                              int K, float* out, long long total, int P,
+                              int K, Scene scene, float* out, long long total, int P,
                               cudaStream_t stream) {
   constexpr int kThreads = 256;
   const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  fk_fitness_kernel<T><<<blocks, kThreads, 0, stream>>>(x, meta, swarm, K, out,
-                                                         total, P);
+  fk_fitness_kernel<T, C><<<blocks, kThreads, 0, stream>>>(x, meta, swarm, K, scene, out,
+                                                            total, P);
 }
 
 }  // namespace ikpso
 
-extern "C" int ikpso_fk_fitness(int topo, const float* x, const float* meta,
-                                const float* swarm, int K, float* out,
-                                long long total, int P, void* stream) {
+extern "C" int ikpso_fk_fitness(int topo, int collider, int n_obs, float node_half,
+                                float link_half, float node_r2, float link_r2,
+                                const float* x, const float* meta, const float* swarm,
+                                int K, float* out, long long total, int P, void* stream) {
+  using namespace ikpso;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (total <= 0) return static_cast<int>(cudaGetLastError());
-  switch (topo) {
-    case 0:
-      ikpso::launch_fk_fitness<ikpso::Arm7Dof>(x, meta, swarm, K, out, total, P, st);
-      break;
-    case 1:
-      ikpso::launch_fk_fitness<ikpso::ReferenceArm>(x, meta, swarm, K, out, total, P,
-                                                    st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (n_obs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Scene scene{n_obs, node_half, link_half, node_r2, link_r2};
+  if (topo == 0 && collider == kNoCollider) {
+    launch_fk_fitness<Arm7Dof, kNoCollider>(x, meta, swarm, K, scene, out, total, P, st);
+  } else if (topo == 0 && collider == kBoxCollider) {
+    launch_fk_fitness<Arm7Dof, kBoxCollider>(x, meta, swarm, K, scene, out, total, P, st);
+  } else if (topo == 0 && collider == kCapsuleCollider) {
+    launch_fk_fitness<Arm7Dof, kCapsuleCollider>(x, meta, swarm, K, scene, out, total, P,
+                                                 st);
+  } else if (topo == 1 && collider == kNoCollider) {
+    launch_fk_fitness<ReferenceArm, kNoCollider>(x, meta, swarm, K, scene, out, total, P,
+                                                 st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

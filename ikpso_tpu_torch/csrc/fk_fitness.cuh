@@ -22,11 +22,26 @@
 // coefficient order); the library is compiled with -fmad=false so it also
 // rounds op by op like the plain torch version (fk_fitness_plain).
 //
-// Supported terms: weighted squared effector error and angular locality
-// (aw / (N-1)). Distance, orientation and obstacle terms are refused by
-// the Python wrapper and are not compiled here.
+// Supported terms: weighted squared effector error, angular locality
+// (aw / (N-1)) and obstacle rejection. Distance and orientation terms are
+// refused by the Python wrapper and are not compiled here.
+//
+// Obstacles (pallas_fitness.py:293-305, 341-370, 397-398): the collider is
+// a template parameter C. C = kNoCollider compiles exactly the
+// obstacle-free evaluation (the headline's kernel); kBoxCollider tests the
+// gizmo cube at each node and the link box at the link midpoint, both
+// oriented by the node's world rotation, with the 15-axis SAT;
+// kCapsuleCollider tests the node sphere and the parent->node capsule by
+// closed-form point / segment OBB distances (24-round bisection). The
+// obstacle count is a runtime value; each obstacle's 15 floats
+// (center3, half3, rot9 row-major) are read from meta at OFF_OBS. A hit
+// returns FLT_MAX (COLLISION_PENALTY), applied last. The collider bodies
+// keep the Pallas op order (and -fmad=false), so a hit flips at exactly
+// the inputs where the plain version's does; they stop at the first
+// separating axis or the first hit, which leaves the result unchanged.
 #pragma once
 
+#include <cfloat>
 #include <cstdint>
 
 namespace ikpso {
@@ -59,7 +74,22 @@ struct Topology {
 using Arm7Dof = Topology<4, 0x2100ull, 0x8u>;            // id 0
 using ReferenceArm = Topology<8, 0x44432100ull, 0xE0u>;  // id 1
 
-// Packed-constant offsets (MetaLayout without obstacles/orientation).
+// Scene colliders; ids must match COLLIDERS in
+// ikpso_tpu_torch/utils/kernels.py.
+enum Collider : int { kNoCollider = 0, kBoxCollider = 1, kCapsuleCollider = 2 };
+
+// The runtime scene: obstacle count and collider sizes, each computed in
+// double and rounded to float32 on the host
+// (ops/fitness_kernel.py::scene_constants).
+struct Scene {
+  int count;
+  float node_half;  // box: gizmo cube half extent, gizmo * 0.5
+  float link_half;  // box: link box half width, gizmo * 0.125
+  float node_r2;    // capsule: node sphere radius squared, (gizmo * 0.5)^2
+  float link_r2;    // capsule: link capsule radius squared, (gizmo * 0.125)^2
+};
+
+// Packed-constant offsets (MetaLayout without orientation).
 constexpr int kMetaAw = 0;
 constexpr int kMetaLen = 2;
 constexpr int kSwRoot = 0;
@@ -115,15 +145,148 @@ __device__ __forceinline__ void mat_mul(const float (&a)[9], const float (&b)[9]
   }
 }
 
+// Box SAT (pallas_fitness.py:_sat_obb): does the particle box (center p,
+// axes = columns of rot, half extents a) overlap the scene box
+// ob = [center3, half3, rot9]? C = Ra^T Rb and T = Ra^T (ob - p).
+__device__ __forceinline__ bool sat_obb(float px, float py, float pz,
+                                        const float (&rot)[9], float a0, float a1,
+                                        float a2, const float* __restrict__ ob) {
+  float c[9], ac[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      c[3 * i + j] = rot[i] * ob[6 + j] + rot[3 + i] * ob[9 + j] + rot[6 + i] * ob[12 + j];
+    }
+  }
+  const float dx = ob[0] - px, dy = ob[1] - py, dz = ob[2] - pz;
+  const float t[3] = {rot[0] * dx + rot[3] * dy + rot[6] * dz,
+                      rot[1] * dx + rot[4] * dy + rot[7] * dz,
+                      rot[2] * dx + rot[5] * dy + rot[8] * dz};
+#pragma unroll
+  for (int k = 0; k < 9; ++k) ac[k] = fabsf(c[k]) + 1e-6f;
+  const float a[3] = {a0, a1, a2};
+  const float b[3] = {ob[3], ob[4], ob[5]};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float rb = b[0] * ac[3 * i] + b[1] * ac[3 * i + 1] + b[2] * ac[3 * i + 2];
+    if (fabsf(t[i]) > a[i] + rb) return false;
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float ra = a[0] * ac[j] + a[1] * ac[3 + j] + a[2] * ac[6 + j];
+    const float proj = t[0] * c[j] + t[1] * c[3 + j] + t[2] * c[6 + j];
+    if (fabsf(proj) > ra + b[j]) return false;
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int i1 = (i + 1) % 3, i2 = (i + 2) % 3;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int j1 = (j + 1) % 3, j2 = (j + 2) % 3;
+      const float ra = a[i1] * ac[3 * i2 + j] + a[i2] * ac[3 * i1 + j];
+      const float rb = b[j1] * ac[3 * i + j2] + b[j2] * ac[3 * i + j1];
+      const float lhs = fabsf(t[i2] * c[3 * i1 + j] - t[i1] * c[3 * i2 + j]);
+      if (lhs > ra + rb) return false;
+    }
+  }
+  return true;
+}
+
+// Coordinates of point p in scene box ob's frame (q_i = column i of R . (p - c)).
+__device__ __forceinline__ void box_frame(const float (&p)[3], const float* __restrict__ ob,
+                                          float (&q)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    q[i] = ob[6 + i] * (p[0] - ob[0]) + ob[9 + i] * (p[1] - ob[1]) +
+           ob[12 + i] * (p[2] - ob[2]);
+  }
+}
+
+// sum_i max(|q_i| - h_i, 0)^2: squared distance of a box-frame point to the box.
+__device__ __forceinline__ float excess2(const float (&q)[3], const float* __restrict__ ob) {
+  const float d0 = fmaxf(fabsf(q[0]) - ob[3], 0.0f);
+  const float d1 = fmaxf(fabsf(q[1]) - ob[4], 0.0f);
+  const float d2 = fmaxf(fabsf(q[2]) - ob[5], 0.0f);
+  return d0 * d0 + d1 * d1 + d2 * d2;
+}
+
+// jnp.sign: 0 at 0 (copysignf would give +-1 and flip the bisection where a
+// box-frame coordinate is exactly 0).
+__device__ __forceinline__ float sign_of(float q) {
+  return static_cast<float>((q > 0.0f) - (q < 0.0f));
+}
+
+// Squared segment p0 -> p1 to scene box distance (pallas_fitness.py:
+// _seg_obb_dist2): 24 bisection rounds on the monotone derivative g(t).
+__device__ __forceinline__ float seg_obb_dist2(const float (&p0)[3], const float (&p1)[3],
+                                               const float* __restrict__ ob) {
+  float q0[3], q1[3], b[3];
+  box_frame(p0, ob, q0);
+  box_frame(p1, ob, q1);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) b[i] = q1[i] - q0[i];
+  float lo = 0.0f, hi = 1.0f;
+#pragma unroll 4
+  for (int r = 0; r < 24; ++r) {
+    const float tm = 0.5f * (lo + hi);
+    float g = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float qi = q0[i] + tm * b[i];
+      const float si = sign_of(qi) * fmaxf(fabsf(qi) - ob[3 + i], 0.0f);
+      g = i ? g + si * b[i] : si * b[i];
+    }
+    const bool pred = g > 0.0f;
+    hi = pred ? tm : hi;
+    lo = pred ? lo : tm;
+  }
+  const float t = 0.5f * (lo + hi);
+  float q[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) q[i] = q0[i] + t * b[i];
+  return excess2(q, ob);
+}
+
+// Does node k (position pk, world rotation rk, parent position pp, link
+// length len) hit any scene box?
+template <int C>
+__device__ __forceinline__ bool node_hits(const float (&pk)[3], const float (&rk)[9],
+                                          const float (&pp)[3], float len,
+                                          const float* __restrict__ obs,
+                                          Scene scene) {
+  for (int o = 0; o < scene.count; ++o) {
+    const float* ob = obs + 15 * o;
+    if constexpr (C == kBoxCollider) {
+      if (sat_obb(pk[0], pk[1], pk[2], rk, scene.node_half, scene.node_half,
+                  scene.node_half, ob) ||
+          sat_obb((pk[0] + pp[0]) * 0.5f, (pk[1] + pp[1]) * 0.5f, (pk[2] + pp[2]) * 0.5f,
+                  rk, len * 0.5f, scene.link_half, scene.link_half, ob)) {
+        return true;
+      }
+    } else {
+      float q[3];
+      box_frame(pk, ob, q);
+      if (excess2(q, ob) <= scene.node_r2 || seg_obb_dist2(pp, pk, ob) <= scene.link_r2) {
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
 // Fitness of one particle: x holds its D angles; meta / sw point at the
-// packed per-chain / per-swarm constants (MetaLayout).
-template <class T>
+// packed per-chain / per-swarm constants (MetaLayout); scene is read only
+// when C != kNoCollider.
+template <class T, int C = kNoCollider>
 __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
                                                  const float* __restrict__ meta,
-                                                 const float* __restrict__ sw) {
+                                                 const float* __restrict__ sw,
+                                                 Scene scene) {
   constexpr int N = T::N;
   constexpr int D = T::D;
   constexpr int kMetaEw = kMetaLen + (N - 1);
+  constexpr int kMetaObs = kMetaEw + T::E;
   constexpr int kSwTgt = kSwAnchor + D;
   float rot[N][9];
   float pos[N][3];
@@ -133,6 +296,7 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
   for (int i = 0; i < 3; ++i) pos[0][i] = sw[kSwOrigin + i];
   float rot_diff = 0.0f;
   float cost = 0.0f;
+  bool hit = false;
 #pragma unroll
   for (int k = 1; k < N; ++k) {
     const int d0 = 3 * (k - 1);
@@ -151,6 +315,10 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
     const float dc = az - sw[kSwAnchor + d0 + 2];
     rot_diff = rot_diff + (da * da + db * db + dc * dc);
 
+    if constexpr (C != kNoCollider) {
+      if (!hit) hit = node_hits<C>(pos[k], rot[k], pos[p], len, meta + kMetaObs, scene);
+    }
+
     if (T::is_effector(k)) {
       const int e = T::effector_slot(k);
       const float w = meta[kMetaEw + e];
@@ -160,7 +328,9 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
       cost = cost + w * (ex * ex + ey * ey + ez * ez);
     }
   }
-  return cost + (meta[kMetaAw] / static_cast<float>(N - 1)) * rot_diff;
+  const float total = cost + (meta[kMetaAw] / static_cast<float>(N - 1)) * rot_diff;
+  if constexpr (C != kNoCollider) return hit ? FLT_MAX : total;
+  return total;
 }
 
 }  // namespace ikpso

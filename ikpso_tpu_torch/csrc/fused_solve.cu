@@ -1,9 +1,12 @@
 // Kernel A: one complete PSO solve per swarm, state resident on chip.
 //
 // Replaces ikpso_tpu/pso/fused.py:fused_solve_raw (kernel body
-// _build_solver_kernel, helpers _uniform and _seg_rows_reduce), main-path
-// branch: warm init, canonical inertia with a per-iteration schedule,
-// gbest every iteration, no re-kick, position/angle cost only.
+// _build_solver_kernel, helpers _uniform and _seg_rows_reduce), branches:
+// warm, uniform or hybrid init (a runtime flag, run once before the loop),
+// canonical inertia with a per-iteration schedule, gbest every iteration,
+// no re-kick, position/angle cost, and obstacle rejection through the
+// collider variants of fk_fitness_eval (template parameter C; the scene
+// boxes ride in meta, which is copied to shared memory).
 //
 // Layout: one thread block per swarm, one thread per particle
 // (blockDim = P, a multiple of 32, <= 1024). x, v, lbest (D floats each)
@@ -24,10 +27,17 @@
 // words, counter (particle, draw slot, dof / 4, 0), output word dof % 4;
 // U = (bits >> 8) * 2^-24 on unsigned bits (pso/fused.py:87-96). The
 // mapping is defined in ikpso_tpu_torch/ops/philox.py, whose torch
-// Philox draws the same bits. Slot 0 is the init velocity draw, then per
-// iteration u_c, u_s -- the TPU kernel's order. REPLAY=true instead reads
+// Philox draws the same bits. Slots follow the TPU kernel's order: the
+// init draws first (uniform / hybrid: the position draw at slot 0; the
+// velocity draw at slot n_init - 1), then iteration it draws u_c at
+// n_init + 2 it and u_s at n_init + 2 it + 1. REPLAY=true instead reads
 // uniforms[S, n_draws, D, P] from HBM (the test hook; a template flag so
 // the hot path has no branch).
+//
+// Collision penalty: a colliding particle's fitness is FLT_MAX, so
+// f < lval is false against a colliding lbest and ties at FLT_MAX go to
+// the lowest particle id like every other tie; a swarm whose particles
+// all collide returns particle 0's lbest with value FLT_MAX.
 //
 // Bound on this card: arithmetic. HBM sees only the swarm constants in
 // and one (D + 1)-float row out per swarm; per particle and iteration the
@@ -42,6 +52,9 @@
 #include "fk_fitness.cuh"
 
 namespace ikpso {
+
+// Init modes; ids must match INIT_MODES in ikpso_tpu_torch/pso/fused.py.
+enum InitMode : int { kInitWarm = 0, kInitUniform = 1, kInitHybrid = 2 };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -120,13 +133,13 @@ __device__ __forceinline__ int block_argmin(float val, int id, float* s_wval,
   return bi;
 }
 
-template <class T, bool REPLAY>
+template <class T, int C, bool REPLAY>
 __global__ void __launch_bounds__(1024) fused_solve_kernel(
     const float* __restrict__ meta, int M, const float* __restrict__ swarm, int K,
     const float* __restrict__ limits, const int* __restrict__ seeds,
     const float* __restrict__ inertia, int iters, float c1, float c2, float vscale,
-    const float* __restrict__ uniforms, int n_draws, float* __restrict__ out_gbest,
-    float* __restrict__ out_gval) {
+    int init_mode, Scene scene, const float* __restrict__ uniforms, int n_draws,
+    float* __restrict__ out_gbest, float* __restrict__ out_gval) {
   constexpr int D = T::D;
   extern __shared__ float smem[];
   float* s_meta = smem;
@@ -154,14 +167,31 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
       REPLAY ? uniforms + static_cast<long long>(s) * n_draws * D * P : nullptr;
 
   float x[D], v[D], lb[D], uc[D], us[D];
-  draw<D, REPLAY>(uc, 0, p, P, key, u_swarm);
+  const int n_init = init_mode == kInitWarm ? 1 : 2;
+  if (init_mode == kInitWarm || (init_mode == kInitHybrid && p == 0)) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = s_sw[kSwAnchor + d];
+  }
+  if (init_mode != kInitWarm) {
+    // U(lo, hi) over the joint range clamped to +-2pi (pso/fused.py:269-283).
+    draw<D, REPLAY>(uc, 0, p, P, key, u_swarm);
+    if (init_mode == kInitUniform || p != 0) {
+      constexpr float kTwoPi = 0x1.921fb6p+2f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float lo_c = fmaxf(s_lo[d], -kTwoPi);
+        const float hi_c = fminf(s_hi[d], kTwoPi);
+        x[d] = lo_c + uc[d] * (hi_c - lo_c);
+      }
+    }
+  }
+  draw<D, REPLAY>(uc, n_init - 1, p, P, key, u_swarm);
 #pragma unroll
   for (int d = 0; d < D; ++d) {
-    x[d] = s_sw[kSwAnchor + d];
     v[d] = (uc[d] * 2.0f - 1.0f) * vscale;
     lb[d] = x[d];
   }
-  float lval = fk_fitness_eval<T>(x, s_meta, s_sw);
+  float lval = fk_fitness_eval<T, C>(x, s_meta, s_sw, scene);
 
   for (int it = 0; it < iters; ++it) {
     const int win = block_argmin(lval, p, s_wval, s_wid);
@@ -170,8 +200,8 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
       for (int d = 0; d < D; ++d) s_gb[d] = lb[d];
     }
     __syncthreads();
-    draw<D, REPLAY>(uc, 1 + 2 * it, p, P, key, u_swarm);
-    draw<D, REPLAY>(us, 2 + 2 * it, p, P, key, u_swarm);
+    draw<D, REPLAY>(uc, n_init + 2 * it, p, P, key, u_swarm);
+    draw<D, REPLAY>(us, n_init + 2 * it + 1, p, P, key, u_swarm);
     const float w = inertia[it];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
@@ -179,7 +209,7 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
       v[d] = w * v[d] + c1 * uc[d] * (lb[d] - x[d]) + c2 * us[d] * (gb - x[d]);
       x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
     }
-    const float f = fk_fitness_eval<T>(x, s_meta, s_sw);
+    const float f = fk_fitness_eval<T, C>(x, s_meta, s_sw, scene);
     if (f < lval) {
       lval = f;
 #pragma unroll
@@ -195,49 +225,59 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
   }
 }
 
-template <class T>
+template <class T, int C>
 static void launch_fused_solve(bool replay, const float* meta, int M,
                                const float* swarm, int K, const float* limits,
                                const int* seeds, const float* inertia, int iters,
-                               float c1, float c2, float vscale, const float* uniforms,
-                               int n_draws, float* gbest, float* gval, int S, int P,
+                               float c1, float c2, float vscale, int init_mode,
+                               Scene scene, const float* uniforms, int n_draws,
+                               float* gbest, float* gval, int S, int P,
                                cudaStream_t stream) {
   const size_t smem = sizeof(float) * (M + K + 3 * T::D + 32) + sizeof(int) * 32;
   if (replay) {
-    fused_solve_kernel<T, true><<<S, P, smem, stream>>>(
-        meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, uniforms,
-        n_draws, gbest, gval);
+    fused_solve_kernel<T, C, true><<<S, P, smem, stream>>>(
+        meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+        scene, uniforms, n_draws, gbest, gval);
   } else {
-    fused_solve_kernel<T, false><<<S, P, smem, stream>>>(
-        meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, uniforms,
-        n_draws, gbest, gval);
+    fused_solve_kernel<T, C, false><<<S, P, smem, stream>>>(
+        meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+        scene, uniforms, n_draws, gbest, gval);
   }
 }
 
 }  // namespace ikpso
 
-extern "C" int ikpso_fused_solve(int topo, int replay, const float* meta, int M,
+extern "C" int ikpso_fused_solve(int topo, int collider, int replay, int init_mode,
+                                 int n_obs, float node_half, float link_half,
+                                 float node_r2, float link_r2, const float* meta, int M,
                                  const float* swarm, int K, const float* limits,
                                  const int* seeds, const float* inertia, int iters,
                                  float c1, float c2, float vscale,
                                  const float* uniforms, int n_draws, float* gbest,
                                  float* gval, int S, int P, void* stream) {
+  using namespace ikpso;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0) return static_cast<int>(cudaGetLastError());
-  if (P <= 0 || P > 1024 || P % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (topo) {
-    case 0:
-      ikpso::launch_fused_solve<ikpso::Arm7Dof>(replay != 0, meta, M, swarm, K, limits,
-                                                seeds, inertia, iters, c1, c2, vscale,
-                                                uniforms, n_draws, gbest, gval, S, P, st);
-      break;
-    case 1:
-      ikpso::launch_fused_solve<ikpso::ReferenceArm>(
-          replay != 0, meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale,
-          uniforms, n_draws, gbest, gval, S, P, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (P <= 0 || P > 1024 || P % 32 != 0 || init_mode < kInitWarm ||
+      init_mode > kInitHybrid || n_obs < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Scene scene{n_obs, node_half, link_half, node_r2, link_r2};
+#define IKPSO_LAUNCH(TOPO, C)                                                          \
+  launch_fused_solve<TOPO, C>(replay != 0, meta, M, swarm, K, limits, seeds, inertia,  \
+                              iters, c1, c2, vscale, init_mode, scene, uniforms,      \
+                              n_draws, gbest, gval, S, P, st)
+  if (topo == 0 && collider == kNoCollider) {
+    IKPSO_LAUNCH(Arm7Dof, kNoCollider);
+  } else if (topo == 0 && collider == kBoxCollider) {
+    IKPSO_LAUNCH(Arm7Dof, kBoxCollider);
+  } else if (topo == 0 && collider == kCapsuleCollider) {
+    IKPSO_LAUNCH(Arm7Dof, kCapsuleCollider);
+  } else if (topo == 1 && collider == kNoCollider) {
+    IKPSO_LAUNCH(ReferenceArm, kNoCollider);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef IKPSO_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }

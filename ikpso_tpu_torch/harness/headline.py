@@ -43,15 +43,18 @@ def headline_bucket(swarms: int, bucket_decay: int) -> int:
     return min(max(1024, swarms // div), max(swarms // 8, 1))
 
 
-def reachable_targets(spec, problem, swarms: int, generator: torch.Generator):
-    """``(S, E, 3)`` effector positions of uniform in-limit joint angles."""
+def reachable_pose(spec, problem, swarms: int, generator: torch.Generator):
+    """``(S, N, 3)`` poses of uniform in-limit joint angles."""
     limits = spec.limits()
     u = torch.rand((swarms, spec.dof), generator=generator,
                    device=generator.device, dtype=torch.float32)
     angles = limits[0] + u.to(limits.device) * (limits[1] - limits[0])
-    pose = fk_ops.angles_to_pose(
-        spec, problem.pose[0].expand(swarms, 3), angles
-    )
+    return fk_ops.angles_to_pose(spec, problem.pose[0].expand(swarms, 3), angles)
+
+
+def reachable_targets(spec, problem, swarms: int, generator: torch.Generator):
+    """``(S, E, 3)`` effector positions of uniform in-limit joint angles."""
+    pose = reachable_pose(spec, problem, swarms, generator)
     return fk_ops.fk_points(spec, pose, problem.origin)[
         :, list(spec.effector_idx), :
     ]

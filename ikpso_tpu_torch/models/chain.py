@@ -1,13 +1,11 @@
 """Kinematic-tree specification and per-solve problem state.
 
 Port of ``ikpso_tpu/models/chain.py`` (``ChainSpec``, ``make_chain_spec``,
-``IKProblem``, ``stack_problems``). Topology (``parent``,
+``Obstacles``, ``IKProblem``, ``stack_problems``). Topology (``parent``,
 ``effector_idx``) stays a static Python tuple; joint data are float32
 tensors on an explicit device. Nodes are topologically ordered
 (``parent[k] < k``) and node 0 is the origin, which carries no degrees
 of freedom: ``dof = 3 * (num_nodes - 1)``.
-
-``Obstacles`` is not ported yet (ROADMAP queue A item 8, obstacles).
 """
 
 from __future__ import annotations
@@ -126,6 +124,43 @@ def make_chain_spec(
         parent=parent,
         effector_idx=effector_idx,
     ).validate()
+
+
+@dataclasses.dataclass(frozen=True)
+class Obstacles:
+    """Oriented-box scene colliders (``half_extent`` holds HALF sizes,
+    ``rot`` the box world rotation as a matrix, columns = box axes)."""
+
+    center: torch.Tensor  # (C, 3)
+    half_extent: torch.Tensor  # (C, 3)
+    rot: torch.Tensor  # (C, 3, 3)
+
+    @property
+    def count(self) -> int:
+        return self.center.shape[0]
+
+    @staticmethod
+    def empty(device="cpu") -> "Obstacles":
+        return Obstacles(
+            center=torch.zeros((0, 3), device=device),
+            half_extent=torch.zeros((0, 3), device=device),
+            rot=torch.zeros((0, 3, 3), device=device),
+        )
+
+    @staticmethod
+    def from_boxes(centers, full_dims, quats=None, *, device="cpu") -> "Obstacles":
+        """Build from full box dimensions and optional (x,y,z,w) quats."""
+        from ikpso_tpu_torch.ops.rotations import quaternion_to_matrix
+
+        centers = _f32(np.atleast_2d(np.asarray(centers, np.float32)), device)
+        dims = _f32(np.atleast_2d(np.asarray(full_dims, np.float32)), device)
+        if quats is None:
+            rot = torch.eye(3, device=device).expand(centers.shape[0], 3, 3)
+        else:
+            rot = quaternion_to_matrix(
+                _f32(np.atleast_2d(np.asarray(quats, np.float32)), device))
+        return Obstacles(center=centers, half_extent=dims * 0.5,
+                         rot=rot.contiguous())
 
 
 @dataclasses.dataclass(frozen=True)

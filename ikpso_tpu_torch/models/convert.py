@@ -1,7 +1,7 @@
 """Carry state across from the JAX package to the port.
 
-Builds the port's ``ChainSpec``, ``IKProblem``, ``PSOConfig`` and
-``FitnessConfig`` from the JAX package's objects. The objects are read
+Builds the port's ``ChainSpec``, ``IKProblem``, ``Obstacles``,
+``PSOConfig`` and ``FitnessConfig`` from the JAX package's objects. The objects are read
 only through ``np.asarray(getattr(obj, name))`` and dataclass fields,
 so this module imports no jax: it is how the tests feed both packages
 identical state (the port's "weights carried across").
@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, make_chain_spec
+from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, Obstacles, make_chain_spec
 from ikpso_tpu_torch.ops.fitness import FitnessConfig
 from ikpso_tpu_torch.pso.config import PSOConfig
 
@@ -48,6 +48,15 @@ def problem_from(problem, device="cpu") -> IKProblem:
             None if problem.target_rot is None
             else _tensor(problem, "target_rot", device)
         ),
+    )
+
+
+def obstacles_from(obstacles, device="cpu") -> Obstacles:
+    """Port ``Obstacles`` (scene boxes) from a JAX ``Obstacles``."""
+    return Obstacles(
+        center=_tensor(obstacles, "center", device),
+        half_extent=_tensor(obstacles, "half_extent", device),
+        rot=_tensor(obstacles, "rot", device),
     )
 
 

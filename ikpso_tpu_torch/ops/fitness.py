@@ -8,8 +8,9 @@ Port of ``ikpso_tpu/ops/fitness.py`` (``COLLISION_PENALTY``,
        + (angle_weight / J)    * sum_k |theta_k - anchor_theta_k|^2
        (+ orientation_weight * sum_e w_e |R_e - R_target_e|_F^2)
 
-with J = DOF / 3. Collision rejection waits (ROADMAP queue A item 8,
-obstacles): ``fitness`` raises when obstacles are given.
+with J = DOF / 3. With scene ``obstacles``, a pose whose chain colliders
+(``ops/collision.py``, by ``collision_backend`` / ``collision_shape``)
+hit a box costs ``COLLISION_PENALTY`` instead.
 """
 
 from __future__ import annotations
@@ -59,11 +60,6 @@ def fitness(
 ) -> torch.Tensor:
     """PSO cost of ``(..., D)`` candidate angles (``(S, P, D)`` for an
     ``(S,)``-batched problem); smaller is better."""
-    if obstacles is not None:
-        raise NotImplementedError(
-            "collision rejection is not ported yet (ROADMAP queue A item 8, "
-            "obstacles: ops/collision.py)"
-        )
     if config.fk_impl != "unrolled":
         raise NotImplementedError(
             f"fk_impl={config.fk_impl!r}: fk_serial_scan is not ported "
@@ -107,11 +103,24 @@ def fitness(
         orient = torch.sum(eff_w * torch.sum(d_rot * d_rot, dim=(-2, -1)), dim=-1)
         cost = cost + config.orientation_weight * orient
 
-    return (
+    cost = (
         cost
         + (config.distance_weight / num_joints) * position_difference
         + (config.angle_weight / num_joints) * rotation_difference
     )
+
+    if obstacles is not None and obstacles.count > 0:
+        from ikpso_tpu_torch.ops.collision import get_chain_collider
+
+        collides = get_chain_collider(config.collision_backend, config.collision_shape)
+        hit = collides(
+            positions[..., 1:, :], rotations[..., 1:, :, :],
+            positions[..., list(spec.parent[1:]), :], spec.length[1:],
+            obstacles.center, obstacles.half_extent, obstacles.rot,
+            gizmo_size=config.gizmo_size,
+        )
+        cost = torch.where(hit, torch.full_like(cost, COLLISION_PENALTY), cost)
+    return cost
 
 
 def true_effector_error(

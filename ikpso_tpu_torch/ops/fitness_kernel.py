@@ -3,9 +3,11 @@
 Port of ``ikpso_tpu/ops/pallas_fitness.py`` (renamed: the kernel here
 is CUDA, not Pallas). It holds the tile arithmetic the fused solver
 inlines — ``sincos_poly`` (``_sincos``), ``rot_xyz`` (``_rot_xyz``),
-``mat_mul`` (``_mat_mul``) — the packed-constant layout
-(``MetaLayout``, ``pack_meta``, ``pack_swarm``), and the two versions
-of ``fk_fitness_tile`` over an ``(S, P, D)`` angle tensor:
+``mat_mul`` (``_mat_mul``), the collider bodies ``sat_obb``
+(``_sat_obb``), ``point_obb_dist2_tile`` and ``seg_obb_dist2_tile`` —
+the packed-constant layout (``MetaLayout``, ``pack_meta``,
+``pack_swarm``), and the two versions of ``fk_fitness_tile`` over an
+``(S, P, D)`` angle tensor:
 
   * ``fk_fitness_plain`` — plain torch, op for op the Pallas tile body;
   * ``fk_fitness`` — kernel B (``csrc/fk_fitness.cuh`` device function
@@ -13,11 +15,12 @@ of ``fk_fitness_tile`` over an ``(S, P, D)`` angle tensor:
     version on CPU tensors.
 
 Supported in this port: the FK tree walk, polynomial trig, the weighted
-effector cost and the angular-locality term. The node-position
-(distance) term, the orientation term, obstacles and
-``trig_impl="exact"`` raise (ROADMAP queue B item 2, kernel B's
-remaining branches). The standalone fitness kernel C
-(``fused_fitness`` / ``make_pallas_fitness``) is not ported yet.
+effector cost, the angular-locality term and obstacle rejection (box
+SAT or capsule colliders against the scene boxes packed into ``meta``;
+a hit costs ``COLLISION_PENALTY``). The node-position (distance) term,
+the orientation term and ``trig_impl="exact"`` raise (ROADMAP queue B
+item 2). The standalone fitness kernel C (``fused_fitness`` /
+``make_pallas_fitness``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +28,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem
-from ikpso_tpu_torch.ops.fitness import FitnessConfig
+from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, Obstacles
+from ikpso_tpu_torch.ops.fitness import COLLISION_PENALTY, FitnessConfig
+from ikpso_tpu_torch.ops.collision import SAT_EPS, SEGMENT_OBB_ITERATIONS
 from ikpso_tpu_torch.ops.rotations import euler_xyz_to_matrix
 from ikpso_tpu_torch.utils import kernels
 
@@ -94,6 +98,98 @@ def mat_mul(a, b):
     )
 
 
+def sat_obb(px, py, pz, rot, half, oc, oh, orot):
+    """Do the particle boxes (center p, rotation ``rot`` 9-tuple, half
+    extents ``half``) overlap one scene box (center ``oc``, half ``oh``,
+    rotation rows ``orot``)? The 15-axis SAT in the Pallas tile's op
+    order (``_sat_obb``); returns a bool tensor."""
+    c = [rot[i] * orot[0][j] + rot[3 + i] * orot[1][j] + rot[6 + i] * orot[2][j]
+         for i in range(3) for j in range(3)]
+    dx, dy, dz = oc[0] - px, oc[1] - py, oc[2] - pz
+    t = (rot[0] * dx + rot[3] * dy + rot[6] * dz,
+         rot[1] * dx + rot[4] * dy + rot[7] * dz,
+         rot[2] * dx + rot[5] * dy + rot[8] * dz)
+    ac = [torch.abs(v) + SAT_EPS for v in c]
+    a, b = half, oh
+    sep = None
+
+    def acc(hit):
+        return hit if sep is None else sep | hit
+
+    for i in range(3):
+        rb = b[0] * ac[i * 3] + b[1] * ac[i * 3 + 1] + b[2] * ac[i * 3 + 2]
+        sep = acc(torch.abs(t[i]) > a[i] + rb)
+    for j in range(3):
+        ra = a[0] * ac[j] + a[1] * ac[3 + j] + a[2] * ac[6 + j]
+        proj = t[0] * c[j] + t[1] * c[3 + j] + t[2] * c[6 + j]
+        sep = acc(torch.abs(proj) > ra + b[j])
+    for i in range(3):
+        i1, i2 = (i + 1) % 3, (i + 2) % 3
+        for j in range(3):
+            j1, j2 = (j + 1) % 3, (j + 2) % 3
+            ra = a[i1] * ac[i2 * 3 + j] + a[i2] * ac[i1 * 3 + j]
+            rb = b[j1] * ac[i * 3 + j2] + b[j2] * ac[i * 3 + j1]
+            lhs = torch.abs(t[i2] * c[i1 * 3 + j] - t[i1] * c[i2 * 3 + j])
+            sep = acc(lhs > ra + rb)
+    return ~sep
+
+
+def _box_frame(p, oc, orot):
+    """Coordinates of points ``p`` (3-tuple) in a scene box's frame."""
+    return [orot[0][i] * (p[0] - oc[0]) + orot[1][i] * (p[1] - oc[1])
+            + orot[2][i] * (p[2] - oc[2]) for i in range(3)]
+
+
+def _excess2(q, oh):
+    """Sum over axes of max(|q_i| - h_i, 0)^2."""
+    d2 = None
+    for i in range(3):
+        di = torch.clamp_min(torch.abs(q[i]) - oh[i], 0.0)
+        d2 = di * di if d2 is None else d2 + di * di
+    return d2
+
+
+def point_obb_dist2_tile(p, oc, oh, orot):
+    """Squared point -> scene-box distance (``_point_obb_dist2``)."""
+    return _excess2(_box_frame(p, oc, orot), oh)
+
+
+def seg_obb_dist2_tile(p0, p1, oc, oh, orot, iterations=SEGMENT_OBB_ITERATIONS):
+    """Squared segment -> scene-box distance by bisection on the
+    monotone derivative (``_seg_obb_dist2``). ``torch.sign(0) == 0``,
+    as ``jnp.sign``: a box-frame coordinate of exactly 0 adds nothing."""
+    q0 = _box_frame(p0, oc, orot)
+    q1 = _box_frame(p1, oc, orot)
+    b = [q1[i] - q0[i] for i in range(3)]
+
+    def g(t):
+        acc = None
+        for i in range(3):
+            qi = q0[i] + t * b[i]
+            si = torch.sign(qi) * torch.clamp_min(torch.abs(qi) - oh[i], 0.0)
+            acc = si * b[i] if acc is None else acc + si * b[i]
+        return acc
+
+    lo = torch.zeros_like(q0[0])
+    hi = torch.ones_like(q0[0])
+    for _ in range(iterations):
+        tm = 0.5 * (lo + hi)
+        pred = g(tm) > 0
+        hi = torch.where(pred, tm, hi)
+        lo = torch.where(pred, lo, tm)
+    t = 0.5 * (lo + hi)
+    return _excess2([q0[i] + t * b[i] for i in range(3)], oh)
+
+
+def scene_constants(gizmo_size: float):
+    """Collider sizes from ``gizmo_size``, each computed in double and
+    rounded to float32 as the Pallas tile's constants are: box gizmo
+    half extent, link box half width, node-sphere and link-capsule
+    radius squared."""
+    return (_f32(gizmo_size * 0.5), _f32(gizmo_size * 0.25 * 0.5),
+            _f32((gizmo_size * 0.5) ** 2), _f32((gizmo_size * 0.125) ** 2))
+
+
 class MetaLayout:
     """Offsets into the packed per-chain (meta) and per-swarm vectors.
 
@@ -121,13 +217,8 @@ class MetaLayout:
         self.swarm_size = self.OFF_TROT + (9 * e_count if use_orientation else 0)
 
 
-def _refuse_unported(*, num_obstacles=0, use_distance_term=False,
-                     use_orientation=False, trig_impl="poly") -> None:
-    if num_obstacles:
-        raise NotImplementedError(
-            "obstacle rejection in the fitness tile is not ported yet "
-            "(ROADMAP queue B item 2: SAT / capsule branches)"
-        )
+def _refuse_unported(*, use_distance_term=False, use_orientation=False,
+                     trig_impl="poly", collision_shape="box") -> None:
     if use_distance_term:
         raise NotImplementedError(
             "the node-position locality (distance) term is not ported yet "
@@ -142,20 +233,27 @@ def _refuse_unported(*, num_obstacles=0, use_distance_term=False,
             f"trig_impl={trig_impl!r}: the port's tile implements the "
             "polynomial sincos only (ROADMAP queue B item 2)"
         )
+    if collision_shape not in ("box", "capsule"):
+        raise ValueError(
+            f"unknown collision_shape {collision_shape!r}; expected 'box' or 'capsule'"
+        )
 
 
-def pack_meta(spec: ChainSpec, fit: FitnessConfig, obstacles=None,
+def pack_meta(spec: ChainSpec, fit: FitnessConfig, obstacles: Obstacles = None,
               use_orientation: bool = False) -> torch.Tensor:
-    """``(1, M)`` per-chain constants (``MetaLayout``)."""
-    _refuse_unported(num_obstacles=0 if obstacles is None else 1,
-                     use_orientation=use_orientation)
+    """``(1, M)`` per-chain constants (``MetaLayout``): the weights, link
+    lengths, effector weights and ``(center3, half3, rot9)`` per scene box."""
+    _refuse_unported(use_orientation=use_orientation)
     dev = spec.device
     weights = torch.tensor(
         [fit.angle_weight, fit.distance_weight], dtype=torch.float32, device=dev
     )
-    return torch.cat(
-        [weights, spec.length[1:], spec.effector_weight[list(spec.effector_idx)]]
-    ).to(torch.float32)[None, :]
+    parts = [weights, spec.length[1:], spec.effector_weight[list(spec.effector_idx)]]
+    if obstacles is not None and obstacles.count > 0:
+        parts.append(torch.cat(
+            [obstacles.center, obstacles.half_extent,
+             obstacles.rot.reshape(-1, 9)], dim=-1).to(dev).reshape(-1))
+    return torch.cat(parts).to(torch.float32)[None, :]
 
 
 def pack_swarm(spec: ChainSpec, problem: IKProblem, anchor_angles: torch.Tensor,
@@ -186,12 +284,48 @@ def pack_swarm(spec: ChainSpec, problem: IKProblem, anchor_angles: torch.Tensor,
     ).to(torch.float32).contiguous()
 
 
-def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw):
+def _tile_hits(pk, pp, rk, length, obs, collision_shape, gizmo_size):
+    """Does any node (positions pk, world rotations rk, parent positions
+    pp, link lengths ``length`` -- the nodes on a trailing axis) hit any
+    of the ``(C, 15)`` scene boxes ``obs``?
+
+    Same arithmetic per (node, obstacle) pair as the Pallas tile's loop,
+    vectorized: nodes, then for the box colliders the gizmo cube and the
+    link box, then the obstacles ride trailing axes.
+    """
+    node_half, link_half, node_r2, link_r2 = scene_constants(gizmo_size)
+    oc = tuple(obs[:, i] for i in range(3))
+    oh = tuple(obs[:, 3 + i] for i in range(3))
+    orot = tuple(tuple(obs[:, 6 + 3 * r + c] for c in range(3)) for r in range(3))
+    if collision_shape == "capsule":
+        p = tuple(v[..., None] for v in pk)
+        q = tuple(v[..., None] for v in pp)
+        return ((point_obb_dist2_tile(p, oc, oh, orot) <= node_r2)
+                | (seg_obb_dist2_tile(q, p, oc, oh, orot) <= link_r2)).any(-1).any(-1)
+    centers = [torch.stack([pk[i], (pk[i] + pp[i]) * 0.5], dim=-1)[..., None]
+               for i in range(3)]
+    rot = tuple(r[..., None, None] for r in rk)
+    half = (torch.stack([torch.full_like(length, node_half), length * 0.5], -1)[..., None],
+            torch.tensor([[node_half], [link_half]], device=length.device),
+            torch.tensor([[node_half], [link_half]], device=length.device))
+    return sat_obb(*centers, rot, half, oc, oh, orot).any(-1).any(-1).any(-1)
+
+
+def _stack_nodes(per_node):
+    """A list over nodes of equal-length tuples of broadcastable tensors
+    -> one tuple of tensors with the nodes on a trailing axis."""
+    return tuple(torch.stack(torch.broadcast_tensors(*vals), dim=-1)
+                 for vals in zip(*per_node))
+
+
+def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw, *, obstacles=None,
+                    collision_shape: str = "box", gizmo_size: float = 0.2):
     """FK rollout + cost for a tile of particles (plain torch).
 
     ``get_x(d)`` returns the angle tile of DOF ``d``; ``meta(i)`` /
     ``sw(i)`` read the packed per-chain / per-swarm constants, shaped
-    to broadcast against the tile. Same arithmetic, in the same order,
+    to broadcast against the tile; ``obstacles`` is the ``(C, 15)``
+    scene block of meta, or None. Same arithmetic, in the same order,
     as ``ikpso_tpu/ops/pallas_fitness.py::fk_fitness_tile`` and the
     CUDA device function ``fk_fitness_eval`` (``csrc/fk_fitness.cuh``).
     """
@@ -229,26 +363,53 @@ def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw):
             ey = pk[1] - sw(lay.OFF_TGT + 3 * e + 1)
             ez = pk[2] - sw(lay.OFF_TGT + 3 * e + 2)
             cost = cost + w * (ex * ex + ey * ey + ez * ez)
-    return cost + (aw / num_joints) * rot_diff
+    total = cost + (aw / num_joints) * rot_diff
+    if obstacles is not None:
+        # The hit test reads only FK outputs, so all nodes are tested in
+        # one pass after the walk (the OR of the per-node hits).
+        nodes = range(1, n)
+        hit = _tile_hits(
+            _stack_nodes([poss[k] for k in nodes]),
+            _stack_nodes([poss[spec.parent[k]] for k in nodes]),
+            _stack_nodes([rots[k] for k in nodes]),
+            torch.stack([meta(lay.OFF_LEN + (k - 1)) for k in nodes]),
+            obstacles, collision_shape, gizmo_size,
+        )
+        total = torch.where(hit, torch.full_like(total, COLLISION_PENALTY), total)
+    return total
+
+
+def check_meta(spec, meta, num_obstacles):
+    """Raise unless ``meta`` has the layout of ``num_obstacles`` scene boxes."""
+    want = MetaLayout(spec, num_obstacles).meta_size
+    if meta.numel() != want:
+        raise ValueError(f"meta holds {meta.numel()} values; {num_obstacles} "
+                         f"obstacles need {want}")
 
 
 def fk_fitness_plain(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
                      swarm: torch.Tensor, *, num_obstacles: int = 0,
+                     collision_shape: str = "box", gizmo_size: float = 0.2,
                      use_distance_term: bool = False,
                      use_orientation: bool = False,
                      trig_impl: str = "poly") -> torch.Tensor:
     """``(S, P, D)`` angles -> ``(S, P)`` fitness, plain torch."""
-    _refuse_unported(num_obstacles=num_obstacles,
-                     use_distance_term=use_distance_term,
-                     use_orientation=use_orientation, trig_impl=trig_impl)
+    _refuse_unported(use_distance_term=use_distance_term,
+                     use_orientation=use_orientation, trig_impl=trig_impl,
+                     collision_shape=collision_shape)
+    check_meta(spec, meta, num_obstacles)
     m = meta.reshape(-1)
+    off = MetaLayout(spec).OFF_OBS
+    obstacles = m[off:off + 15 * num_obstacles].reshape(-1, 15) if num_obstacles else None
     return fk_fitness_tile(
-        spec, lambda d: x[..., d], lambda i: m[i], lambda i: swarm[:, i:i + 1]
+        spec, lambda d: x[..., d], lambda i: m[i], lambda i: swarm[:, i:i + 1],
+        obstacles=obstacles, collision_shape=collision_shape, gizmo_size=gizmo_size,
     )
 
 
 def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
                swarm: torch.Tensor, *, num_obstacles: int = 0,
+               collision_shape: str = "box", gizmo_size: float = 0.2,
                use_distance_term: bool = False,
                use_orientation: bool = False,
                trig_impl: str = "poly") -> torch.Tensor:
@@ -257,11 +418,14 @@ def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
     A CPU tensor runs :func:`fk_fitness_plain`; a CUDA tensor launches
     the kernel (one thread per particle) or raises.
     """
-    _refuse_unported(num_obstacles=num_obstacles,
-                     use_distance_term=use_distance_term,
-                     use_orientation=use_orientation, trig_impl=trig_impl)
+    _refuse_unported(use_distance_term=use_distance_term,
+                     use_orientation=use_orientation, trig_impl=trig_impl,
+                     collision_shape=collision_shape)
+    check_meta(spec, meta, num_obstacles)
     if x.device.type == "cpu":
-        return fk_fitness_plain(spec, x, meta, swarm)
+        return fk_fitness_plain(spec, x, meta, swarm, num_obstacles=num_obstacles,
+                                collision_shape=collision_shape,
+                                gizmo_size=gizmo_size)
     if x.device.type != "cuda":
         raise ValueError(f"fk_fitness: unsupported device {x.device}")
     s, p, d = x.shape
@@ -272,11 +436,13 @@ def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
         if t.dtype != torch.float32:
             raise ValueError(f"fk_fitness: {name} must be float32")
     topo = kernels.topology_id(spec)
+    collider = kernels.collider_id(spec, num_obstacles, collision_shape)
     meta = meta.reshape(-1)
     kernels.require_cuda_contiguous("fk_fitness", x, meta, swarm)
     out = torch.empty((s, p), dtype=torch.float32, device=x.device)
     rc = kernels.library().ikpso_fk_fitness(
-        topo, x.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
+        topo, collider, num_obstacles, *scene_constants(gizmo_size),
+        x.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
         out.data_ptr(), s * p, p, kernels.stream_ptr(x.device),
     )
     kernels.check(rc, "fk_fitness")

@@ -20,8 +20,12 @@ seed words ``(s0, s1)`` is output word ``d % 4`` of
     philox4x32_10(counter=(p, t, d // 4, 0), key=(s0, s1))
 
 with seed words read as unsigned 32-bit. Draw slots follow the TPU
-kernel's order: slot 0 is the initial-velocity draw, then for
-iteration ``i`` slot ``1 + 2i`` is u_cognitive and ``2 + 2i`` u_social.
+kernel's order (``ikpso_tpu/pso/fused.py:245-253, 269-283``): the
+``n_init`` init draws first — with ``init_mode="warm"`` only the
+initial-velocity draw (slot 0); with ``"uniform"`` / ``"hybrid"`` the
+initial-position draw at slot 0 and the velocity draw at slot 1 — then
+for iteration ``i`` slot ``n_init + 2i`` is u_cognitive and
+``n_init + 2i + 1`` u_social (``pso/fused.py::num_draws``).
 
 Bits -> U[0, 1): ``(bits >> 8) * 2**-24`` with a LOGICAL shift on
 unsigned bits. An arithmetic shift of int32 bits maps the top half of

@@ -1,7 +1,7 @@
 """Fully-fused PSO solve: kernel A and its plain torch version.
 
 Port of ``ikpso_tpu/pso/fused.py`` (``fused_solve_raw``,
-``make_fused_solver``), main-path branch only:
+``make_fused_solver``):
 
   * ``fused_solve`` — kernel A (``csrc/fused_solve.cu``): one thread
     block per swarm, one thread per particle, the whole solve in
@@ -11,17 +11,20 @@ Port of ``ikpso_tpu/pso/fused.py`` (``fused_solve_raw``,
   * ``make_fused_solver`` — ``(problem, generator) -> SolveResult``.
 
 Supported: ``inertia_mode="canonical"`` with or without
-``inertia_end``, ``init_mode="warm"``, ``gbest_interval=1``,
-``rekick_interval=0``, no obstacles / orientation / distance term.
-Everything else raises (ROADMAP queue B item 1, branches (b) and (c)).
-The TPU-only knobs (``swarms_per_tile``, ``gbest_mode``,
-``const_mode``, VMEM gates, multi-row output) have no counterpart.
+``inertia_end``, ``init_mode`` ``"warm"``, ``"uniform"`` or ``"hybrid"``,
+``gbest_interval=1``, ``rekick_interval=0``, obstacles with the
+closed-form (``"sat"``) colliders of either shape, no orientation /
+distance term. Everything else raises (ROADMAP queue B item 1). The
+TPU-only knobs (``swarms_per_tile``, ``gbest_mode``, ``const_mode``,
+VMEM gates, multi-row output) have no counterpart.
 
 Random stream: per-swarm seed words ``(S, 2)`` int32 drawn from the
 caller's ``torch.Generator``; the kernel's in-register Philox and
 ``ops.philox.philox_uniform`` produce the same bits from them. The
 ``uniforms`` replay input, ``(S, n_draws, D, P)``, replaces the
-generator in both versions (the test hook).
+generator in both versions (the test hook). Draw slots: the init draws
+first (position at slot 0 unless warm; velocity at ``n_init - 1``),
+then ``(u_c, u_s)`` per iteration.
 """
 
 from __future__ import annotations
@@ -31,14 +34,17 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem
+from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, Obstacles
 from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.ops.fitness import FitnessConfig
 from ikpso_tpu_torch.ops.fitness_kernel import (
+    TWO_PI,
     MetaLayout,
+    check_meta,
     fk_fitness_plain,
     pack_meta,
     pack_swarm,
+    scene_constants,
 )
 from ikpso_tpu_torch.ops.philox import philox_uniform
 from ikpso_tpu_torch.pso.config import PSOConfig
@@ -46,13 +52,15 @@ from ikpso_tpu_torch.pso.solver import SolveResult
 from ikpso_tpu_torch.utils import kernels
 
 
-def check_supported(pso: PSOConfig, fit: FitnessConfig, obstacles=None) -> None:
+# Init-mode ids (enum InitMode in csrc/fused_solve.cu).
+INIT_MODES = {"warm": 0, "uniform": 1, "hybrid": 2}
+
+
+def check_supported(pso: PSOConfig, fit: FitnessConfig, num_obstacles: int = 0) -> None:
     """Refuse the branches kernel A does not implement yet."""
     reasons = []
     if pso.inertia_mode != "canonical":
         reasons.append(f"inertia_mode={pso.inertia_mode!r}")
-    if pso.init_mode != "warm":
-        reasons.append(f"init_mode={pso.init_mode!r}")
     if pso.gbest_interval != 1:
         reasons.append(f"gbest_interval={pso.gbest_interval}")
     if pso.rekick_interval:
@@ -60,21 +68,31 @@ def check_supported(pso: PSOConfig, fit: FitnessConfig, obstacles=None) -> None:
     if reasons:
         raise NotImplementedError(
             "fused solver branch not ported yet: " + ", ".join(reasons)
-            + " (ROADMAP queue B item 1, branch (b))"
+            + " (ROADMAP queue B item 1, the rest of branch (b))"
         )
-    if obstacles is not None or float(fit.distance_weight) != 0.0 or float(
+    if float(fit.distance_weight) != 0.0 or float(
         fit.orientation_weight
     ) != 0.0 or fit.trig_impl != "poly":
         raise NotImplementedError(
-            "fused solver with obstacles, orientation, distance term or exact "
-            "trig is not ported yet (ROADMAP queue B item 1, branch (c))"
+            "fused solver with orientation, distance term or exact trig is not "
+            "ported yet (ROADMAP queue B item 1, branch (c))"
+        )
+    if num_obstacles and fit.collision_backend != "sat":
+        raise NotImplementedError(
+            f"collision_backend={fit.collision_backend!r}: the kernels fuse only "
+            "the closed-form 'sat' colliders; GJK is ROADMAP queue A item 9 "
+            "(ops/gjk.py)"
         )
 
 
 def num_draws(pso: PSOConfig) -> int:
-    """Draw slots of one solve: the init velocity, then (u_c, u_s) per
-    iteration."""
-    return 1 + 2 * pso.iterations
+    """Draw slots of one solve: the init draws (velocity; position too
+    unless warm), then (u_c, u_s) per iteration."""
+    return n_init_draws(pso) + 2 * pso.iterations
+
+
+def n_init_draws(pso: PSOConfig) -> int:
+    return 1 if pso.init_mode == "warm" else 2
 
 
 def inertia_schedule(pso: PSOConfig) -> np.ndarray:
@@ -112,10 +130,13 @@ def fused_solve_plain(
     seeds: torch.Tensor,
     num_particles: int,
     uniforms: Optional[torch.Tensor] = None,
+    num_obstacles: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused solve on ``(S, P, D)`` tensors; returns ``(gbest (S, D),
-    gval (S,))``. Same update order and rounding as kernel A."""
-    check_supported(pso, fit)
+    gval (S,))``. Same update order and rounding as kernel A; gbest is
+    ``torch.argmin``, whose first-occurrence rule sends ties (at
+    ``COLLISION_PENALTY`` too) to the lowest particle id."""
+    check_supported(pso, fit, num_obstacles)
     _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms)
     s, d, p = swarm.shape[0], spec.dof, num_particles
 
@@ -125,20 +146,30 @@ def fused_solve_plain(
         return philox_uniform(seeds, slot, p, d)
 
     def fitness_of(x):
-        return fk_fitness_plain(spec, x, meta, swarm)
+        return fk_fitness_plain(spec, x, meta, swarm, num_obstacles=num_obstacles,
+                                collision_shape=fit.collision_shape,
+                                gizmo_size=fit.gizmo_size)
 
-    lay = MetaLayout(spec)
+    lay = MetaLayout(spec, num_obstacles)
     lo, hi = limits[0], limits[1]
     rows = torch.arange(s, device=swarm.device)
+    n_init = n_init_draws(pso)
     x = swarm[:, None, lay.OFF_ANCHOR:lay.OFF_ANCHOR + d].expand(s, p, d)
-    v = (draw(0) * 2.0 - 1.0) * float(np.float32(pso.init_velocity_scale))
+    if pso.init_mode != "warm":
+        lo_c = torch.clamp_min(lo, -TWO_PI)
+        hi_c = torch.clamp_max(hi, TWO_PI)
+        x0 = lo_c + draw(0) * (hi_c - lo_c)
+        if pso.init_mode == "hybrid":
+            x0[:, 0] = x[:, 0]
+        x = x0
+    v = (draw(n_init - 1) * 2.0 - 1.0) * float(np.float32(pso.init_velocity_scale))
     lbest = x
     lval = fitness_of(x)
     c1, c2 = float(np.float32(pso.cognitive)), float(np.float32(pso.social))
     for it, w in enumerate(inertia_schedule(pso)):
         gb = lbest[rows, torch.argmin(lval, dim=1)][:, None, :]
-        u_c = draw(1 + 2 * it)
-        u_s = draw(2 + 2 * it)
+        u_c = draw(n_init + 2 * it)
+        u_s = draw(n_init + 2 * it + 1)
         v = float(w) * v + c1 * u_c * (lbest - x) + c2 * u_s * (gb - x)
         x = torch.minimum(torch.maximum(x + v, lo), hi)
         f = fitness_of(x)
@@ -159,20 +190,24 @@ def fused_solve(
     seeds: torch.Tensor,
     num_particles: int,
     uniforms: Optional[torch.Tensor] = None,
+    num_obstacles: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel A: one PSO solve per swarm; returns ``(gbest (S, D), gval (S,))``.
 
     CPU tensors run :func:`fused_solve_plain`; CUDA tensors launch the
-    kernel or raise.
+    kernel or raise. ``meta`` carries ``num_obstacles`` scene boxes
+    (``pack_meta``); ``fit.collision_shape`` picks the collider.
     """
-    check_supported(pso, fit)
+    check_supported(pso, fit, num_obstacles)
     _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms)
+    check_meta(spec, meta, num_obstacles)
     if swarm.device.type == "cpu":
         return fused_solve_plain(spec, pso, fit, meta, swarm, limits, seeds,
-                                 num_particles, uniforms)
+                                 num_particles, uniforms, num_obstacles)
     if swarm.device.type != "cuda":
         raise ValueError(f"fused_solve: unsupported device {swarm.device}")
     topo = kernels.topology_id(spec)
+    collider = kernels.collider_id(spec, num_obstacles, fit.collision_shape)
     dev = swarm.device
     s, d = swarm.shape[0], spec.dof
     meta = meta.reshape(-1).to(torch.float32).contiguous()
@@ -188,7 +223,8 @@ def fused_solve(
     gbest = torch.empty((s, d), dtype=torch.float32, device=dev)
     gval = torch.empty((s,), dtype=torch.float32, device=dev)
     rc = kernels.library().ikpso_fused_solve(
-        topo, int(uniforms is not None),
+        topo, collider, int(uniforms is not None), INIT_MODES[pso.init_mode],
+        num_obstacles, *scene_constants(fit.gizmo_size),
         meta.data_ptr(), meta.numel(),
         swarm.data_ptr(), swarm.shape[1],
         limits.data_ptr(), seeds.data_ptr(), inertia.data_ptr(), pso.iterations,
@@ -200,10 +236,14 @@ def fused_solve(
     )
     kernels.check(rc, "fused_solve")
     fused_solve.launches += 1
+    variant = f"{pso.init_mode}/{fit.collision_shape if num_obstacles else 'none'}"
+    fused_solve.variant_launches[variant] = fused_solve.variant_launches.get(variant, 0) + 1
     return gbest, gval
 
 
+# Launch counts: in all, and per (init mode / collider) instantiation.
 fused_solve.launches = 0
+fused_solve.variant_launches = {}
 
 
 def make_fused_solver(
@@ -212,15 +252,17 @@ def make_fused_solver(
     fit: FitnessConfig = FitnessConfig(),
     num_particles: int = 1024,
     device="cpu",
-    obstacles=None,
+    obstacles: Optional[Obstacles] = None,
 ):
     """A ``(problem, generator) -> SolveResult`` running kernel A.
 
-    Packs the constants as ``ikpso_tpu/pso/fused.py:759-764`` does,
-    draws ``(S, 2)`` seed words from the generator, and computes the
-    solved pose and the row-FK effector error.
+    Packs the constants (scene boxes included) as
+    ``ikpso_tpu/pso/fused.py:759-764`` does, draws ``(S, 2)`` seed words
+    from the generator, and computes the solved pose and the row-FK
+    effector error.
     """
-    check_supported(pso, fit, obstacles)
+    num_obstacles = 0 if obstacles is None else obstacles.count
+    check_supported(pso, fit, num_obstacles)
     from ikpso_tpu_torch.pso.polish_soa import (
         anchor_positions_flat,
         true_effector_error_rows,
@@ -228,7 +270,7 @@ def make_fused_solver(
 
     device = torch.device(device)
     limits = spec.limits().to(device)
-    meta = pack_meta(spec, fit).to(device)
+    meta = pack_meta(spec, fit, obstacles).to(device)
 
     def _solve(problem: IKProblem, generator: torch.Generator) -> SolveResult:
         anchor_angles = fk_ops.pose_to_angles(spec, problem.pose)
@@ -240,7 +282,7 @@ def make_fused_solver(
             device=generator.device, dtype=torch.int32,
         ).to(device)
         gbest, gval = fused_solve(spec, pso, fit, meta, swarm, limits, seeds,
-                                  num_particles)
+                                  num_particles, num_obstacles=num_obstacles)
         return SolveResult(
             angles=gbest,
             fitness=gval,

@@ -3,9 +3,10 @@
 Port of ``ikpso_tpu/pso/polish.py``: ``soa_traceable``,
 ``polish_angles`` (dispatching to the SoA core only) and
 ``wrap_with_polish`` (accept-if-better per swarm, gated on the true
-effector error). Not ported yet: the tensor-shaped LM path (models
-where ``soa_traceable`` is false), the Tikhonov-locality gate and the
-obstacle gate (ROADMAP queue A item 8).
+effector error and, with a scene, on the polished pose being
+collision-free). Not ported yet: the tensor-shaped LM path (models
+where ``soa_traceable`` is false) and the Tikhonov-locality gate
+(ROADMAP queue A item 8).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem
 from ikpso_tpu_torch.ops import fk as fk_ops
+from ikpso_tpu_torch.ops.collision import get_chain_collider
 from ikpso_tpu_torch.pso.polish_soa import polish_angles_soa, true_effector_error_rows
 
 
@@ -63,18 +65,21 @@ def wrap_with_polish(
     init_damping: float = 1e-3,
     locality_weight: float = 0.0,
     obstacles=None,
+    collision_backend: str = "sat",
+    collision_shape: str = "box",
+    gizmo_size: float = 0.2,
 ):
     """Wrap a ``(problem, generator) -> SolveResult`` solver with LM polish.
 
     The polished angles replace the PSO answer per swarm only where the
-    true effector error does not get worse; ``fitness`` and ``trace``
-    keep the PSO values.
+    true effector error does not get worse and, with ``obstacles``, where
+    the polished pose is collision-free under the plain chain collider
+    (the LM objective knows nothing of the scene); ``fitness`` and
+    ``trace`` keep the PSO values.
     """
+    collides = None
     if obstacles is not None:
-        raise NotImplementedError(
-            "the polish collision gate is not ported yet "
-            "(ROADMAP queue A item 8, obstacles)"
-        )
+        collides = get_chain_collider(collision_backend, collision_shape)
     if locality_weight:
         raise NotImplementedError(
             "the locality-cost accept gate is not ported yet "
@@ -90,6 +95,12 @@ def wrap_with_polish(
         pose = fk_ops.angles_to_pose(spec, problem.pose[..., 0, :], x)
         err = true_effector_error_rows(spec, problem, x)
         take = err <= base.effector_error
+        if collides is not None:
+            pos, rot = fk_ops.fk(spec, pose, problem.origin)
+            take = take & ~collides(
+                pos[..., 1:, :], rot[..., 1:, :, :], pos[..., list(spec.parent[1:]), :],
+                spec.length[1:], obstacles.center, obstacles.half_extent,
+                obstacles.rot, gizmo_size=gizmo_size)
         return dataclasses.replace(
             base,
             angles=torch.where(take[..., None], x, base.angles),

@@ -10,9 +10,11 @@ downloaded and nothing outside ``csrc/`` is compiled.
 Every C entry point returns ``cudaGetLastError()``; :func:`check`
 raises when it is non-zero. Kernels launch on PyTorch's current stream.
 
-Topology is a compile-time constant of the kernels (the TPU kernels
-unroll it at trace time). :func:`topology_id` maps a ``ChainSpec`` to
-one of the instantiated topologies and raises for any other.
+Topology and scene collider are compile-time constants of the kernels
+(the TPU kernels unroll them at trace time). :func:`topology_id` maps a
+``ChainSpec`` to one of the instantiated topologies and
+:func:`collider_id` an obstacle scene to a collider variant; both raise
+for anything not instantiated.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ikpso_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # No mul+add contraction: the kernels then round op by op exactly
     # like the plain torch versions, so kernel and plain agree to the
     # last bit on the same inputs and a PSO trajectory cannot fork on a
@@ -41,6 +43,7 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 SOURCES = ("fused_solve.cu", "fk_fitness.cu")
 
 # (num_nodes, packed parents, effector bit mask) -> id; must match the
@@ -49,6 +52,10 @@ KERNEL_TOPOLOGIES = {
     (4, 0x2100, 0x8): 0,  # arm_7dof: serial 3 links, effector node 3
     (8, 0x44432100, 0xE0): 1,  # reference_arm: 4 elbows + 3 effector children
 }
+
+# Collider variants (enum Collider in csrc/fk_fitness.cuh; 0 = none),
+# instantiated for the serial 4-node topology (id 0) only.
+COLLIDERS = {"box": 1, "capsule": 2}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -88,8 +95,24 @@ def topology_id(spec) -> int:
     return KERNEL_TOPOLOGIES[code]
 
 
+def collider_id(spec, num_obstacles: int, collision_shape: str) -> int:
+    """Id of the collider variant for an obstacle scene (0 without one)."""
+    if not num_obstacles:
+        return 0
+    if collision_shape not in COLLIDERS:
+        raise ValueError(f"unknown collision_shape {collision_shape!r}")
+    if topology_id(spec) != 0:
+        raise NotImplementedError(
+            f"obstacle colliders are instantiated for the serial 4-node topology "
+            f"(arm_7dof, planar_3dof) only, not parent={spec.parent}; more "
+            "topologies with obstacles are ROADMAP queue A item 8 (the rest of "
+            "the zoo)"
+        )
+    return COLLIDERS[collision_shape]
+
+
 def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -110,6 +133,7 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels if the current sources have no library yet.
 
+    One ``nvcc -c`` per source, all started together, then one link.
     Writes the compiler's register/spill report beside the library
     (``<lib>.log``). Returns the library path.
     """
@@ -117,19 +141,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    lib.with_suffix(".log").write_text(
-        log + f"\nbuild_seconds={time.perf_counter() - t0:.3f}\n"
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{log}")
-    os.replace(tmp, lib)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{Path(src).stem}.o" for src in SOURCES]
+        cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(f"$ {' '.join(c)}\n{o}" for c, o in zip(cmds, outs))
+        rc = next((p.returncode for p in procs if p.returncode), 0)
+        if not rc:
+            link = [_nvcc(), *LINK_FLAGS, "-o", str(Path(tmp) / "lib.so"),
+                    *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += f"$ {' '.join(link)}\n{proc.stdout}{proc.stderr}"
+            rc = proc.returncode
+        lib.with_suffix(".log").write_text(
+            log + f"\nbuild_seconds={time.perf_counter() - t0:.3f}\n"
+        )
+        if rc:
+            raise RuntimeError(f"nvcc failed (rc {rc}):\n{log}")
+        os.replace(Path(tmp) / "lib.so", lib)
     return lib
 
 
@@ -137,12 +170,15 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     lib = ctypes.CDLL(str(build()))
+    scene = [_I, _F, _F, _F, _F]  # obstacle count, collider sizes
     lib.ikpso_fk_fitness.argtypes = [
-        _I, _VP, _VP, _VP, _I, _VP, ctypes.c_longlong, _I, _VP,
+        _I, _I, *scene,  # topology id, collider id, scene
+        _VP, _VP, _VP, _I, _VP, ctypes.c_longlong, _I, _VP,
     ]
     lib.ikpso_fk_fitness.restype = _I
     lib.ikpso_fused_solve.argtypes = [
-        _I, _I,  # topology id, replay flag
+        _I, _I, _I, _I,  # topology id, collider id, replay flag, init mode
+        *scene,
         _VP, _I,  # meta, M
         _VP, _I,  # swarm, K
         _VP, _VP, _VP, _I,  # limits, seeds, inertia, iterations

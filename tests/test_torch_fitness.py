@@ -19,8 +19,15 @@ from ikpso_tpu.ops import fk as jfk
 from ikpso_tpu.ops.fitness import FitnessConfig as JFit
 from ikpso_tpu.ops.fitness import fitness as j_fitness
 from ikpso_tpu.ops.fitness import true_effector_error as j_true_err
-from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm, fused_fitness
+from ikpso_tpu.models.chain import Obstacles as JObstacles
+from ikpso_tpu.ops.pallas_fitness import (
+    _pack_meta,
+    _pack_swarm,
+    fused_fitness,
+    make_pallas_fitness,
+)
 from ikpso_tpu_torch.models import convert
+from ikpso_tpu_torch.ops import collision
 from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.ops.fitness import COLLISION_PENALTY, FitnessConfig, fitness
 from ikpso_tpu_torch.ops.fitness import true_effector_error
@@ -33,6 +40,16 @@ from ikpso_tpu_torch.ops.fitness_kernel import (
 )
 
 MODELS = ["arm_7dof", "reference_arm"]
+SHAPES = ["box", "capsule"]
+# JAX's own bar for the Pallas tile against the jnp fitness with a scene
+# (tests/test_pallas.py:116-138): identical masks, values to 2e-4.
+SCENE_TOL = 2e-4
+# tests/test_pallas.py:52-72: one axis-aligned and one z-rotated box.
+PALLAS_SCENE = dict(
+    centers=[(1.5, 0.5, 0.0), (-1.0, -1.0, 0.0)],
+    full_dims=[(1.0, 1.0, 1.0), (0.8, 0.8, 0.8)],
+    quats=[(0.0, 0.0, 0.0, 1.0), (0.0, 0.0, 0.383, 0.924)],
+)
 
 
 def _batched_case(name, s, rng):
@@ -127,21 +144,133 @@ def test_fk_fitness_cpu_wrapper_runs_plain_and_counts_nothing():
 
 @pytest.mark.parametrize("kw", [
     dict(use_distance_term=True), dict(use_orientation=True),
-    dict(num_obstacles=1), dict(trig_impl="exact"),
+    # Obstacles are ported; the distance term beside them is not.
+    dict(num_obstacles=1, use_distance_term=True), dict(trig_impl="exact"),
 ])
 def test_unported_tile_branches_raise(kw):
     spec = convert.chain_spec_from(jlib.arm_7dof()[0])
     x = torch.zeros(1, 8, spec.dof)
+    meta = torch.zeros(1, 6 + 15 * kw.get("num_obstacles", 0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fk_fitness(spec, x, torch.zeros(1, 6), torch.zeros(1, 30), **kw)
+        fk_fitness(spec, x, meta, torch.zeros(1, 30), **kw)
 
 
 def test_fitness_refuses_obstacles():
+    # Scenes are ported for the closed-form colliders; the GJK backend
+    # still raises, naming its ROADMAP item.
     spec_j, problem_j = jlib.arm_7dof()
     spec = convert.chain_spec_from(spec_j)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    obs = convert.obstacles_from(JObstacles.from_boxes(**PALLAS_SCENE))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
         fitness(spec, torch.zeros(spec.dof), convert.problem_from(problem_j),
-                obstacles=object())
+                FitnessConfig(collision_backend="gjk"), obstacles=obs)
+
+
+def _scene_case(name, rng, p):
+    """A problem, random in-limit angles (S=1, p particles) and the
+    tests/test_pallas.py scene, for both packages."""
+    spec_j, batched_j = _batched_case(name, 1, rng)
+    obs_j = JObstacles.from_boxes(**PALLAS_SCENE)
+    return spec_j, batched_j, obs_j, _angles(spec_j, (1, p), rng)
+
+
+def _assert_scene_match(got, want, rtol, atol):
+    hit_want = want >= float(COLLISION_PENALTY)
+    np.testing.assert_array_equal(got >= float(COLLISION_PENALTY), hit_want)
+    assert hit_want.any() and (~hit_want).any(), "the scene must both hit and miss"
+    np.testing.assert_allclose(got[~hit_want], want[~hit_want], rtol=rtol, atol=atol)
+    assert np.all(got[hit_want] == COLLISION_PENALTY)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("name", ["planar_3dof", "arm_7dof"])
+def test_fitness_with_obstacles_matches_jax(name, shape):
+    rng = np.random.default_rng(14)
+    spec_j, batched_j, obs_j, x = _scene_case(name, rng, 256)
+    fit_j = JFit(angle_weight=1.0, collision_shape=shape)
+    want = j_fitness(spec_j, jnp.asarray(x), batched_j, config=fit_j, obstacles=obs_j)
+    got = fitness(convert.chain_spec_from(spec_j), torch.as_tensor(x),
+                  convert.problem_from(batched_j), convert.fitness_config_from(fit_j),
+                  obstacles=convert.obstacles_from(obs_j))
+    _assert_scene_match(got.numpy(), np.asarray(want), SCENE_TOL, SCENE_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fk_fitness_plain_obstacles_matches_interpreted_pallas_kernel(shape):
+    # The plain tile's collider branch against the Pallas tile in
+    # interpret mode (make_pallas_fitness, S=1, P=1024), on planar_3dof
+    # (links in the z = 0 plane, the sign(0) case of the capsule).
+    rng = np.random.default_rng(15)
+    spec_j, batched_j, obs_j, x = _scene_case("planar_3dof", rng, 1024)
+    fit_j = JFit(angle_weight=1.0, collision_shape=shape)
+    want = np.asarray(make_pallas_fitness(spec_j, batched_j, fit=fit_j, obstacles=obs_j,
+                                          interpret=True)(jnp.asarray(x)))
+    spec = convert.chain_spec_from(spec_j)
+    batched = convert.problem_from(batched_j)
+    fit = convert.fitness_config_from(fit_j)
+    obs = convert.obstacles_from(obs_j)
+    meta = pack_meta(spec, fit, obs)
+    np.testing.assert_array_equal(meta.numpy(), np.asarray(_pack_meta(spec_j, fit_j, obs_j)))
+    swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
+                       fk_ops.fk_points(spec, batched.pose, batched.origin))
+    got = fk_fitness(spec, torch.as_tensor(x), meta, swarm, num_obstacles=obs.count,
+                     collision_shape=shape, gizmo_size=fit.gizmo_size)
+    _assert_scene_match(got.numpy(), want, SCENE_TOL, SCENE_TOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fk_fitness_plain_mask_equals_chain_collider(shape):
+    # The tile's inlined collider and the tensor collider of
+    # ops/collision.py flag the same poses (rotated boxes, arm_7dof).
+    rng = np.random.default_rng(16)
+    q = rng.normal(size=(4, 4))
+    obs = convert.obstacles_from(JObstacles.from_boxes(
+        rng.uniform(-1.5, 1.5, (4, 3)), rng.uniform(0.4, 1.0, (4, 3)),
+        q / np.linalg.norm(q, axis=-1, keepdims=True)))
+    spec_j, batched_j = _batched_case("arm_7dof", 2, rng)
+    spec = convert.chain_spec_from(spec_j)
+    batched = convert.problem_from(batched_j)
+    fit = FitnessConfig(angle_weight=0.0, collision_shape=shape)
+    x = torch.as_tensor(_angles(spec_j, (2, 512), rng))
+    swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
+                       fk_ops.fk_points(spec, batched.pose, batched.origin))
+    got = fk_fitness_plain(spec, x, pack_meta(spec, fit, obs), swarm,
+                           num_obstacles=obs.count, collision_shape=shape)
+    pose = fk_ops.angles_to_pose(spec, batched.pose[:, None, 0].expand(2, 512, 3), x)
+    pos, rot = fk_ops.fk(spec, pose, batched.origin[:, None])
+    want = collision.get_chain_collider("sat", shape)(
+        pos[..., 1:, :], rot[..., 1:, :, :], pos[..., list(spec.parent[1:]), :],
+        spec.length[1:], obs.center, obs.half_extent, obs.rot)
+    hit = got == COLLISION_PENALTY
+    assert 0.02 < float(want.float().mean()) < 0.98
+    # The tile's polynomial trig moves a pose by ~1e-6: allow a pose
+    # sitting within that of a box face to flip, and no more.
+    assert int((hit != want).sum()) <= 2
+
+
+def test_collision_penalty_comparisons_stay_finite():
+    # ROADMAP queue C recheck: the penalty is float32 max, never inf, so
+    # comparisons against it and the argmin over it give no inf or NaN.
+    pen = torch.tensor([COLLISION_PENALTY, COLLISION_PENALTY, 1.0], dtype=torch.float32)
+    assert torch.isfinite(pen).all()
+    assert not bool(pen[0] < pen[1])  # a colliding f never beats a colliding lval
+    assert bool(pen[2] < pen[0])
+    assert int(torch.argmin(pen[:2])) == 0  # ties at the penalty: lowest index
+    rng = np.random.default_rng(17)
+    spec_j, batched_j, obs_j, x = _scene_case("planar_3dof", rng, 256)
+    spec = convert.chain_spec_from(spec_j)
+    batched = convert.problem_from(batched_j)
+    obs = convert.obstacles_from(obs_j)
+    for shape in SHAPES:
+        fit = FitnessConfig(angle_weight=1.0, collision_shape=shape)
+        f = fitness(spec, torch.as_tensor(x), batched, fit, obstacles=obs)
+        tile = fk_fitness_plain(
+            spec, torch.as_tensor(x), pack_meta(spec, fit, obs),
+            pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
+                       fk_ops.fk_points(spec, batched.pose, batched.origin)),
+            num_obstacles=obs.count, collision_shape=shape)
+        for v in (f, tile):
+            assert torch.isfinite(v).all() and (v == COLLISION_PENALTY).any()
 
 
 def test_sincos_poly_error_bound():

@@ -14,6 +14,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from ikpso_tpu.models import library as jlib
+from ikpso_tpu.models.chain import Obstacles as JObstacles
 from ikpso_tpu.ops import fk as jfk
 from ikpso_tpu.ops.fitness import FitnessConfig as JFit
 from ikpso_tpu.ops.pallas_fitness import _pack_meta, _pack_swarm
@@ -21,11 +22,15 @@ from ikpso_tpu.pso.config import PSOConfig as JPSO
 from ikpso_tpu.pso.fused import fused_solve_raw
 from ikpso_tpu.pso.polish_soa import anchor_positions_flat as j_anchor_flat
 from ikpso_tpu_torch.models import convert, library
-from ikpso_tpu_torch.models.chain import IKProblem, make_chain_spec
+from ikpso_tpu_torch.models.chain import IKProblem, Obstacles, make_chain_spec
 from ikpso_tpu_torch.ops import fk as fk_ops
+from ikpso_tpu_torch.ops.fitness import COLLISION_PENALTY, FitnessConfig
 from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness_plain, pack_meta, pack_swarm
 from ikpso_tpu_torch.ops.philox import bits_to_uniform, philox4x32_10, philox_uniform
+from ikpso_tpu_torch.pso import fused as fused_mod
+from ikpso_tpu_torch.pso.config import PSOConfig
 from ikpso_tpu_torch.pso.fused import (
+    TWO_PI,
     fused_solve,
     fused_solve_plain,
     make_fused_solver,
@@ -39,6 +44,9 @@ from ikpso_tpu_torch.utils import kernels
 # draws, so only float op-order differences separate them.
 ATOL_ANGLES, RTOL_VALUE, ATOL_VALUE = 5e-4, 1e-3, 1e-5
 SW = 8  # JAX swarms per tile: P=128 is one 128-lane row, 8 rows fill a tile
+# tests/test_fused.py:412 scene: two axis-aligned boxes in arm_7dof's reach.
+REPLAY_SCENE = dict(centers=[[0.9, 0.9, 0.0], [-0.8, 0.4, 0.7]],
+                    full_dims=[[0.5, 0.5, 0.5], [0.6, 0.6, 0.6]])
 
 
 def tpu_layout(u_port):
@@ -60,16 +68,17 @@ def _jax_case(s, rng):
     return spec_j, jlib.batched_problem(problem_j, targets)
 
 
-def _configs(iterations=8):
+def _configs(iterations=8, init_mode="warm", collision_shape="box"):
     pso_j = JPSO(iterations=iterations, inertia_mode="canonical", inertia=0.5,
-                 inertia_end=0.2)
-    fit_j = JFit(angle_weight=0.0, distance_weight=0.0)
+                 inertia_end=0.2, init_mode=init_mode)
+    fit_j = JFit(angle_weight=0.0, distance_weight=0.0,
+                 collision_shape=collision_shape)
     return pso_j, fit_j
 
 
-def _packs(spec_j, batched_j, fit_j):
+def _packs(spec_j, batched_j, fit_j, obstacles_j=None):
     anchor = jfk.pose_to_angles(spec_j, batched_j.pose)
-    meta_j = _pack_meta(spec_j, fit_j, None)
+    meta_j = _pack_meta(spec_j, fit_j, obstacles_j)
     swarm_j = _pack_swarm(spec_j, batched_j, anchor, j_anchor_flat(spec_j, batched_j))
     return meta_j, swarm_j
 
@@ -132,6 +141,113 @@ def test_replay_matches_jax_interpreted_kernel():
                                atol=ATOL_VALUE)
     # The solve did real work: it moved every swarm off the anchor.
     assert np.all(np.abs(gb.numpy()).sum(-1) > 0.0)
+
+
+@pytest.mark.parametrize("init_mode,shape", [
+    ("warm", "box"), ("uniform", "box"), ("hybrid", "capsule"),
+])
+def test_replay_with_obstacles_matches_jax_interpreted_kernel(init_mode, shape,
+                                                               monkeypatch):
+    # Kernel A's obstacle branch (c) and init branch (b) in replay: S=8
+    # (one JAX tile), P=128, 2 iterations, the tests/test_fused.py:412 scene.
+    rng = np.random.default_rng(5)
+    s, p = 8, 128
+    spec_j, batched_j = _jax_case(s, rng)
+    pso_j, fit_j = _configs(iterations=2, init_mode=init_mode, collision_shape=shape)
+    obs_j = JObstacles.from_boxes(**REPLAY_SCENE)
+    meta_j, swarm_j = _packs(spec_j, batched_j, fit_j, obs_j)
+    limits_j = jnp.stack([spec_j.min_rotation[1:].reshape(-1),
+                          spec_j.max_rotation[1:].reshape(-1)])
+    pso = convert.pso_config_from(pso_j)
+    assert num_draws(pso) == (1 if init_mode == "warm" else 2) + 2 * 2
+    u = rng.random((s, num_draws(pso), spec_j.dof, p), dtype=np.float32)
+    gb_j, gv_j = fused_solve_raw(
+        spec_j, pso_j, fit_j, meta_j, swarm_j, limits_j,
+        jnp.zeros((s, 2), jnp.int32), p, obs_j.count,
+        interpret=pltpu.InterpretParams(), uniforms=jnp.asarray(tpu_layout(u)),
+        swarms_per_tile=SW,
+    )
+    hits = []
+
+    def recording(*args, **kw):
+        f = fk_fitness_plain(*args, **kw)
+        hits.append(int((f == COLLISION_PENALTY).sum()))
+        return f
+
+    monkeypatch.setattr(fused_mod, "fk_fitness_plain", recording)
+    spec = convert.chain_spec_from(spec_j)
+    meta = pack_meta(spec, convert.fitness_config_from(fit_j),
+                     convert.obstacles_from(obs_j))
+    np.testing.assert_array_equal(meta.numpy(), np.asarray(meta_j))
+    gb, gv = fused_solve_plain(
+        spec, pso, convert.fitness_config_from(fit_j), meta,
+        torch.tensor(np.asarray(swarm_j)), spec.limits(),
+        torch.zeros((s, 2), dtype=torch.int32), p, uniforms=torch.as_tensor(u),
+        num_obstacles=obs_j.count,
+    )
+    assert sum(hits) > 0, "the scene must reject some particle"
+    np.testing.assert_allclose(gb.numpy(), np.asarray(gb_j), atol=ATOL_ANGLES)
+    np.testing.assert_allclose(gv.numpy(), np.asarray(gv_j), rtol=RTOL_VALUE,
+                               atol=ATOL_VALUE)
+    assert np.all(gv.numpy() < COLLISION_PENALTY)
+
+
+def penalty_tie_case(p=64, swarms=2, init_mode="uniform"):
+    """Every pose collides: one box, 100 on a side, swallows the whole
+    reach of arm_7dof. Every fitness is COLLISION_PENALTY, no lbest ever
+    improves, and the first-minimum argmin must return particle 0's
+    initial position with value COLLISION_PENALTY."""
+    spec, problem = library.arm_7dof()
+    batched = library.batched_problem(problem, torch.full((swarms, 1, 3), 0.5))
+    obs = Obstacles.from_boxes([(0.0, 0.0, 0.0)], [(100.0, 100.0, 100.0)])
+    pso = PSOConfig(iterations=2, inertia_mode="canonical", init_mode=init_mode)
+    fit = FitnessConfig(angle_weight=0.0)
+    u = torch.as_tensor(np.random.default_rng(6).random(
+        (swarms, num_draws(pso), spec.dof, p), dtype=np.float32))
+    meta = pack_meta(spec, fit, obs)
+    swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
+                       anchor_positions_flat(spec, batched))
+    lim = spec.limits()
+    lo_c, hi_c = torch.clamp_min(lim[0], -TWO_PI), torch.clamp_max(lim[1], TWO_PI)
+    want = lo_c + u[:, 0, :, 0] * (hi_c - lo_c)  # particle 0's uniform x0
+    return spec, pso, fit, meta, swarm, u, obs.count, want
+
+
+def test_all_colliding_swarm_returns_particle_zero_at_the_penalty():
+    # ROADMAP queue C recheck: argmin ties at FLT_MAX go to the lowest
+    # particle id, and nothing turns into inf or NaN.
+    spec, pso, fit, meta, swarm, u, n_obs, want = penalty_tie_case()
+    s, p = swarm.shape[0], u.shape[-1]
+    gb, gv = fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(),
+                               torch.zeros((s, 2), dtype=torch.int32), p,
+                               uniforms=u, num_obstacles=n_obs)
+    assert torch.all(gv == COLLISION_PENALTY) and torch.isfinite(gv).all()
+    assert torch.isfinite(gb).all()
+    np.testing.assert_array_equal(gb.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("init_mode", ["warm", "uniform"])
+def test_philox_slots_with_init_draws(init_mode):
+    # The seeded stream is the replay stream with slot t = philox slot t:
+    # init draws first (uniform: position at 0, velocity at 1), then
+    # (u_c, u_s) at n_init + 2 it, n_init + 2 it + 1.
+    rng = np.random.default_rng(7)
+    spec, problem = library.arm_7dof()
+    batched = library.batched_problem(
+        problem, torch.as_tensor(rng.normal(0, 1, (3, 1, 3)), dtype=torch.float32))
+    pso = PSOConfig(iterations=2, inertia_mode="canonical", init_mode=init_mode)
+    fit = FitnessConfig(angle_weight=0.0)
+    meta = pack_meta(spec, fit)
+    swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
+                       anchor_positions_flat(spec, batched))
+    seeds = torch.tensor(rng.integers(-2**31, 2**31, (3, 2)), dtype=torch.int32)
+    n = num_draws(pso)
+    assert n == (1 if init_mode == "warm" else 2) + 2 * pso.iterations
+    u = torch.stack([philox_uniform(seeds, t, 32, spec.dof) for t in range(n)], dim=1)
+    a = fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, 32)
+    b = fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, 32,
+                          uniforms=u.transpose(2, 3).contiguous())
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def tie_case(p=32, swarms=2):
@@ -251,7 +367,8 @@ def test_cpu_wrapper_dispatches_to_plain():
 
 @pytest.mark.parametrize("kw", [
     dict(inertia_mode="randomized"),
-    dict(inertia_mode="canonical", init_mode="uniform"),
+    # Uniform init is ported; the re-kick beside it is not.
+    dict(inertia_mode="canonical", init_mode="uniform", rekick_interval=2),
     dict(inertia_mode="canonical", gbest_interval=2),
     dict(inertia_mode="canonical", rekick_interval=2),
 ])
@@ -282,6 +399,48 @@ def test_fused_solver_end_to_end_shapes_and_error():
     assert torch.all(res.angles >= lim[0]) and torch.all(res.angles <= lim[1])
     again = solver(batched, torch.Generator().manual_seed(0))
     assert torch.equal(again.angles, res.angles)
+
+
+def test_obstacle_refusals_name_their_roadmap_items():
+    spec, _ = library.arm_7dof()
+    obs = Obstacles.from_boxes(**REPLAY_SCENE)
+    pso = PSOConfig(iterations=2, inertia_mode="canonical", init_mode="uniform")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
+        make_fused_solver(spec, pso=pso, fit=FitnessConfig(collision_backend="gjk"),
+                          num_particles=128, obstacles=obs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_fused_solver(spec, pso=pso, fit=FitnessConfig(orientation_weight=1.0),
+                          num_particles=128, obstacles=obs)
+    # The CUDA collider variants exist for the serial 4-node topology only.
+    assert kernels.collider_id(spec, 0, "box") == 0
+    assert kernels.collider_id(spec, 2, "box") == 1
+    assert kernels.collider_id(spec, 2, "capsule") == 2
+    assert kernels.collider_id(library.planar_3dof()[0], 2, "box") == 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.collider_id(library.reference_arm()[0], 2, "box")
+
+
+def test_uniform_init_solver_with_obstacles_avoids_the_scene():
+    # make_fused_solver with a scene and uniform init, on the CPU: the
+    # returned poses are collision-free and inside the joint limits.
+    from ikpso_tpu_torch.ops.collision import chain_collides
+
+    spec, problem = library.arm_7dof()
+    obs = Obstacles.from_boxes(**REPLAY_SCENE)
+    targets = torch.tensor([[[1.0, 1.2, -0.8]], [[0.5, -1.0, 1.0]], [[-1.2, 0.3, 0.9]]])
+    batched = library.batched_problem(problem, targets)
+    pso = PSOConfig(iterations=8, inertia_mode="canonical", inertia=0.5,
+                    inertia_end=0.2, init_mode="uniform")
+    solver = make_fused_solver(spec, pso=pso, fit=FitnessConfig(angle_weight=0.0),
+                               num_particles=128, obstacles=obs)
+    res = solver(batched, torch.Generator().manual_seed(0))
+    assert torch.all(res.fitness < COLLISION_PENALTY)
+    pos, rot = fk_ops.fk(spec, res.pose, batched.origin)
+    hit = chain_collides(pos[:, 1:], rot[:, 1:], pos[:, list(spec.parent[1:])],
+                         spec.length[1:], obs.center, obs.half_extent, obs.rot)
+    assert not hit.any()
+    lim = spec.limits()
+    assert torch.all(res.angles >= lim[0]) and torch.all(res.angles <= lim[1])
 
 
 def test_topology_codes_and_refusal():

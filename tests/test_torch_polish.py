@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ikpso_tpu.models import library as jlib
+from ikpso_tpu.models.chain import Obstacles as JObstacles
 from ikpso_tpu.ops import fk as jfk
 from ikpso_tpu.pso.polish import polish_angles as j_polish
 from ikpso_tpu.pso.polish import wrap_with_polish as j_wrap
@@ -22,6 +23,8 @@ from ikpso_tpu.pso.polish_soa import true_effector_error_rows as j_err_rows
 from ikpso_tpu.pso.solver import SolveResult as JResult
 from ikpso_tpu_torch.models import convert
 from ikpso_tpu_torch.ops import fk as fk_ops
+from ikpso_tpu_torch.models.chain import Obstacles
+from ikpso_tpu_torch.ops.fitness import true_effector_error
 from ikpso_tpu_torch.pso.polish import polish_angles, soa_traceable, wrap_with_polish
 from ikpso_tpu_torch.pso.polish_soa import anchor_positions_flat, true_effector_error_rows
 from ikpso_tpu_torch.pso.solver import SolveResult
@@ -124,10 +127,58 @@ def test_wrap_with_polish_accept_gate_matches_jax():
     np.testing.assert_allclose(got.fitness.numpy(), np.asarray(want.fitness), atol=1e-5)
 
 
+@pytest.mark.parametrize("shape", ["box", "capsule"])
+def test_polish_gate_rejects_colliding_refinement_like_jax(shape):
+    # tests/test_polish.py:235-280: a box sits on the planar arm's
+    # target. Ungated polish chases the target into it; the gate keeps the
+    # feasible PSO answer, in both packages.
+    spec_j, problem_j = jlib.planar_3dof(target=(2.5, 0.0, 0.0))
+    boxes = dict(centers=np.array([[2.5, 0.0, 0.0]], np.float32),
+                 full_dims=np.array([[0.8, 0.8, 0.8]], np.float32))
+    obs_j = JObstacles.from_boxes(**boxes)
+    s = 4
+    one = np.zeros((spec_j.dof,), np.float32)
+    one[[2, 5, 8]] = (0.9, 0.6, 0.3)
+    start = np.broadcast_to(one, (s, spec_j.dof)).copy()
+    batched_j = jax.tree.map(lambda a: jnp.broadcast_to(a, (s,) + a.shape), problem_j)
+    batched_j = batched_j.replace(
+        pose=jfk.angles_to_pose(spec_j, batched_j.pose[..., 0, :], jnp.asarray(start)))
+
+    def j_stub(prob, key):
+        del key
+        from ikpso_tpu.ops.fitness import true_effector_error as j_true_err
+
+        err = j_true_err(spec_j, prob.pose, prob)
+        return JResult(angles=jfk.pose_to_angles(spec_j, prob.pose), fitness=err,
+                       pose=prob.pose, effector_error=err, trace=err[None])
+
+    spec = convert.chain_spec_from(spec_j)
+    batched = convert.problem_from(batched_j)
+
+    def stub(prob, generator):
+        del generator
+        err = true_effector_error(spec, prob.pose, prob)
+        return SolveResult(angles=fk_ops.pose_to_angles(spec, prob.pose), fitness=err,
+                           pose=prob.pose, effector_error=err, trace=err[None])
+
+    want = j_wrap(j_stub, spec_j, steps=5, obstacles=obs_j, collision_shape=shape)(
+        batched_j, jax.random.key(0))
+    free = wrap_with_polish(stub, spec, steps=5)(batched, torch.Generator())
+    gated = wrap_with_polish(stub, spec, steps=5, obstacles=Obstacles.from_boxes(**boxes),
+                             collision_shape=shape)(batched, torch.Generator())
+    base_err = true_effector_error(spec, batched.pose, batched).numpy()
+    assert (free.effector_error.numpy() < base_err - 0.05).all()
+    np.testing.assert_array_equal(gated.angles.numpy(), start)
+    np.testing.assert_array_equal(np.asarray(want.angles), start)
+    np.testing.assert_allclose(gated.effector_error.numpy(),
+                               np.asarray(want.effector_error), rtol=1e-6)
+
+
 def test_soa_gate_and_refusals():
     spec = convert.chain_spec_from(jlib.arm_7dof()[0])
     assert soa_traceable(spec, spec.dof, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wrap_with_polish(lambda p, g: None, spec, obstacles=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
+        wrap_with_polish(lambda p, g: None, spec, obstacles=Obstacles.empty(),
+                         collision_backend="gjk")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         polish_angles(spec, None, torch.zeros(1, spec.dof), use_orientation=True)
