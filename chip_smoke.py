@@ -3,13 +3,18 @@
 
 Builds the port's CUDA kernels from ``ikpso_tpu_torch/csrc``, checks each
 against its plain torch version on the card (kernel B with and without a
-scene, kernel A in replay with every init mode and collider), drives the
-two main paths through their entry points -- the 7-DOF headline solve
-(``harness.headline.run_headline``, S=1,048,576) and the 7-DOF
+scene, kernel A in replay with every init mode and collider, kernel C
+with every collider and the scan solve through it in replay), drives the
+main paths through their entry points -- the 7-DOF headline solve
+(``harness.headline.run_headline``, S=1,048,576), the 7-DOF
 obstacle-scene solve (``harness.obstacles.run_obstacles``, S=524,288 with
-box colliders, S=65,536 with capsules) -- with the launch counts read
-around each, and times kernel/plain pairs. Every phase prints one JSON
-line; any failure raises and the script exits non-zero. The last line is
+box colliders, S=65,536 with capsules), the scan solver on kernel C
+(``harness.scan.run_scan``, S=16,384, P=1,024, 60 iterations) and the
+roofline (``utils.roofline``: kernels D and E, the kernel C and kernel A
+rates, the headline's ``sol_frac``) -- with the launch counts read
+around each, times kernel/plain pairs and holds every kernel's time
+against its bound (``bounds``). Every phase prints one JSON line; any
+failure raises and the script exits non-zero. The last line is
 ``{"ok": true, "device": {...}}``.
 
 Run from the repository root on a machine with one NVIDIA GPU:
@@ -43,6 +48,22 @@ FLT_MAX = 3.4028234663852886e38
 # Kernel/plain timing batch: the plain solver's (S, P, D) temporaries
 # would not fit in device memory at the headline batch.
 TIMING_SWARMS = 65_536
+# The scan path (bench.py --impl pallas): its JAX reference is
+# `python bench.py --cpu --impl jnp --swarms 4096` (same P, inertia mode
+# and iterations; S cut to a quarter to run on a CPU). The bar is that
+# share less 4 standard errors of the difference of two binomial shares,
+# JAX's over its swarms and the port's over SCAN_SWARMS.
+SCAN_SWARMS = 16_384  # the scan path's batch (bench.py's default without the fused solver)
+SCAN_JAX_FRAC_UNDER_1MM, SCAN_JAX_SWARMS = 0.9094, 4096
+SCAN_FRAC_BAR = SCAN_JAX_FRAC_UNDER_1MM - 4.0 * (
+    SCAN_JAX_FRAC_UNDER_1MM * (1.0 - SCAN_JAX_FRAC_UNDER_1MM)
+    * (1.0 / SCAN_JAX_SWARMS + 1.0 / SCAN_SWARMS)) ** 0.5
+SCAN_REPLAY_SWARMS = 256
+D_RTOL = 1e-6  # kernel D vs plain: fmaf vs a float64 FMA, libdevice sinf vs torch.sin
+D_STEPS = 4  # a step count at which every recurrence stays finite
+# The timed launches of kernels D (elements, steps) and E (threads, steps).
+D_TIMED = (1 << 22, 512)
+E_TIMED = (1 << 20, 256)
 
 
 def emit(phase: str, **fields) -> None:
@@ -56,8 +77,9 @@ def run(cmd) -> str:
     return proc.stdout.strip()
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
+def cuda_time(fn, reps: int, warmup: int = 1):
+    """``(mean milliseconds per call over reps calls by CUDA events, the
+    last call's result)``."""
     import torch
 
     for _ in range(warmup):
@@ -67,10 +89,34 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call over ``reps`` calls, by CUDA events."""
+    return cuda_time(fn, reps, warmup)[0]
+
+
+def check_fitness(tag, got, want, *, exact: bool):
+    """A fitness kernel's output against its plain twin's: equal hit
+    masks, finite, and on free particles a max abs error of 0.0
+    (``exact``) or within ``FK_RTOL``/``FK_ATOL``. Returns the error;
+    raises on a mismatch."""
+    import torch
+
+    hit_k, hit_p = got >= FLT_MAX, want >= FLT_MAX
+    free = ~hit_p
+    err = float((got[free] - want[free]).abs().max()) if bool(free.any()) else 0.0
+    close = (err == 0.0 if exact
+             else bool(torch.allclose(got[free], want[free], rtol=FK_RTOL, atol=FK_ATOL)))
+    if not (torch.equal(hit_k, hit_p) and bool(torch.isfinite(got).all()) and close):
+        raise AssertionError(f"{tag}: kernel disagrees with its plain twin "
+                             f"({int((hit_k != hit_p).sum())} mask mismatches, "
+                             f"max abs error {err} on free particles)")
+    return err
 
 
 def phase_environment():
@@ -78,9 +124,10 @@ def phase_environment():
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; needs a GPU")
-    card = run(["nvidia-smi", "--query-gpu=name,power.limit",
-                "--format=csv,noheader"]).splitlines()[0].strip()
     from ikpso_tpu_torch.utils import kernels
+    from ikpso_tpu_torch.utils.roofline import card_name
+
+    card = card_name()
 
     nvcc = run([kernels._nvcc(), "--version"]).splitlines()[-1]
     emit("environment", card=card, torch=torch.__version__,
@@ -89,22 +136,27 @@ def phase_environment():
     return card
 
 
+def _wrappers():
+    from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness, fused_fitness
+    from ikpso_tpu_torch.pso.fused import fused_solve
+    from ikpso_tpu_torch.utils.roofline import philox_xor, roofline_body
+
+    return {"fused_solve": fused_solve, "fk_fitness": fk_fitness,
+            "fused_fitness": fused_fitness, "roofline_body": roofline_body,
+            "philox_xor": philox_xor}
+
+
 def reset_counts():
     """Set every kernel wrapper's launch counts to 0."""
-    from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness
-    from ikpso_tpu_torch.pso.fused import fused_solve
-
-    fused_solve.launches = fk_fitness.launches = 0
-    fused_solve.variant_launches = {}
+    for fn in _wrappers().values():
+        fn.launches = 0
+    _wrappers()["fused_solve"].variant_launches = {}
 
 
 def read_counts():
-    from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness
-    from ikpso_tpu_torch.pso.fused import fused_solve
-
-    return {"fused_solve": fused_solve.launches,
-            "fused_solve_variants": dict(fused_solve.variant_launches),
-            "fk_fitness": fk_fitness.launches}
+    counts = {name: fn.launches for name, fn in _wrappers().items()}
+    counts["fused_solve_variants"] = dict(_wrappers()["fused_solve"].variant_launches)
+    return counts
 
 
 def ptxas_report(log: str):
@@ -443,6 +495,237 @@ def phase_fused_penalty_ties(device, swarms=4, particles=128):
             raise AssertionError("kernel A broke a tie at the collision penalty")
 
 
+def phase_fused_fitness(device, swarms=64, particles=1024):
+    """Kernel C against fused_fitness_plain on random in-limit (S, D, P)
+    angles, for every collider: equal hit masks, max abs error 0.0 on
+    free particles; and once at a P that is no multiple of the block."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.ops.fitness import FitnessConfig
+    from ikpso_tpu_torch.ops.fitness_kernel import fused_fitness, fused_fitness_plain
+
+    errs = {}
+    for shape, p in (("none", particles), ("box", particles), ("capsule", particles),
+                     ("none", 1000)):
+        rng = np.random.default_rng(9)
+        spec, batched = _problem("arm_7dof", swarms, rng, device)
+        obs = None if shape == "none" else _scene(spec, device)
+        fit = FitnessConfig(angle_weight=3.0,
+                            collision_shape="box" if shape == "none" else shape)
+        meta, swarm = _packed(spec, batched, fit, obs)
+        lim = spec.limits().cpu().numpy()
+        x = lim[0][:, None] + rng.random((swarms, spec.dof, p)) * (lim[1] - lim[0])[:, None]
+        x = torch.as_tensor(x.astype("float32"), device=device)
+        kw = dict(num_obstacles=0 if obs is None else obs.count,
+                  collision_shape=fit.collision_shape)
+        got = fused_fitness(spec, x, meta, swarm, **kw)
+        want = fused_fitness_plain(spec, x, meta, swarm, **kw)
+        torch.cuda.synchronize()
+        hit_k, hit_p = got >= FLT_MAX, want >= FLT_MAX
+        free = ~hit_p
+        err = float((got[free] - want[free]).abs().max())
+        errs.setdefault(shape, err)
+        ok = bool(torch.equal(hit_k, hit_p) and torch.isfinite(got).all() and err == 0.0
+                  and (shape == "none" or 0.01 < float(hit_p.float().mean()) < 0.99))
+        emit("fused_fitness", collision_shape=shape, swarms=swarms, particles=p,
+             hit_share=float(hit_p.float().mean()),
+             mask_mismatches=int((hit_k != hit_p).sum()), max_abs_err_free=err,
+             bar="equal masks, max abs error 0.0 on free particles", ok=ok)
+        if not ok:
+            raise AssertionError(f"kernel C ({shape}, P={p}) disagrees with "
+                                 "fused_fitness_plain")
+    return errs
+
+
+def phase_scan_replay(device, swarms=SCAN_REPLAY_SWARMS, particles=1024, iterations=60):
+    """The scan solve through kernel C against the same solve through
+    kernel C's plain twin, on the same injected draws."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.harness.scan import scan_configs
+    from ikpso_tpu_torch.ops import fk as fk_ops
+    from ikpso_tpu_torch.ops.fitness_kernel import (
+        fused_fitness_plain,
+        make_kernel_fitness,
+        pack_meta,
+        pack_swarm,
+    )
+    from ikpso_tpu_torch.pso.solver import ScanDraws, draws_per_iteration, solve
+
+    pso, fit = scan_configs(iterations)
+    rng = np.random.default_rng(8)
+    spec, batched = _problem("arm_7dof", swarms, rng, device)
+    gen = torch.Generator(device=device).manual_seed(8)
+    shape = (swarms, particles, spec.dof)
+    draws = ScanDraws(None, torch.rand(shape, generator=gen, device=device),
+                      torch.rand((iterations, draws_per_iteration(pso)) + shape,
+                                 generator=gen, device=device))
+    # The plain twin of make_kernel_fitness's closure: the same packing.
+    meta = pack_meta(spec, fit).to(device)
+    swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
+                       fk_ops.fk_points(spec, batched.pose, batched.origin))
+
+    def plain_fitness(x):
+        return fused_fitness_plain(spec, x.transpose(-1, -2).contiguous(), meta, swarm)
+
+    res = {}
+    for plain, fitness_fn in ((False, make_kernel_fitness(spec, batched, fit)),
+                              (True, plain_fitness)):
+        res[plain] = solve(spec, batched, None, pso, fit, num_particles=particles,
+                           fitness_fn=fitness_fn, uniforms=draws)
+    torch.cuda.synchronize()
+    k, p = res[False], res[True]
+    g_err = float((k.angles - p.angles).abs().max())
+    v_err = float((k.fitness - p.fitness).abs().max())
+    equal = bool(torch.equal(k.angles, p.angles) and torch.equal(k.fitness, p.fitness)
+                 and torch.equal(k.trace, p.trace))
+    ok = bool(torch.isfinite(k.angles).all() and torch.isfinite(k.fitness).all()
+              and g_err <= REPLAY_ATOL
+              and bool(((k.fitness - p.fitness).abs()
+                        <= REPLAY_VAL_ATOL + REPLAY_RTOL * p.fitness.abs()).all()))
+    emit("scan_replay", swarms=swarms, particles=particles, iterations=iterations,
+         inertia_mode=pso.inertia_mode, gbest_max_abs_err=g_err, gval_max_abs_err=v_err,
+         bitwise_equal=equal, bar=f"atol {REPLAY_ATOL}, rtol {REPLAY_RTOL}", ok=ok)
+    if not ok:
+        raise AssertionError("scan solve through kernel C disagrees with the plain replay")
+    return g_err
+
+
+def _device_busy(prof):
+    """Device ms in a profile: every kernel, kernel C, and torch's random
+    draws (``torch.rand``); None each when the profiler recorded no
+    device time."""
+    from torch.autograd import DeviceType
+
+    busy = kernel_c = rng = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        busy += t
+        if "fused_fitness_kernel" in e.key:
+            kernel_c += t
+        elif "distribution" in e.key:
+            rng += t
+    return (busy / 1e3, kernel_c / 1e3, rng / 1e3) if busy > 0 else (None, None, None)
+
+
+def phase_scan(device, card, swarms=SCAN_SWARMS):
+    """The scan solver on kernel C at full size through run_scan, launch
+    counts read around it; then one more solve under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ikpso_tpu_torch.harness.headline import reachable_targets
+    from ikpso_tpu_torch.harness.scan import ITERATIONS, PARTICLES, build_scan_solver, run_scan
+    from ikpso_tpu_torch.models import library
+
+    torch.cuda.reset_peak_memory_stats(device)
+    warmup, iters = 1, 3
+    reset_counts()
+    out = run_scan(swarms=swarms, device=device, seed=0, warmup=warmup, iters=iters)
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    # Device busy vs wall over one more solve (not counted above).
+    spec, problem = library.arm_7dof(device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    batched = library.batched_problem(problem, reachable_targets(spec, problem, swarms, gen))
+    solver = build_scan_solver(spec, batched, PARTICLES, ITERATIONS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver(batched, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, kernel_c_ms, rng_ms = _device_busy(prof)
+    per_solve = ITERATIONS + 1
+    ok = (launches["fused_fitness"] == per_solve * (warmup + iters) and out["finite"]
+          and out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= SCAN_FRAC_BAR)
+    emit("scan", **out, wall_ms=out["wall_s"] * 1e3, launches=launches,
+         max_memory_allocated=peak, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+         kernel_c_device_ms=kernel_c_ms, torch_rand_device_ms=rng_ms,
+         device_idle_share=None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+         jax_frac_under_1mm=SCAN_JAX_FRAC_UNDER_1MM, frac_bar=SCAN_FRAC_BAR, card=card,
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError("scan path missed its bar or bypassed kernel C")
+    return launches
+
+
+def phase_roofline(device, card):
+    """Path 2, the roofline: kernel D's three ceilings, kernel E's draw
+    rate, kernel C's and kernel A's loop rates and the headline's
+    sol_frac, launch counts read around them; then D and E against
+    their plain twins, their timed launches and E's library yardstick."""
+    import torch
+
+    from ikpso_tpu_torch.harness.headline import headline_sol
+    from ikpso_tpu_torch.utils import roofline as rl
+
+    peak_ops = rl.PUBLISHED_PEAKS["fp32_ops_per_s"]
+    reset_counts()
+    rates = {
+        "fma_flops_per_s": rl.measure_fma_peak(device=device),
+        "compose_flops_per_s": rl.measure_compose_peak(device=device),
+        "transcendental_per_s": rl.measure_transcendental_peak(device=device),
+        "rng_words_per_s": rl.measure_rng_peak(device=device),
+    }
+    kf, ke, kb = rl.measure_fitness_kernel_rate(device=device)
+    rates.update(fitness_kernel_ops_per_s=kf, fitness_kernel_evals_per_s=ke,
+                 fitness_kernel_bytes_per_s=kb,
+                 kernel_ops_per_s=rl.measure_megakernel_rate(device=device))
+    sol = headline_sol(device=device)
+    launches = read_counts()
+    share = {k: rates[k] / peak_ops for k in ("fma_flops_per_s", "compose_flops_per_s",
+                                             "transcendental_per_s",
+                                             "fitness_kernel_ops_per_s",
+                                             "kernel_ops_per_s")}
+    share["rng_int_ops"] = rates["rng_words_per_s"] / 4 * rl.E_OPS_PER_STEP / peak_ops
+    share["fitness_kernel_bytes_per_s"] = kb / rl.PUBLISHED_PEAKS["hbm_bytes_per_s"]
+
+    # Outside the counted window: D's and E's timed launches, E's output
+    # held against its plain twin's at that shape; D's against its plain
+    # twin's at the timed element count and a step count where every
+    # value stays finite.
+    elems, d_steps = D_TIMED
+    xd = torch.linspace(0.1, 0.9, elems, device=device, dtype=torch.float32)
+    d_err = {}
+    for body in rl.BODIES:
+        got = rl.roofline_body(body, xd, D_STEPS)
+        want = rl.roofline_body_plain(body, xd, D_STEPS)
+        torch.cuda.synchronize()
+        if not (torch.isfinite(want).all() and torch.allclose(got, want, rtol=D_RTOL, atol=0)):
+            raise AssertionError(f"kernel D ({body}) disagrees with its plain twin")
+        d_err[body] = float((got - want).abs().max())
+    del got, want
+    n_e, e_steps = E_TIMED
+    timed = {
+        "d_fma_ms": cuda_time_ms(lambda: rl.roofline_body("fma", xd, d_steps), reps=10),
+        "d_fma_plain_ms": cuda_time_ms(lambda: rl.roofline_body_plain("fma", xd, d_steps),
+                                       reps=1),
+        "e_library_ms": cuda_time_ms(
+            lambda: torch.rand(4 * n_e * e_steps, device=device), reps=5),
+    }
+    del xd
+    timed["e_ms"], e_got = cuda_time(lambda: rl.philox_xor((7, 11), n_e, e_steps, device),
+                                     reps=10)
+    timed["e_plain_ms"], e_want = cuda_time(
+        lambda: rl.philox_xor_plain((7, 11), n_e, e_steps, device), reps=1)
+    if not torch.equal(e_got, e_want):
+        raise AssertionError("kernel E disagrees with philox_xor_plain")
+    counts = {"d_fma": rl.roofline_body_count("fma", elems, d_steps),
+              "e": rl.philox_xor_count(n_e, e_steps)}
+    emit("roofline", **rates, published_peaks=rl.PUBLISHED_PEAKS, share_of_published=share,
+         headline_sol=sol, launches=launches, d_max_abs_err=d_err, d_rtol=D_RTOL,
+         d_checked={"elems": elems, "steps": D_STEPS},
+         e_bitwise_equal_at_timed_shape=True, d_timed={"elems": elems, "steps": d_steps},
+         e_timed={"threads": n_e, "steps": e_steps}, **timed, card=card, ok=True)
+    return launches, timed, counts, d_err, sol
+
+
 def phase_obstacles(device, swarms, card, shape):
     """The obstacle-scene slice through run_obstacles, launch counts read
     around it."""
@@ -483,13 +766,23 @@ def phase_headline(device, swarms, card):
 
 
 def phase_timing(device, swarms, big_swarms, particles=128):
+    """Kernel and plain times at the paths' shapes, and the counted work
+    of each timed launch (``utils.flops``: collider branches charged the
+    work these inputs need)."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness, fk_fitness_plain
+    from ikpso_tpu_torch.harness.scan import scan_configs
+    from ikpso_tpu_torch.ops.fitness_kernel import (
+        fk_fitness,
+        fk_fitness_plain,
+        fused_fitness,
+        fused_fitness_plain,
+    )
     from ikpso_tpu_torch.pso.fused import fused_solve, fused_solve_plain
+    from ikpso_tpu_torch.utils import flops
 
     pso, fit = _headline_configs()
     rng = np.random.default_rng(4)
@@ -503,15 +796,28 @@ def phase_timing(device, swarms, big_swarms, particles=128):
         (limits[0].cpu().numpy() + rng.random((swarms, particles, spec.dof))
          * (limits[1] - limits[0]).cpu().numpy()).astype("float32"), device=device)
     # The paths' launch counts are read before this phase; the launches
-    # made here to time kernels are not counted anywhere.
+    # made here to time kernels are not counted anywhere. Each timed
+    # fitness kernel's last output is held against its timed plain twin's.
     times = {
         "fused_solve_ms": cuda_time_ms(lambda: fused_solve(
             spec, pso, fit, meta, swarm, limits, seeds, particles), reps=10),
         "fused_solve_plain_ms": cuda_time_ms(lambda: fused_solve_plain(
             spec, pso, fit, meta, swarm, limits, seeds, particles), reps=3),
-        "fk_fitness_ms": cuda_time_ms(lambda: fk_fitness(spec, x, meta, swarm), reps=20),
-        "fk_fitness_plain_ms": cuda_time_ms(
-            lambda: fk_fitness_plain(spec, x, meta, swarm), reps=5),
+    }
+    errs = {}
+
+    def time_pair(key, kernel_fn, plain_fn, reps, plain_reps, exact):
+        times[f"{key}_ms"], got = cuda_time(kernel_fn, reps=reps)
+        times[f"{key}_plain_ms"], want = cuda_time(plain_fn, reps=plain_reps)
+        errs[key] = check_fitness(key, got, want, exact=exact)
+
+    time_pair("fk_fitness", lambda: fk_fitness(spec, x, meta, swarm),
+              lambda: fk_fitness_plain(spec, x, meta, swarm), 20, 5, exact=False)
+    counts = {
+        "a_none": flops.fused_solve_count(spec, pso, fit, num_particles=particles,
+                                          num_swarms=swarms),
+        "b_none": flops.fitness_kernel_count(spec, fit, num_swarms=swarms,
+                                             num_particles=particles),
     }
     # The scene's branches: kernel B box / capsule on the same angles, and
     # kernel A's base solve (warm, 8 iterations) with the box scene.
@@ -520,10 +826,13 @@ def phase_timing(device, swarms, big_swarms, particles=128):
         fit_s = dataclasses.replace(fit, collision_shape=shape)
         meta_s, _ = _packed(spec, batched, fit_s, obs)
         kw = dict(num_obstacles=obs.count, collision_shape=shape)
-        times[f"fk_fitness_{shape}_ms"] = cuda_time_ms(
-            lambda: fk_fitness(spec, x, meta_s, swarm, **kw), reps=20)
-        times[f"fk_fitness_{shape}_plain_ms"] = cuda_time_ms(
-            lambda: fk_fitness_plain(spec, x, meta_s, swarm, **kw), reps=3)
+        time_pair(f"fk_fitness_{shape}", lambda: fk_fitness(spec, x, meta_s, swarm, **kw),
+                  lambda: fk_fitness_plain(spec, x, meta_s, swarm, **kw), 20, 3,
+                  exact=False)
+        counts[f"b_{shape}"] = flops.fitness_kernel_count(
+            spec, fit_s, num_swarms=swarms, num_particles=particles,
+            num_obstacles=obs.count,
+            collider_ops=flops.collider_work(spec, x, meta_s, swarm, **kw))
     del x
     fit_b = dataclasses.replace(fit, collision_shape="box")
     meta_b, _ = _packed(spec, batched, fit_b, obs)
@@ -533,25 +842,82 @@ def phase_timing(device, swarms, big_swarms, particles=128):
     times["fused_solve_box_plain_ms"] = cuda_time_ms(lambda: fused_solve_plain(
         spec, pso, fit_b, meta_b, swarm, limits, seeds, particles,
         num_obstacles=obs.count), reps=2)
+    counts["a_box"] = flops.fused_solve_count(
+        spec, pso, fit_b, num_particles=particles, num_swarms=swarms,
+        num_obstacles=obs.count, collider_ops=flops.fused_solve_collider_work(
+            spec, pso, fit_b, meta_b, swarm, limits, seeds, particles,
+            num_obstacles=obs.count))
+    # Kernel C at the scan path's shape: (S, D, P) = (16,384, 9, 1,024).
+    _, fit_c = scan_configs()
+    spec_c, batched_c = _problem("arm_7dof", SCAN_SWARMS, rng, device)
+    meta_c, swarm_c = _packed(spec_c, batched_c, fit_c)
+    lim = limits.cpu().numpy()
+    x_dp = torch.as_tensor((lim[0][:, None] + rng.random((SCAN_SWARMS, spec.dof, 1024))
+                            * (lim[1] - lim[0])[:, None]).astype("float32"), device=device)
+    time_pair("fused_fitness", lambda: fused_fitness(spec_c, x_dp, meta_c, swarm_c),
+              lambda: fused_fitness_plain(spec_c, x_dp, meta_c, swarm_c), 20, 3,
+              exact=True)
+    counts["c"] = flops.fitness_kernel_count(spec_c, fit_c, num_swarms=SCAN_SWARMS,
+                                             num_particles=1024)
+    del x_dp
     spec, batched = _problem("arm_7dof", big_swarms, rng, device)
     meta, swarm = _packed(spec, batched, fit)
     seeds = torch.zeros((big_swarms, 2), dtype=torch.int32, device=device)
     times["fused_solve_big_ms"] = cuda_time_ms(lambda: fused_solve(
         spec, pso, fit, meta, swarm, limits, seeds, particles), reps=5)
+    counts["a_none_big"] = flops.fused_solve_count(spec, pso, fit, num_particles=particles,
+                                                   num_swarms=big_swarms)
     meta_b, swarm = _packed(spec, batched, fit_b, obs)
     times["fused_solve_box_big_ms"] = cuda_time_ms(lambda: fused_solve(
         spec, pso, fit_b, meta_b, swarm, limits, seeds, particles,
         num_obstacles=obs.count), reps=5)
-    emit("timing", swarms=swarms, big_swarms=big_swarms, particles=particles, **times)
-    return times
+    emit("timing", swarms=swarms, big_swarms=big_swarms, particles=particles,
+         scan_shape=[SCAN_SWARMS, spec.dof, 1024], **times,
+         max_abs_err_free_vs_plain=errs,
+         bar={"fused_fitness": "equal masks, max abs error 0.0 on free particles",
+              "fk_fitness*": f"equal masks, rtol {FK_RTOL}, atol {FK_ATOL}"})
+    return times, counts, errs
 
 
-def main() -> None:
-    card = phase_environment()
-    import torch
+# Bounds phase rows: (row, count key, time key, what was timed).
+BOUND_ROWS = (
+    ("A headline, no scene", "a_none_big", "fused_solve_big_ms",
+     f"kernel A, S={HEADLINE_SWARMS}, P=128, warm, 8 iterations"),
+    ("A no scene", "a_none", "fused_solve_ms",
+     f"kernel A, S={TIMING_SWARMS}, P=128, warm, 8 iterations"),
+    ("A box", "a_box", "fused_solve_box_ms",
+     f"kernel A, S={TIMING_SWARMS}, P=128, warm, 8 iterations, 4 boxes"),
+    ("B none", "b_none", "fk_fitness_ms", f"kernel B, S={TIMING_SWARMS}, P=128"),
+    ("B box", "b_box", "fk_fitness_box_ms", f"kernel B, S={TIMING_SWARMS}, P=128, 4 boxes"),
+    ("B capsule", "b_capsule", "fk_fitness_capsule_ms",
+     f"kernel B, S={TIMING_SWARMS}, P=128, 4 boxes"),
+    ("C scan path", "c", "fused_fitness_ms", f"kernel C, S={SCAN_SWARMS}, D=9, P=1024"),
+)
 
-    device = torch.device("cuda", 0)
-    phase_build()
+
+def phase_bounds(times, counts, roof_timed, roof_counts, card):
+    """Each timed kernel launch against its roofline bound (published
+    peaks); raises if any share is above 1."""
+    from ikpso_tpu_torch.utils.roofline import speed_of_light_seconds
+
+    rows = [(name, counts[c], times[t], what) for name, c, t, what in BOUND_ROWS]
+    rows += [("D fma", roof_counts["d_fma"], roof_timed["d_fma_ms"], "kernel D, fma body"),
+             ("E", roof_counts["e"], roof_timed["e_ms"], "kernel E")]
+    out = {}
+    for name, count, ms, what in rows:
+        seconds, bound_by = speed_of_light_seconds(count)
+        out[name] = dict(timed=what, ms=ms, bound_ms=seconds * 1e3, bound_by=bound_by,
+                         share=seconds * 1e3 / ms, ops=count.ops, bytes=count.bytes)
+    ok = all(r["share"] <= 1.0 for r in out.values())
+    emit("bounds", rows=out, card=card, ok=ok)
+    if not ok:
+        raise AssertionError("a kernel ran faster than its bound: the op model is wrong")
+    return out
+
+
+def run_phases(device, card):
+    """Every phase after the build, in order; returns the ``kernels``
+    list of the next-to-last line."""
     b_err = phase_fk_fitness(device)
     b_obs_err = phase_fk_fitness_obstacles(device)
     a_err = phase_fused_replay(device)
@@ -559,47 +925,107 @@ def main() -> None:
     phase_fused_tie(device)
     phase_fused_penalty_ties(device)
     phase_fused_philox(device)
+    c_err = phase_fused_fitness(device)
+    scan_err = phase_scan_replay(device)
     paths = {
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
         "obstacles": phase_obstacles(device, OBSTACLE_SWARMS, card, "box"),
         "obstacles_capsule": phase_obstacles(device, CAPSULE_SWARMS, card, "capsule"),
+        "scan": phase_scan(device, card),
     }
-    t = phase_timing(device, TIMING_SWARMS, HEADLINE_SWARMS)
+    paths["roofline"], roof_timed, roof_counts, d_err, sol = phase_roofline(device, card)
+    t, counts, t_err = phase_timing(device, TIMING_SWARMS, HEADLINE_SWARMS)
+    bounds = phase_bounds(t, counts, roof_timed, roof_counts, card)
 
-    a_launches = {k: v["fused_solve"] for k, v in paths.items()}
+    def by_path(name):
+        return {k: v[name] for k, v in paths.items()}
+
+    def bound_keys(row):
+        r = bounds[row]
+        return {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "share": r["share"]}
+
     kernels = [
         {"name": "fused_solve", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/fused_solve.cu",
          "replaces": "ikpso_tpu/pso/fused.py:539",
          "launches": paths["obstacles"]["fused_solve"],
-         "launches_by_path": a_launches,
-         "variants_by_path": {k: v["fused_solve_variants"] for k, v in paths.items()},
+         "launches_by_path": by_path("fused_solve"),
+         "variants_by_path": by_path("fused_solve_variants"),
          "max_abs_err": max(a_err, a_obs_err),
          "ms": t["fused_solve_box_ms"], "plain_ms": t["fused_solve_box_plain_ms"],
+         **bound_keys("A box"), "library_ms": None,
          "timed_swarms": TIMING_SWARMS, "timed": "warm, 8 iterations, 4-box scene",
          "no_scene_ms": t["fused_solve_ms"], "no_scene_plain_ms": t["fused_solve_plain_ms"],
          "ms_at_headline_swarms": t["fused_solve_big_ms"],
-         "box_ms_at_headline_swarms": t["fused_solve_box_big_ms"]},
-        # Kernel B's device function runs inside every fused_solve launch;
-        # its standalone launcher is for checking and timing only.
+         "bound_at_headline_swarms": bound_keys("A headline, no scene"),
+         "box_ms_at_headline_swarms": t["fused_solve_box_big_ms"],
+         "headline_sol_frac": sol["sol_frac"]},
+        # Kernel B's device function runs inside every fused_solve and
+        # fused_fitness launch; its standalone launcher is for checking and
+        # timing only.
         {"name": "fk_fitness", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/fk_fitness.cuh",
          "replaces": "ikpso_tpu/ops/pallas_fitness.py:256",
          "branches": ["none", "box", "capsule"],
          "launches": paths["obstacles"]["fused_solve"],
-         "launches_by_path": a_launches,
+         "launches_by_path": by_path("fused_solve"),
          "standalone_launches": paths["obstacles"]["fk_fitness"],
-         "inlined_into": "fused_solve",
-         "max_abs_err": max(b_err, *b_obs_err.values()),
+         "inlined_into": ["fused_solve", "fused_fitness"],
+         "max_abs_err": max(b_err, *b_obs_err.values(), t_err["fk_fitness"],
+                            t_err["fk_fitness_box"], t_err["fk_fitness_capsule"]),
          "max_abs_err_by_branch": {"none": b_err, **b_obs_err},
+         "max_abs_err_at_timed_shape": {"none": t_err["fk_fitness"],
+                                        "box": t_err["fk_fitness_box"],
+                                        "capsule": t_err["fk_fitness_capsule"]},
          "ms": t["fk_fitness_box_ms"], "plain_ms": t["fk_fitness_box_plain_ms"],
+         **bound_keys("B box"), "library_ms": None,
          "ms_by_branch": {"none": t["fk_fitness_ms"], "box": t["fk_fitness_box_ms"],
                           "capsule": t["fk_fitness_capsule_ms"]},
          "plain_ms_by_branch": {"none": t["fk_fitness_plain_ms"],
                                 "box": t["fk_fitness_box_plain_ms"],
                                 "capsule": t["fk_fitness_capsule_plain_ms"]},
+         "bound_by_branch": {b: bound_keys(f"B {b}") for b in ("none", "box", "capsule")},
          "timed_swarms": TIMING_SWARMS},
+        {"name": "fused_fitness", "route": "cuda",
+         "source": "ikpso_tpu_torch/csrc/fused_fitness.cu",
+         "replaces": "ikpso_tpu/ops/pallas_fitness.py:482",
+         "launches": paths["scan"]["fused_fitness"],
+         "launches_by_path": by_path("fused_fitness"),
+         "max_abs_err": max(*c_err.values(), scan_err, t_err["fused_fitness"]),
+         "max_abs_err_by_branch": c_err,
+         "max_abs_err_at_scan_shape": t_err["fused_fitness"],
+         "ms": t["fused_fitness_ms"], "plain_ms": t["fused_fitness_plain_ms"],
+         **bound_keys("C scan path"), "library_ms": None,
+         "timed": f"S={SCAN_SWARMS}, D=9, P=1024, no scene"},
+        {"name": "roofline_body", "route": "cuda",
+         "source": "ikpso_tpu_torch/csrc/roofline.cu",
+         "replaces": "ikpso_tpu/utils/roofline.py:74",
+         "launches": paths["roofline"]["roofline_body"],
+         "launches_by_path": by_path("roofline_body"),
+         "max_abs_err": max(d_err.values()), "max_abs_err_by_body": d_err,
+         "ms": roof_timed["d_fma_ms"], "plain_ms": roof_timed["d_fma_plain_ms"],
+         **bound_keys("D fma"), "library_ms": None,
+         "timed": f"fma body, {D_TIMED[0]} elements, {D_TIMED[1]} steps"},
+        {"name": "philox_xor", "route": "cuda",
+         "source": "ikpso_tpu_torch/csrc/roofline.cu",
+         "replaces": "ikpso_tpu/utils/roofline.py:212",
+         "launches": paths["roofline"]["philox_xor"],
+         "launches_by_path": by_path("philox_xor"),
+         "max_abs_err": 0.0,
+         "ms": roof_timed["e_ms"], "plain_ms": roof_timed["e_plain_ms"],
+         **bound_keys("E"), "library_ms": roof_timed["e_library_ms"],
+         "library_call": "torch.rand of the same number of 32-bit draws",
+         "timed": f"{E_TIMED[0]} threads, {E_TIMED[1]} Philox calls each"},
     ]
+    return kernels
+
+
+def main() -> None:
+    card = phase_environment()
+    import torch
+
+    phase_build()
+    kernels = run_phases(torch.device("cuda", 0), card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,10 @@
 // Kernel B, standalone launcher: (S, P, D) angles -> (S, P) fitness.
 //
 // Evaluates the fk_fitness_eval device function (fk_fitness.cuh) with one
-// thread per particle, so the device function the fused solver inlines
-// can be checked and timed on its own against fk_fitness_plain. It is not
-// a port of the standalone Pallas kernel C
-// (ikpso_tpu/ops/pallas_fitness.py:fused_fitness), which takes a
-// (S, D, P) lane-major layout and waits for a later port.
+// thread per particle, so the device function kernels A and C inline can
+// be checked and timed on its own against fk_fitness_plain. The port of
+// the standalone Pallas kernel (ikpso_tpu/ops/pallas_fitness.py:
+// fused_fitness, lane-major (S, D, P)) is kernel C, fused_fitness.cu.
 //
 // Bound on this card: arithmetic (see fk_fitness.cuh); memory traffic is
 // D floats in and one float out per particle. Reads of x are D-strided

@@ -1,0 +1,85 @@
+// Kernel C: the standalone FK + fitness kernel, (S, D, P) angles -> (S, P).
+//
+// Replaces ikpso_tpu/ops/pallas_fitness.py:fused_fitness (body
+// _build_kernel, wrapper make_pallas_fitness): the fitness_fn of the scan
+// solver's impl="pallas" path, one evaluation of every particle per launch.
+//
+// Layout: one thread per particle. Thread p of swarm s reads x[s, d, p]
+// for d = 0..D-1, so for each d a warp reads 32 consecutive floats: the
+// lane-major layout the Pallas kernel takes, and the coalesced one here.
+// A swarm spans ceil(P / 256) blocks of 256 threads (any P; the Pallas
+// kernel's P % 1024 rule is a TPU tiling rule); the packed per-chain meta
+// and the swarm's constant row are read through the read-only cache.
+// The evaluation is kernel B's device function (fk_fitness.cuh), inlined
+// for every topology and collider instantiation of kernel B's launcher.
+//
+// Bound on this card: bytes without a scene (D + 1 floats per particle
+// against ~510 counted FP32 ops, under the ~20 ops/byte the card balances
+// at); the SAT / capsule arithmetic with one (PERF.md, kernel table). The
+// ~510 ops issue as unfused FMUL/FADD under -fmad=false (bit-identity with
+// the plain twin): at the scan shape ~0.26 ms of issue against a 0.20 ms
+// byte bound.
+#include <cuda_runtime.h>
+
+#include "fk_fitness.cuh"
+
+namespace ikpso {
+
+constexpr int kFitnessThreads = 256;
+
+template <class T, int C>
+__global__ void __launch_bounds__(kFitnessThreads) fused_fitness_kernel(
+    const float* __restrict__ x, const float* __restrict__ meta,
+    const float* __restrict__ swarm, int K, Scene scene, float* __restrict__ out,
+    int P, int blocks_per_swarm) {
+  constexpr int D = T::D;
+  const long long s = blockIdx.x / blocks_per_swarm;
+  const int p = (blockIdx.x % blocks_per_swarm) * kFitnessThreads + threadIdx.x;
+  if (p >= P) return;
+  const float* xs = x + s * D * P + p;
+  float xr[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) xr[d] = __ldg(xs + static_cast<long long>(d) * P);
+  out[s * P + p] = fk_fitness_eval<T, C>(xr, meta, swarm + s * K, scene);
+}
+
+template <class T, int C>
+static void launch_fused_fitness(const float* x, const float* meta, const float* swarm,
+                                 int K, Scene scene, float* out, int S, int P,
+                                 cudaStream_t stream) {
+  const int per_swarm = (P + kFitnessThreads - 1) / kFitnessThreads;
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(S) * per_swarm);
+  fused_fitness_kernel<T, C><<<blocks, kFitnessThreads, 0, stream>>>(
+      x, meta, swarm, K, scene, out, P, per_swarm);
+}
+
+}  // namespace ikpso
+
+extern "C" int ikpso_fused_fitness(int topo, int collider, int n_obs, float node_half,
+                                   float link_half, float node_r2, float link_r2,
+                                   const float* x, const float* meta, const float* swarm,
+                                   int K, float* out, int S, int P, void* stream) {
+  using namespace ikpso;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (S <= 0 || P <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_obs < 0 || static_cast<long long>(S) * ((P + kFitnessThreads - 1) / kFitnessThreads) >
+                       0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Scene scene{n_obs, node_half, link_half, node_r2, link_r2};
+#define IKPSO_LAUNCH(TOPO, C) \
+  launch_fused_fitness<TOPO, C>(x, meta, swarm, K, scene, out, S, P, st)
+  if (topo == 0 && collider == kNoCollider) {
+    IKPSO_LAUNCH(Arm7Dof, kNoCollider);
+  } else if (topo == 0 && collider == kBoxCollider) {
+    IKPSO_LAUNCH(Arm7Dof, kBoxCollider);
+  } else if (topo == 0 && collider == kCapsuleCollider) {
+    IKPSO_LAUNCH(Arm7Dof, kCapsuleCollider);
+  } else if (topo == 1 && collider == kNoCollider) {
+    IKPSO_LAUNCH(ReferenceArm, kNoCollider);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef IKPSO_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}

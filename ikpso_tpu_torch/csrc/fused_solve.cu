@@ -23,8 +23,9 @@
 // The winner writes its lbest to shared memory; everyone reads it after a
 // __syncthreads(). Two barriers per iteration.
 //
-// Random draws: Philox4x32-10 in registers, keyed by the swarm's two seed
-// words, counter (particle, draw slot, dof / 4, 0), output word dof % 4;
+// Random draws: Philox4x32-10 in registers (philox.cuh), keyed by the
+// swarm's two seed words, counter (particle, draw slot, dof / 4, 0),
+// output word dof % 4;
 // U = (bits >> 8) * 2^-24 on unsigned bits (pso/fused.py:87-96). The
 // mapping is defined in ikpso_tpu_torch/ops/philox.py, whose torch
 // Philox draws the same bits. Slots follow the TPU kernel's order: the
@@ -50,31 +51,12 @@
 #include <cstdint>
 
 #include "fk_fitness.cuh"
+#include "philox.cuh"
 
 namespace ikpso {
 
 // Init modes; ids must match INIT_MODES in ikpso_tpu_torch/pso/fused.py.
 enum InitMode : int { kInitWarm = 0, kInitUniform = 1, kInitHybrid = 2 };
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const unsigned lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float bits_to_uniform(unsigned b) {
-  return static_cast<float>(b >> 8) * 5.9604644775390625e-08f;  // 2^-24
-}
 
 // Uniforms of one draw slot for this particle, one per DOF.
 template <int D, bool REPLAY>

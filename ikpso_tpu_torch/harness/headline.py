@@ -60,8 +60,8 @@ def reachable_targets(spec, problem, swarms: int, generator: torch.Generator):
     ]
 
 
-def build_headline_solver(spec, swarms: int, device):
-    """The preset's solver: fused PSO + polish + top-k retries."""
+def headline_configs():
+    """The preset and its base solve's PSO and fitness settings."""
     pre = fused_preset(MODEL)
     pso = PSOConfig(
         iterations=pre.iterations, inertia_mode="canonical",
@@ -70,6 +70,12 @@ def build_headline_solver(spec, swarms: int, device):
     )
     fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0,
                         orientation_weight=0.0)
+    return pre, pso, fit
+
+
+def build_headline_solver(spec, swarms: int, device):
+    """The preset's solver: fused PSO + polish + top-k retries."""
+    pre, pso, fit = headline_configs()
 
     def build(pso_cfg):
         solver = make_fused_solver(spec, pso=pso_cfg, fit=fit,
@@ -116,6 +122,32 @@ def run_headline(swarms: int = None, device="cuda", seed: int = 0,
         failures_ge_1mm=int((err_mm >= 1.0).sum()),
         finite=bool(np.isfinite(err_mm).all()),
     )
+
+
+def headline_sol(swarms: int = None, device="cuda", seed: int = 0) -> dict:
+    """Speed-of-light fraction of kernel A's loop on the headline batch,
+    the twin of ``bench.py:659-715``: kernel A alone (no polish, no
+    retries) at the preset's I and at 3I iterations; half the
+    difference is the wall of I loop iterations, and
+    ``sol_frac = bound / wall`` with the bound of their counted work
+    (``utils.roofline.speed_of_light_seconds``: published peaks, never a
+    measured rate, so the fraction cannot pass 1)."""
+    from ikpso_tpu_torch.utils import roofline
+
+    device = torch.device(device)
+    pre, pso, fit = headline_configs()
+    swarms = swarms or pre.swarms
+    spec, problem = library.arm_7dof(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batched = library.batched_problem(
+        problem, reachable_targets(spec, problem, swarms, gen))
+    wall, count = roofline.megakernel_slope(spec, batched, pso, fit,
+                                            particles=pre.particles, device=device,
+                                            seed=seed)
+    t_sol, bound_by = roofline.speed_of_light_seconds(count)
+    return dict(swarms=swarms, particles=pre.particles, iterations=pso.iterations,
+                kernel_wall_s=wall, counted_ops=count.ops, ops_per_s=count.ops / wall,
+                bound_s=t_sol, bound_by=bound_by, sol_frac=t_sol / wall)
 
 
 def main(argv=None) -> None:

@@ -1,26 +1,32 @@
-"""Fused FK + fitness: the plain torch tile and kernel B's wrapper.
+"""Fused FK + fitness: the plain torch tile and the wrappers of kernels B and C.
 
-Port of ``ikpso_tpu/ops/pallas_fitness.py`` (renamed: the kernel here
-is CUDA, not Pallas). It holds the tile arithmetic the fused solver
+Port of ``ikpso_tpu/ops/pallas_fitness.py`` (renamed: the kernels here
+are CUDA, not Pallas). It holds the tile arithmetic the fused solver
 inlines — ``sincos_poly`` (``_sincos``), ``rot_xyz`` (``_rot_xyz``),
 ``mat_mul`` (``_mat_mul``), the collider bodies ``sat_obb``
 (``_sat_obb``), ``point_obb_dist2_tile`` and ``seg_obb_dist2_tile`` —
 the packed-constant layout (``MetaLayout``, ``pack_meta``,
-``pack_swarm``), and the two versions of ``fk_fitness_tile`` over an
-``(S, P, D)`` angle tensor:
+``pack_swarm``), and two kernels with their plain versions:
 
-  * ``fk_fitness_plain`` — plain torch, op for op the Pallas tile body;
-  * ``fk_fitness`` — kernel B (``csrc/fk_fitness.cuh`` device function
-    + ``csrc/fk_fitness.cu`` launcher) on CUDA tensors, the plain
-    version on CPU tensors.
+  * ``fk_fitness_tile`` over an ``(S, P, D)`` angle tensor:
+    ``fk_fitness_plain`` (plain torch, op for op the Pallas tile body)
+    and ``fk_fitness`` — kernel B (``csrc/fk_fitness.cuh`` device
+    function + ``csrc/fk_fitness.cu`` launcher);
+  * ``fused_fitness`` over the lane-major ``(S, D, P)`` layout:
+    ``fused_fitness_plain`` and ``fused_fitness`` — kernel C
+    (``csrc/fused_fitness.cu``, inlining kernel B's device function),
+    with ``make_kernel_fitness``, the scan solver's ``fitness_fn``
+    (``make_pallas_fitness``).
+
+Each kernel wrapper runs its plain version on CPU tensors and launches
+the kernel (or raises) on CUDA tensors.
 
 Supported in this port: the FK tree walk, polynomial trig, the weighted
 effector cost, the angular-locality term and obstacle rejection (box
 SAT or capsule colliders against the scene boxes packed into ``meta``;
 a hit costs ``COLLISION_PENALTY``). The node-position (distance) term,
 the orientation term and ``trig_impl="exact"`` raise (ROADMAP queue B
-item 2). The standalone fitness kernel C (``fused_fitness`` /
-``make_pallas_fitness``) is not ported yet.
+item 2).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, Obstacles
+from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.ops.fitness import COLLISION_PENALTY, FitnessConfig
 from ikpso_tpu_torch.ops.collision import SAT_EPS, SEGMENT_OBB_ITERATIONS
 from ikpso_tpu_torch.ops.rotations import euler_xyz_to_matrix
@@ -98,11 +105,13 @@ def mat_mul(a, b):
     )
 
 
-def sat_obb(px, py, pz, rot, half, oc, oh, orot):
-    """Do the particle boxes (center p, rotation ``rot`` 9-tuple, half
-    extents ``half``) overlap one scene box (center ``oc``, half ``oh``,
-    rotation rows ``orot``)? The 15-axis SAT in the Pallas tile's op
-    order (``_sat_obb``); returns a bool tensor."""
+def sat_separations(px, py, pz, rot, half, oc, oh, orot):
+    """The 15 separating-axis tests of a particle box (center p,
+    rotation ``rot`` 9-tuple, half extents ``half``) against one scene
+    box (center ``oc``, half ``oh``, rotation rows ``orot``), yielded one
+    by one in the Pallas tile's op order (``_sat_obb``): the setup runs
+    before the first. The kernels stop at the first true one
+    (``utils/flops.py`` counts the work that way)."""
     c = [rot[i] * orot[0][j] + rot[3 + i] * orot[1][j] + rot[6 + i] * orot[2][j]
          for i in range(3) for j in range(3)]
     dx, dy, dz = oc[0] - px, oc[1] - py, oc[2] - pz
@@ -111,18 +120,13 @@ def sat_obb(px, py, pz, rot, half, oc, oh, orot):
          rot[2] * dx + rot[5] * dy + rot[8] * dz)
     ac = [torch.abs(v) + SAT_EPS for v in c]
     a, b = half, oh
-    sep = None
-
-    def acc(hit):
-        return hit if sep is None else sep | hit
-
     for i in range(3):
         rb = b[0] * ac[i * 3] + b[1] * ac[i * 3 + 1] + b[2] * ac[i * 3 + 2]
-        sep = acc(torch.abs(t[i]) > a[i] + rb)
+        yield torch.abs(t[i]) > a[i] + rb
     for j in range(3):
         ra = a[0] * ac[j] + a[1] * ac[3 + j] + a[2] * ac[6 + j]
         proj = t[0] * c[j] + t[1] * c[3 + j] + t[2] * c[6 + j]
-        sep = acc(torch.abs(proj) > ra + b[j])
+        yield torch.abs(proj) > ra + b[j]
     for i in range(3):
         i1, i2 = (i + 1) % 3, (i + 2) % 3
         for j in range(3):
@@ -130,7 +134,15 @@ def sat_obb(px, py, pz, rot, half, oc, oh, orot):
             ra = a[i1] * ac[i2 * 3 + j] + a[i2] * ac[i1 * 3 + j]
             rb = b[j1] * ac[i * 3 + j2] + b[j2] * ac[i * 3 + j1]
             lhs = torch.abs(t[i2] * c[i1 * 3 + j] - t[i1] * c[i2 * 3 + j])
-            sep = acc(lhs > ra + rb)
+            yield lhs > ra + rb
+
+
+def sat_obb(px, py, pz, rot, half, oc, oh, orot):
+    """Do the particle boxes overlap one scene box? The OR of
+    :func:`sat_separations`, negated; returns a bool tensor."""
+    sep = None
+    for hit in sat_separations(px, py, pz, rot, half, oc, oh, orot):
+        sep = hit if sep is None else sep | hit
     return ~sep
 
 
@@ -318,17 +330,11 @@ def _stack_nodes(per_node):
                  for vals in zip(*per_node))
 
 
-def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw, *, obstacles=None,
-                    collision_shape: str = "box", gizmo_size: float = 0.2):
-    """FK rollout + cost for a tile of particles (plain torch).
-
-    ``get_x(d)`` returns the angle tile of DOF ``d``; ``meta(i)`` /
-    ``sw(i)`` read the packed per-chain / per-swarm constants, shaped
-    to broadcast against the tile; ``obstacles`` is the ``(C, 15)``
-    scene block of meta, or None. Same arithmetic, in the same order,
-    as ``ikpso_tpu/ops/pallas_fitness.py::fk_fitness_tile`` and the
-    CUDA device function ``fk_fitness_eval`` (``csrc/fk_fitness.cuh``).
-    """
+def fk_walk_tile(spec: ChainSpec, get_x, meta, sw):
+    """The FK walk and the collision-free cost of a tile (plain torch):
+    returns ``(rots, poss, total)``, the per-node world rotations
+    (9-tuples) and positions (3-tuples) keyed by node, and the cost.
+    Arguments as :func:`fk_fitness_tile`."""
     n = spec.num_nodes
     num_joints = n - 1
     eff_slot = {e: i for i, e in enumerate(spec.effector_idx)}
@@ -363,11 +369,26 @@ def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw, *, obstacles=None,
             ey = pk[1] - sw(lay.OFF_TGT + 3 * e + 1)
             ez = pk[2] - sw(lay.OFF_TGT + 3 * e + 2)
             cost = cost + w * (ex * ex + ey * ey + ez * ez)
-    total = cost + (aw / num_joints) * rot_diff
+    return rots, poss, cost + (aw / num_joints) * rot_diff
+
+
+def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw, *, obstacles=None,
+                    collision_shape: str = "box", gizmo_size: float = 0.2):
+    """FK rollout + cost for a tile of particles (plain torch).
+
+    ``get_x(d)`` returns the angle tile of DOF ``d``; ``meta(i)`` /
+    ``sw(i)`` read the packed per-chain / per-swarm constants, shaped
+    to broadcast against the tile; ``obstacles`` is the ``(C, 15)``
+    scene block of meta, or None. Same arithmetic, in the same order,
+    as ``ikpso_tpu/ops/pallas_fitness.py::fk_fitness_tile`` and the
+    CUDA device function ``fk_fitness_eval`` (``csrc/fk_fitness.cuh``).
+    """
+    rots, poss, total = fk_walk_tile(spec, get_x, meta, sw)
     if obstacles is not None:
         # The hit test reads only FK outputs, so all nodes are tested in
         # one pass after the walk (the OR of the per-node hits).
-        nodes = range(1, n)
+        lay = MetaLayout(spec)
+        nodes = range(1, spec.num_nodes)
         hit = _tile_hits(
             _stack_nodes([poss[k] for k in nodes]),
             _stack_nodes([poss[spec.parent[k]] for k in nodes]),
@@ -407,6 +428,20 @@ def fk_fitness_plain(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
     )
 
 
+def _launch_args(name, spec, x, meta, swarm, num_obstacles, collision_shape):
+    """Check what a kernel launch is handed (device, dtype, contiguity)
+    and pick its instantiation: ``(topology id, collider id, flat meta)``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    for arg, t in (("x", x), ("meta", meta), ("swarm", swarm)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be float32")
+    meta = meta.reshape(-1)
+    kernels.require_cuda_contiguous(name, x, meta, swarm)
+    return (kernels.topology_id(spec),
+            kernels.collider_id(spec, num_obstacles, collision_shape), meta)
+
+
 def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
                swarm: torch.Tensor, *, num_obstacles: int = 0,
                collision_shape: str = "box", gizmo_size: float = 0.2,
@@ -426,19 +461,12 @@ def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
         return fk_fitness_plain(spec, x, meta, swarm, num_obstacles=num_obstacles,
                                 collision_shape=collision_shape,
                                 gizmo_size=gizmo_size)
-    if x.device.type != "cuda":
-        raise ValueError(f"fk_fitness: unsupported device {x.device}")
     s, p, d = x.shape
     if d != spec.dof or swarm.shape[0] != s:
         raise ValueError(f"fk_fitness: shapes x {tuple(x.shape)}, swarm "
                          f"{tuple(swarm.shape)} do not match dof {spec.dof}")
-    for name, t in (("x", x), ("meta", meta), ("swarm", swarm)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"fk_fitness: {name} must be float32")
-    topo = kernels.topology_id(spec)
-    collider = kernels.collider_id(spec, num_obstacles, collision_shape)
-    meta = meta.reshape(-1)
-    kernels.require_cuda_contiguous("fk_fitness", x, meta, swarm)
+    topo, collider, meta = _launch_args("fk_fitness", spec, x, meta, swarm,
+                                        num_obstacles, collision_shape)
     out = torch.empty((s, p), dtype=torch.float32, device=x.device)
     rc = kernels.library().ikpso_fk_fitness(
         topo, collider, num_obstacles, *scene_constants(gizmo_size),
@@ -451,3 +479,94 @@ def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
 
 
 fk_fitness.launches = 0
+
+
+def _check_lane_major(spec, x_dp, swarm):
+    if x_dp.dim() != 3 or x_dp.shape[1] != spec.dof or swarm.shape[0] != x_dp.shape[0]:
+        raise ValueError(f"fused_fitness: shapes x_dp {tuple(x_dp.shape)}, swarm "
+                         f"{tuple(swarm.shape)} do not match (S, {spec.dof}, P)")
+
+
+def fused_fitness_plain(spec: ChainSpec, x_dp: torch.Tensor, meta: torch.Tensor,
+                        swarm: torch.Tensor, *, num_obstacles: int = 0,
+                        collision_shape: str = "box", gizmo_size: float = 0.2,
+                        use_distance_term: bool = False,
+                        use_orientation: bool = False,
+                        trig_impl: str = "poly") -> torch.Tensor:
+    """``(S, D, P)`` lane-major angles -> ``(S, P)`` fitness, plain torch:
+    :func:`fk_fitness_plain` on the ``(S, P, D)`` view of the same
+    elements, so the arithmetic is the tile's."""
+    _check_lane_major(spec, x_dp, swarm)
+    return fk_fitness_plain(spec, x_dp.transpose(1, 2), meta, swarm,
+                            num_obstacles=num_obstacles, collision_shape=collision_shape,
+                            gizmo_size=gizmo_size, use_distance_term=use_distance_term,
+                            use_orientation=use_orientation, trig_impl=trig_impl)
+
+
+def fused_fitness(spec: ChainSpec, x_dp: torch.Tensor, meta: torch.Tensor,
+                  swarm: torch.Tensor, *, num_obstacles: int = 0,
+                  collision_shape: str = "box", gizmo_size: float = 0.2,
+                  use_distance_term: bool = False,
+                  use_orientation: bool = False,
+                  trig_impl: str = "poly") -> torch.Tensor:
+    """Kernel C: ``(S, D, P)`` angles -> ``(S, P)`` fitness, any P.
+
+    A CPU tensor runs :func:`fused_fitness_plain`; a CUDA tensor launches
+    the kernel (one thread per particle) or raises.
+    """
+    _refuse_unported(use_distance_term=use_distance_term,
+                     use_orientation=use_orientation, trig_impl=trig_impl,
+                     collision_shape=collision_shape)
+    check_meta(spec, meta, num_obstacles)
+    _check_lane_major(spec, x_dp, swarm)
+    if x_dp.device.type == "cpu":
+        return fused_fitness_plain(spec, x_dp, meta, swarm, num_obstacles=num_obstacles,
+                                   collision_shape=collision_shape,
+                                   gizmo_size=gizmo_size)
+    topo, collider, meta = _launch_args("fused_fitness", spec, x_dp, meta, swarm,
+                                        num_obstacles, collision_shape)
+    s, _, p = x_dp.shape
+    out = torch.empty((s, p), dtype=torch.float32, device=x_dp.device)
+    rc = kernels.library().ikpso_fused_fitness(
+        topo, collider, num_obstacles, *scene_constants(gizmo_size),
+        x_dp.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
+        out.data_ptr(), s, p, kernels.stream_ptr(x_dp.device),
+    )
+    kernels.check(rc, "fused_fitness")
+    fused_fitness.launches += 1
+    return out
+
+
+fused_fitness.launches = 0
+
+
+def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
+                        fit: FitnessConfig = FitnessConfig(),
+                        obstacles: Obstacles = None):
+    """A scan-solver ``fitness_fn`` backed by kernel C
+    (``make_pallas_fitness``): takes ``(S, P, D)``, transposes to the
+    lane-major ``(S, D, P)`` and calls :func:`fused_fitness`. The
+    per-chain and per-swarm constants are packed once, here."""
+    num_obstacles = 0 if obstacles is None else obstacles.count
+    if num_obstacles and fit.collision_backend == "gjk":
+        raise NotImplementedError(
+            "collision_backend='gjk' is plain-torch only: the kernels fuse only "
+            "the closed-form backend ('sat'; exact for both collision shapes). "
+            "Use the plain fitness for GJK (ROADMAP queue A item 9), or "
+            "collision_backend='sat' here."
+        )
+    use_distance = float(fit.distance_weight) != 0.0
+    use_orientation = (problem.target_rot is not None
+                       and float(fit.orientation_weight) != 0.0)
+    _refuse_unported(use_distance_term=use_distance, use_orientation=use_orientation,
+                     trig_impl=fit.trig_impl, collision_shape=fit.collision_shape)
+    meta = pack_meta(spec, fit, obstacles).to(problem.pose.device)
+    swarm = pack_swarm(spec, problem, fk_ops.pose_to_angles(spec, problem.pose),
+                       fk_ops.fk_points(spec, problem.pose, problem.origin))
+
+    def fitness_fn(x: torch.Tensor) -> torch.Tensor:
+        return fused_fitness(spec, x.transpose(-1, -2).contiguous(), meta, swarm,
+                        num_obstacles=num_obstacles, collision_shape=fit.collision_shape,
+                        gizmo_size=fit.gizmo_size)
+
+    return fitness_fn

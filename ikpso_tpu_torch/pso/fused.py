@@ -29,7 +29,7 @@ then ``(u_c, u_s)`` per iteration.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -131,11 +131,14 @@ def fused_solve_plain(
     num_particles: int,
     uniforms: Optional[torch.Tensor] = None,
     num_obstacles: int = 0,
+    observe: Optional[Callable[[torch.Tensor], None]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused solve on ``(S, P, D)`` tensors; returns ``(gbest (S, D),
     gval (S,))``. Same update order and rounding as kernel A; gbest is
     ``torch.argmin``, whose first-occurrence rule sends ties (at
-    ``COLLISION_PENALTY`` too) to the lowest particle id."""
+    ``COLLISION_PENALTY`` too) to the lowest particle id. ``observe``,
+    if given, sees every ``(S, P, D)`` position tensor the solve
+    evaluates (``utils/flops.py`` counts the collider work on them)."""
     check_supported(pso, fit, num_obstacles)
     _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms)
     s, d, p = swarm.shape[0], spec.dof, num_particles
@@ -146,6 +149,8 @@ def fused_solve_plain(
         return philox_uniform(seeds, slot, p, d)
 
     def fitness_of(x):
+        if observe is not None:
+            observe(x)
         return fk_fitness_plain(spec, x, meta, swarm, num_obstacles=num_obstacles,
                                 collision_shape=fit.collision_shape,
                                 gizmo_size=fit.gizmo_size)

@@ -1,15 +1,40 @@
-"""Solve results.
+"""The PSO scan solver over the full ``(S, P, D)`` state.
 
-Port of ``ikpso_tpu/pso/solver.py::SolveResult`` only. The scan solver
-(``init_swarm``, ``pso_iteration``, ``make_solver``) waits for ROADMAP
-queue A item 4.
+Port of ``ikpso_tpu/pso/solver.py`` (``SolveResult``, ``_swarm_argmin``,
+``pso_iteration``, ``init_swarm``, ``solve``, ``solve_single``,
+``make_solver``). The JAX ``lax.scan`` over iterations is a Python loop
+of plain torch ops; the fitness is the plain ``ops.fitness.fitness``
+unless the caller passes a ``fitness_fn`` -- kernel C's
+``ops.fitness_kernel.make_kernel_fitness`` is the ``impl="pallas"``
+path of ``bench.py``. The cross-device ``gbest_reduce`` and
+``vary_axes`` wait for ``parallel/`` (ROADMAP queue A item 12).
+
+Random draws: U[0, 1) float32 from ``torch.rand`` on the caller's
+``torch.Generator``, in the JAX package's order -- the init position
+block (uniform / hybrid init only), the init velocity block, then one
+``(n, S, P, D)`` block per iteration: ``(u_w, u_c, u_s)`` with
+randomized inertia, ``(u_c, u_s)`` with canonical inertia, plus one
+re-kick block when ``rekick_interval > 0``. ``ScanDraws`` injects those
+blocks instead (the test hook, as kernel A's ``uniforms`` replay input);
+every draw maps to its range exactly as ``jax.random.uniform`` maps its
+U[0, 1) floats (``u * (max - min) + min``, floored at ``min``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+
+from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, Obstacles
+from ikpso_tpu_torch.ops import fk as fk_ops
+from ikpso_tpu_torch.ops.fitness import FitnessConfig, fitness, true_effector_error
+from ikpso_tpu_torch.ops.fitness_kernel import TWO_PI
+from ikpso_tpu_torch.pso.config import PSOConfig
+
+FitnessFn = Callable[[torch.Tensor], torch.Tensor]  # (S, P, D) -> (S, P)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,8 +46,9 @@ class SolveResult:
       fitness: ``(S,)`` global-best fitness values.
       pose: ``(S, N, 3)`` the problem pose with the solution's joint rows.
       effector_error: ``(S,)`` summed Euclidean effector error.
-      trace: ``(T, S)`` global-best fitness history (one row for the
-        fused solver: the final value).
+      trace: ``(T, S)`` global-best fitness history: after init and
+        after each iteration for the scan solver, the final value alone
+        for the fused solver.
     """
 
     angles: torch.Tensor
@@ -30,3 +56,192 @@ class SolveResult:
     pose: torch.Tensor
     effector_error: torch.Tensor
     trace: torch.Tensor
+
+
+class ScanDraws(NamedTuple):
+    """Injected U[0, 1) draws of one solve: ``position`` ``(S, P, D)``
+    (None for warm init), ``velocity`` ``(S, P, D)`` and ``steps``
+    ``(iterations, n, S, P, D)`` (n from :func:`draws_per_iteration`)."""
+
+    position: Optional[torch.Tensor]
+    velocity: torch.Tensor
+    steps: torch.Tensor
+
+
+def draws_per_iteration(pso: PSOConfig) -> int:
+    """Uniform blocks one iteration draws."""
+    return (3 if pso.inertia_mode == "randomized" else 2) + (pso.rekick_interval > 0)
+
+
+def _uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=generator.device,
+                      dtype=torch.float32).to(device)
+
+
+def _scale(u: torch.Tensor, lo, hi) -> torch.Tensor:
+    """``jax.random.uniform``'s map of U[0, 1) floats onto ``[lo, hi)``."""
+    return torch.clamp_min(u * (hi - lo) + lo, lo)
+
+
+def inertia_at(pso: PSOConfig, iteration: int) -> float:
+    """``PSOConfig.inertia_at`` in float32 arithmetic, as the JAX scan
+    body evaluates it on a traced iteration counter."""
+    if pso.inertia_end < 0.0:
+        return pso.inertia
+    frac = np.float32(iteration) / np.float32(max(pso.iterations - 1, 1))
+    return float(np.float32(pso.inertia)
+                 + np.float32(pso.inertia_end - pso.inertia) * frac)
+
+
+def _swarm_argmin(values: torch.Tensor, coords: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-swarm best: values (S, P), coords (S, P, D) -> (S,), (S, D).
+    ``torch.argmin`` returns the first minimum, as ``jnp.argmin``."""
+    idx = torch.argmin(values, dim=-1)
+    best_val = torch.take_along_dim(values, idx[:, None], dim=-1)[:, 0]
+    best_coords = torch.take_along_dim(coords, idx[:, None, None], dim=-2)[:, 0, :]
+    return best_val, best_coords
+
+
+def pso_iteration(x, v, lbest, lbest_val, gbest, gbest_val, u: torch.Tensor,
+                  fitness_fn: FitnessFn, lo, hi, pso: PSOConfig, iteration: int = 0):
+    """One PSO step over the full (S, P, D) state; ``u`` is the
+    iteration's ``(n, S, P, D)`` block of U[0, 1) draws."""
+    randomized = pso.inertia_mode == "randomized"
+    u_c, u_s = (u[1], u[2]) if randomized else (u[0], u[1])
+    if pso.rekick_interval > 0 and iteration > 0 and iteration % pso.rekick_interval == 0:
+        # Overwrite the inertia memory with a fresh init-style draw; with
+        # a threshold, only swarms whose gbest is above it are kicked.
+        kicked = (u[-1] * 2.0 - 1.0) * pso.rekick_scale
+        if pso.rekick_threshold >= 0.0:
+            kicked = torch.where((gbest_val > pso.rekick_threshold)[:, None, None],
+                                 kicked, v)
+        v = kicked
+    # Randomized: v = w*U()*v + c1*U()*(lbest-x) + c2*U()*(gbest-x).
+    inertia = pso.inertia * u[0] * v if randomized else inertia_at(pso, iteration) * v
+    v = (inertia + pso.cognitive * u_c * (lbest - x)
+         + pso.social * u_s * (gbest[:, None, :] - x))
+    # Integrate, then clamp per axis to the joint limits; the velocity
+    # stays unclamped, as in the reference.
+    x = torch.clamp(x + v, lo, hi)
+
+    f = fitness_fn(x)
+    improved = f < lbest_val
+    lbest_val = torch.where(improved, f, lbest_val)
+    lbest = torch.where(improved[..., None], x, lbest)
+
+    cand_val, cand = _swarm_argmin(lbest_val, lbest)
+    better = cand_val < gbest_val
+    gbest_val = torch.where(better, cand_val, gbest_val)
+    gbest = torch.where(better[:, None], cand, gbest)
+    return x, v, lbest, lbest_val, gbest, gbest_val
+
+
+def init_swarm(generator: Optional[torch.Generator], anchor_angles: torch.Tensor,
+               num_particles: int, fitness_fn: FitnessFn, pso: PSOConfig,
+               limits: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+               uniforms: Optional[Tuple[Optional[torch.Tensor], torch.Tensor]] = None):
+    """Swarm init: ``"warm"`` starts every particle at the anchor pose,
+    ``"uniform"`` over the joint range (``limits``, cut to +-2 pi),
+    ``"hybrid"`` uniform with particle 0 warm; velocities are uniform in
+    ``[-init_velocity_scale, init_velocity_scale)``. ``uniforms`` is the
+    ``(position, velocity)`` pair of injected U[0, 1) blocks."""
+    s, d = anchor_angles.shape
+    shape = (s, num_particles, d)
+    dev = anchor_angles.device
+    u_x, u_v = uniforms if uniforms is not None else (None, None)
+    if pso.init_mode in ("uniform", "hybrid"):
+        if limits is None:
+            raise ValueError(f"init_mode={pso.init_mode!r} requires joint limits")
+        lo = torch.clamp_min(limits[0], -TWO_PI)
+        hi = torch.clamp_max(limits[1], TWO_PI)
+        if u_x is None:
+            u_x = _uniform(generator, shape, dev)
+        x = _scale(u_x, lo, hi)
+        if pso.init_mode == "hybrid":
+            x[:, 0, :] = anchor_angles
+    else:
+        x = anchor_angles[:, None, :].expand(shape)
+    if u_v is None:
+        u_v = _uniform(generator, shape, dev)
+    scale = float(np.float32(pso.init_velocity_scale))
+    v = _scale(u_v, -scale, scale)
+    lbest = x
+    lbest_val = fitness_fn(x)
+    gbest_val, gbest = _swarm_argmin(lbest_val, lbest)
+    return x, v, lbest, lbest_val, gbest, gbest_val
+
+
+def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generator],
+          pso: PSOConfig = PSOConfig(), fit: FitnessConfig = FitnessConfig(),
+          obstacles: Optional[Obstacles] = None, num_particles: int = 1024,
+          fitness_fn: Optional[FitnessFn] = None,
+          uniforms: Optional[ScanDraws] = None) -> SolveResult:
+    """Solve a batch of IK problems (one leading swarm axis) with PSO.
+
+    ``fitness_fn`` overrides the plain fitness (e.g. kernel C's
+    ``make_kernel_fitness``); ``uniforms`` replaces the generator.
+    """
+    anchor_angles = fk_ops.pose_to_angles(spec, problem.pose)
+    if anchor_angles.dim() != 2:
+        raise ValueError(
+            "solve() expects a single leading swarm axis; got pose shape "
+            f"{tuple(problem.pose.shape)}. Use solve_single() for unbatched problems."
+        )
+    if uniforms is None and generator is None:
+        raise ValueError("solve() needs a generator or injected uniforms")
+    if fitness_fn is None:
+        anchor_positions = fk_ops.fk_points(spec, problem.pose, problem.origin)
+
+        def fitness_fn(x):
+            return fitness(spec, x, problem, fit, obstacles=obstacles,
+                           anchor_angles=anchor_angles,
+                           anchor_positions=anchor_positions)
+
+    lo, hi = spec.limits().to(anchor_angles.device)
+    state = init_swarm(generator, anchor_angles, num_particles, fitness_fn, pso,
+                       limits=(lo, hi),
+                       uniforms=None if uniforms is None
+                       else (uniforms.position, uniforms.velocity))
+    trace = [state[5]]
+    n = draws_per_iteration(pso)
+    for it in range(pso.iterations):
+        u = (uniforms.steps[it] if uniforms is not None
+             else _uniform(generator, (n,) + tuple(state[0].shape), anchor_angles.device))
+        state = pso_iteration(*state, u, fitness_fn, lo, hi, pso, iteration=it)
+        trace.append(state[5])
+    gbest, gbest_val = state[4], state[5]
+    solved_pose = fk_ops.angles_to_pose(spec, problem.pose[..., 0, :], gbest)
+    return SolveResult(
+        angles=gbest,
+        fitness=gbest_val,
+        pose=solved_pose,
+        effector_error=true_effector_error(spec, solved_pose, problem),
+        trace=torch.stack(trace),
+    )
+
+
+def solve_single(spec: ChainSpec, problem: IKProblem,
+                 generator: Optional[torch.Generator], **kwargs) -> SolveResult:
+    """Solve one unbatched IK problem (adds and strips the swarm axis)."""
+    batched = IKProblem(
+        pose=problem.pose[None], origin=problem.origin[None],
+        targets=problem.targets[None],
+        target_rot=None if problem.target_rot is None else problem.target_rot[None],
+    )
+    res = solve(spec, batched, generator, **kwargs)
+    fields = (getattr(res, f.name) for f in dataclasses.fields(res))
+    return SolveResult(*(t[0] if t.shape[0] == 1 else t[:, 0] for t in fields))
+
+
+def make_solver(spec: ChainSpec, pso: PSOConfig = PSOConfig(),
+                fit: FitnessConfig = FitnessConfig(),
+                obstacles: Optional[Obstacles] = None, num_particles: int = 1024,
+                fitness_fn: Optional[FitnessFn] = None):
+    """A ``(problem, generator) -> SolveResult`` closure over :func:`solve`."""
+
+    def _solve(problem: IKProblem, generator: torch.Generator) -> SolveResult:
+        return solve(spec, problem, generator, pso=pso, fit=fit, obstacles=obstacles,
+                     num_particles=num_particles, fitness_fn=fitness_fn)
+
+    return _solve

@@ -44,10 +44,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
-SOURCES = ("fused_solve.cu", "fk_fitness.cu")
+SOURCES = ("fused_solve.cu", "fk_fitness.cu", "fused_fitness.cu", "roofline.cu")
 
 # (num_nodes, packed parents, effector bit mask) -> id; must match the
-# instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm).
+# instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm), which
+# the launchers of kernels A, B and C all instantiate.
 KERNEL_TOPOLOGIES = {
     (4, 0x2100, 0x8): 0,  # arm_7dof: serial 3 links, effector node 3
     (8, 0x44432100, 0xE0): 1,  # reference_arm: 4 elbows + 3 effector children
@@ -188,6 +189,19 @@ def library() -> ctypes.CDLL:
         _I, _I, _VP,  # S, P, stream
     ]
     lib.ikpso_fused_solve.restype = _I
+    lib.ikpso_fused_fitness.argtypes = [
+        _I, _I, *scene,  # topology id, collider id, scene
+        _VP, _VP, _VP, _I, _VP, _I, _I, _VP,  # x, meta, swarm, K, out, S, P, stream
+    ]
+    lib.ikpso_fused_fitness.restype = _I
+    lib.ikpso_roofline_body.argtypes = [
+        _I, _VP, _VP, ctypes.c_longlong, _I, _I, _I, _VP,  # body, x, out, n, steps, grid
+    ]
+    lib.ikpso_roofline_body.restype = _I
+    lib.ikpso_philox_xor.argtypes = [
+        ctypes.c_uint, ctypes.c_uint, _VP, ctypes.c_longlong, _I, _VP,  # key, out, n, steps
+    ]
+    lib.ikpso_philox_xor.restype = _I
     return lib
 
 

@@ -292,3 +292,92 @@ def test_sincos_poly_rounds_half_to_even():
 
 def test_collision_penalty_is_float32_max():
     assert COLLISION_PENALTY == np.finfo(np.float32).max
+
+
+def _kernel_c_case(shape, rng, s=2, p=1024):
+    """arm_7dof, (S, P) random in-limit angles and, unless ``shape`` is
+    "none", the tests/test_pallas.py scene, for both packages."""
+    spec_j, batched_j = _batched_case("arm_7dof", s, rng)
+    obs_j = None if shape == "none" else JObstacles.from_boxes(**PALLAS_SCENE)
+    fit_j = JFit(angle_weight=1.0, collision_shape="box" if shape == "none" else shape)
+    return spec_j, batched_j, obs_j, fit_j, _angles(spec_j, (s, p), rng)
+
+
+def _assert_kernel_c_match(got, want, shape):
+    if shape == "none":
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        _assert_scene_match(got, want, 1e-5, 1e-6)
+
+
+@pytest.mark.parametrize("shape", ["none", *SHAPES])
+def test_fused_fitness_plain_matches_interpreted_pallas_kernel(shape):
+    # Kernel C's plain twin against JAX fused_fitness in interpret mode on
+    # the lane-major (S, D, P) = (2, 9, 1024) layout.
+    from ikpso_tpu_torch.ops.fitness_kernel import fused_fitness_plain
+
+    rng = np.random.default_rng(18)
+    spec_j, batched_j, obs_j, fit_j, x = _kernel_c_case(shape, rng)
+    n_obs = 0 if obs_j is None else obs_j.count
+    anchor = jfk.pose_to_angles(spec_j, batched_j.pose)
+    swarm_j = _pack_swarm(spec_j, batched_j, anchor,
+                          jfk.fk_points(spec_j, batched_j.pose, batched_j.origin))
+    x_dp = np.ascontiguousarray(np.swapaxes(x, -1, -2))
+    want = fused_fitness(spec_j, jnp.asarray(x_dp), _pack_meta(spec_j, fit_j, obs_j), swarm_j,
+                         num_obstacles=n_obs, collision_shape=fit_j.collision_shape,
+                         interpret=pltpu.InterpretParams())
+    spec = convert.chain_spec_from(spec_j)
+    obs = None if obs_j is None else convert.obstacles_from(obs_j)
+    meta = pack_meta(spec, convert.fitness_config_from(fit_j), obs)
+    np.testing.assert_array_equal(meta.numpy(), np.asarray(_pack_meta(spec_j, fit_j, obs_j)))
+    # The same packed swarm row on both sides (the two FKs that pack it
+    # differ in the last bit): the tile arithmetic alone is compared.
+    got = fused_fitness_plain(spec, torch.as_tensor(x_dp), meta,
+                              torch.as_tensor(np.asarray(swarm_j)), num_obstacles=n_obs,
+                              collision_shape=fit_j.collision_shape)
+    _assert_kernel_c_match(got.numpy(), np.asarray(want), shape)
+
+
+@pytest.mark.parametrize("shape", ["none", *SHAPES])
+def test_make_kernel_fitness_matches_make_pallas_fitness(shape):
+    # The scan solver's fitness_fn on its (S, P, D) layout, both sides
+    # packing their constants once at closure build.
+    from ikpso_tpu_torch.ops.fitness_kernel import fused_fitness as kernel_c
+    from ikpso_tpu_torch.ops.fitness_kernel import make_kernel_fitness
+
+    rng = np.random.default_rng(19)
+    spec_j, batched_j, obs_j, fit_j, x = _kernel_c_case(shape, rng)
+    want = make_pallas_fitness(spec_j, batched_j, fit=fit_j, obstacles=obs_j,
+                               interpret=True)(jnp.asarray(x))
+    spec = convert.chain_spec_from(spec_j)
+    fn = make_kernel_fitness(spec, convert.problem_from(batched_j),
+                             convert.fitness_config_from(fit_j),
+                             None if obs_j is None else convert.obstacles_from(obs_j))
+    before = kernel_c.launches
+    got = fn(torch.as_tensor(x))
+    assert kernel_c.launches == before  # a CPU tensor runs the plain twin
+    _assert_kernel_c_match(got.numpy(), np.asarray(want), shape)
+
+
+def test_make_kernel_fitness_refuses_gjk():
+    from ikpso_tpu_torch.ops.fitness_kernel import make_kernel_fitness
+
+    spec_j, problem_j = jlib.arm_7dof()
+    spec = convert.chain_spec_from(spec_j)
+    obs = convert.obstacles_from(JObstacles.from_boxes(**PALLAS_SCENE))
+    problem = convert.problem_from(jlib.batched_problem(problem_j, problem_j.targets[None]))
+    with pytest.raises(NotImplementedError, match="gjk"):
+        make_kernel_fitness(spec, problem, FitnessConfig(collision_backend="gjk"), obs)
+    # Without a scene the backend is never used, as in make_pallas_fitness.
+    make_kernel_fitness(spec, problem, FitnessConfig(collision_backend="gjk"))
+
+
+def test_fused_fitness_checks_its_layout():
+    from ikpso_tpu_torch.ops.fitness_kernel import fused_fitness as kernel_c
+
+    spec = convert.chain_spec_from(jlib.arm_7dof()[0])
+    meta = torch.zeros(1, 6)
+    with pytest.raises(ValueError, match=r"\(S, 9, P\)"):
+        kernel_c(spec, torch.zeros(2, 1000, 9), meta, torch.zeros(2, 30))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernel_c(spec, torch.zeros(2, 9, 8), meta, torch.zeros(2, 30), use_orientation=True)

@@ -1,0 +1,325 @@
+"""The port's op model (ikpso_tpu_torch.utils.flops) against the JAX
+package's (ikpso_tpu/utils/flops.py), and the roofline's plain kernels
+(ikpso_tpu_torch.utils.roofline) against numpy statements of their
+recurrences (ikpso_tpu/utils/roofline.py:151-205; the JAX versions run
+only as timed Pallas calls).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from ikpso_tpu.models import library as jlib
+from ikpso_tpu.models.chain import Obstacles as JObstacles
+from ikpso_tpu.ops.fitness import FitnessConfig as JFit
+from ikpso_tpu.pso.config import PSOConfig as JPSO
+from ikpso_tpu.utils import flops as jflops
+from ikpso_tpu_torch.models import convert
+from ikpso_tpu_torch.ops.fitness_kernel import (
+    MetaLayout,
+    pack_meta,
+    pack_swarm,
+    sat_separations,
+)
+from ikpso_tpu_torch.ops import fk as fk_ops
+from ikpso_tpu_torch.ops.philox import MASK32
+from ikpso_tpu_torch.utils import flops, roofline
+
+SPEC_J = jlib.arm_7dof()[0]
+SPEC = convert.chain_spec_from(SPEC_J)
+
+
+@pytest.mark.parametrize("shape,n_obs,tol", [
+    ("box", 0, 0.0),
+    # JAX shares the link box's center across a node's obstacles and
+    # seeds each SAT's OR with zeros (+1 op); the port charges the
+    # center per pair, as the kernels compute it: +0.6%.
+    ("box", 4, 0.02),
+    # JAX charges node 1's box-frame transform of its parent (the root,
+    # a per-swarm scalar) once per tile; the port per particle, as the
+    # kernels do, and its point test recomputes p - c per axis: +1.7%.
+    ("capsule", 4, 0.02),
+])
+def test_fitness_tile_count_matches_jax(shape, n_obs, tol):
+    fit_j = JFit(angle_weight=0.0, distance_weight=0.0, collision_shape=shape)
+    want = jflops.fitness_tile_count(SPEC_J, fit_j, num_obstacles=n_obs)
+    got = flops.fitness_tile_count(SPEC, convert.fitness_config_from(fit_j),
+                                   num_obstacles=n_obs)
+    assert got.flops == pytest.approx(want.flops, rel=tol, abs=0.0 if tol else 1e-9)
+    assert got.transcendentals == want.transcendentals == 0.0
+
+
+@pytest.mark.parametrize("mode", ["randomized", "canonical"])
+def test_pso_update_count_matches_jax(mode):
+    pso_j = JPSO(inertia_mode=mode)
+    want = jflops.pso_update_count(SPEC_J, pso_j)
+    got = flops.pso_update_count(SPEC, convert.pso_config_from(pso_j))
+    assert (got.flops, got.rng_elems) == (want.flops, want.rng_elems)
+
+
+def test_fused_solve_count_shares_jax_fitness_and_update():
+    # Fitness evaluations and updates are the shared design; the TPU's
+    # roll-tree gbest gives way to kernel A's warp-butterfly argmin, and
+    # the port adds the init and the Philox integer operations.
+    s, p = 4096, 1024
+    pso_j = JPSO(iterations=8, inertia_mode="canonical", inertia_end=0.2)
+    fit_j = JFit(angle_weight=0.0, distance_weight=0.0)
+    pso = convert.pso_config_from(pso_j)
+    want = jflops.fused_solve_count(SPEC_J, pso_j, fit_j, num_particles=p, num_swarms=s)
+    got = flops.fused_solve_count(SPEC, pso, convert.fitness_config_from(fit_j),
+                                  num_particles=p, num_swarms=s)
+    it, d = pso.iterations, SPEC.dof
+    gbest_j = jflops.gbest_broadcast_count(d, p // 128, 1).flops * (it + 2)
+    port_only = (it + 1) * flops.argmin_count(p).flops + 6.0 * d
+    assert got.flops / (s * p) - port_only == pytest.approx(
+        want.flops / (s * p) - gbest_j, rel=1e-12)
+    assert got.rng_elems / (s * p) - d == want.rng_elems / (s * p)
+    # Philox: 63 ops per call of each of the 3 groups of every draw slot;
+    # once per thread, the group's fixed work (12 for g = 0, 14 for
+    # g = 1, 2) and the key schedule.
+    assert got.int_ops == s * p * ((1 + 2 * it) * 3 * 63 + 12 + 2 * 14 + 18)
+
+
+@pytest.mark.parametrize("counter,want", [
+    # Every word changes: the full 10 rounds of 2 products and 2 XORs
+    # (4 + 4 ops), nothing fixed.
+    ((flops.CALL,) * 4, (80.0, 0.0)),
+    # Kernel E's (t, k, 0, 0). Per call: round 1 the XOR with k (1);
+    # round 2 the product of the changing word and one XOR (3); round 3
+    # a product and two XORs with a fixed operand (4); round 4 two
+    # products, a two-changing XOR and one more (7); rounds 5-10 all 8
+    # (48). Per thread: the products of t and the words it fixes (12).
+    ((flops.THREAD, flops.CALL, flops.ZERO, flops.ZERO), (63.0, 12.0)),
+    # Kernel A's (particle, slot, g, 0) for g > 0: the product of g folds
+    # at compile time; XORing its result into the fixed words costs 2
+    # more per thread.
+    ((flops.THREAD, flops.CALL, flops.CONST, flops.ZERO), (63.0, 14.0)),
+    # Nothing changes: all work once per thread; rounds 1 and 2 skip the
+    # zero words (3 + 7), rounds 3-10 do all 8 (64).
+    ((flops.THREAD, flops.ZERO, flops.ZERO, flops.ZERO), (0.0, 74.0)),
+])
+def test_philox_call_ops_charges_fixed_work_once_per_thread(counter, want):
+    assert flops.philox_call_ops(counter) == want
+
+
+def test_bytes_count_each_input_once_and_each_output_once():
+    s, p, n_obs = 64, 128, 4
+    lay = MetaLayout(SPEC, n_obs)
+    fit = convert.fitness_config_from(JFit())
+    c = flops.fitness_kernel_count(SPEC, fit, num_swarms=s, num_particles=p,
+                                   num_obstacles=n_obs, collider_ops=123.0)
+    d = SPEC.dof
+    assert c.bytes == 4 * (s * p * d + s * lay.swarm_size + lay.meta_size + s * p)
+    base = flops.fitness_kernel_count(SPEC, fit, num_swarms=s, num_particles=p)
+    assert c.flops - 123.0 == pytest.approx(base.flops)
+    pso = convert.pso_config_from(JPSO(iterations=5, inertia_mode="canonical"))
+    a = flops.fused_solve_count(SPEC, pso, fit, num_particles=p, num_swarms=s)
+    lay0 = MetaLayout(SPEC)
+    # In: meta, swarm rows, limits, seeds, the inertia schedule; out: gbest, gval.
+    assert a.bytes == 4 * (lay0.meta_size + s * lay0.swarm_size + 2 * d + 2 * s + 5
+                           + s * (d + 1))
+
+
+def test_bound_takes_the_larger_term():
+    peaks = roofline.PUBLISHED_PEAKS
+    ops = flops.FlopCount(flops=67e12, int_ops=67e12, bytes=3.35e12)
+    assert roofline.speed_of_light_seconds(ops) == (pytest.approx(2.0), "operations")
+    byt = flops.FlopCount(flops=67e9, bytes=3 * 3.35e12)
+    assert roofline.speed_of_light_seconds(byt) == (pytest.approx(3.0), "bytes")
+    assert peaks == {"fp32_ops_per_s": 67e12, "hbm_bytes_per_s": 3.35e12}
+
+
+def _kernel_order_work(x, meta, swarm, shape, n_obs):
+    """Collider ops of each particle, one at a time, in the device
+    function's order (csrc/fk_fitness.cuh: node_hits, sat_obb)."""
+    from ikpso_tpu_torch.ops.fitness_kernel import (
+        fk_walk_tile,
+        point_obb_dist2_tile,
+        scene_constants,
+        seg_obb_dist2_tile,
+    )
+
+    node_half, link_half, node_r2, link_r2 = scene_constants(0.2)
+    prefix = flops._sat_prefix_costs()
+    point_cost, seg_cost = flops._capsule_costs()
+    lay = MetaLayout(SPEC)
+    m = meta.reshape(-1)
+    total = 0.0
+    for i in range(x.shape[1]):
+        xi = x[:, i:i + 1]
+        rots, poss, _ = fk_walk_tile(SPEC, lambda d: xi[..., d], lambda j: m[j],
+                                     lambda j: swarm[:, j:j + 1])
+        hit = False
+        for k in range(1, SPEC.num_nodes):
+            if hit:
+                break
+            pk, rk, pp = poss[k], rots[k], poss[SPEC.parent[k]]
+            length = m[lay.OFF_LEN + k - 1]
+            for o in range(n_obs):
+                ob = m[lay.OFF_OBS + 15 * o:lay.OFF_OBS + 15 * (o + 1)]
+                oc, oh = tuple(ob[:3]), tuple(ob[3:6])
+                orot = tuple(tuple(ob[6 + 3 * r + c] for c in range(3)) for r in range(3))
+                if shape == "capsule":
+                    total += point_cost
+                    if bool(point_obb_dist2_tile(pk, oc, oh, orot) <= node_r2):
+                        hit = True
+                        break
+                    total += seg_cost
+                    if bool(seg_obb_dist2_tile(pp, pk, oc, oh, orot) <= link_r2):
+                        hit = True
+                        break
+                    continue
+                boxes = ((pk, (node_half,) * 3),
+                         (tuple((pk[j] + pp[j]) * 0.5 for j in range(3)),
+                          (length * 0.5, link_half, link_half)))
+                for n, (center, half) in enumerate(boxes):
+                    total += flops.LINK_BOX_SETUP if n else 0.0
+                    for axis, sep in enumerate(sat_separations(*center, rk, half, oc, oh,
+                                                               orot)):
+                        if bool(sep):
+                            total += prefix[axis]
+                            break
+                    else:
+                        total += prefix[-1]
+                        hit = True
+                        break
+                if hit:
+                    break
+    return total
+
+
+@pytest.mark.parametrize("shape", ["box", "capsule"])
+def test_collider_work_counts_what_the_kernel_evaluates(shape):
+    rng = np.random.default_rng(40)
+    spec_j, problem_j = jlib.arm_7dof()
+    obs = convert.obstacles_from(JObstacles.from_boxes(
+        [(1.0, 0.5, 0.0), (-0.6, -0.6, 0.3)], [(1.2, 1.2, 1.2), (0.8, 0.8, 0.8)],
+        [(0.0, 0.0, 0.0, 1.0), (0.0, 0.0, 0.383, 0.924)]))
+    problem = convert.problem_from(jlib.batched_problem(problem_j, problem_j.targets[None]))
+    fit = dataclasses.replace(convert.fitness_config_from(JFit()), collision_shape=shape)
+    meta = pack_meta(SPEC, fit, obs)
+    swarm = pack_swarm(SPEC, problem, fk_ops.pose_to_angles(SPEC, problem.pose),
+                       fk_ops.fk_points(SPEC, problem.pose, problem.origin))
+    lim = SPEC.limits().numpy()
+    x = torch.as_tensor((lim[0] + rng.random((1, 48, SPEC.dof)) * (lim[1] - lim[0]))
+                        .astype(np.float32))
+    got = flops.collider_work(SPEC, x, meta, swarm, num_obstacles=obs.count,
+                              collision_shape=shape, chunk=16)
+    assert got == _kernel_order_work(x, meta, swarm, shape, obs.count)
+    full = (flops.fitness_tile_count(SPEC, fit, num_obstacles=obs.count).flops
+            - flops.fitness_tile_count(SPEC, fit).flops) * x.shape[1]
+    assert 0 < got < full
+
+
+def test_fused_solve_collider_work_follows_the_plain_trajectory():
+    rng = np.random.default_rng(41)
+    spec_j, problem_j = jlib.arm_7dof()
+    obs = convert.obstacles_from(JObstacles.from_boxes([(1.0, 0.5, 0.0)], [(1.2, 1.2, 1.2)]))
+    problem = convert.problem_from(jlib.batched_problem(
+        problem_j, np.repeat(np.asarray(problem_j.targets)[None], 2, 0)))
+    fit = dataclasses.replace(convert.fitness_config_from(JFit(angle_weight=0.0)),
+                              collision_shape="box")
+    pso = convert.pso_config_from(JPSO(iterations=2, inertia_mode="canonical",
+                                       init_mode="uniform"))
+    meta = pack_meta(SPEC, fit, obs)
+    swarm = pack_swarm(SPEC, problem, fk_ops.pose_to_angles(SPEC, problem.pose),
+                       fk_ops.fk_points(SPEC, problem.pose, problem.origin))
+    seeds = torch.as_tensor(rng.integers(-2**31, 2**31, (2, 2)).astype(np.int32))
+    work = flops.fused_solve_collider_work(SPEC, pso, fit, meta, swarm, SPEC.limits(),
+                                           seeds, 32, num_obstacles=1)
+    per_eval = (flops.fitness_tile_count(SPEC, fit, num_obstacles=1).flops
+                - flops.fitness_tile_count(SPEC, fit).flops)
+    assert 0 < work < 3 * 2 * 32 * per_eval  # 3 evaluations of 2 x 32 particles
+
+
+def _np_fma(a, b, c):
+    return (a.astype(np.float64) * b.astype(np.float64) + c).astype(np.float32)
+
+
+def _np_body(body, x, steps):
+    """The recurrences of ikpso_tpu/utils/roofline.py:151-205 in numpy
+    float32, the FMA body as one rounding per step (fmaf)."""
+    f = np.float32
+    if body == "fma":
+        a, b, c = x, x * f(0.5) + f(0.1), x * f(0.25) + f(0.2)
+        for _ in range(steps):
+            a = _np_fma(a, b, 0.5)
+            b = _np_fma(b, c, 0.5)
+            c = _np_fma(c, a, 0.5)
+        return a + b + c
+    if body == "compose":
+        def mm(a, b):
+            return [a[3 * i] * b[j] + a[3 * i + 1] * b[3 + j] + a[3 * i + 2] * b[6 + j]
+                    for i in range(3) for j in range(3)]
+
+        a = [x * f(0.1 * (i + 1)) for i in range(9)]
+        b = [x * f(0.05 * (i + 1)) + f(0.1) for i in range(9)]
+        for _ in range(steps):
+            a = mm(a, b)
+            b = mm(b, a)
+        acc = a[0]
+        for t in a[1:] + b:
+            acc = acc + t
+        return acc
+    for _ in range(steps):
+        x = np.sin(x)
+    return x
+
+
+@pytest.mark.parametrize("body", sorted(roofline.BODIES))
+def test_roofline_bodies_match_numpy(body):
+    x = np.linspace(0.1, 0.9, 4096, dtype=np.float32)
+    before = roofline.roofline_body.launches
+    got = roofline.roofline_body(body, torch.as_tensor(x), 4).numpy()
+    want = _np_body(body, x, 4)
+    assert roofline.roofline_body.launches == before  # CPU: the plain twin ran
+    assert np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6 if body == "sin" else 0, atol=0)
+
+
+def _philox_py(c, k):
+    """Philox4x32-10 on Python ints (Salmon et al., SC'11)."""
+    c, k = list(c), list(k)
+    for r in range(10):
+        if r:
+            k = [(k[0] + 0x9E3779B9) & MASK32, (k[1] + 0xBB67AE85) & MASK32]
+        p0, p1 = 0xD2511F53 * c[0], 0xCD9E8D57 * c[2]
+        c = [(p1 >> 32) ^ c[1] ^ k[0], p1 & MASK32, (p0 >> 32) ^ c[3] ^ k[1], p0 & MASK32]
+    return c
+
+
+def test_philox_xor_matches_python_statement():
+    key, n, steps = (0x12345678, 0xFFFFFFF0), 8, 3
+    before = roofline.philox_xor.launches
+    got = roofline.philox_xor(key, n, steps, "cpu").numpy().astype(np.int64) & MASK32
+    assert roofline.philox_xor.launches == before
+    for t in range(n):
+        acc = 0
+        for k in range(steps):
+            w = _philox_py((t, k, 0, 0), key)
+            acc ^= w[0] ^ w[1] ^ w[2] ^ w[3]
+        assert got[t] == acc
+
+
+def test_roofline_counts():
+    c = roofline.roofline_body_count("compose", 1000, 10)
+    assert (c.flops, c.bytes) == (1000 * (90 * 10 + 44), 8000)
+    e = roofline.philox_xor_count(1000, 10)
+    # Per step 63 Philox ops and 4 XORs; per thread 12 + the key schedule.
+    assert (e.int_ops, e.rng_elems, e.bytes) == (1000 * (10 * 67 + 30), 40000, 4000)
+    with pytest.raises(ValueError, match="body"):
+        roofline.roofline_body("tan", torch.zeros(4), 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        roofline.measure_fma_peak(device="cpu")
+
+
+def test_measure_hands_each_call_its_own_inputs():
+    from ikpso_tpu_torch.utils.profiling import measure
+
+    seen = []
+    result, seconds = measure(lambda a: seen.append(a) or a, 0, device="cpu", warmup=2,
+                              iters=3, vary=lambda i, args: (args[0] + i,))
+    assert seen == [3, 4, 0, 1, 2]  # warm-ups take the indices above the timed range
+    assert result == 2 and seconds >= 0.0

@@ -19,6 +19,13 @@
     targets under 1 mm, feasible share 0.957, 0 colliding solutions,
     ~11 s. Bar: p50 < 1 mm, >= 99% under 1 mm, no colliding solution,
     feasible share in [0.90, 0.99].
+(e) The scan slice (``harness/scan.py``, bench.py --impl pallas): the
+    whole solve on the CPU at S=64, P=1,024, 60 randomized iterations,
+    kernel C's plain twin as the fitness. Observed on an 8-core CPU
+    (seed 0): p50 0.00026 mm, 0.9375 under 1 mm, 4 failures, ~1.2 s.
+    JAX on its own targets (``bench.py --cpu --impl jnp``) reads 0.8979
+    under 1 mm over 1,792 swarms; the bar sits 4 binomial deviations at
+    S=64 below it: >= 0.75 under 1 mm, p50 < 1 mm.
 """
 
 import ast
@@ -40,6 +47,7 @@ from ikpso_tpu.ops import fk as jfk
 from ikpso_tpu.ops.collision import get_chain_collider as j_collider
 from ikpso_tpu_torch.harness.headline import run_headline
 from ikpso_tpu_torch.harness.obstacles import obstacle_scene, pose_collides, run_obstacles
+from ikpso_tpu_torch.harness.scan import run_scan
 from ikpso_tpu_torch.models import convert
 from ikpso_tpu_torch.pso.fused import fused_solve_plain, num_draws
 from ikpso_tpu_torch.pso.polish import polish_angles
@@ -140,6 +148,21 @@ def test_obstacle_slice_refuses_unknown_collision_shape():
     with pytest.raises(ValueError):
         run_obstacles(swarms=8, device="cpu", collision_shape="sphere", iters=1,
                       warmup=0)
+
+
+def test_scan_slice_on_cpu_reaches_accuracy_class():
+    out = run_scan(swarms=64, device="cpu", seed=0, warmup=0, iters=1)
+    assert out["finite"] and out["device"] == "cpu" and out["impl"] == "kernel"
+    assert (out["particles"], out["iterations"]) == (1024, 60)
+    assert out["fused_fitness_launches"] == 0  # CPU tensors: the plain twin ran
+    assert out["p50_err_mm"] < 1.0
+    assert out["frac_under_1mm"] >= 0.75
+    assert out["failures_ge_1mm"] == round((1 - out["frac_under_1mm"]) * 64)
+
+
+def test_scan_slice_refuses_absent_gpu():
+    with pytest.raises(RuntimeError, match="no GPU"):
+        run_scan(swarms=2, device="cuda")
 
 
 def _imports(path):
