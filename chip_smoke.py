@@ -3,15 +3,18 @@
 
 Builds the port's CUDA kernels from ``ikpso_tpu_torch/csrc``, checks each
 against its plain torch version on the card (kernel B with and without a
-scene, kernel A in replay with every init mode and collider, kernel C
-with every collider and the scan solve through it in replay), drives the
-main paths through their entry points -- the 7-DOF headline solve
-(``harness.headline.run_headline``, S=1,048,576), the 7-DOF
-obstacle-scene solve (``harness.obstacles.run_obstacles``, S=524,288 with
-box colliders, S=65,536 with capsules), the scan solver on kernel C
-(``harness.scan.run_scan``, S=16,384, P=1,024, 60 iterations) and the
-roofline (``utils.roofline``: kernels D and E, the kernel C and kernel A
-rates, the headline's ``sol_frac``) -- with the launch counts read
+scene and with the orientation term, kernel A in replay with every init
+mode, collider, inertia mode, re-kick and gbest interval and with
+orientation, kernel C with every collider and orientation and the scan
+solve through it in replay), drives the main paths through their entry
+points -- the 7-DOF headline solve (``harness.headline.run_headline``,
+S=1,048,576), the 7-DOF obstacle-scene solve
+(``harness.obstacles.run_obstacles``, S=524,288 with box colliders,
+S=65,536 with capsules), the 6-DOF position + orientation solve
+(``harness.orientation.run_orientation``, S=262,144), the scan solver on
+kernel C (``harness.scan.run_scan``, S=16,384, P=1,024, 60 iterations)
+and the roofline (``utils.roofline``: kernels D and E, the kernel C and
+kernel A rates, the headline's ``sol_frac``) -- with the launch counts read
 around each, times kernel/plain pairs and holds every kernel's time
 against its bound (``bounds``). Every phase prints one JSON line; any
 failure raises and the script exits non-zero. The last line is
@@ -39,6 +42,11 @@ FK_RTOL, FK_ATOL = 1e-5, 1e-6
 HEADLINE_SWARMS = 1_048_576  # the arm_7dof preset's batch
 OBSTACLE_SWARMS = 524_288  # bench.py --obstacles 4 --swarms 524288
 CAPSULE_SWARMS = 65_536  # the capsule pipeline, cut to stay inside the time limit
+ORIENTATION_SWARMS = 262_144  # the arm_6dof preset's batch
+# JAX's record of the orientation row (bench_records/r2_sweep.jsonl, r2-orient3;
+# taken on a TPU, quoted for accuracy only): 100.00% under 1 mm, p90 0.028 deg.
+JAX_ORIENTATION = {"frac_under_1mm": 1.0, "p90_orient_err_deg": 0.028}
+ORIENT_P90_DEG_BAR = 0.1
 # JAX on its own targets (bench_records/r5_sweep.jsonl r5-obst-r3recipe-decay1,
 # r5-capsule): the feasible share of the scene.
 JAX_FEASIBLE = {"box": 0.9456, "capsule": 0.9572}
@@ -75,6 +83,13 @@ def run(cmd) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"{cmd[0]} failed: {proc.stderr.strip()}")
     return proc.stdout.strip()
+
+
+def card_clocks() -> str:
+    """SM clock, its maximum, power draw and temperature of GPU 0 now, as
+    ``nvidia-smi`` reports them (sampled beside the timed windows)."""
+    return run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+                "temperature.gpu", "--format=csv,noheader"]).splitlines()[0]
 
 
 def cuda_time(fn, reps: int, warmup: int = 1):
@@ -200,11 +215,13 @@ def phase_build():
          library=lib.name, kernels=ptxas_report(log))
 
 
-def _problem(name, swarms, rng, device):
+def _problem(name, swarms, rng, device, orientation=False):
     """A batched problem with reachable targets (FK of random in-limit
-    angles) made from a seeded numpy generator."""
+    angles) made from a seeded numpy generator; with ``orientation``, the
+    generating poses' effector rotations are the target rotations."""
     import torch
 
+    from ikpso_tpu_torch.harness.orientation import orientation_targets
     from ikpso_tpu_torch.models import library
     from ikpso_tpu_torch.ops import fk as fk_ops
 
@@ -213,18 +230,21 @@ def _problem(name, swarms, rng, device):
     ang = lim[0] + rng.random((swarms, spec.dof)) * (lim[1] - lim[0])
     ang = torch.as_tensor(ang.astype("float32"), device=device)
     pose = fk_ops.angles_to_pose(spec, problem.pose[0].expand(swarms, 3), ang)
+    if orientation:
+        targets, target_rot = orientation_targets(spec, problem, pose)
+        return spec, library.batched_problem(problem, targets, target_rot=target_rot)
     targets = fk_ops.fk_points(spec, pose, problem.origin)[:, list(spec.effector_idx)]
     return spec, library.batched_problem(problem, targets)
 
 
-def _packed(spec, batched, fit, obstacles=None):
+def _packed(spec, batched, fit, obstacles=None, use_orientation=False):
     from ikpso_tpu_torch.ops import fk as fk_ops
     from ikpso_tpu_torch.ops.fitness_kernel import pack_meta, pack_swarm
     from ikpso_tpu_torch.pso.polish_soa import anchor_positions_flat
 
-    meta = pack_meta(spec, fit, obstacles)
+    meta = pack_meta(spec, fit, obstacles, use_orientation)
     swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
-                       anchor_positions_flat(spec, batched))
+                       anchor_positions_flat(spec, batched), use_orientation)
     return meta, swarm
 
 
@@ -257,16 +277,16 @@ def phase_fk_fitness(device, swarms=4096, particles=128):
 
 
 def _compare_solve(tag, spec, pso, fit, meta, swarm, seeds, particles, uniforms,
-                   num_obstacles=0, bitwise=False, **extra):
+                   num_obstacles=0, bitwise=False, use_orientation=False, **extra):
     import torch
 
     from ikpso_tpu_torch.pso.fused import fused_solve, fused_solve_plain
 
     limits = spec.limits()
-    gk, vk = fused_solve(spec, pso, fit, meta, swarm, limits, seeds, particles,
-                         uniforms=uniforms, num_obstacles=num_obstacles)
-    gp, vp = fused_solve_plain(spec, pso, fit, meta, swarm, limits, seeds, particles,
-                               uniforms=uniforms, num_obstacles=num_obstacles)
+    kw = dict(uniforms=uniforms, num_obstacles=num_obstacles,
+              use_orientation=use_orientation)
+    gk, vk = fused_solve(spec, pso, fit, meta, swarm, limits, seeds, particles, **kw)
+    gp, vp = fused_solve_plain(spec, pso, fit, meta, swarm, limits, seeds, particles, **kw)
     torch.cuda.synchronize()
     g_err = float((gk - gp).abs().max())
     # Values at the collision penalty compare by equality, not difference.
@@ -281,6 +301,9 @@ def _compare_solve(tag, spec, pso, fit, meta, swarm, seeds, particles, uniforms,
               and (equal or not bitwise))
     emit(tag, model=spec_name(spec), swarms=swarm.shape[0], particles=particles,
          iterations=pso.iterations, init_mode=pso.init_mode, obstacles=num_obstacles,
+         inertia_mode=pso.inertia_mode, gbest_interval=pso.gbest_interval,
+         rekick_interval=pso.rekick_interval, rekick_threshold=pso.rekick_threshold,
+         orientation=use_orientation,
          gbest_max_abs_err=g_err, gval_max_abs_err=v_err, bitwise_equal=equal,
          bar="bit-identical" if bitwise else f"atol {REPLAY_ATOL}, rtol {REPLAY_RTOL}",
          **extra, ok=ok)
@@ -290,7 +313,8 @@ def _compare_solve(tag, spec, pso, fit, meta, swarm, seeds, particles, uniforms,
 
 
 def spec_name(spec):
-    return {4: "arm_7dof", 8: "reference_arm"}.get(spec.num_nodes, str(spec.parent))
+    return {3: "arm_6dof", 4: "arm_7dof", 8: "reference_arm"}.get(spec.num_nodes,
+                                                                  str(spec.parent))
 
 
 def _headline_configs():
@@ -381,6 +405,107 @@ def phase_fused_philox(device, swarms=1024, particles=128):
         device=device)
     return _compare_solve("fused_philox_vs_plain", spec, pso, fit, meta, swarm,
                           seeds, particles, None)
+
+
+def _orientation_configs(iterations=None):
+    """The orientation path's base PSO and fitness settings, at
+    ``iterations`` if given."""
+    import dataclasses
+
+    from ikpso_tpu_torch.harness.orientation import orientation_configs
+
+    _, pso, fit = orientation_configs()
+    return dataclasses.replace(pso, iterations=iterations or pso.iterations), fit
+
+
+def phase_fk_fitness_orientation(device, swarms=TIMING_SWARMS, particles=128):
+    """Kernel B's orientation branch on arm_6dof against fk_fitness_plain:
+    equal values bit for bit."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.ops.fitness import FitnessConfig
+    from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness, fk_fitness_plain
+
+    rng = np.random.default_rng(11)
+    spec, batched = _problem("arm_6dof", swarms, rng, device, orientation=True)
+    fit = FitnessConfig(angle_weight=3.0, orientation_weight=1.0)
+    meta, swarm = _packed(spec, batched, fit, use_orientation=True)
+    lim = spec.limits().cpu().numpy()
+    x = lim[0] + rng.random((swarms, particles, spec.dof)) * (lim[1] - lim[0])
+    x = torch.as_tensor(x.astype("float32"), device=device)
+    got = fk_fitness(spec, x, meta, swarm, use_orientation=True)
+    want = fk_fitness_plain(spec, x, meta, swarm, use_orientation=True)
+    torch.cuda.synchronize()
+    err = check_fitness("fk_fitness_orientation", got, want, exact=True)
+    emit("fk_fitness_orientation", model="arm_6dof", swarms=swarms, particles=particles,
+         max_abs_err=err, bitwise_equal=bool(torch.equal(got, want)),
+         bar="max abs error 0.0", ok=True)
+    return err
+
+
+# Kernel A's branch replays: (tag, model, orientation, PSOConfig fields over
+# the headline's canonical 8-iteration config).
+BRANCH_CASES = (
+    ("rekick", "arm_7dof", False, dict(rekick_interval=4, rekick_scale=0.5)),
+    ("rekick_threshold", "arm_7dof", False,
+     dict(rekick_interval=4, rekick_scale=0.5, rekick_threshold=1e-6)),
+    # A threshold that splits the swarms: some kicked, some not.
+    ("rekick_threshold_split", "arm_7dof", False,
+     dict(rekick_interval=4, rekick_scale=0.5, rekick_threshold=1e-2)),
+    ("randomized", "arm_7dof", False, dict(inertia_mode="randomized", inertia_end=-1.0)),
+    ("randomized_rekick", "arm_7dof", False,
+     dict(inertia_mode="randomized", inertia_end=-1.0, rekick_interval=4,
+          rekick_scale=0.5)),
+    ("gbest_interval", "arm_7dof", False, dict(gbest_interval=2)),
+    ("arm_6dof_orientation", "arm_6dof", True,
+     dict(init_mode="uniform", rekick_interval=4, rekick_scale=0.5, rekick_threshold=1e-6)),
+)
+
+
+def phase_fused_branch_replay(device, swarms=1024, particles=128):
+    """Kernel A's randomized-inertia, gbest-interval, re-kick and
+    orientation branches against fused_solve_plain on the same injected
+    uniforms, bit for bit; then the arm_6dof case on the live Philox
+    stream, bit for bit."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.ops.fitness import FitnessConfig
+    from ikpso_tpu_torch.pso.fused import fused_solve_plain, num_draws
+
+    pso0, fit0 = _headline_configs()
+    worst = 0.0
+    for tag, name, orient, fields in BRANCH_CASES:
+        rng = np.random.default_rng(12)
+        spec, batched = _problem(name, swarms, rng, device, orientation=orient)
+        pso = dataclasses.replace(pso0, **fields)
+        fit = dataclasses.replace(fit0, orientation_weight=1.0 if orient else 0.0)
+        meta, swarm = _packed(spec, batched, fit, use_orientation=orient)
+        u = torch.as_tensor(rng.random((swarms, num_draws(pso), spec.dof, particles),
+                                       dtype=np.float32), device=device)
+        seeds = torch.zeros((swarms, 2), dtype=torch.int32, device=device)
+        kicked = []
+        fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, particles,
+                          uniforms=u, use_orientation=orient,
+                          on_kick=lambda k: kicked.append(int(k.sum())))
+        worst = max(worst, _compare_solve(
+            "fused_branch_replay", spec, pso, fit, meta, swarm, seeds, particles, u,
+            bitwise=True, use_orientation=orient, case=tag, kicked_per_block=kicked))
+    rng = np.random.default_rng(13)
+    spec, batched = _problem("arm_6dof", swarms, rng, device, orientation=True)
+    pso = dataclasses.replace(pso0, **BRANCH_CASES[-1][3])
+    fit = FitnessConfig(angle_weight=0.0, distance_weight=0.0, orientation_weight=1.0)
+    meta, swarm = _packed(spec, batched, fit, use_orientation=True)
+    seeds = torch.as_tensor(
+        rng.integers(-2**31, 2**31, (swarms, 2), dtype=np.int64).astype(np.int32),
+        device=device)
+    worst = max(worst, _compare_solve(
+        "fused_branch_philox", spec, pso, fit, meta, swarm, seeds, particles, None,
+        bitwise=True, use_orientation=True, case="arm_6dof_orientation"))
+    return worst
 
 
 def _scene(spec, device):
@@ -507,18 +632,20 @@ def phase_fused_fitness(device, swarms=64, particles=1024):
 
     errs = {}
     for shape, p in (("none", particles), ("box", particles), ("capsule", particles),
-                     ("none", 1000)):
+                     ("orientation", particles), ("none", 1000)):
         rng = np.random.default_rng(9)
-        spec, batched = _problem("arm_7dof", swarms, rng, device)
-        obs = None if shape == "none" else _scene(spec, device)
-        fit = FitnessConfig(angle_weight=3.0,
-                            collision_shape="box" if shape == "none" else shape)
-        meta, swarm = _packed(spec, batched, fit, obs)
+        orient = shape == "orientation"
+        spec, batched = _problem("arm_6dof" if orient else "arm_7dof", swarms, rng, device,
+                                 orientation=orient)
+        obs = None if shape in ("none", "orientation") else _scene(spec, device)
+        fit = FitnessConfig(angle_weight=3.0, orientation_weight=1.0 if orient else 0.0,
+                            collision_shape=shape if obs is not None else "box")
+        meta, swarm = _packed(spec, batched, fit, obs, use_orientation=orient)
         lim = spec.limits().cpu().numpy()
         x = lim[0][:, None] + rng.random((swarms, spec.dof, p)) * (lim[1] - lim[0])[:, None]
         x = torch.as_tensor(x.astype("float32"), device=device)
         kw = dict(num_obstacles=0 if obs is None else obs.count,
-                  collision_shape=fit.collision_shape)
+                  collision_shape=fit.collision_shape, use_orientation=orient)
         got = fused_fitness(spec, x, meta, swarm, **kw)
         want = fused_fitness_plain(spec, x, meta, swarm, **kw)
         torch.cuda.synchronize()
@@ -527,7 +654,7 @@ def phase_fused_fitness(device, swarms=64, particles=1024):
         err = float((got[free] - want[free]).abs().max())
         errs.setdefault(shape, err)
         ok = bool(torch.equal(hit_k, hit_p) and torch.isfinite(got).all() and err == 0.0
-                  and (shape == "none" or 0.01 < float(hit_p.float().mean()) < 0.99))
+                  and (obs is None or 0.01 < float(hit_p.float().mean()) < 0.99))
         emit("fused_fitness", collision_shape=shape, swarms=swarms, particles=p,
              hit_share=float(hit_p.float().mean()),
              mask_mismatches=int((hit_k != hit_p).sum()), max_abs_err_free=err,
@@ -750,6 +877,104 @@ def phase_obstacles(device, swarms, card, shape):
     return launches
 
 
+def _orientation_stages(device, swarms):
+    """Stage walls of the orientation path (``utils.profiling.measure``,
+    median of 3 after 1 warm-up): the base solve, base + polish, and one
+    retry round's base and base + polish at its bucket; then device busy
+    over one more full solve under the profiler."""
+    import dataclasses
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ikpso_tpu_torch.harness.headline import headline_bucket, reachable_pose
+    from ikpso_tpu_torch.harness.orientation import (
+        build_orientation_solver,
+        orientation_configs,
+        orientation_targets,
+    )
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.pso.fused import make_fused_solver
+    from ikpso_tpu_torch.pso.polish import wrap_with_polish
+    from ikpso_tpu_torch.utils.profiling import measure
+
+    pre, pso, fit = orientation_configs()
+    spec, problem = library.arm_6dof(device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    targets, target_rot = orientation_targets(
+        spec, problem, reachable_pose(spec, problem, swarms, gen))
+    batched = library.batched_problem(problem, targets, target_rot=target_rot)
+    bucket = headline_bucket(swarms, pre.retry_bucket_decay)
+    retry_pso = dataclasses.replace(pso, init_mode=pre.retry_init_mode,
+                                    iterations=pre.retry_iterations)
+
+    def base(cfg):
+        return make_fused_solver(spec, pso=cfg, fit=fit, num_particles=pre.particles,
+                                 device=device)
+
+    def polished(cfg):
+        return wrap_with_polish(base(cfg), spec, steps=pre.polish, use_orientation=True)
+
+    out = {}
+    for key, solver, prob in (("base", base(pso), batched),
+                              ("base_polish", polished(pso), batched),
+                              ("retry_round_base", base(retry_pso),
+                               batched.take(torch.arange(bucket, device=device))),
+                              ("retry_round_base_polish", polished(retry_pso),
+                               batched.take(torch.arange(bucket, device=device)))):
+        out[f"{key}_ms"] = measure(solver, prob, gen, device=device, warmup=1,
+                                   iters=3)[1] * 1e3
+    solver = build_orientation_solver(spec, swarms, device)
+    solver(batched, gen)
+    torch.cuda.synchronize()
+    # Device activity only: the host side issues some 10^5 small ops a solve.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver(batched, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = kernel_a = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        t = e.self_cuda_time_total if t is None else t
+        busy += t
+        if "fused_solve_kernel" in e.key:
+            kernel_a += t
+    out.update(retry_bucket=bucket, profiled_wall_ms=wall_ms,
+               device_busy_ms=busy / 1e3 if busy else None,
+               kernel_a_device_ms=kernel_a / 1e3 if busy else None,
+               device_idle_share=1.0 - busy / 1e3 / wall_ms if busy else None)
+    return out
+
+
+def phase_orientation(device, swarms, card):
+    """The 6-DOF position + orientation slice through run_orientation,
+    launch counts read around it; then its stage times."""
+    from ikpso_tpu_torch.harness.orientation import run_orientation
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_orientation(swarms=swarms, device=device, seed=0, warmup=1, iters=3)
+    phase_s = time.perf_counter() - t0
+    launches = read_counts()
+    variants = launches["fused_solve_variants"]
+    ok = (variants.get("warm/none/orientation", 0) > 0
+          and variants.get("uniform/none/orientation", 0) > 0 and out["finite"]
+          and out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= 0.999
+          and out["p90_orient_err_deg"] < ORIENT_P90_DEG_BAR)
+    stages = _orientation_stages(device, swarms)
+    emit("orientation", **out, wall_ms=out["wall_s"] * 1e3, launches=launches,
+         stages=stages, run_orientation_seconds=phase_s, jax_record_tpu=JAX_ORIENTATION,
+         bars={"frac_under_1mm": 0.999, "p50_err_mm": 1.0,
+               "p90_orient_err_deg": ORIENT_P90_DEG_BAR}, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("orientation slice missed a bar or bypassed kernel A")
+    return launches
+
+
 def phase_headline(device, swarms, card):
     from ikpso_tpu_torch.harness.headline import run_headline
 
@@ -785,6 +1010,7 @@ def phase_timing(device, swarms, big_swarms, particles=128):
     from ikpso_tpu_torch.utils import flops
 
     pso, fit = _headline_configs()
+    clocks = {"start": card_clocks()}
     rng = np.random.default_rng(4)
     spec, batched = _problem("arm_7dof", swarms, rng, device)
     meta, swarm = _packed(spec, batched, fit)
@@ -860,6 +1086,40 @@ def phase_timing(device, swarms, big_swarms, particles=128):
     counts["c"] = flops.fitness_kernel_count(spec_c, fit_c, num_swarms=SCAN_SWARMS,
                                              num_particles=1024)
     del x_dp
+    # The orientation path's branches: kernel A on arm_6dof with orientation
+    # and the re-kick (warm, 40 iterations, the base solve) and kernel B with
+    # orientation; each timed output held against its plain twin's.
+    pso_o, fit_o = _orientation_configs()
+    spec_o, batched_o = _problem("arm_6dof", swarms, rng, device, orientation=True)
+    meta_o, swarm_o = _packed(spec_o, batched_o, fit_o, use_orientation=True)
+    lim_o = spec_o.limits()
+    seeds_o = torch.as_tensor(
+        rng.integers(-2**31, 2**31, (swarms, 2), dtype=np.int64).astype(np.int32),
+        device=device)
+    args_o = (spec_o, pso_o, fit_o, meta_o, swarm_o, lim_o, seeds_o, particles)
+    times["fused_solve_orientation_ms"], got = cuda_time(
+        lambda: fused_solve(*args_o, use_orientation=True), reps=10)
+    times["fused_solve_orientation_plain_ms"], want = cuda_time(
+        lambda: fused_solve_plain(*args_o, use_orientation=True), reps=1)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("kernel A (arm_6dof, orientation, re-kick) disagrees with "
+                             "fused_solve_plain at the timed shape")
+    kicks = flops.fused_solve_kicks(*args_o, use_orientation=True)
+    counts["a_orientation"] = flops.fused_solve_count(
+        spec_o, pso_o, fit_o, num_particles=particles, num_swarms=swarms,
+        use_orientation=True, kicks=kicks)
+    times["fused_solve_orientation_kicked_share"] = kicks / (
+        swarms * (pso_o.iterations // pso_o.rekick_interval - 1))
+    lim = lim_o.cpu().numpy()
+    x_o = torch.as_tensor((lim[0] + rng.random((swarms, particles, spec_o.dof))
+                           * (lim[1] - lim[0])).astype("float32"), device=device)
+    time_pair("fk_fitness_orientation",
+              lambda: fk_fitness(spec_o, x_o, meta_o, swarm_o, use_orientation=True),
+              lambda: fk_fitness_plain(spec_o, x_o, meta_o, swarm_o, use_orientation=True),
+              20, 5, exact=True)
+    counts["b_orientation"] = flops.fitness_kernel_count(
+        spec_o, fit_o, num_swarms=swarms, num_particles=particles, use_orientation=True)
+    del x_o, got, want
     spec, batched = _problem("arm_7dof", big_swarms, rng, device)
     meta, swarm = _packed(spec, batched, fit)
     seeds = torch.zeros((big_swarms, 2), dtype=torch.int32, device=device)
@@ -871,10 +1131,13 @@ def phase_timing(device, swarms, big_swarms, particles=128):
     times["fused_solve_box_big_ms"] = cuda_time_ms(lambda: fused_solve(
         spec, pso, fit_b, meta_b, swarm, limits, seeds, particles,
         num_obstacles=obs.count), reps=5)
+    clocks["end"] = card_clocks()
     emit("timing", swarms=swarms, big_swarms=big_swarms, particles=particles,
-         scan_shape=[SCAN_SWARMS, spec.dof, 1024], **times,
+         scan_shape=[SCAN_SWARMS, spec.dof, 1024], **times, clocks=clocks,
          max_abs_err_free_vs_plain=errs,
          bar={"fused_fitness": "equal masks, max abs error 0.0 on free particles",
+              "fk_fitness_orientation": "max abs error 0.0",
+              "fused_solve_orientation": "bit-identical gbest and gval",
               "fk_fitness*": f"equal masks, rtol {FK_RTOL}, atol {FK_ATOL}"})
     return times, counts, errs
 
@@ -887,10 +1150,15 @@ BOUND_ROWS = (
      f"kernel A, S={TIMING_SWARMS}, P=128, warm, 8 iterations"),
     ("A box", "a_box", "fused_solve_box_ms",
      f"kernel A, S={TIMING_SWARMS}, P=128, warm, 8 iterations, 4 boxes"),
+    ("A orientation", "a_orientation", "fused_solve_orientation_ms",
+     f"kernel A, arm_6dof, S={TIMING_SWARMS}, P=128, warm, 40 iterations, re-kick every "
+     "20 above 1e-6, orientation"),
     ("B none", "b_none", "fk_fitness_ms", f"kernel B, S={TIMING_SWARMS}, P=128"),
     ("B box", "b_box", "fk_fitness_box_ms", f"kernel B, S={TIMING_SWARMS}, P=128, 4 boxes"),
     ("B capsule", "b_capsule", "fk_fitness_capsule_ms",
      f"kernel B, S={TIMING_SWARMS}, P=128, 4 boxes"),
+    ("B orientation", "b_orientation", "fk_fitness_orientation_ms",
+     f"kernel B, arm_6dof, S={TIMING_SWARMS}, P=128, orientation"),
     ("C scan path", "c", "fused_fitness_ms", f"kernel C, S={SCAN_SWARMS}, D=9, P=1024"),
 )
 
@@ -920,8 +1188,10 @@ def run_phases(device, card):
     list of the next-to-last line."""
     b_err = phase_fk_fitness(device)
     b_obs_err = phase_fk_fitness_obstacles(device)
+    b_obs_err["orientation"] = phase_fk_fitness_orientation(device)
     a_err = phase_fused_replay(device)
     a_obs_err = phase_fused_obstacles_replay(device)
+    a_branch_err = phase_fused_branch_replay(device)
     phase_fused_tie(device)
     phase_fused_penalty_ties(device)
     phase_fused_philox(device)
@@ -931,6 +1201,7 @@ def run_phases(device, card):
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
         "obstacles": phase_obstacles(device, OBSTACLE_SWARMS, card, "box"),
         "obstacles_capsule": phase_obstacles(device, CAPSULE_SWARMS, card, "capsule"),
+        "orientation": phase_orientation(device, ORIENTATION_SWARMS, card),
         "scan": phase_scan(device, card),
     }
     paths["roofline"], roof_timed, roof_counts, d_err, sol = phase_roofline(device, card)
@@ -951,11 +1222,17 @@ def run_phases(device, card):
          "launches": paths["obstacles"]["fused_solve"],
          "launches_by_path": by_path("fused_solve"),
          "variants_by_path": by_path("fused_solve_variants"),
-         "max_abs_err": max(a_err, a_obs_err),
+         "max_abs_err": max(a_err, a_obs_err, a_branch_err),
+         "max_abs_err_branch_replay": a_branch_err,
          "ms": t["fused_solve_box_ms"], "plain_ms": t["fused_solve_box_plain_ms"],
          **bound_keys("A box"), "library_ms": None,
          "timed_swarms": TIMING_SWARMS, "timed": "warm, 8 iterations, 4-box scene",
          "no_scene_ms": t["fused_solve_ms"], "no_scene_plain_ms": t["fused_solve_plain_ms"],
+         "orientation_ms": t["fused_solve_orientation_ms"],
+         "orientation_plain_ms": t["fused_solve_orientation_plain_ms"],
+         "orientation_timed": "arm_6dof, warm, 40 iterations, re-kick, orientation",
+         "orientation_kicked_share": t["fused_solve_orientation_kicked_share"],
+         "bound_orientation": bound_keys("A orientation"),
          "ms_at_headline_swarms": t["fused_solve_big_ms"],
          "bound_at_headline_swarms": bound_keys("A headline, no scene"),
          "box_ms_at_headline_swarms": t["fused_solve_box_big_ms"],
@@ -966,25 +1243,33 @@ def run_phases(device, card):
         {"name": "fk_fitness", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/fk_fitness.cuh",
          "replaces": "ikpso_tpu/ops/pallas_fitness.py:256",
-         "branches": ["none", "box", "capsule"],
+         "branches": ["none", "box", "capsule", "orientation"],
          "launches": paths["obstacles"]["fused_solve"],
          "launches_by_path": by_path("fused_solve"),
+         "orientation_launches_by_path": {
+             k: sum(n for var, n in v["fused_solve_variants"].items()
+                    if var.endswith("/orientation")) for k, v in paths.items()},
          "standalone_launches": paths["obstacles"]["fk_fitness"],
          "inlined_into": ["fused_solve", "fused_fitness"],
          "max_abs_err": max(b_err, *b_obs_err.values(), t_err["fk_fitness"],
-                            t_err["fk_fitness_box"], t_err["fk_fitness_capsule"]),
+                            t_err["fk_fitness_box"], t_err["fk_fitness_capsule"],
+                            t_err["fk_fitness_orientation"]),
          "max_abs_err_by_branch": {"none": b_err, **b_obs_err},
          "max_abs_err_at_timed_shape": {"none": t_err["fk_fitness"],
                                         "box": t_err["fk_fitness_box"],
-                                        "capsule": t_err["fk_fitness_capsule"]},
+                                        "capsule": t_err["fk_fitness_capsule"],
+                                        "orientation": t_err["fk_fitness_orientation"]},
          "ms": t["fk_fitness_box_ms"], "plain_ms": t["fk_fitness_box_plain_ms"],
          **bound_keys("B box"), "library_ms": None,
          "ms_by_branch": {"none": t["fk_fitness_ms"], "box": t["fk_fitness_box_ms"],
-                          "capsule": t["fk_fitness_capsule_ms"]},
+                          "capsule": t["fk_fitness_capsule_ms"],
+                          "orientation": t["fk_fitness_orientation_ms"]},
          "plain_ms_by_branch": {"none": t["fk_fitness_plain_ms"],
                                 "box": t["fk_fitness_box_plain_ms"],
-                                "capsule": t["fk_fitness_capsule_plain_ms"]},
-         "bound_by_branch": {b: bound_keys(f"B {b}") for b in ("none", "box", "capsule")},
+                                "capsule": t["fk_fitness_capsule_plain_ms"],
+                                "orientation": t["fk_fitness_orientation_plain_ms"]},
+         "bound_by_branch": {b: bound_keys(f"B {b}")
+                             for b in ("none", "box", "capsule", "orientation")},
          "timed_swarms": TIMING_SWARMS},
         {"name": "fused_fitness", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/fused_fitness.cu",

@@ -17,7 +17,7 @@
 
 namespace ikpso {
 
-template <class T, int C>
+template <class T, int C, bool O>
 __global__ void fk_fitness_kernel(const float* __restrict__ x,
                                   const float* __restrict__ meta,
                                   const float* __restrict__ swarm, int K, Scene scene,
@@ -29,29 +29,33 @@ __global__ void fk_fitness_kernel(const float* __restrict__ x,
   float xr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) xr[d] = x[t * D + d];
-  out[t] = fk_fitness_eval<T, C>(xr, meta, swarm + s * K, scene);
+  out[t] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
 }
 
-template <class T, int C>
+template <class T, int C, bool O = false>
 static void launch_fk_fitness(const float* x, const float* meta, const float* swarm,
                               int K, Scene scene, float* out, long long total, int P,
                               cudaStream_t stream) {
   constexpr int kThreads = 256;
   const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  fk_fitness_kernel<T, C><<<blocks, kThreads, 0, stream>>>(x, meta, swarm, K, scene, out,
-                                                            total, P);
+  fk_fitness_kernel<T, C, O><<<blocks, kThreads, 0, stream>>>(x, meta, swarm, K, scene,
+                                                               out, total, P);
 }
 
 }  // namespace ikpso
 
-extern "C" int ikpso_fk_fitness(int topo, int collider, int n_obs, float node_half,
+extern "C" int ikpso_fk_fitness(int topo, int collider, int orient, int n_obs,
+                                float node_half,
                                 float link_half, float node_r2, float link_r2,
                                 const float* x, const float* meta, const float* swarm,
                                 int K, float* out, long long total, int P, void* stream) {
   using namespace ikpso;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (total <= 0) return static_cast<int>(cudaGetLastError());
-  if (n_obs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  // The orientation term is instantiated for Arm6Dof without a scene only.
+  if (n_obs < 0 || (orient && (topo != 2 || collider != kNoCollider))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Scene scene{n_obs, node_half, link_half, node_r2, link_r2};
   if (topo == 0 && collider == kNoCollider) {
     launch_fk_fitness<Arm7Dof, kNoCollider>(x, meta, swarm, K, scene, out, total, P, st);
@@ -63,6 +67,11 @@ extern "C" int ikpso_fk_fitness(int topo, int collider, int n_obs, float node_ha
   } else if (topo == 1 && collider == kNoCollider) {
     launch_fk_fitness<ReferenceArm, kNoCollider>(x, meta, swarm, K, scene, out, total, P,
                                                  st);
+  } else if (topo == 2 && collider == kNoCollider && !orient) {
+    launch_fk_fitness<Arm6Dof, kNoCollider>(x, meta, swarm, K, scene, out, total, P, st);
+  } else if (topo == 2 && collider == kNoCollider && orient) {
+    launch_fk_fitness<Arm6Dof, kNoCollider, true>(x, meta, swarm, K, scene, out, total,
+                                                  P, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -23,8 +23,15 @@
 // rounds op by op like the plain torch version (fk_fitness_plain).
 //
 // Supported terms: weighted squared effector error, angular locality
-// (aw / (N-1)) and obstacle rejection. Distance and orientation terms are
-// refused by the Python wrapper and are not compiled here.
+// (aw / (N-1)), obstacle rejection and the orientation term. The distance
+// term is refused by the Python wrapper and is not compiled here.
+//
+// Orientation (pallas_fitness.py:383-392): a template flag O. For each
+// effector, the squared Frobenius distance of its world rotation to the
+// target rotation (9 floats, row-major, at OFF_TROT of the swarm row),
+// accumulated i = 0..8 in order and added as (ow * w) * fro, the Pallas
+// association; ow sits at OFF_OW of meta, after the scene boxes. O = false
+// compiles exactly the evaluation without it.
 //
 // Obstacles (pallas_fitness.py:293-305, 341-370, 397-398): the collider is
 // a template parameter C. C = kNoCollider compiles exactly the
@@ -73,6 +80,7 @@ struct Topology {
 // ikpso_tpu_torch/utils/kernels.py.
 using Arm7Dof = Topology<4, 0x2100ull, 0x8u>;            // id 0
 using ReferenceArm = Topology<8, 0x44432100ull, 0xE0u>;  // id 1
+using Arm6Dof = Topology<3, 0x100ull, 0x4u>;             // id 2
 
 // Scene colliders; ids must match COLLIDERS in
 // ikpso_tpu_torch/utils/kernels.py.
@@ -89,7 +97,8 @@ struct Scene {
   float link_r2;    // capsule: link capsule radius squared, (gizmo * 0.125)^2
 };
 
-// Packed-constant offsets (MetaLayout without orientation).
+// Packed-constant offsets (MetaLayout; the topology-dependent ones are
+// computed in fk_fitness_eval).
 constexpr int kMetaAw = 0;
 constexpr int kMetaLen = 2;
 constexpr int kSwRoot = 0;
@@ -277,8 +286,8 @@ __device__ __forceinline__ bool node_hits(const float (&pk)[3], const float (&rk
 
 // Fitness of one particle: x holds its D angles; meta / sw point at the
 // packed per-chain / per-swarm constants (MetaLayout); scene is read only
-// when C != kNoCollider.
-template <class T, int C = kNoCollider>
+// when C != kNoCollider; O adds the orientation term.
+template <class T, int C = kNoCollider, bool O = false>
 __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
                                                  const float* __restrict__ meta,
                                                  const float* __restrict__ sw,
@@ -288,6 +297,7 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
   constexpr int kMetaEw = kMetaLen + (N - 1);
   constexpr int kMetaObs = kMetaEw + T::E;
   constexpr int kSwTgt = kSwAnchor + D;
+  constexpr int kSwTrot = kSwTgt + 3 * T::E + 3 * (N - 1);
   float rot[N][9];
   float pos[N][3];
 #pragma unroll
@@ -326,6 +336,17 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
       const float ey = pos[k][1] - sw[kSwTgt + 3 * e + 1];
       const float ez = pos[k][2] - sw[kSwTgt + 3 * e + 2];
       cost = cost + w * (ex * ex + ey * ey + ez * ez);
+      if constexpr (O) {
+        const float ow = meta[kMetaObs + (C == kNoCollider ? 0 : 15 * scene.count)];
+        const float* rt = sw + kSwTrot + 9 * e;
+        float fro = 0.0f;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) {
+          const float dr = rot[k][i] - rt[i];
+          fro = fro + dr * dr;
+        }
+        cost = cost + (ow * w) * fro;
+      }
     }
   }
   const float total = cost + (meta[kMetaAw] / static_cast<float>(N - 1)) * rot_diff;

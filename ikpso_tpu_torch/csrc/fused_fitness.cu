@@ -11,7 +11,8 @@
 // kernel's P % 1024 rule is a TPU tiling rule); the packed per-chain meta
 // and the swarm's constant row are read through the read-only cache.
 // The evaluation is kernel B's device function (fk_fitness.cuh), inlined
-// for every topology and collider instantiation of kernel B's launcher.
+// for every (topology, collider, orientation) instantiation of kernel B's
+// launcher.
 //
 // Bound on this card: bytes without a scene (D + 1 floats per particle
 // against ~510 counted FP32 ops, under the ~20 ops/byte the card balances
@@ -27,7 +28,7 @@ namespace ikpso {
 
 constexpr int kFitnessThreads = 256;
 
-template <class T, int C>
+template <class T, int C, bool O>
 __global__ void __launch_bounds__(kFitnessThreads) fused_fitness_kernel(
     const float* __restrict__ x, const float* __restrict__ meta,
     const float* __restrict__ swarm, int K, Scene scene, float* __restrict__ out,
@@ -40,43 +41,50 @@ __global__ void __launch_bounds__(kFitnessThreads) fused_fitness_kernel(
   float xr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) xr[d] = __ldg(xs + static_cast<long long>(d) * P);
-  out[s * P + p] = fk_fitness_eval<T, C>(xr, meta, swarm + s * K, scene);
+  out[s * P + p] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
 }
 
-template <class T, int C>
+template <class T, int C, bool O = false>
 static void launch_fused_fitness(const float* x, const float* meta, const float* swarm,
                                  int K, Scene scene, float* out, int S, int P,
                                  cudaStream_t stream) {
   const int per_swarm = (P + kFitnessThreads - 1) / kFitnessThreads;
   const unsigned blocks = static_cast<unsigned>(static_cast<long long>(S) * per_swarm);
-  fused_fitness_kernel<T, C><<<blocks, kFitnessThreads, 0, stream>>>(
+  fused_fitness_kernel<T, C, O><<<blocks, kFitnessThreads, 0, stream>>>(
       x, meta, swarm, K, scene, out, P, per_swarm);
 }
 
 }  // namespace ikpso
 
-extern "C" int ikpso_fused_fitness(int topo, int collider, int n_obs, float node_half,
-                                   float link_half, float node_r2, float link_r2,
+extern "C" int ikpso_fused_fitness(int topo, int collider, int orient, int n_obs,
+                                   float node_half, float link_half, float node_r2,
+                                   float link_r2,
                                    const float* x, const float* meta, const float* swarm,
                                    int K, float* out, int S, int P, void* stream) {
   using namespace ikpso;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0 || P <= 0) return static_cast<int>(cudaGetLastError());
-  if (n_obs < 0 || static_cast<long long>(S) * ((P + kFitnessThreads - 1) / kFitnessThreads) >
-                       0x7fffffffLL) {
+  // The orientation term is instantiated for Arm6Dof without a scene only.
+  if (n_obs < 0 || (orient && (topo != 2 || collider != kNoCollider)) ||
+      static_cast<long long>(S) * ((P + kFitnessThreads - 1) / kFitnessThreads) >
+          0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scene scene{n_obs, node_half, link_half, node_r2, link_r2};
-#define IKPSO_LAUNCH(TOPO, C) \
-  launch_fused_fitness<TOPO, C>(x, meta, swarm, K, scene, out, S, P, st)
+#define IKPSO_LAUNCH(TOPO, C, O) \
+  launch_fused_fitness<TOPO, C, O>(x, meta, swarm, K, scene, out, S, P, st)
   if (topo == 0 && collider == kNoCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kNoCollider);
+    IKPSO_LAUNCH(Arm7Dof, kNoCollider, false);
   } else if (topo == 0 && collider == kBoxCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kBoxCollider);
+    IKPSO_LAUNCH(Arm7Dof, kBoxCollider, false);
   } else if (topo == 0 && collider == kCapsuleCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kCapsuleCollider);
+    IKPSO_LAUNCH(Arm7Dof, kCapsuleCollider, false);
   } else if (topo == 1 && collider == kNoCollider) {
-    IKPSO_LAUNCH(ReferenceArm, kNoCollider);
+    IKPSO_LAUNCH(ReferenceArm, kNoCollider, false);
+  } else if (topo == 2 && collider == kNoCollider && !orient) {
+    IKPSO_LAUNCH(Arm6Dof, kNoCollider, false);
+  } else if (topo == 2 && collider == kNoCollider && orient) {
+    IKPSO_LAUNCH(Arm6Dof, kNoCollider, true);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -2,11 +2,15 @@
 //
 // Replaces ikpso_tpu/pso/fused.py:fused_solve_raw (kernel body
 // _build_solver_kernel, helpers _uniform and _seg_rows_reduce), branches:
-// warm, uniform or hybrid init (a runtime flag, run once before the loop),
-// canonical inertia with a per-iteration schedule, gbest every iteration,
-// no re-kick, position/angle cost, and obstacle rejection through the
-// collider variants of fk_fitness_eval (template parameter C; the scene
-// boxes ride in meta, which is copied to shared memory).
+// warm, uniform or hybrid init (a runtime flag, run once before the loop);
+// canonical inertia with a per-iteration schedule, or randomized inertia
+// (v = (w u_w) v + ...; runtime flag); gbest refreshed every
+// gbest_interval iterations; the velocity re-kick every rekick_interval
+// iterations with its threshold (runtime arguments, below); the
+// position/angle cost, the orientation term (template flag O) and obstacle
+// rejection through the collider variants of fk_fitness_eval (template
+// parameter C; the scene boxes ride in meta, which is copied to shared
+// memory).
 //
 // Layout: one thread block per swarm, one thread per particle
 // (blockDim = P, a multiple of 32, <= 1024). x, v, lbest (D floats each)
@@ -21,17 +25,30 @@
 // memory. Ties go to the lowest particle id, the first-minimum semantics
 // of pso/fused.py:255-260, 344-359 (thrust::min_element in the reference).
 // The winner writes its lbest to shared memory; everyone reads it after a
-// __syncthreads(). Two barriers per iteration.
+// __syncthreads(). Two barriers per gbest refresh; an iteration without a
+// refresh (gbest_interval > 1) has none.
+//
+// Re-kick (pso/fused.py:383-426): iterations run in blocks of
+// rekick_interval (a multiple of gbest_interval, so every block starts with
+// a refresh). At each block start but the first, v is overwritten with
+// (u_k * 2 - 1) * rekick_scale; with rekick_threshold >= 0 only if the
+// swarm's min lval at the block start is above it. That min is the value
+// the refresh's argmin has just found: lval does not change between the
+// block start and the refresh, and every thread holds the same winner, so
+// the whole block takes the same branch.
 //
 // Random draws: Philox4x32-10 in registers (philox.cuh), keyed by the
 // swarm's two seed words, counter (particle, draw slot, dof / 4, 0),
 // output word dof % 4;
 // U = (bits >> 8) * 2^-24 on unsigned bits (pso/fused.py:87-96). The
 // mapping is defined in ikpso_tpu_torch/ops/philox.py, whose torch
-// Philox draws the same bits. Slots follow the TPU kernel's order: the
-// init draws first (uniform / hybrid: the position draw at slot 0; the
-// velocity draw at slot n_init - 1), then iteration it draws u_c at
-// n_init + 2 it and u_s at n_init + 2 it + 1. REPLAY=true instead reads
+// Philox draws the same bits. Slots follow the TPU kernel's replay order
+// (pso/fused.py:245-250, 390-394): the init draws first (uniform / hybrid:
+// the position draw at slot 0; the velocity draw at slot n_init - 1), then
+// dpi = (randomized ? 3 : 2) + (re-kick ? 1 : 0) slots per iteration:
+// u_c at n_init + dpi it, u_s one after, u_w two after (randomized), and
+// the kick draw of a block starting at it in its last slot,
+// n_init + dpi it + dpi - 1. REPLAY=true instead reads
 // uniforms[S, n_draws, D, P] from HBM (the test hook; a template flag so
 // the hot path has no branch).
 //
@@ -85,9 +102,10 @@ __device__ __forceinline__ bool better_pair(float va, int ia, float vb, int ib) 
   return va < vb || (va == vb && ia < ib);
 }
 
-// Block-wide argmin over (val, id); every thread gets the winning id.
+// Block-wide argmin over (val, id); every thread gets the winning id and,
+// in best, the winning value.
 __device__ __forceinline__ int block_argmin(float val, int id, float* s_wval,
-                                            int* s_wid) {
+                                            int* s_wid, float& best) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     const float ov = __shfl_xor_sync(0xffffffffu, val, off);
@@ -112,16 +130,27 @@ __device__ __forceinline__ int block_argmin(float val, int id, float* s_wval,
       bi = s_wid[w];
     }
   }
+  best = bv;
   return bi;
 }
 
-template <class T, int C, bool REPLAY>
+// The update's runtime branches (host-checked: gbest_interval >= 1 and it
+// divides rekick_interval when the re-kick is on).
+struct Update {
+  int randomized;        // inertia w * u_w instead of w
+  int gbest_interval;    // refresh gbest where it % gbest_interval == 0
+  int rekick_interval;   // 0: no re-kick
+  float rekick_scale;
+  float rekick_threshold;  // < 0: kick every swarm
+};
+
+template <class T, int C, bool O, bool REPLAY>
 __global__ void __launch_bounds__(1024) fused_solve_kernel(
     const float* __restrict__ meta, int M, const float* __restrict__ swarm, int K,
     const float* __restrict__ limits, const int* __restrict__ seeds,
     const float* __restrict__ inertia, int iters, float c1, float c2, float vscale,
-    int init_mode, Scene scene, const float* __restrict__ uniforms, int n_draws,
-    float* __restrict__ out_gbest, float* __restrict__ out_gval) {
+    int init_mode, Scene scene, Update up, const float* __restrict__ uniforms,
+    int n_draws, float* __restrict__ out_gbest, float* __restrict__ out_gval) {
   constexpr int D = T::D;
   extern __shared__ float smem[];
   float* s_meta = smem;
@@ -173,25 +202,53 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
     v[d] = (uc[d] * 2.0f - 1.0f) * vscale;
     lb[d] = x[d];
   }
-  float lval = fk_fitness_eval<T, C>(x, s_meta, s_sw, scene);
+  float lval = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
 
+  const int dpi = (up.randomized ? 3 : 2) + (up.rekick_interval > 0 ? 1 : 0);
+  // Countdowns to the next gbest refresh and the next kick block start
+  // (it % gbest_interval == 0; it % rekick_interval == 0 and it > 0).
+  int refresh_in = 0;
+  int kick_in = up.rekick_interval;
   for (int it = 0; it < iters; ++it) {
-    const int win = block_argmin(lval, p, s_wval, s_wid);
-    if (p == win) {
+    const bool kick = up.rekick_interval > 0 && kick_in == 0;
+    kick_in = (kick ? up.rekick_interval : kick_in) - 1;
+    if (refresh_in == 0) {
+      refresh_in = up.gbest_interval;
+      float best;
+      const int win = block_argmin(lval, p, s_wval, s_wid, best);
+      if (p == win) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) s_gb[d] = lb[d];
+        for (int d = 0; d < D; ++d) s_gb[d] = lb[d];
+      }
+      __syncthreads();
+      if (kick && (up.rekick_threshold < 0.0f || best > up.rekick_threshold)) {
+        draw<D, REPLAY>(uc, n_init + it * dpi + dpi - 1, p, P, key, u_swarm);
+#pragma unroll
+        for (int d = 0; d < D; ++d) v[d] = (uc[d] * 2.0f - 1.0f) * up.rekick_scale;
+      }
     }
-    __syncthreads();
-    draw<D, REPLAY>(uc, n_init + 2 * it, p, P, key, u_swarm);
-    draw<D, REPLAY>(us, n_init + 2 * it + 1, p, P, key, u_swarm);
+    // The inertia term first (w * v, or (w * u_w) * v), rounded into v: the
+    // same rounding as the one expression, with no third draw array live.
+    --refresh_in;
+    const int base = n_init + it * dpi;
     const float w = inertia[it];
+    if (up.randomized) {
+      draw<D, REPLAY>(uc, base + 2, p, P, key, u_swarm);
+#pragma unroll
+      for (int d = 0; d < D; ++d) v[d] = (w * uc[d]) * v[d];
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) v[d] = w * v[d];
+    }
+    draw<D, REPLAY>(uc, base, p, P, key, u_swarm);
+    draw<D, REPLAY>(us, base + 1, p, P, key, u_swarm);
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       const float gb = s_gb[d];
-      v[d] = w * v[d] + c1 * uc[d] * (lb[d] - x[d]) + c2 * us[d] * (gb - x[d]);
+      v[d] = v[d] + c1 * uc[d] * (lb[d] - x[d]) + c2 * us[d] * (gb - x[d]);
       x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
     }
-    const float f = fk_fitness_eval<T, C>(x, s_meta, s_sw, scene);
+    const float f = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
     if (f < lval) {
       lval = f;
 #pragma unroll
@@ -199,7 +256,8 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
     }
   }
 
-  const int win = block_argmin(lval, p, s_wval, s_wid);
+  float best;
+  const int win = block_argmin(lval, p, s_wval, s_wid, best);
   if (p == win) {
 #pragma unroll
     for (int d = 0; d < D; ++d) out_gbest[static_cast<long long>(s) * D + d] = lb[d];
@@ -207,56 +265,67 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
   }
 }
 
-template <class T, int C>
+template <class T, int C, bool O = false>
 static void launch_fused_solve(bool replay, const float* meta, int M,
                                const float* swarm, int K, const float* limits,
                                const int* seeds, const float* inertia, int iters,
                                float c1, float c2, float vscale, int init_mode,
-                               Scene scene, const float* uniforms, int n_draws,
-                               float* gbest, float* gval, int S, int P,
+                               Scene scene, Update up, const float* uniforms,
+                               int n_draws, float* gbest, float* gval, int S, int P,
                                cudaStream_t stream) {
   const size_t smem = sizeof(float) * (M + K + 3 * T::D + 32) + sizeof(int) * 32;
   if (replay) {
-    fused_solve_kernel<T, C, true><<<S, P, smem, stream>>>(
+    fused_solve_kernel<T, C, O, true><<<S, P, smem, stream>>>(
         meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
-        scene, uniforms, n_draws, gbest, gval);
+        scene, up, uniforms, n_draws, gbest, gval);
   } else {
-    fused_solve_kernel<T, C, false><<<S, P, smem, stream>>>(
+    fused_solve_kernel<T, C, O, false><<<S, P, smem, stream>>>(
         meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
-        scene, uniforms, n_draws, gbest, gval);
+        scene, up, uniforms, n_draws, gbest, gval);
   }
 }
 
 }  // namespace ikpso
 
-extern "C" int ikpso_fused_solve(int topo, int collider, int replay, int init_mode,
-                                 int n_obs, float node_half, float link_half,
-                                 float node_r2, float link_r2, const float* meta, int M,
-                                 const float* swarm, int K, const float* limits,
-                                 const int* seeds, const float* inertia, int iters,
-                                 float c1, float c2, float vscale,
-                                 const float* uniforms, int n_draws, float* gbest,
-                                 float* gval, int S, int P, void* stream) {
+extern "C" int ikpso_fused_solve(int topo, int collider, int orient, int replay,
+                                 int init_mode, int n_obs, float node_half,
+                                 float link_half, float node_r2, float link_r2,
+                                 const float* meta, int M, const float* swarm, int K,
+                                 const float* limits, const int* seeds,
+                                 const float* inertia, int iters, float c1, float c2,
+                                 float vscale, int randomized, int gbest_interval,
+                                 int rekick_interval, float rekick_scale,
+                                 float rekick_threshold, const float* uniforms,
+                                 int n_draws, float* gbest, float* gval, int S, int P,
+                                 void* stream) {
   using namespace ikpso;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0) return static_cast<int>(cudaGetLastError());
   if (P <= 0 || P > 1024 || P % 32 != 0 || init_mode < kInitWarm ||
-      init_mode > kInitHybrid || n_obs < 0) {
+      init_mode > kInitHybrid || n_obs < 0 || gbest_interval < 1 ||
+      rekick_interval < 0 || (rekick_interval > 0 && rekick_interval % gbest_interval) ||
+      (orient && (topo != 2 || collider != kNoCollider))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Scene scene{n_obs, node_half, link_half, node_r2, link_r2};
-#define IKPSO_LAUNCH(TOPO, C)                                                          \
-  launch_fused_solve<TOPO, C>(replay != 0, meta, M, swarm, K, limits, seeds, inertia,  \
-                              iters, c1, c2, vscale, init_mode, scene, uniforms,      \
-                              n_draws, gbest, gval, S, P, st)
+  const Update up{randomized != 0, gbest_interval, rekick_interval, rekick_scale,
+                  rekick_threshold};
+#define IKPSO_LAUNCH(TOPO, C, O)                                                         \
+  launch_fused_solve<TOPO, C, O>(replay != 0, meta, M, swarm, K, limits, seeds, inertia, \
+                                 iters, c1, c2, vscale, init_mode, scene, up, uniforms, \
+                                 n_draws, gbest, gval, S, P, st)
   if (topo == 0 && collider == kNoCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kNoCollider);
+    IKPSO_LAUNCH(Arm7Dof, kNoCollider, false);
   } else if (topo == 0 && collider == kBoxCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kBoxCollider);
+    IKPSO_LAUNCH(Arm7Dof, kBoxCollider, false);
   } else if (topo == 0 && collider == kCapsuleCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kCapsuleCollider);
+    IKPSO_LAUNCH(Arm7Dof, kCapsuleCollider, false);
   } else if (topo == 1 && collider == kNoCollider) {
-    IKPSO_LAUNCH(ReferenceArm, kNoCollider);
+    IKPSO_LAUNCH(ReferenceArm, kNoCollider, false);
+  } else if (topo == 2 && collider == kNoCollider && !orient) {
+    IKPSO_LAUNCH(Arm6Dof, kNoCollider, false);
+  } else if (topo == 2 && collider == kNoCollider && orient) {
+    IKPSO_LAUNCH(Arm6Dof, kNoCollider, true);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

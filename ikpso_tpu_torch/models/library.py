@@ -1,8 +1,8 @@
 """Prebuilt kinematic models.
 
 Port of ``ikpso_tpu/models/library.py``: ``reference_arm``,
-``planar_3dof`` (via ``serial_chain``), ``arm_7dof`` and
-``batched_problem``. The rest of the zoo (``arm_6dof``, ``snake``,
+``planar_3dof`` and ``arm_6dof`` (via ``serial_chain``), ``arm_7dof``
+and ``batched_problem``. The rest of the zoo (``snake``,
 ``dual_arm_14dof``, ``humanoid_45dof``) waits for ROADMAP queue A
 item 8. Every model function takes the device its tensors live on.
 """
@@ -91,6 +91,16 @@ def planar_3dof(target=(1.5, 1.5, 0.0), device="cpu") -> Tuple[ChainSpec, IKProb
     """3-DOF planar arm (rotation about Z only)."""
     return serial_chain(3, link_length=1.0, free_axes=(2,), target=target,
                         device=device)
+
+
+def arm_6dof(target=(1.2, 0.8, 0.5), target_rot=(0.0, 0.3, 0.2),
+             device="cpu") -> Tuple[ChainSpec, IKProblem]:
+    """6-DOF arm with a position+orientation target: two spherical joints
+    (N=3 nodes, D=6, one effector) and an Euler-XYZ target rotation."""
+    spec, problem = serial_chain(2, link_length=1.0, free_axes=(0, 1, 2),
+                                 target=target, device=device)
+    return spec, problem.replace(target_rot=torch.as_tensor(
+        np.asarray([target_rot], np.float32), device=device))
 
 
 def arm_7dof(target=(1.0, 1.2, -0.8), device="cpu") -> Tuple[ChainSpec, IKProblem]:

@@ -22,11 +22,12 @@ Each kernel wrapper runs its plain version on CPU tensors and launches
 the kernel (or raises) on CUDA tensors.
 
 Supported in this port: the FK tree walk, polynomial trig, the weighted
-effector cost, the angular-locality term and obstacle rejection (box
+effector cost, the orientation term (squared Frobenius distance of each
+effector's world rotation to its target, times the orientation and
+effector weights), the angular-locality term and obstacle rejection (box
 SAT or capsule colliders against the scene boxes packed into ``meta``;
-a hit costs ``COLLISION_PENALTY``). The node-position (distance) term,
-the orientation term and ``trig_impl="exact"`` raise (ROADMAP queue B
-item 2).
+a hit costs ``COLLISION_PENALTY``). The node-position (distance) term
+and ``trig_impl="exact"`` raise (ROADMAP "What remains" item 1).
 """
 
 from __future__ import annotations
@@ -229,16 +230,12 @@ class MetaLayout:
         self.swarm_size = self.OFF_TROT + (9 * e_count if use_orientation else 0)
 
 
-def _refuse_unported(*, use_distance_term=False, use_orientation=False,
-                     trig_impl="poly", collision_shape="box") -> None:
+def _refuse_unported(*, use_distance_term=False, trig_impl="poly",
+                     collision_shape="box") -> None:
     if use_distance_term:
         raise NotImplementedError(
             "the node-position locality (distance) term is not ported yet "
             "(ROADMAP queue B item 2)"
-        )
-    if use_orientation:
-        raise NotImplementedError(
-            "the orientation term is not ported yet (ROADMAP queue B item 2)"
         )
     if trig_impl != "poly":
         raise NotImplementedError(
@@ -254,8 +251,8 @@ def _refuse_unported(*, use_distance_term=False, use_orientation=False,
 def pack_meta(spec: ChainSpec, fit: FitnessConfig, obstacles: Obstacles = None,
               use_orientation: bool = False) -> torch.Tensor:
     """``(1, M)`` per-chain constants (``MetaLayout``): the weights, link
-    lengths, effector weights and ``(center3, half3, rot9)`` per scene box."""
-    _refuse_unported(use_orientation=use_orientation)
+    lengths, effector weights, ``(center3, half3, rot9)`` per scene box
+    and, with ``use_orientation``, the orientation weight last."""
     dev = spec.device
     weights = torch.tensor(
         [fit.angle_weight, fit.distance_weight], dtype=torch.float32, device=dev
@@ -265,6 +262,9 @@ def pack_meta(spec: ChainSpec, fit: FitnessConfig, obstacles: Obstacles = None,
         parts.append(torch.cat(
             [obstacles.center, obstacles.half_extent,
              obstacles.rot.reshape(-1, 9)], dim=-1).to(dev).reshape(-1))
+    if use_orientation:
+        parts.append(torch.tensor([fit.orientation_weight], dtype=torch.float32,
+                                  device=dev))
     return torch.cat(parts).to(torch.float32)[None, :]
 
 
@@ -275,8 +275,9 @@ def pack_swarm(spec: ChainSpec, problem: IKProblem, anchor_angles: torch.Tensor,
 
     ``anchor_positions`` may be the ``(S, N, 3)`` FK or the flat
     ``(S, 3*(N-1))`` non-root block (``pso.polish_soa.anchor_positions_flat``).
+    ``use_orientation`` appends the ``9E`` row-major target rotation
+    matrices of ``problem.target_rot``.
     """
-    _refuse_unported(use_orientation=use_orientation)
     root_r = euler_xyz_to_matrix(problem.pose[..., 0, :])
     s = root_r.shape[0]
     ap = (
@@ -284,16 +285,18 @@ def pack_swarm(spec: ChainSpec, problem: IKProblem, anchor_angles: torch.Tensor,
         if anchor_positions.dim() == 3
         else anchor_positions
     )
-    return torch.cat(
-        [
-            root_r.reshape(s, 9),
-            problem.origin.expand(s, 3),
-            anchor_angles,
-            problem.targets.reshape(s, -1),
-            ap,
-        ],
-        dim=-1,
-    ).to(torch.float32).contiguous()
+    parts = [
+        root_r.reshape(s, 9),
+        problem.origin.expand(s, 3),
+        anchor_angles,
+        problem.targets.reshape(s, -1),
+        ap,
+    ]
+    if use_orientation:
+        if problem.target_rot is None:
+            raise ValueError("use_orientation requires problem.target_rot")
+        parts.append(euler_xyz_to_matrix(problem.target_rot).reshape(s, -1))
+    return torch.cat(parts, dim=-1).to(torch.float32).contiguous()
 
 
 def _tile_hits(pk, pp, rk, length, obs, collision_shape, gizmo_size):
@@ -330,15 +333,17 @@ def _stack_nodes(per_node):
                  for vals in zip(*per_node))
 
 
-def fk_walk_tile(spec: ChainSpec, get_x, meta, sw):
+def fk_walk_tile(spec: ChainSpec, get_x, meta, sw, *, num_obstacles: int = 0,
+                 use_orientation: bool = False):
     """The FK walk and the collision-free cost of a tile (plain torch):
     returns ``(rots, poss, total)``, the per-node world rotations
     (9-tuples) and positions (3-tuples) keyed by node, and the cost.
-    Arguments as :func:`fk_fitness_tile`."""
+    Arguments as :func:`fk_fitness_tile`; ``num_obstacles`` places the
+    orientation weight in ``meta``."""
     n = spec.num_nodes
     num_joints = n - 1
     eff_slot = {e: i for i, e in enumerate(spec.effector_idx)}
-    lay = MetaLayout(spec)
+    lay = MetaLayout(spec, num_obstacles, use_orientation)
 
     aw = meta(0)
     rots = {0: tuple(sw(lay.OFF_ROOT + i) for i in range(9))}
@@ -369,21 +374,33 @@ def fk_walk_tile(spec: ChainSpec, get_x, meta, sw):
             ey = pk[1] - sw(lay.OFF_TGT + 3 * e + 1)
             ez = pk[2] - sw(lay.OFF_TGT + 3 * e + 2)
             cost = cost + w * (ex * ex + ey * ey + ez * ez)
+            if use_orientation:
+                ow = meta(lay.OFF_OW)
+                fro = 0.0
+                for i in range(9):
+                    dr = rk[i] - sw(lay.OFF_TROT + 9 * e + i)
+                    fro = fro + dr * dr
+                cost = cost + ow * w * fro
     return rots, poss, cost + (aw / num_joints) * rot_diff
 
 
 def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw, *, obstacles=None,
-                    collision_shape: str = "box", gizmo_size: float = 0.2):
+                    collision_shape: str = "box", gizmo_size: float = 0.2,
+                    use_orientation: bool = False):
     """FK rollout + cost for a tile of particles (plain torch).
 
     ``get_x(d)`` returns the angle tile of DOF ``d``; ``meta(i)`` /
     ``sw(i)`` read the packed per-chain / per-swarm constants, shaped
     to broadcast against the tile; ``obstacles`` is the ``(C, 15)``
-    scene block of meta, or None. Same arithmetic, in the same order,
-    as ``ikpso_tpu/ops/pallas_fitness.py::fk_fitness_tile`` and the
-    CUDA device function ``fk_fitness_eval`` (``csrc/fk_fitness.cuh``).
+    scene block of meta, or None; ``use_orientation`` adds the
+    orientation term (meta and swarm in its ``MetaLayout``). Same
+    arithmetic, in the same order, as
+    ``ikpso_tpu/ops/pallas_fitness.py::fk_fitness_tile`` and the CUDA
+    device function ``fk_fitness_eval`` (``csrc/fk_fitness.cuh``).
     """
-    rots, poss, total = fk_walk_tile(spec, get_x, meta, sw)
+    num_obstacles = 0 if obstacles is None else obstacles.shape[0]
+    rots, poss, total = fk_walk_tile(spec, get_x, meta, sw, num_obstacles=num_obstacles,
+                                     use_orientation=use_orientation)
     if obstacles is not None:
         # The hit test reads only FK outputs, so all nodes are tested in
         # one pass after the walk (the OR of the per-node hits).
@@ -400,12 +417,22 @@ def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw, *, obstacles=None,
     return total
 
 
-def check_meta(spec, meta, num_obstacles):
-    """Raise unless ``meta`` has the layout of ``num_obstacles`` scene boxes."""
-    want = MetaLayout(spec, num_obstacles).meta_size
+def check_meta(spec, meta, num_obstacles, use_orientation=False):
+    """Raise unless ``meta`` has the layout of ``num_obstacles`` scene boxes
+    (and the orientation weight, with ``use_orientation``)."""
+    want = MetaLayout(spec, num_obstacles, use_orientation).meta_size
     if meta.numel() != want:
         raise ValueError(f"meta holds {meta.numel()} values; {num_obstacles} "
-                         f"obstacles need {want}")
+                         f"obstacles{' and orientation' if use_orientation else ''} "
+                         f"need {want}")
+
+
+def check_swarm(spec, swarm, num_obstacles, use_orientation):
+    """Raise unless each ``swarm`` row holds every constant the tile reads."""
+    want = MetaLayout(spec, num_obstacles, use_orientation).swarm_size
+    if swarm.dim() != 2 or swarm.shape[1] < want:
+        raise ValueError(f"swarm rows must hold {want} constants, got "
+                         f"{tuple(swarm.shape)}")
 
 
 def fk_fitness_plain(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
@@ -415,22 +442,25 @@ def fk_fitness_plain(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
                      use_orientation: bool = False,
                      trig_impl: str = "poly") -> torch.Tensor:
     """``(S, P, D)`` angles -> ``(S, P)`` fitness, plain torch."""
-    _refuse_unported(use_distance_term=use_distance_term,
-                     use_orientation=use_orientation, trig_impl=trig_impl,
+    _refuse_unported(use_distance_term=use_distance_term, trig_impl=trig_impl,
                      collision_shape=collision_shape)
-    check_meta(spec, meta, num_obstacles)
+    check_meta(spec, meta, num_obstacles, use_orientation)
+    check_swarm(spec, swarm, num_obstacles, use_orientation)
     m = meta.reshape(-1)
     off = MetaLayout(spec).OFF_OBS
     obstacles = m[off:off + 15 * num_obstacles].reshape(-1, 15) if num_obstacles else None
     return fk_fitness_tile(
         spec, lambda d: x[..., d], lambda i: m[i], lambda i: swarm[:, i:i + 1],
         obstacles=obstacles, collision_shape=collision_shape, gizmo_size=gizmo_size,
+        use_orientation=use_orientation,
     )
 
 
-def _launch_args(name, spec, x, meta, swarm, num_obstacles, collision_shape):
+def _launch_args(name, spec, x, meta, swarm, num_obstacles, collision_shape,
+                 use_orientation):
     """Check what a kernel launch is handed (device, dtype, contiguity)
-    and pick its instantiation: ``(topology id, collider id, flat meta)``."""
+    and pick its instantiation: ``(topology id, collider id, orientation
+    flag, flat meta)``."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for arg, t in (("x", x), ("meta", meta), ("swarm", swarm)):
@@ -438,8 +468,8 @@ def _launch_args(name, spec, x, meta, swarm, num_obstacles, collision_shape):
             raise ValueError(f"{name}: {arg} must be float32")
     meta = meta.reshape(-1)
     kernels.require_cuda_contiguous(name, x, meta, swarm)
-    return (kernels.topology_id(spec),
-            kernels.collider_id(spec, num_obstacles, collision_shape), meta)
+    return (*kernels.kernel_variant(spec, num_obstacles, collision_shape,
+                                    use_orientation), meta)
 
 
 def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
@@ -453,23 +483,24 @@ def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
     A CPU tensor runs :func:`fk_fitness_plain`; a CUDA tensor launches
     the kernel (one thread per particle) or raises.
     """
-    _refuse_unported(use_distance_term=use_distance_term,
-                     use_orientation=use_orientation, trig_impl=trig_impl,
+    _refuse_unported(use_distance_term=use_distance_term, trig_impl=trig_impl,
                      collision_shape=collision_shape)
-    check_meta(spec, meta, num_obstacles)
+    check_meta(spec, meta, num_obstacles, use_orientation)
+    check_swarm(spec, swarm, num_obstacles, use_orientation)
     if x.device.type == "cpu":
         return fk_fitness_plain(spec, x, meta, swarm, num_obstacles=num_obstacles,
                                 collision_shape=collision_shape,
-                                gizmo_size=gizmo_size)
+                                gizmo_size=gizmo_size, use_orientation=use_orientation)
     s, p, d = x.shape
     if d != spec.dof or swarm.shape[0] != s:
         raise ValueError(f"fk_fitness: shapes x {tuple(x.shape)}, swarm "
                          f"{tuple(swarm.shape)} do not match dof {spec.dof}")
-    topo, collider, meta = _launch_args("fk_fitness", spec, x, meta, swarm,
-                                        num_obstacles, collision_shape)
+    topo, collider, orient, meta = _launch_args("fk_fitness", spec, x, meta, swarm,
+                                                num_obstacles, collision_shape,
+                                                use_orientation)
     out = torch.empty((s, p), dtype=torch.float32, device=x.device)
     rc = kernels.library().ikpso_fk_fitness(
-        topo, collider, num_obstacles, *scene_constants(gizmo_size),
+        topo, collider, orient, num_obstacles, *scene_constants(gizmo_size),
         x.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
         out.data_ptr(), s * p, p, kernels.stream_ptr(x.device),
     )
@@ -514,21 +545,22 @@ def fused_fitness(spec: ChainSpec, x_dp: torch.Tensor, meta: torch.Tensor,
     A CPU tensor runs :func:`fused_fitness_plain`; a CUDA tensor launches
     the kernel (one thread per particle) or raises.
     """
-    _refuse_unported(use_distance_term=use_distance_term,
-                     use_orientation=use_orientation, trig_impl=trig_impl,
+    _refuse_unported(use_distance_term=use_distance_term, trig_impl=trig_impl,
                      collision_shape=collision_shape)
-    check_meta(spec, meta, num_obstacles)
+    check_meta(spec, meta, num_obstacles, use_orientation)
     _check_lane_major(spec, x_dp, swarm)
+    check_swarm(spec, swarm, num_obstacles, use_orientation)
     if x_dp.device.type == "cpu":
         return fused_fitness_plain(spec, x_dp, meta, swarm, num_obstacles=num_obstacles,
                                    collision_shape=collision_shape,
-                                   gizmo_size=gizmo_size)
-    topo, collider, meta = _launch_args("fused_fitness", spec, x_dp, meta, swarm,
-                                        num_obstacles, collision_shape)
+                                   gizmo_size=gizmo_size, use_orientation=use_orientation)
+    topo, collider, orient, meta = _launch_args("fused_fitness", spec, x_dp, meta, swarm,
+                                                num_obstacles, collision_shape,
+                                                use_orientation)
     s, _, p = x_dp.shape
     out = torch.empty((s, p), dtype=torch.float32, device=x_dp.device)
     rc = kernels.library().ikpso_fused_fitness(
-        topo, collider, num_obstacles, *scene_constants(gizmo_size),
+        topo, collider, orient, num_obstacles, *scene_constants(gizmo_size),
         x_dp.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
         out.data_ptr(), s, p, kernels.stream_ptr(x_dp.device),
     )
@@ -558,15 +590,17 @@ def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
     use_distance = float(fit.distance_weight) != 0.0
     use_orientation = (problem.target_rot is not None
                        and float(fit.orientation_weight) != 0.0)
-    _refuse_unported(use_distance_term=use_distance, use_orientation=use_orientation,
-                     trig_impl=fit.trig_impl, collision_shape=fit.collision_shape)
-    meta = pack_meta(spec, fit, obstacles).to(problem.pose.device)
+    _refuse_unported(use_distance_term=use_distance, trig_impl=fit.trig_impl,
+                     collision_shape=fit.collision_shape)
+    meta = pack_meta(spec, fit, obstacles, use_orientation).to(problem.pose.device)
     swarm = pack_swarm(spec, problem, fk_ops.pose_to_angles(spec, problem.pose),
-                       fk_ops.fk_points(spec, problem.pose, problem.origin))
+                       fk_ops.fk_points(spec, problem.pose, problem.origin),
+                       use_orientation)
 
     def fitness_fn(x: torch.Tensor) -> torch.Tensor:
         return fused_fitness(spec, x.transpose(-1, -2).contiguous(), meta, swarm,
-                        num_obstacles=num_obstacles, collision_shape=fit.collision_shape,
-                        gizmo_size=fit.gizmo_size)
+                             num_obstacles=num_obstacles,
+                             collision_shape=fit.collision_shape,
+                             gizmo_size=fit.gizmo_size, use_orientation=use_orientation)
 
     return fitness_fn

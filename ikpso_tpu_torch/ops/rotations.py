@@ -1,9 +1,11 @@
-"""Rotation math: Euler-XYZ matrices and quaternion -> matrix.
+"""Rotation math: Euler-XYZ matrices and quaternion conversions.
 
-Port of ``ikpso_tpu/ops/rotations.py`` (``euler_xyz_to_matrix``:
-``R = Rx(a_x) @ Ry(a_y) @ Rz(a_z)`` in closed form;
-``quaternion_to_matrix`` for scene boxes). The other quaternion helpers
-wait for the orientation branch (ROADMAP queue A item 8).
+Port of ``ikpso_tpu/ops/rotations.py``: ``euler_xyz_to_matrix``
+(``R = Rx(a_x) @ Ry(a_y) @ Rz(a_z)`` in closed form),
+``quaternion_to_matrix`` (scene boxes), and ``matrix_to_quaternion`` /
+``quaternion_to_euler_xyz``, through which the orientation harness
+builds its Euler target rotations as ``bench.py:112-120`` does.
+Quaternions are ``(x, y, z, w)``.
 """
 
 from __future__ import annotations
@@ -56,3 +58,47 @@ def quaternion_to_matrix(quat: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def matrix_to_quaternion(rot: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix ``(..., 3, 3)`` -> quaternion ``(..., 4)`` (x, y, z, w).
+
+    Branch-free four-candidate selection: every candidate is computed and
+    the numerically stable one picked with ``torch.where``; each sqrt
+    argument is floored at 1e-12 so the unselected candidates stay finite.
+    """
+    m00, m01, m02 = rot[..., 0, 0], rot[..., 0, 1], rot[..., 0, 2]
+    m10, m11, m12 = rot[..., 1, 0], rot[..., 1, 1], rot[..., 1, 2]
+    m20, m21, m22 = rot[..., 2, 0], rot[..., 2, 1], rot[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def _safe_sqrt(v):
+        return torch.sqrt(torch.clamp_min(v, 1e-12))
+
+    s0 = _safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, 0.25 * s0],
+                     dim=-1)
+    s1 = _safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1, (m21 - m12) / s1],
+                     dim=-1)
+    s2 = _safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2, (m02 - m20) / s2],
+                     dim=-1)
+    s3 = _safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3, (m10 - m01) / s3],
+                     dim=-1)
+    use0 = (tr > 0.0)[..., None]
+    use1 = ((m00 > m11) & (m00 > m22))[..., None]
+    use2 = (m11 > m22)[..., None]
+    return torch.where(use0, q0, torch.where(use1, q1, torch.where(use2, q2, q3)))
+
+
+def quaternion_to_euler_xyz(quat: torch.Tensor) -> torch.Tensor:
+    """Quaternion ``(..., 4)`` -> Euler XYZ ``(..., 3)``, read off the
+    equivalent matrix: ``r02 = sin y`` (clamped ``asin``),
+    ``x = atan2(-r12, r22)``, ``z = atan2(-r01, r00)``."""
+    rot = quaternion_to_matrix(quat)
+    y = torch.asin(torch.clamp(rot[..., 0, 2], -1.0, 1.0))
+    x = torch.atan2(-rot[..., 1, 2], rot[..., 2, 2])
+    z = torch.atan2(-rot[..., 0, 1], rot[..., 0, 0])
+    return torch.stack([x, y, z], dim=-1)

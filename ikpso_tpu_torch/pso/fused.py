@@ -10,21 +10,25 @@ Port of ``ikpso_tpu/pso/fused.py`` (``fused_solve_raw``,
     with ``torch.argmin`` (first occurrence) for gbest;
   * ``make_fused_solver`` — ``(problem, generator) -> SolveResult``.
 
-Supported: ``inertia_mode="canonical"`` with or without
-``inertia_end``, ``init_mode`` ``"warm"``, ``"uniform"`` or ``"hybrid"``,
-``gbest_interval=1``, ``rekick_interval=0``, obstacles with the
-closed-form (``"sat"``) colliders of either shape, no orientation /
-distance term. Everything else raises (ROADMAP queue B item 1). The
-TPU-only knobs (``swarms_per_tile``, ``gbest_mode``, ``const_mode``,
-VMEM gates, multi-row output) have no counterpart.
+Supported: canonical inertia (with or without ``inertia_end``) or
+randomized inertia, ``init_mode`` ``"warm"``, ``"uniform"`` or
+``"hybrid"``, any ``gbest_interval``, the velocity re-kick with or
+without its threshold, the orientation term, obstacles with the
+closed-form (``"sat"``) colliders of either shape. The distance term and
+exact trig raise (ROADMAP "What remains" item 1). The TPU-only knobs
+(``swarms_per_tile``, ``gbest_mode``, ``const_mode``, VMEM gates,
+multi-row output) have no counterpart.
 
 Random stream: per-swarm seed words ``(S, 2)`` int32 drawn from the
 caller's ``torch.Generator``; the kernel's in-register Philox and
 ``ops.philox.philox_uniform`` produce the same bits from them. The
 ``uniforms`` replay input, ``(S, n_draws, D, P)``, replaces the
-generator in both versions (the test hook). Draw slots: the init draws
-first (position at slot 0 unless warm; velocity at ``n_init - 1``),
-then ``(u_c, u_s)`` per iteration.
+generator in both versions (the test hook). Draw slots, the JAX kernel's
+replay numbering (``ikpso_tpu/pso/fused.py:245-250, 390-394``): the init
+draws first (position at slot 0 unless warm; velocity at
+``n_init - 1``), then :func:`draws_per_iter` slots per iteration --
+``u_c``, ``u_s``, ``u_w`` (randomized inertia), and the re-kick draw of
+a block starting at that iteration in the last slot.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ikpso_tpu_torch.ops.fitness_kernel import (
     TWO_PI,
     MetaLayout,
     check_meta,
+    check_swarm,
     fk_fitness_plain,
     pack_meta,
     pack_swarm,
@@ -58,24 +63,10 @@ INIT_MODES = {"warm": 0, "uniform": 1, "hybrid": 2}
 
 def check_supported(pso: PSOConfig, fit: FitnessConfig, num_obstacles: int = 0) -> None:
     """Refuse the branches kernel A does not implement yet."""
-    reasons = []
-    if pso.inertia_mode != "canonical":
-        reasons.append(f"inertia_mode={pso.inertia_mode!r}")
-    if pso.gbest_interval != 1:
-        reasons.append(f"gbest_interval={pso.gbest_interval}")
-    if pso.rekick_interval:
-        reasons.append(f"rekick_interval={pso.rekick_interval}")
-    if reasons:
+    if float(fit.distance_weight) != 0.0 or fit.trig_impl != "poly":
         raise NotImplementedError(
-            "fused solver branch not ported yet: " + ", ".join(reasons)
-            + " (ROADMAP queue B item 1, the rest of branch (b))"
-        )
-    if float(fit.distance_weight) != 0.0 or float(
-        fit.orientation_weight
-    ) != 0.0 or fit.trig_impl != "poly":
-        raise NotImplementedError(
-            "fused solver with orientation, distance term or exact trig is not "
-            "ported yet (ROADMAP queue B item 1, branch (c))"
+            "fused solver with the distance term or exact trig is not ported yet "
+            "(ROADMAP \"What remains\" item 1; queue B items 1(c), 2)"
         )
     if num_obstacles and fit.collision_backend != "sat":
         raise NotImplementedError(
@@ -87,12 +78,34 @@ def check_supported(pso: PSOConfig, fit: FitnessConfig, num_obstacles: int = 0) 
 
 def num_draws(pso: PSOConfig) -> int:
     """Draw slots of one solve: the init draws (velocity; position too
-    unless warm), then (u_c, u_s) per iteration."""
-    return n_init_draws(pso) + 2 * pso.iterations
+    unless warm), then :func:`draws_per_iter` per iteration."""
+    return n_init_draws(pso) + draws_per_iter(pso) * pso.iterations
 
 
 def n_init_draws(pso: PSOConfig) -> int:
     return 1 if pso.init_mode == "warm" else 2
+
+
+def draws_per_iter(pso: PSOConfig) -> int:
+    """Slots per iteration: u_c, u_s, u_w with randomized inertia, and one
+    for the re-kick when it is on."""
+    return (3 if pso.inertia_mode == "randomized" else 2) + (1 if pso.rekick_interval else 0)
+
+
+def gbest_interval(pso: PSOConfig) -> int:
+    """The gbest refresh interval, after the JAX kernel's checks: it
+    divides the iterations and, with the re-kick on, the kick interval,
+    which divides the iterations too (``ikpso_tpu/pso/fused.py:361-378``)."""
+    interval = max(1, pso.gbest_interval)
+    if pso.iterations % interval:
+        raise ValueError(f"iterations={pso.iterations} must be a multiple of "
+                         f"gbest_interval={interval}")
+    rk = pso.rekick_interval
+    if rk and (rk % interval or pso.iterations % rk):
+        raise ValueError(f"rekick_interval={rk} must be a multiple of "
+                         f"gbest_interval={interval} and divide "
+                         f"iterations={pso.iterations}")
+    return interval
 
 
 def inertia_schedule(pso: PSOConfig) -> np.ndarray:
@@ -132,15 +145,23 @@ def fused_solve_plain(
     uniforms: Optional[torch.Tensor] = None,
     num_obstacles: int = 0,
     observe: Optional[Callable[[torch.Tensor], None]] = None,
+    use_orientation: bool = False,
+    on_kick: Optional[Callable[[torch.Tensor], None]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused solve on ``(S, P, D)`` tensors; returns ``(gbest (S, D),
-    gval (S,))``. Same update order and rounding as kernel A; gbest is
-    ``torch.argmin``, whose first-occurrence rule sends ties (at
-    ``COLLISION_PENALTY`` too) to the lowest particle id. ``observe``,
-    if given, sees every ``(S, P, D)`` position tensor the solve
-    evaluates (``utils/flops.py`` counts the collider work on them)."""
+    gval (S,))``. Same update order and rounding as kernel A, in the JAX
+    body's order (``ikpso_tpu/pso/fused.py:383-458``): at each re-kick
+    block start but the first, v is redrawn for the swarms whose min lval
+    is above the threshold (all swarms without one); gbest is refreshed
+    where ``it % gbest_interval == 0``, by ``torch.argmin``, whose
+    first-occurrence rule sends ties (at ``COLLISION_PENALTY`` too) to the
+    lowest particle id. ``observe``, if given, sees every ``(S, P, D)``
+    position tensor the solve evaluates (``utils/flops.py`` counts the
+    collider work on them); ``on_kick``, the ``(S,)`` mask of the swarms
+    kicked at each block start (it counts the kicks)."""
     check_supported(pso, fit, num_obstacles)
     _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms)
+    interval = gbest_interval(pso)
     s, d, p = swarm.shape[0], spec.dof, num_particles
 
     def draw(slot):
@@ -153,7 +174,8 @@ def fused_solve_plain(
             observe(x)
         return fk_fitness_plain(spec, x, meta, swarm, num_obstacles=num_obstacles,
                                 collision_shape=fit.collision_shape,
-                                gizmo_size=fit.gizmo_size)
+                                gizmo_size=fit.gizmo_size,
+                                use_orientation=use_orientation)
 
     lay = MetaLayout(spec, num_obstacles)
     lo, hi = limits[0], limits[1]
@@ -171,11 +193,28 @@ def fused_solve_plain(
     lbest = x
     lval = fitness_of(x)
     c1, c2 = float(np.float32(pso.cognitive)), float(np.float32(pso.social))
+    dpi = draws_per_iter(pso)
+    randomized = pso.inertia_mode == "randomized"
+    rk = pso.rekick_interval
+    kick_scale = float(np.float32(pso.rekick_scale))
+    kick_threshold = float(np.float32(pso.rekick_threshold))
     for it, w in enumerate(inertia_schedule(pso)):
-        gb = lbest[rows, torch.argmin(lval, dim=1)][:, None, :]
-        u_c = draw(n_init + 2 * it)
-        u_s = draw(n_init + 2 * it + 1)
-        v = float(w) * v + c1 * u_c * (lbest - x) + c2 * u_s * (gb - x)
+        if rk and it and it % rk == 0:
+            kick = (draw(n_init + it * dpi + dpi - 1) * 2.0 - 1.0) * kick_scale
+            kicked = torch.ones(s, dtype=torch.bool, device=swarm.device)
+            if pso.rekick_threshold >= 0.0:
+                kicked = lval.min(dim=1).values > kick_threshold
+                kick = torch.where(kicked[:, None, None], kick, v)
+            if on_kick is not None:
+                on_kick(kicked)
+            v = kick
+        if it % interval == 0:
+            gb = lbest[rows, torch.argmin(lval, dim=1)][:, None, :]
+        base = n_init + dpi * it
+        u_c = draw(base)
+        u_s = draw(base + 1)
+        inert = float(w) * draw(base + 2) * v if randomized else float(w) * v
+        v = inert + c1 * u_c * (lbest - x) + c2 * u_s * (gb - x)
         x = torch.minimum(torch.maximum(x + v, lo), hi)
         f = fitness_of(x)
         better = f < lval
@@ -196,23 +235,29 @@ def fused_solve(
     num_particles: int,
     uniforms: Optional[torch.Tensor] = None,
     num_obstacles: int = 0,
+    use_orientation: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel A: one PSO solve per swarm; returns ``(gbest (S, D), gval (S,))``.
 
     CPU tensors run :func:`fused_solve_plain`; CUDA tensors launch the
     kernel or raise. ``meta`` carries ``num_obstacles`` scene boxes
-    (``pack_meta``); ``fit.collision_shape`` picks the collider.
+    (``pack_meta``); ``fit.collision_shape`` picks the collider;
+    ``use_orientation`` adds the orientation term (meta and swarm packed
+    with it).
     """
     check_supported(pso, fit, num_obstacles)
     _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms)
-    check_meta(spec, meta, num_obstacles)
+    check_meta(spec, meta, num_obstacles, use_orientation)
+    check_swarm(spec, swarm, num_obstacles, use_orientation)
+    interval = gbest_interval(pso)
     if swarm.device.type == "cpu":
         return fused_solve_plain(spec, pso, fit, meta, swarm, limits, seeds,
-                                 num_particles, uniforms, num_obstacles)
+                                 num_particles, uniforms, num_obstacles,
+                                 use_orientation=use_orientation)
     if swarm.device.type != "cuda":
         raise ValueError(f"fused_solve: unsupported device {swarm.device}")
-    topo = kernels.topology_id(spec)
-    collider = kernels.collider_id(spec, num_obstacles, fit.collision_shape)
+    topo, collider, orient = kernels.kernel_variant(spec, num_obstacles,
+                                                    fit.collision_shape, use_orientation)
     dev = swarm.device
     s, d = swarm.shape[0], spec.dof
     meta = meta.reshape(-1).to(torch.float32).contiguous()
@@ -228,13 +273,15 @@ def fused_solve(
     gbest = torch.empty((s, d), dtype=torch.float32, device=dev)
     gval = torch.empty((s,), dtype=torch.float32, device=dev)
     rc = kernels.library().ikpso_fused_solve(
-        topo, collider, int(uniforms is not None), INIT_MODES[pso.init_mode],
+        topo, collider, orient, int(uniforms is not None), INIT_MODES[pso.init_mode],
         num_obstacles, *scene_constants(fit.gizmo_size),
         meta.data_ptr(), meta.numel(),
         swarm.data_ptr(), swarm.shape[1],
         limits.data_ptr(), seeds.data_ptr(), inertia.data_ptr(), pso.iterations,
         float(np.float32(pso.cognitive)), float(np.float32(pso.social)),
         float(np.float32(pso.init_velocity_scale)),
+        int(pso.inertia_mode == "randomized"), interval, pso.rekick_interval,
+        float(np.float32(pso.rekick_scale)), float(np.float32(pso.rekick_threshold)),
         None if uniforms is None else uniforms.data_ptr(), num_draws(pso),
         gbest.data_ptr(), gval.data_ptr(), s, num_particles,
         kernels.stream_ptr(dev),
@@ -242,11 +289,13 @@ def fused_solve(
     kernels.check(rc, "fused_solve")
     fused_solve.launches += 1
     variant = f"{pso.init_mode}/{fit.collision_shape if num_obstacles else 'none'}"
+    if use_orientation:
+        variant += "/orientation"
     fused_solve.variant_launches[variant] = fused_solve.variant_launches.get(variant, 0) + 1
     return gbest, gval
 
 
-# Launch counts: in all, and per (init mode / collider) instantiation.
+# Launch counts: in all, and per (init mode / collider [/ orientation]) variant.
 fused_solve.launches = 0
 fused_solve.variant_launches = {}
 
@@ -256,38 +305,49 @@ def make_fused_solver(
     pso: PSOConfig = PSOConfig(),
     fit: FitnessConfig = FitnessConfig(),
     num_particles: int = 1024,
-    device="cpu",
+    device="cuda",
     obstacles: Optional[Obstacles] = None,
 ):
     """A ``(problem, generator) -> SolveResult`` running kernel A.
 
+    Runs on the card unless ``device`` says otherwise (``"cpu"`` runs the
+    plain solve); raises when the card is asked for and none is visible.
     Packs the constants (scene boxes included) as
-    ``ikpso_tpu/pso/fused.py:759-764`` does, draws ``(S, 2)`` seed words
-    from the generator, and computes the solved pose and the row-FK
-    effector error.
+    ``ikpso_tpu/pso/fused.py:742-764`` does -- with the orientation term
+    when the weight is non-zero and the problem carries target rotations
+    -- draws ``(S, 2)`` seed words from the generator, and computes the
+    solved pose and the row-FK effector error.
     """
     num_obstacles = 0 if obstacles is None else obstacles.count
     check_supported(pso, fit, num_obstacles)
+    gbest_interval(pso)
     from ikpso_tpu_torch.pso.polish_soa import (
         anchor_positions_flat,
         true_effector_error_rows,
     )
 
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("make_fused_solver: device cuda requested but no CUDA "
+                           "device is visible; pass device='cpu' for the plain solve")
     limits = spec.limits().to(device)
-    meta = pack_meta(spec, fit, obstacles).to(device)
+    use_orientation_w = float(fit.orientation_weight) != 0.0
+    metas = {o: pack_meta(spec, fit, obstacles, o).to(device)
+             for o in {False, use_orientation_w}}
 
     def _solve(problem: IKProblem, generator: torch.Generator) -> SolveResult:
+        use_orientation = use_orientation_w and problem.target_rot is not None
         anchor_angles = fk_ops.pose_to_angles(spec, problem.pose)
         swarm = pack_swarm(spec, problem, anchor_angles,
-                           anchor_positions_flat(spec, problem))
+                           anchor_positions_flat(spec, problem), use_orientation)
         s = swarm.shape[0]
         seeds = torch.randint(
             -2**31, 2**31, (s, 2), generator=generator,
             device=generator.device, dtype=torch.int32,
         ).to(device)
-        gbest, gval = fused_solve(spec, pso, fit, meta, swarm, limits, seeds,
-                                  num_particles, num_obstacles=num_obstacles)
+        gbest, gval = fused_solve(spec, pso, fit, metas[use_orientation], swarm, limits,
+                                  seeds, num_particles, num_obstacles=num_obstacles,
+                                  use_orientation=use_orientation)
         return SolveResult(
             angles=gbest,
             fitness=gval,

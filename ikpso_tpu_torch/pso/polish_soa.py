@@ -9,8 +9,10 @@ Pallas kernel; here it is plain torch. The TPU padding chunker
 (``_chunked_rows``) has no counterpart: GPU memory holds the unchunked
 rows at the headline batch.
 
-Residual rows: effector positions and optional Tikhonov locality rows.
-The orientation rows wait (ROADMAP queue A item 8, orientation).
+Residual rows: effector positions, optional world rotation-vector
+orientation rows (``wo * 0.5 * vee(R Rt^T)`` per effector, Jacobian
+``wo`` times the world joint axis, ``wo = sqrt(orientation_weight)``)
+and optional Tikhonov locality rows.
 """
 
 from __future__ import annotations
@@ -131,24 +133,21 @@ def polish_angles_soa(
     use_orientation: bool = False,
     orientation_weight: float = 1.0,
 ) -> torch.Tensor:
-    """SoA-unrolled LM polish of ``(S, D)`` angles (position / locality rows).
+    """SoA-unrolled LM polish of ``(S, D)`` angles (position / orientation
+    / locality rows).
 
     Same step as the JAX core: analytic Jacobian rows, a
     gradient-projection active set (locked dims and coordinates pinned
     at a bound being pushed outward), the dual ``(M, M)`` normal
     equations (primal ``(D, D)`` with locality or M > D), a damping
     race over 0.1/1/10x lambda, and per-swarm accept-if-better.
+    ``use_orientation`` adds three rotation-vector rows per effector
+    (``problem.target_rot`` holds the targets).
     """
-    if use_orientation:
-        raise NotImplementedError(
-            "orientation rows of the LM polish are not ported yet "
-            "(ROADMAP queue A item 8, orientation)"
-        )
-    del orientation_weight
     d = spec.dof
     eff = list(spec.effector_idx)
     e_count = len(eff)
-    m = 3 * e_count
+    m = 3 * e_count * (2 if use_orientation else 1)
     lo_flat = spec.min_rotation[1:].reshape(-1)
     hi_flat = spec.max_rotation[1:].reshape(-1)
     lo = [lo_flat[k] for k in range(d)]
@@ -167,10 +166,28 @@ def polish_angles_soa(
                      device=angles.device)
     lw = float(locality_weight)
     anchor = [problem.pose[..., 1 + k // 3, k % 3] for k in range(d)] if lw else None
+    wo = float(orientation_weight) ** 0.5 if use_orientation else 0.0
+    if use_orientation:
+        rt_rows = [_euler_rows(*(problem.target_rot[..., ei, c] for c in range(3)))[0]
+                   for ei in range(e_count)]
+
+    def residual_rows_of(pos, rot):
+        rows = _residual_rows(spec, pos, targets_rows, w_sqrt)
+        if use_orientation:
+            for ei, node in enumerate(eff):
+                re, rtm = rot[node], rt_rows[ei]
+                # R Rt^T, row-major: mm[i][j] = sum_k re[3i+k] * rtm[3j+k].
+                mm = [[re[3 * i] * rtm[3 * j] + re[3 * i + 1] * rtm[3 * j + 1]
+                       + re[3 * i + 2] * rtm[3 * j + 2] for j in range(3)]
+                      for i in range(3)]
+                rows.append(wo * 0.5 * (mm[2][1] - mm[1][2]))
+                rows.append(wo * 0.5 * (mm[0][2] - mm[2][0]))
+                rows.append(wo * 0.5 * (mm[1][0] - mm[0][1]))
+        return rows
 
     def residual_at(x_rows):
-        pos, _, _ = _fk_rows(spec, x_rows, root_rows, origin_rows)
-        return _residual_rows(spec, pos, targets_rows, w_sqrt)
+        pos, rot, _ = _fk_rows(spec, x_rows, root_rows, origin_rows)
+        return residual_rows_of(pos, rot)
 
     def total_err2(x_rows, r_rows):
         s = _err2_rows(r_rows)
@@ -183,7 +200,7 @@ def polish_angles_soa(
     zero = torch.zeros_like(x[0])
     for _ in range(steps):
         pos, rot, cxsx = _fk_rows(spec, x, root_rows, origin_rows)
-        r = _residual_rows(spec, pos, targets_rows, w_sqrt)
+        r = residual_rows_of(pos, rot)
 
         jac = [[None] * d for _ in range(m)]
         for k in range(1, spec.num_nodes):
@@ -212,6 +229,11 @@ def polish_angles_soa(
                     jac[3 * ei + 0][col] = we * (wy * dz0 - wz * dy0)
                     jac[3 * ei + 1][col] = we * (wz * dx0 - wx * dz0)
                     jac[3 * ei + 2][col] = we * (wx * dy0 - wy * dx0)
+                    if use_orientation:
+                        orow = 3 * e_count + 3 * ei
+                        jac[orow + 0][col] = wo * wx
+                        jac[orow + 1][col] = wo * wy
+                        jac[orow + 2][col] = wo * wz
         for i in range(m):
             for kcol in range(d):
                 if jac[i][kcol] is None:

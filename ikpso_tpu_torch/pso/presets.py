@@ -1,7 +1,7 @@
 """Per-model solver recipes.
 
 Port of ``ikpso_tpu/pso/presets.py`` (``FusedPreset`` without the TPU's
-``swarms_per_tile``, and the ``arm_7dof`` entry). The recipe: a short
+``swarms_per_tile``, and the ``arm_7dof`` and ``arm_6dof`` entries). The recipe: a short
 basin-finding PSO stage (canonical inertia decaying 0.5 -> 0.2), an
 SoA LM polish of each swarm's gbest, and top-k retry rounds with
 geometrically shrinking buckets. The other models' presets wait for
@@ -41,6 +41,12 @@ FUSED_PRESETS = {
     # 4 LM steps, 4 retry rounds with buckets S/32 decaying 8x per round.
     "arm_7dof": FusedPreset(128, 8, 0, 4, 4, swarms=1_048_576,
                             retry_bucket_decay=8),
+    # Position + orientation (the exactly determined 6-DOF task): 262,144
+    # swarms of 128 particles, 40 iterations with a re-kick every 20, 4 LM
+    # steps with orientation rows, then 20 uniform-init retry rounds of 80
+    # iterations over a constant bucket (its wrong-basin failures do not
+    # shrink geometrically).
+    "arm_6dof": FusedPreset(128, 40, 20, 4, 20, "uniform", retry_iterations=80),
 }
 
 

@@ -10,11 +10,12 @@ downloaded and nothing outside ``csrc/`` is compiled.
 Every C entry point returns ``cudaGetLastError()``; :func:`check`
 raises when it is non-zero. Kernels launch on PyTorch's current stream.
 
-Topology and scene collider are compile-time constants of the kernels
-(the TPU kernels unroll them at trace time). :func:`topology_id` maps a
-``ChainSpec`` to one of the instantiated topologies and
-:func:`collider_id` an obstacle scene to a collider variant; both raise
-for anything not instantiated.
+Topology, scene collider and the orientation term are compile-time
+constants of the kernels (the TPU kernels unroll them at trace time).
+:func:`topology_id` maps a ``ChainSpec`` to one of the instantiated
+topologies and :func:`kernel_variant` a (topology, scene, orientation)
+combination to its instantiation; both raise for anything not
+instantiated.
 """
 
 from __future__ import annotations
@@ -47,16 +48,24 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 SOURCES = ("fused_solve.cu", "fk_fitness.cu", "fused_fitness.cu", "roofline.cu")
 
 # (num_nodes, packed parents, effector bit mask) -> id; must match the
-# instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm), which
-# the launchers of kernels A, B and C all instantiate.
+# instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm, Arm6Dof),
+# which the launchers of kernels A, B and C all instantiate.
 KERNEL_TOPOLOGIES = {
     (4, 0x2100, 0x8): 0,  # arm_7dof: serial 3 links, effector node 3
     (8, 0x44432100, 0xE0): 1,  # reference_arm: 4 elbows + 3 effector children
+    (3, 0x100, 0x4): 2,  # arm_6dof: serial 2 links, effector node 2
 }
 
-# Collider variants (enum Collider in csrc/fk_fitness.cuh; 0 = none),
-# instantiated for the serial 4-node topology (id 0) only.
+# Collider variants (enum Collider in csrc/fk_fitness.cuh; 0 = none).
 COLLIDERS = {"box": 1, "capsule": 2}
+
+# The (topology id, collider id, orientation) combinations that the
+# launchers of kernels A, B and C instantiate: the ones a path runs.
+INSTANTIATED = {
+    (0, 0, False), (0, 1, False), (0, 2, False),  # arm_7dof: headline, scenes
+    (1, 0, False),  # reference_arm
+    (2, 0, False), (2, 0, True),  # arm_6dof, position only and with orientation
+}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -96,20 +105,27 @@ def topology_id(spec) -> int:
     return KERNEL_TOPOLOGIES[code]
 
 
-def collider_id(spec, num_obstacles: int, collision_shape: str) -> int:
-    """Id of the collider variant for an obstacle scene (0 without one)."""
-    if not num_obstacles:
-        return 0
-    if collision_shape not in COLLIDERS:
-        raise ValueError(f"unknown collision_shape {collision_shape!r}")
-    if topology_id(spec) != 0:
+def kernel_variant(spec, num_obstacles: int, collision_shape: str,
+                   use_orientation: bool):
+    """``(topology id, collider id, orientation flag)`` of the kernel
+    instantiation for a chain, an obstacle scene (collider 0 without one)
+    and the orientation term; raises for a combination no path uses."""
+    collider = 0
+    if num_obstacles:
+        if collision_shape not in COLLIDERS:
+            raise ValueError(f"unknown collision_shape {collision_shape!r}")
+        collider = COLLIDERS[collision_shape]
+    key = (topology_id(spec), collider, bool(use_orientation))
+    if key not in INSTANTIATED:
         raise NotImplementedError(
-            f"obstacle colliders are instantiated for the serial 4-node topology "
-            f"(arm_7dof, planar_3dof) only, not parent={spec.parent}; more "
-            "topologies with obstacles are ROADMAP queue A item 8 (the rest of "
-            "the zoo)"
+            f"no CUDA kernel instantiated for parent={spec.parent} with "
+            f"{collision_shape if collider else 'no'} colliders and orientation "
+            f"{'on' if use_orientation else 'off'} (instantiated: arm_7dof with "
+            "or without a scene, reference_arm, arm_6dof with or without "
+            "orientation); more combinations are ROADMAP queue A item 8 (the "
+            "rest of the zoo)"
         )
-    return COLLIDERS[collision_shape]
+    return key[0], key[1], int(key[2])
 
 
 def _source_hash() -> str:
@@ -173,24 +189,26 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     scene = [_I, _F, _F, _F, _F]  # obstacle count, collider sizes
     lib.ikpso_fk_fitness.argtypes = [
-        _I, _I, *scene,  # topology id, collider id, scene
+        _I, _I, _I, *scene,  # topology id, collider id, orientation flag, scene
         _VP, _VP, _VP, _I, _VP, ctypes.c_longlong, _I, _VP,
     ]
     lib.ikpso_fk_fitness.restype = _I
     lib.ikpso_fused_solve.argtypes = [
-        _I, _I, _I, _I,  # topology id, collider id, replay flag, init mode
+        _I, _I, _I, _I, _I,  # topology id, collider id, orientation, replay, init mode
         *scene,
         _VP, _I,  # meta, M
         _VP, _I,  # swarm, K
         _VP, _VP, _VP, _I,  # limits, seeds, inertia, iterations
         _F, _F, _F,  # c1, c2, init velocity scale
+        _I, _I,  # randomized inertia flag, gbest interval
+        _I, _F, _F,  # re-kick interval (0: off), scale, threshold (< 0: kick all)
         _VP, _I,  # uniforms, n_draws
         _VP, _VP,  # out gbest, out gval
         _I, _I, _VP,  # S, P, stream
     ]
     lib.ikpso_fused_solve.restype = _I
     lib.ikpso_fused_fitness.argtypes = [
-        _I, _I, *scene,  # topology id, collider id, scene
+        _I, _I, _I, *scene,  # topology id, collider id, orientation flag, scene
         _VP, _VP, _VP, _I, _VP, _I, _I, _VP,  # x, meta, swarm, K, out, S, P, stream
     ]
     lib.ikpso_fused_fitness.restype = _I

@@ -143,7 +143,8 @@ def test_fk_fitness_cpu_wrapper_runs_plain_and_counts_nothing():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(use_distance_term=True), dict(use_orientation=True),
+    # Orientation is ported; the distance term beside it is not.
+    dict(use_distance_term=True), dict(use_orientation=True, use_distance_term=True),
     # Obstacles are ported; the distance term beside them is not.
     dict(num_obstacles=1, use_distance_term=True), dict(trig_impl="exact"),
 ])
@@ -379,5 +380,10 @@ def test_fused_fitness_checks_its_layout():
     meta = torch.zeros(1, 6)
     with pytest.raises(ValueError, match=r"\(S, 9, P\)"):
         kernel_c(spec, torch.zeros(2, 1000, 9), meta, torch.zeros(2, 30))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernel_c(spec, torch.zeros(2, 9, 8), meta, torch.zeros(2, 30), use_orientation=True)
+    # The orientation term needs its weight in meta and the target
+    # rotations in each swarm row.
+    with pytest.raises(ValueError, match="orientation"):
+        kernel_c(spec, torch.zeros(2, 9, 8), meta, torch.zeros(2, 33), use_orientation=True)
+    with pytest.raises(ValueError, match="swarm rows must hold 42"):
+        kernel_c(spec, torch.zeros(2, 9, 8), torch.zeros(1, 7), torch.zeros(2, 33),
+                 use_orientation=True)

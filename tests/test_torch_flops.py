@@ -51,6 +51,22 @@ def test_fitness_tile_count_matches_jax(shape, n_obs, tol):
     assert got.transcendentals == want.transcendentals == 0.0
 
 
+@pytest.mark.parametrize("orientation", [False, True])
+def test_arm_6dof_tile_count_matches_jax(orientation):
+    # The orientation branch of the plain tile counts what the Pallas tile
+    # body counts (9 differences, squares and sums, the weight product).
+    spec_j = jlib.arm_6dof()[0]
+    fit_j = JFit(angle_weight=0.0, distance_weight=0.0, orientation_weight=1.0)
+    want = jflops.fitness_tile_count(spec_j, fit_j, use_orientation=orientation)
+    got = flops.fitness_tile_count(convert.chain_spec_from(spec_j),
+                                   convert.fitness_config_from(fit_j),
+                                   use_orientation=orientation)
+    assert got.flops == want.flops
+    if orientation:
+        assert got.flops - flops.fitness_tile_count(
+            convert.chain_spec_from(spec_j)).flops == pytest.approx(27.0 + 2.0 + 1 / 1024)
+
+
 @pytest.mark.parametrize("mode", ["randomized", "canonical"])
 def test_pso_update_count_matches_jax(mode):
     pso_j = JPSO(inertia_mode=mode)
@@ -80,6 +96,47 @@ def test_fused_solve_count_shares_jax_fitness_and_update():
     # once per thread, the group's fixed work (12 for g = 0, 14 for
     # g = 1, 2) and the key schedule.
     assert got.int_ops == s * p * ((1 + 2 * it) * 3 * 63 + 12 + 2 * 14 + 18)
+
+
+@pytest.mark.parametrize("kw,kicks", [
+    (dict(inertia_mode="randomized", rekick_interval=4, gbest_interval=2), None),
+    (dict(inertia_mode="canonical", inertia_end=0.2, rekick_interval=2,
+          rekick_threshold=1e-6, init_mode="uniform"), 5.0),
+    (dict(inertia_mode="canonical", gbest_interval=4), None),
+])
+def test_fused_solve_count_one_iteration_at_a_time(kw, kicks):
+    # fused_solve_count against a statement of kernel A's loop, one
+    # iteration at a time (csrc/fused_solve.cu): a refresh argmin where
+    # it % gbest_interval == 0, a threshold compare at each kick block
+    # start but the first, the kicked swarms' draws and writes, the
+    # iteration's draw slots, update and evaluation.
+    s, p, it = 3, 64, 8
+    pso = convert.pso_config_from(JPSO(iterations=it, **kw))
+    fit = convert.fitness_config_from(JFit(angle_weight=0.0))
+    d = SPEC.dof
+    n_init = 1 if pso.init_mode == "warm" else 2
+    tile = flops.fitness_tile_count(SPEC, fit)
+    per_call = 63.0 * 3  # 3 Philox groups of D=9, 63 changing ops each
+    slots, threads, per = n_init, 0.0, tile + flops.FlopCount(
+        flops=6.0 * d * n_init, rng_elems=float(d * n_init))
+    rk = pso.rekick_interval
+    for i in range(it):
+        if i % max(1, pso.gbest_interval) == 0:
+            per = per + flops.argmin_count(p)
+        if rk and i and i % rk == 0:
+            per = per + flops.FlopCount(flops=1.0)
+        slots += 3 if pso.inertia_mode == "randomized" else 2
+        per = per + flops.pso_update_count(SPEC, pso) + tile
+    per = per + flops.argmin_count(p)
+    n_kicks = (it // rk - 1) * s if rk and kicks is None else (kicks or 0.0)
+    threads = 12 + 2 * 14 + 18  # per-thread Philox work and key schedule
+    want_int = s * p * (slots * per_call + threads) + n_kicks * p * per_call
+    got = flops.fused_solve_count(SPEC, pso, fit, num_particles=p, num_swarms=s,
+                                  kicks=kicks)
+    assert got.int_ops == want_int
+    assert got.flops == pytest.approx(per.flops * s * p + n_kicks * p * 6.0 * d,
+                                      rel=1e-12)
+    assert got.rng_elems == per.rng_elems * s * p + n_kicks * p * d
 
 
 @pytest.mark.parametrize("counter,want", [

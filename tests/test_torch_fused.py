@@ -49,6 +49,19 @@ REPLAY_SCENE = dict(centers=[[0.9, 0.9, 0.0], [-0.8, 0.4, 0.7]],
                     full_dims=[[0.5, 0.5, 0.5], [0.6, 0.6, 0.6]])
 
 
+@pytest.fixture
+def torch_single_thread():
+    """Run torch on one intra-op thread for the test. A whole CPU path runs
+    ~10^5 small ops that gain nothing from the pool, and when several test
+    processes share the cores the pools oversubscribe them: six such runs
+    side by side each took more than 400 s with the default pool and
+    ~28 s with one thread on an 8-core CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def tpu_layout(u_port):
     """Port uniforms (S, T, D, P) -> JAX replay layout (S/8, T, D*8, 128):
     U_tpu[g, t, d*8 + j, lane] = U_port[g*8 + j, t, d, lane]."""
@@ -366,18 +379,26 @@ def test_cpu_wrapper_dispatches_to_plain():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(inertia_mode="randomized"),
-    # Uniform init is ported; the re-kick beside it is not.
-    dict(inertia_mode="canonical", init_mode="uniform", rekick_interval=2),
-    dict(inertia_mode="canonical", gbest_interval=2),
-    dict(inertia_mode="canonical", rekick_interval=2),
+    # Randomized inertia, gbest_interval, the re-kick and orientation are
+    # ported (tests/test_torch_orientation.py); these branches still raise.
+    dict(fit=dict(distance_weight=0.5)),
+    dict(fit=dict(trig_impl="exact", orientation_weight=1.0)),
+    dict(fit=dict(collision_backend="gjk"), obstacles=True),
+    dict(retry_walk_steps=4),
 ])
 def test_unported_branches_raise(kw):
+    from ikpso_tpu_torch.pso.restarts import wrap_with_topk_retries
+
     spec, _ = library.arm_7dof()
-    pso = convert.pso_config_from(JPSO(iterations=4, **kw))
+    pso = convert.pso_config_from(JPSO(iterations=4, inertia_mode="randomized",
+                                       rekick_interval=2))
+    fit = FitnessConfig(**kw.get("fit", {}))
+    obs = Obstacles.from_boxes(**REPLAY_SCENE) if kw.get("obstacles") else None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_solver(spec, pso=pso, fit=convert.fitness_config_from(_configs()[1]),
-                          num_particles=128)
+        wrap_with_topk_retries(
+            lambda cfg: make_fused_solver(spec, pso=cfg, fit=fit, num_particles=128,
+                                          device="cpu", obstacles=obs),
+            pso, rounds=1, bucket=8, retry_walk_steps=kw.get("retry_walk_steps", 0))
 
 
 def test_fused_solver_end_to_end_shapes_and_error():
@@ -388,7 +409,7 @@ def test_fused_solver_end_to_end_shapes_and_error():
     batched = library.batched_problem(problem, targets)
     pso = convert.pso_config_from(_configs()[0])
     solver = make_fused_solver(spec, pso=pso, fit=convert.fitness_config_from(_configs()[1]),
-                               num_particles=128)
+                               num_particles=128, device="cpu")
     res = solver(batched, torch.Generator().manual_seed(0))
     assert res.angles.shape == (3, 9) and res.pose.shape == (3, 4, 3)
     np.testing.assert_array_equal(res.pose[:, 1:].reshape(3, 9).numpy(), res.angles.numpy())
@@ -407,17 +428,26 @@ def test_obstacle_refusals_name_their_roadmap_items():
     pso = PSOConfig(iterations=2, inertia_mode="canonical", init_mode="uniform")
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
         make_fused_solver(spec, pso=pso, fit=FitnessConfig(collision_backend="gjk"),
-                          num_particles=128, obstacles=obs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_solver(spec, pso=pso, fit=FitnessConfig(orientation_weight=1.0),
-                          num_particles=128, obstacles=obs)
-    # The CUDA collider variants exist for the serial 4-node topology only.
-    assert kernels.collider_id(spec, 0, "box") == 0
-    assert kernels.collider_id(spec, 2, "box") == 1
-    assert kernels.collider_id(spec, 2, "capsule") == 2
-    assert kernels.collider_id(library.planar_3dof()[0], 2, "box") == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.collider_id(library.reference_arm()[0], 2, "box")
+                          num_particles=128, obstacles=obs, device="cpu")
+    # The CUDA collider variants exist for the serial 4-node topology only,
+    # the orientation term for arm_6dof without a scene only.
+    assert kernels.kernel_variant(spec, 0, "box", False) == (0, 0, 0)
+    assert kernels.kernel_variant(spec, 2, "box", False) == (0, 1, 0)
+    assert kernels.kernel_variant(spec, 2, "capsule", False) == (0, 2, 0)
+    assert kernels.kernel_variant(library.planar_3dof()[0], 2, "box", False) == (0, 1, 0)
+    assert kernels.kernel_variant(library.arm_6dof()[0], 0, "box", True) == (2, 0, 1)
+    for other, n_obs, orient in ((library.reference_arm()[0], 2, False), (spec, 2, True),
+                                 (spec, 0, True), (library.arm_6dof()[0], 2, True)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
+            kernels.kernel_variant(other, n_obs, "box", orient)
+    # Such a combination runs its plain version on the CPU: arm_7dof with a
+    # scene and an orientation target.
+    solver = make_fused_solver(spec, pso=pso, fit=FitnessConfig(orientation_weight=1.0),
+                               num_particles=32, obstacles=obs, device="cpu")
+    problem = library.batched_problem(library.arm_7dof()[1], torch.tensor(
+        [[[1.0, 1.2, -0.8]]]), target_rot=torch.tensor([[[0.1, 0.2, 0.3]]]))
+    res = solver(problem, torch.Generator().manual_seed(0))
+    assert torch.isfinite(res.angles).all() and bool(res.fitness < COLLISION_PENALTY)
 
 
 def test_uniform_init_solver_with_obstacles_avoids_the_scene():
@@ -432,7 +462,7 @@ def test_uniform_init_solver_with_obstacles_avoids_the_scene():
     pso = PSOConfig(iterations=8, inertia_mode="canonical", inertia=0.5,
                     inertia_end=0.2, init_mode="uniform")
     solver = make_fused_solver(spec, pso=pso, fit=FitnessConfig(angle_weight=0.0),
-                               num_particles=128, obstacles=obs)
+                               num_particles=128, obstacles=obs, device="cpu")
     res = solver(batched, torch.Generator().manual_seed(0))
     assert torch.all(res.fitness < COLLISION_PENALTY)
     pos, rot = fk_ops.fk(spec, res.pose, batched.origin)
@@ -443,12 +473,26 @@ def test_uniform_init_solver_with_obstacles_avoids_the_scene():
     assert torch.all(res.angles >= lim[0]) and torch.all(res.angles <= lim[1])
 
 
+def test_make_fused_solver_defaults_to_the_card(monkeypatch):
+    # With no GPU visible, the default device is still the card, so the
+    # builder raises, naming CUDA, instead of solving on the CPU.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec, _ = library.arm_7dof()
+    pso = PSOConfig(iterations=2, inertia_mode="canonical")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_fused_solver(spec, pso=pso, num_particles=32)
+    make_fused_solver(spec, pso=pso, num_particles=32, device="cpu")
+
+
 def test_topology_codes_and_refusal():
     spec7, _ = library.arm_7dof()
     spec_ref, _ = library.reference_arm()
+    spec6, _ = library.arm_6dof()
     assert kernels.topology_code(spec7) == (4, 0x2100, 0x8)
     assert kernels.topology_code(spec_ref) == (8, 0x44432100, 0xE0)
+    assert kernels.topology_code(spec6) == (3, 0x100, 0x4)
     assert kernels.topology_id(spec7) == 0 and kernels.topology_id(spec_ref) == 1
+    assert kernels.topology_id(spec6) == 2
     # planar_3dof shares arm_7dof's serial 4-node topology; a 6-node
     # chain has no instantiation.
     assert kernels.topology_id(library.planar_3dof()[0]) == 0

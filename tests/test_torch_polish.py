@@ -180,5 +180,7 @@ def test_soa_gate_and_refusals():
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
         wrap_with_polish(lambda p, g: None, spec, obstacles=Obstacles.empty(),
                          collision_backend="gjk")
+    # The orientation rows are ported (tests/test_torch_orientation.py); the
+    # locality-cost accept gate is not.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        polish_angles(spec, None, torch.zeros(1, spec.dof), use_orientation=True)
+        wrap_with_polish(lambda p, g: None, spec, locality_weight=0.5)

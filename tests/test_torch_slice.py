@@ -53,7 +53,8 @@ from ikpso_tpu_torch.pso.fused import fused_solve_plain, num_draws
 from ikpso_tpu_torch.pso.polish import polish_angles
 from ikpso_tpu_torch.pso.polish_soa import true_effector_error_rows
 
-from test_torch_fused import SW, _configs, _jax_case, _packs, tpu_layout
+from test_torch_fused import (  # noqa: F401 (torch_single_thread: a fixture)
+    SW, _configs, _jax_case, _packs, torch_single_thread, tpu_layout)
 
 PORT = Path(__file__).resolve().parents[1] / "ikpso_tpu_torch"
 
@@ -88,6 +89,7 @@ def test_slice_matches_jax_composition():
     assert np.median(err_j) < 1e-3  # the composition solved most targets
 
 
+@pytest.mark.usefixtures("torch_single_thread")
 def test_headline_on_cpu_reaches_accuracy_class():
     out = run_headline(swarms=1024, device="cpu", seed=0, warmup=0, iters=1)
     assert out["finite"]
@@ -131,6 +133,7 @@ def test_obstacle_scene_and_feasibility_match_bench():
         assert 0.01 < hit_j.mean() < 0.1  # JAX: 5.4% (box), 4.3% (capsule)
 
 
+@pytest.mark.usefixtures("torch_single_thread")
 def test_obstacle_slice_on_cpu_reaches_accuracy_class():
     out = run_obstacles(swarms=512, device="cpu", seed=0, warmup=0, iters=1)
     assert out["finite"] and out["device"] == "cpu"
