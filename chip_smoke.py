@@ -3,22 +3,25 @@
 
 Builds the port's CUDA kernels from ``ikpso_tpu_torch/csrc``, checks each
 against its plain torch version on the card (kernel B with and without a
-scene and with the orientation term, kernel A in replay with every init
-mode, collider, inertia mode, re-kick and gbest interval and with
-orientation, kernel C with every collider and orientation and the scan
-solve through it in replay), drives the main paths through their entry
-points -- the 7-DOF headline solve (``harness.headline.run_headline``,
-S=1,048,576), the 7-DOF obstacle-scene solve
-(``harness.obstacles.run_obstacles``, S=524,288 with box colliders,
+scene, with the orientation term and on the two trees; kernel A in replay
+with every init mode, collider, inertia mode, re-kick and gbest interval,
+with orientation and on the trees; kernel C with every collider,
+orientation and the trees, and the scan solve through it in replay; the
+tensor-path LM polish on the card against the CPU), drives the main paths
+through their entry points -- the 7-DOF headline solve
+(``harness.headline.run_headline``, S=1,048,576), the 7-DOF obstacle-scene
+solve (``harness.obstacles.run_obstacles``, S=524,288 with box colliders,
 S=65,536 with capsules), the 6-DOF position + orientation solve
-(``harness.orientation.run_orientation``, S=262,144), the scan solver on
-kernel C (``harness.scan.run_scan``, S=16,384, P=1,024, 60 iterations)
-and the roofline (``utils.roofline``: kernels D and E, the kernel C and
-kernel A rates, the headline's ``sol_frac``) -- with the launch counts read
-around each, times kernel/plain pairs and holds every kernel's time
-against its bound (``bounds``). Every phase prints one JSON line; any
-failure raises and the script exits non-zero. The last line is
-``{"ok": true, "device": {...}}``.
+(``harness.orientation.run_orientation``, S=262,144), the dual-arm tree
+(``harness.trees.run_tree``, ``dual_arm_14dof``, S=262,144), the 45-DOF
+humanoid tree (``humanoid_45dof``, S=16,384), the scan solver on kernel C
+(``harness.scan.run_scan``, S=16,384, P=1,024, 60 iterations) and the
+roofline (``utils.roofline``: kernels D and E, the kernel C and kernel A
+rates, the headline's ``sol_frac``) -- with the launch counts read around
+each, times kernel/plain pairs and holds every kernel's time against its
+bound (``bounds``). Every phase prints one JSON line; any failure raises
+and the script exits non-zero. The last line is ``{"ok": true, "device":
+{...}}``.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -67,6 +70,26 @@ SCAN_FRAC_BAR = SCAN_JAX_FRAC_UNDER_1MM - 4.0 * (
     SCAN_JAX_FRAC_UNDER_1MM * (1.0 - SCAN_JAX_FRAC_UNDER_1MM)
     * (1.0 / SCAN_JAX_SWARMS + 1.0 / SCAN_SWARMS)) ** 0.5
 SCAN_REPLAY_SWARMS = 256
+# The tree paths (bench.py --model dual_arm_14dof / humanoid_45dof): the
+# presets' batches, not cut.
+TREE_SWARMS = {"dual_arm_14dof": 262_144, "humanoid_45dof": 16_384}
+TREE_PATHS = {"dual_arm_14dof": "dual_arm", "humanoid_45dof": "humanoid"}
+# Timed solves per tree path after one warm-up: the humanoid solve runs 49
+# kernel A launches and 49 tensor-polish calls, ~20 s on the card.
+TREE_ITERS = {"dual_arm_14dof": 3, "humanoid_45dof": 1}
+# JAX's records of the same recipes (bench_records/r5_sweep.jsonl r5-dualarm,
+# r5-humanoid-walkfix; taken on a TPU, quoted for accuracy only): shares
+# rounded to 4 places, so no failure count (the humanoid's 0.9999 of 16,384
+# is 1-2 swarms).
+JAX_TREES = {
+    "dual_arm_14dof": {"frac_under_1mm": 1.0, "p50_err_mm": 0.0003, "p90_err_mm": 0.0185},
+    "humanoid_45dof": {"frac_under_1mm": 0.9999, "p50_err_mm": 0.0006,
+                       "p90_err_mm": 0.0009},
+}
+# Kernel/plain timing batches of the trees: the plain solve's (S, P, D)
+# temporaries at the presets' P (1,024 and 512).
+TREE_PAIR_SWARMS = {"dual_arm_14dof": 4096, "humanoid_45dof": 256}
+POLISH_CARD_CPU_ATOL = 1e-5  # rad: the tensor polish, card against CPU
 D_RTOL = 1e-6  # kernel D vs plain: fmaf vs a float64 FMA, libdevice sinf vs torch.sin
 D_STEPS = 4  # a step count at which every recurrence stays finite
 # The timed launches of kernels D (elements, steps) and E (threads, steps).
@@ -74,8 +97,17 @@ D_TIMED = (1 << 22, 512)
 E_TIMED = (1 << 20, 256)
 
 
+T0 = time.perf_counter()
+# Every phase line also goes to this file (the whole run's record, longer
+# than a terminal keeps); main() starts it afresh.
+LOG = Path(__file__).resolve().parent / "out" / "chip_smoke.jsonl"
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, "t_s": time.perf_counter() - T0, **fields})
+    print(line, flush=True)
+    with LOG.open("a") as f:
+        f.write(line + "\n")
 
 
 def run(cmd) -> str:
@@ -215,6 +247,100 @@ def phase_build():
          library=lib.name, kernels=ptxas_report(log))
 
 
+def phase_against(other_root, device, pairs=10):
+    """Build another checkout's kernels (``<other_root>/ikpso_tpu_torch/csrc``)
+    with this checkout's flags and hold their ptxas lines against this
+    build's: every kernel whose registers or spill bytes differ, and those
+    in one build only. Then time kernel A's path variants that both builds
+    hold, at the timing phase's shapes (the dual arm at S=65,536, the
+    humanoid at its preset's S=16,384), through this checkout's wrapper
+    from each library in turn (``pairs`` pairs, this build first in the
+    even ones), and check that both return the same bits."""
+    import dataclasses
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.pso.fused import fused_solve
+    from ikpso_tpu_torch.utils import kernels
+
+    libs = {"this": kernels.library()}
+    mine = ptxas_report(kernels.build().with_suffix(".log").read_text())
+    kernels.CSRC = Path(other_root).resolve() / "ikpso_tpu_torch" / "csrc"
+    kernels.BUILD_DIR = kernels.BUILD_DIR.parent / "against"
+    theirs = {r["kernel"]: r for r in
+              ptxas_report(kernels.build().with_suffix(".log").read_text())}
+    libs["other"] = kernels.library.__wrapped__()
+    mine = {r["kernel"]: r for r in mine}
+    changed = [{"kernel": k, "this": mine[k], "other": theirs[k]}
+               for k in sorted(mine.keys() & theirs.keys()) if mine[k] != theirs[k]]
+    emit("ptxas_against", other=str(other_root), kernels_in_both=len(mine.keys() & theirs.keys()),
+         changed=changed, only_this=sorted(mine.keys() - theirs.keys()),
+         only_other=sorted(theirs.keys() - mine.keys()))
+
+    rng = np.random.default_rng(4)
+    pso, fit = _headline_configs()
+    cases = {}
+    for swarms in (HEADLINE_SWARMS, TIMING_SWARMS):
+        spec, batched = _problem("arm_7dof", swarms, rng, device)
+        meta, swarm = _packed(spec, batched, fit)
+        seeds = torch.as_tensor(rng.integers(-2**31, 2**31, (swarms, 2), dtype=np.int64)
+                                .astype(np.int32), device=device)
+        args = (spec, pso, fit, meta, swarm, spec.limits(), seeds, 128)
+        cases[f"arm_7dof S={swarms}"] = (lambda args=args: fused_solve(*args), 10)
+    obs = _scene(spec, device)
+    for shape in ("box", "capsule"):
+        fit_s = dataclasses.replace(fit, collision_shape=shape)
+        meta_s, _ = _packed(spec, batched, fit_s, obs)
+        args = (spec, pso, fit_s, meta_s, swarm, spec.limits(), seeds, 128)
+        cases[f"arm_7dof {shape} S={TIMING_SWARMS}"] = (
+            lambda args=args: fused_solve(*args, num_obstacles=obs.count), 10)
+    pso_o, fit_o = _orientation_configs()
+    spec_o, batched_o = _problem("arm_6dof", TIMING_SWARMS, rng, device, orientation=True)
+    meta_o, swarm_o = _packed(spec_o, batched_o, fit_o, use_orientation=True)
+    seeds_o = torch.as_tensor(rng.integers(-2**31, 2**31, (TIMING_SWARMS, 2),
+                                           dtype=np.int64).astype(np.int32), device=device)
+    args_o = (spec_o, pso_o, fit_o, meta_o, swarm_o, spec_o.limits(), seeds_o, 128)
+    cases[f"arm_6dof orientation re-kick S={TIMING_SWARMS}"] = (
+        lambda: fused_solve(*args_o, use_orientation=True), 10)
+    # The trees at their presets' P, where the other build holds them too
+    # (a checkout from before the trees does not).
+    for model, swarms in (("dual_arm_14dof", TIMING_SWARMS),
+                          ("humanoid_45dof", TREE_SWARMS["humanoid_45dof"])):
+        pre, pso_t, fit_t, spec_t, meta_t, swarm_t, lim_t, seeds_t = _tree_setup(
+            model, swarms, rng=rng, device=device)
+        n, parents, eff = kernels.topology_code(spec_t)
+        if f"fused_solve_kernel<Topology<{n}, {parents}, {eff}>, 0, 0, 0>" in theirs:
+            args_t = (spec_t, pso_t, fit_t, meta_t, swarm_t, lim_t, seeds_t, pre.particles)
+            cases[f"{model} S={swarms}"] = (lambda args_t=args_t: fused_solve(*args_t), 3)
+
+    library = kernels.library
+    rows = {}
+    try:
+        for name, (fn, reps) in cases.items():
+            ms = {"this": [], "other": []}
+            out = {}
+            for i in range(pairs):
+                for who in (("this", "other") if i % 2 == 0 else ("other", "this")):
+                    kernels.library = lambda who=who: libs[who]
+                    t, out[who] = cuda_time(fn, reps=reps)
+                    ms[who].append(t)
+            same = all(torch.equal(a, b) for a, b in zip(out["this"], out["other"]))
+            med = {k: statistics.median(v) for k, v in ms.items()}
+            rows[name] = {"ms": ms, "median_ms": med,
+                          "this_over_other": med["this"] / med["other"],
+                          "this_faster_pairs": sum(t < o for t, o in zip(ms["this"],
+                                                                         ms["other"])),
+                          "bitwise_equal": same}
+            if not same:
+                raise AssertionError(f"kernel A ({name}): the two builds disagree")
+    finally:
+        kernels.library = library
+    emit("kernel_a_against", other=str(other_root), pairs=pairs, cases=rows,
+         card=card_clocks())
+
+
 def _problem(name, swarms, rng, device, orientation=False):
     """A batched problem with reachable targets (FK of random in-limit
     angles) made from a seeded numpy generator; with ``orientation``, the
@@ -313,8 +439,8 @@ def _compare_solve(tag, spec, pso, fit, meta, swarm, seeds, particles, uniforms,
 
 
 def spec_name(spec):
-    return {3: "arm_6dof", 4: "arm_7dof", 8: "reference_arm"}.get(spec.num_nodes,
-                                                                  str(spec.parent))
+    return {3: "arm_6dof", 4: "arm_7dof", 7: "dual_arm_14dof", 8: "reference_arm",
+            16: "humanoid_45dof"}.get(spec.num_nodes, str(spec.parent))
 
 
 def _headline_configs():
@@ -346,12 +472,21 @@ def phase_fused_replay(device, swarms=1024, particles=128):
     return worst
 
 
-def phase_fused_tie(device, particles=128):
-    """Kernel A's argmin on exact ties: the last link has length 0, so the
-    wrist angles (dims 6-8) leave the fitness unchanged bit for bit. All
-    particles move alike in dims 0-5 and differently in dims 6-8; after one
-    iteration every lval ties and the lbests differ only in the wrist, so
-    gbest must carry particle 0's wrist angles."""
+# Tie chains for kernel A's argmin: (parents, link lengths, effectors, the
+# wrist DOFs), each last link of length 0, so the wrist angles leave the
+# fitness unchanged bit for bit. The second has the dual arm's topology.
+TIE_CHAINS = {
+    "arm_7dof": ([-1, 0, 1, 2], [0.0, 1.0, 1.0, 0.0], [3], [6, 7, 8]),
+    "dual_arm_14dof": ([-1, 0, 1, 2, 0, 4, 5], [0.0, 1.0, 1.0, 0.0, 1.0, 1.0, 0.0], [3, 6],
+                       [6, 7, 8, 15, 16, 17]),
+}
+
+
+def phase_fused_tie(device, particles=128, model="arm_7dof"):
+    """Kernel A's argmin on exact ties (``TIE_CHAINS``). All particles move
+    alike in every other DOF and differently in the wrists; after one
+    iteration every lval ties and the lbests differ only in the wrists, so
+    gbest must carry particle 0's wrist angles, across all P / 32 warps."""
     import numpy as np
     import torch
 
@@ -362,34 +497,37 @@ def phase_fused_tie(device, particles=128):
     from ikpso_tpu_torch.pso.config import PSOConfig
     from ikpso_tpu_torch.pso.fused import fused_solve, num_draws
 
-    spec = make_chain_spec([-1, 0, 1, 2], [0.0, 1.0, 1.0, 0.0],
-                           np.full((4, 3), -np.pi), np.full((4, 3), np.pi), [3],
-                           device=device)
-    problem = IKProblem(pose=torch.zeros(4, 3, device=device),
+    parents, lengths, effectors, wrist_dims = TIE_CHAINS[model]
+    n = len(parents)
+    spec = make_chain_spec(parents, lengths, np.full((n, 3), -np.pi), np.full((n, 3), np.pi),
+                           effectors, device=device)
+    problem = IKProblem(pose=torch.zeros(n, 3, device=device),
                         origin=torch.zeros(3, device=device),
-                        targets=torch.zeros(1, 3, device=device))
-    goal = torch.tensor([0.1] * 6 + [0.0] * 3, device=device)
+                        targets=torch.zeros(len(effectors), 3, device=device))
+    goal = torch.full((spec.dof,), 0.1, device=device)
+    goal[wrist_dims] = 0.0
     tgt = fk_ops.effector_positions(
         spec, fk_ops.angles_to_pose(spec, problem.pose[0], goal), problem.origin)
     swarms = 4
-    batched = batched_problem(problem, tgt[None].expand(swarms, 1, 3))
+    batched = batched_problem(problem, tgt[None].expand(swarms, len(effectors), 3))
     pso = PSOConfig(iterations=1, inertia_mode="canonical")
     fit = FitnessConfig(angle_weight=0.0)
     meta, swarm = _packed(spec, batched, fit)
     u = torch.full((swarms, num_draws(pso), spec.dof, particles), 0.6, device=device)
     wrist = torch.linspace(0.05, 0.95, particles, device=device).flip(0)
-    u[:, 0, 6:, :] = wrist
+    u[:, 0, wrist_dims, :] = wrist
     want = np.float32(0.5) * (np.float32(wrist[0].item()) * np.float32(2) - np.float32(1))
     gb, gv = fused_solve(spec, pso, fit, meta, swarm, spec.limits(),
                          torch.zeros((swarms, 2), dtype=torch.int32, device=device),
                          particles, uniforms=u)
     torch.cuda.synchronize()
-    got = gb[:, 6:].cpu().numpy()
+    got = gb[:, wrist_dims].cpu().numpy()
     ok = bool((got == want).all())
-    emit("fused_tie_lowest_id", swarms=swarms, particles=particles,
+    emit("fused_tie_lowest_id", model=model, swarms=swarms, particles=particles,
          want=float(want), got=got[:, 0].tolist(), ok=ok)
     if not ok:
-        raise AssertionError("kernel A broke an exact tie away from particle 0")
+        raise AssertionError(f"kernel A broke an exact tie away from particle 0 ({model}, "
+                             f"P={particles})")
 
 
 def phase_fused_philox(device, swarms=1024, particles=128):
@@ -864,7 +1002,8 @@ def phase_obstacles(device, swarms, card, shape):
     launches = read_counts()
     variants = launches["fused_solve_variants"]
     lo, hi = FEASIBLE_RANGE
-    ok = (variants.get(f"warm/{shape}", 0) > 0 and variants.get(f"uniform/{shape}", 0) > 0
+    ok = (variants.get(f"arm_7dof/warm/{shape}", 0) > 0
+          and variants.get(f"arm_7dof/uniform/{shape}", 0) > 0
           and out["finite"] and out["p50_err_mm"] < 1.0
           and out["frac_under_1mm"] >= 0.999
           and lo <= out["frac_targets_feasible"] <= hi
@@ -877,61 +1016,27 @@ def phase_obstacles(device, swarms, card, shape):
     return launches
 
 
-def _orientation_stages(device, swarms):
-    """Stage walls of the orientation path (``utils.profiling.measure``,
-    median of 3 after 1 warm-up): the base solve, base + polish, and one
-    retry round's base and base + polish at its bucket; then device busy
-    over one more full solve under the profiler."""
-    import dataclasses
-
+def _stage_times(device, stages, full, problem, gen):
+    """Stage walls (``utils.profiling.measure``, median of ``iters`` after 1
+    warm-up) of ``stages``, ``(key, solver, problem, iters)`` tuples; then
+    device busy, kernel A's share of it and the idle share over one more
+    solve of ``full`` under the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ikpso_tpu_torch.harness.headline import headline_bucket, reachable_pose
-    from ikpso_tpu_torch.harness.orientation import (
-        build_orientation_solver,
-        orientation_configs,
-        orientation_targets,
-    )
-    from ikpso_tpu_torch.models import library
-    from ikpso_tpu_torch.pso.fused import make_fused_solver
-    from ikpso_tpu_torch.pso.polish import wrap_with_polish
     from ikpso_tpu_torch.utils.profiling import measure
 
-    pre, pso, fit = orientation_configs()
-    spec, problem = library.arm_6dof(device=device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    targets, target_rot = orientation_targets(
-        spec, problem, reachable_pose(spec, problem, swarms, gen))
-    batched = library.batched_problem(problem, targets, target_rot=target_rot)
-    bucket = headline_bucket(swarms, pre.retry_bucket_decay)
-    retry_pso = dataclasses.replace(pso, init_mode=pre.retry_init_mode,
-                                    iterations=pre.retry_iterations)
-
-    def base(cfg):
-        return make_fused_solver(spec, pso=cfg, fit=fit, num_particles=pre.particles,
-                                 device=device)
-
-    def polished(cfg):
-        return wrap_with_polish(base(cfg), spec, steps=pre.polish, use_orientation=True)
-
     out = {}
-    for key, solver, prob in (("base", base(pso), batched),
-                              ("base_polish", polished(pso), batched),
-                              ("retry_round_base", base(retry_pso),
-                               batched.take(torch.arange(bucket, device=device))),
-                              ("retry_round_base_polish", polished(retry_pso),
-                               batched.take(torch.arange(bucket, device=device)))):
+    for key, solver, prob, iters in stages:
         out[f"{key}_ms"] = measure(solver, prob, gen, device=device, warmup=1,
-                                   iters=3)[1] * 1e3
-    solver = build_orientation_solver(spec, swarms, device)
-    solver(batched, gen)
+                                   iters=iters)[1] * 1e3
+    full(problem, gen)
     torch.cuda.synchronize()
     # Device activity only: the host side issues some 10^5 small ops a solve.
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solver(batched, gen)
+        full(problem, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy = kernel_a = 0.0
@@ -943,10 +1048,55 @@ def _orientation_stages(device, swarms):
         busy += t
         if "fused_solve_kernel" in e.key:
             kernel_a += t
-    out.update(retry_bucket=bucket, profiled_wall_ms=wall_ms,
+    out.update(profiled_wall_ms=wall_ms,
                device_busy_ms=busy / 1e3 if busy else None,
                kernel_a_device_ms=kernel_a / 1e3 if busy else None,
                device_idle_share=1.0 - busy / 1e3 / wall_ms if busy else None)
+    return out
+
+
+def _orientation_stages(device, swarms):
+    """Stage walls of the orientation path: the base solve, base + polish,
+    and one retry round's base and base + polish at its bucket; then
+    device busy over one more full solve."""
+    import dataclasses
+
+    import torch
+
+    from ikpso_tpu_torch.harness.headline import headline_bucket, reachable_pose
+    from ikpso_tpu_torch.harness.orientation import (
+        build_orientation_solver,
+        orientation_configs,
+        orientation_targets,
+    )
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.pso.fused import make_fused_solver
+    from ikpso_tpu_torch.pso.polish import wrap_with_polish
+
+    pre, pso, fit = orientation_configs()
+    spec, problem = library.arm_6dof(device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    targets, target_rot = orientation_targets(
+        spec, problem, reachable_pose(spec, problem, swarms, gen))
+    batched = library.batched_problem(problem, targets, target_rot=target_rot)
+    bucket = headline_bucket(swarms, pre.retry_bucket_decay)
+    retry_pso = dataclasses.replace(pso, init_mode=pre.retry_init_mode,
+                                    iterations=pre.retry_iterations)
+    sub = batched.take(torch.arange(bucket, device=device))
+
+    def base(cfg):
+        return make_fused_solver(spec, pso=cfg, fit=fit, num_particles=pre.particles,
+                                 device=device)
+
+    def polished(cfg):
+        return wrap_with_polish(base(cfg), spec, steps=pre.polish, use_orientation=True)
+
+    out = _stage_times(device, [
+        ("base", base(pso), batched, 3), ("base_polish", polished(pso), batched, 3),
+        ("retry_round_base", base(retry_pso), sub, 3),
+        ("retry_round_base_polish", polished(retry_pso), sub, 3),
+    ], build_orientation_solver(spec, swarms, device), batched, gen)
+    out["retry_bucket"] = bucket
     return out
 
 
@@ -961,8 +1111,8 @@ def phase_orientation(device, swarms, card):
     phase_s = time.perf_counter() - t0
     launches = read_counts()
     variants = launches["fused_solve_variants"]
-    ok = (variants.get("warm/none/orientation", 0) > 0
-          and variants.get("uniform/none/orientation", 0) > 0 and out["finite"]
+    ok = (variants.get("arm_6dof/warm/none/orientation", 0) > 0
+          and variants.get("arm_6dof/uniform/none/orientation", 0) > 0 and out["finite"]
           and out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= 0.999
           and out["p90_orient_err_deg"] < ORIENT_P90_DEG_BAR)
     stages = _orientation_stages(device, swarms)
@@ -975,13 +1125,316 @@ def phase_orientation(device, swarms, card):
     return launches
 
 
+def _tree_setup(model, swarms, device, rng, particles=None):
+    """A tree's preset configs and, for ``swarms`` reachable targets, its
+    packed constants, limits and Philox seed words."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.harness.trees import tree_configs
+
+    pre, pso, fit = tree_configs(model)
+    spec, batched = _problem(model, swarms, rng, device)
+    meta, swarm = _packed(spec, batched, fit)
+    seeds = torch.as_tensor(
+        rng.integers(-2**31, 2**31, (swarms, 2), dtype=np.int64).astype(np.int32),
+        device=device)
+    return pre, pso, fit, spec, meta, swarm, spec.limits(), seeds
+
+
+def phase_tree_fitness(device, swarms=4096, particles=128, c_swarms=64, c_particles=1024):
+    """Kernels B (S=4,096, P=128) and C (S=64, P=1,024) on both trees
+    against their plain twins on random in-limit angles: equal bit for
+    bit."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.ops.fitness_kernel import (
+        fk_fitness,
+        fk_fitness_plain,
+        fused_fitness,
+        fused_fitness_plain,
+    )
+
+    errs = {}
+    for model in TREE_SWARMS:
+        rng = np.random.default_rng(14)
+        _, _, fit, spec, meta, swarm, lim, _ = _tree_setup(model, swarms, device, rng)
+        lo, hi = lim.cpu().numpy()
+        x = torch.as_tensor((lo + rng.random((swarms, particles, spec.dof)) * (hi - lo))
+                            .astype("float32"), device=device)
+        got = fk_fitness(spec, x, meta, swarm)
+        want = fk_fitness_plain(spec, x, meta, swarm)
+        x_dp = torch.as_tensor((lo[:, None] + rng.random((c_swarms, spec.dof, c_particles))
+                                * (hi - lo)[:, None]).astype("float32"), device=device)
+        got_c = fused_fitness(spec, x_dp, meta, swarm[:c_swarms])
+        want_c = fused_fitness_plain(spec, x_dp, meta, swarm[:c_swarms])
+        torch.cuda.synchronize()
+        errs[("B", model)] = check_fitness(f"fk_fitness {model}", got, want, exact=True)
+        errs[("C", model)] = check_fitness(f"fused_fitness {model}", got_c, want_c,
+                                           exact=True)
+        emit("tree_fitness", model=model, b_shape=[swarms, particles, spec.dof],
+             c_shape=[c_swarms, spec.dof, c_particles],
+             b_bitwise_equal=bool(torch.equal(got, want)),
+             c_bitwise_equal=bool(torch.equal(got_c, want_c)),
+             max_abs_err={"B": errs[("B", model)], "C": errs[("C", model)]},
+             bar="max abs error 0.0", ok=True)
+    return errs
+
+
+def phase_fused_tree_replay(device):
+    """Kernel A on both trees at the presets' P against fused_solve_plain,
+    bit for bit: in replay with the base recipe (the dual arm's re-kick
+    every 4 above 1e-6; the humanoid's 60 iterations) and the dual arm's
+    hybrid-init retry recipe, then on the live Philox stream."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.pso.fused import fused_solve_plain, num_draws
+
+    worst = 0.0
+    for model, s in (("dual_arm_14dof", 256), ("humanoid_45dof", 64)):
+        rng = np.random.default_rng(15)
+        pre, pso, fit, spec, meta, swarm, lim, seeds = _tree_setup(model, s, device, rng)
+        cases = [("base", pso)]
+        if pre.retry_init_mode and not pre.retry_walk:
+            cases.append(("retry", dataclasses.replace(pso, init_mode=pre.retry_init_mode)))
+        zeros = torch.zeros((s, 2), dtype=torch.int32, device=device)
+        for tag, cfg in cases:
+            u = torch.as_tensor(rng.random((s, num_draws(cfg), spec.dof, pre.particles),
+                                           dtype=np.float32), device=device)
+            kicked = []
+            fused_solve_plain(spec, cfg, fit, meta, swarm, lim, zeros, pre.particles,
+                              uniforms=u, on_kick=lambda k: kicked.append(int(k.sum())))
+            worst = max(worst, _compare_solve(
+                "fused_tree_replay", spec, cfg, fit, meta, swarm, zeros, pre.particles, u,
+                bitwise=True, case=tag, kicked_per_block=kicked))
+            del u
+        worst = max(worst, _compare_solve(
+            "fused_tree_philox", spec, pso, fit, meta, swarm, seeds, pre.particles, None,
+            bitwise=True, case="base"))
+    return worst
+
+
+def phase_tensor_polish(device, swarms=256):
+    """The tensor-path LM polish (the humanoid's, m = 15) on the card
+    against the same call on the CPU: starts 0.05 rad off reachable
+    solutions, the preset's 6 steps. The card call runs with the global
+    TF32 flag on, which the polish must not follow."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.ops import fk as fk_ops
+    from ikpso_tpu_torch.pso.polish import polish_angles
+    from ikpso_tpu_torch.pso.polish_soa import true_effector_error_rows
+    from ikpso_tpu_torch.pso.presets import fused_preset
+
+    steps = fused_preset("humanoid_45dof").polish
+    rng = np.random.default_rng(16)
+    out = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        spec, problem = library.humanoid_45dof(device=dev)
+        lo, hi = spec.limits().cpu().numpy()
+        truth = lo + rng.random((swarms, spec.dof)) * (hi - lo)
+        start = np.clip(truth + rng.normal(0, 0.05, truth.shape), lo, hi)
+        rng = np.random.default_rng(16)  # the same draws for the second device
+        truth_t = torch.as_tensor(truth.astype("float32"), device=dev)
+        pose = fk_ops.angles_to_pose(spec, problem.pose[0].expand(swarms, 3), truth_t)
+        batched = library.batched_problem(problem, fk_ops.fk_points(
+            spec, pose, problem.origin)[:, list(spec.effector_idx)])
+        x0 = torch.as_tensor(start.astype("float32"), device=dev)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            x = polish_angles(spec, batched, x0, steps=steps)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        out[where] = (x.cpu(), true_effector_error_rows(spec, batched, x0).cpu(),
+                      true_effector_error_rows(spec, batched, x).cpu())
+    err = float((out["card"][0] - out["cpu"][0]).abs().max())
+    ok = (err <= POLISH_CARD_CPU_ATOL and bool(torch.isfinite(out["card"][0]).all())
+          and float(out["card"][2].mean()) < 0.1 * float(out["card"][1].mean()))
+    emit("tensor_polish_card_vs_cpu", model="humanoid_45dof", swarms=swarms, steps=steps,
+         max_abs_diff_rad=err, bar_rad=POLISH_CARD_CPU_ATOL,
+         bitwise_equal=bool(torch.equal(out["card"][0], out["cpu"][0])),
+         mean_err_mm_before=float(out["card"][1].mean()) * 1e3,
+         mean_err_mm_after={k: float(v[2].mean()) * 1e3 for k, v in out.items()},
+         tf32_flag_during_card_call=True, ok=bool(ok))
+    if not ok:
+        raise AssertionError("the tensor polish on the card disagrees with the CPU")
+    return err
+
+
+def _tree_stages(device, model, swarms):
+    """Stage walls of a tree path: the base solve, base + polish, and one
+    retry round at the bucket (the dual arm's hybrid-init base and base +
+    polish; the humanoid's 8-step walk of base + polish); then device busy
+    over one more full solve."""
+    import dataclasses
+
+    import torch
+
+    from ikpso_tpu_torch.harness.trees import (
+        build_tree_solver,
+        tree_bucket,
+        tree_configs,
+        tree_problem,
+    )
+    from ikpso_tpu_torch.pso.fused import make_fused_solver
+    from ikpso_tpu_torch.pso.polish import wrap_with_polish
+    from ikpso_tpu_torch.pso.restarts import wrap_solver_with_target_walk
+
+    pre, pso, fit = tree_configs(model)
+    spec, batched = tree_problem(model, swarms, device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    bucket = min(tree_bucket(model, swarms), swarms)
+    sub = batched.take(torch.arange(bucket, device=device))
+
+    def base(cfg):
+        return make_fused_solver(spec, pso=cfg, fit=fit, num_particles=pre.particles,
+                                 device=device)
+
+    def polished(cfg):
+        return wrap_with_polish(base(cfg), spec, steps=pre.polish)
+
+    stages = [("base", base(pso), batched, 3), ("base_polish", polished(pso), batched, 3)]
+    if pre.retry_walk:
+        stages.append(("retry_round_walk", wrap_solver_with_target_walk(
+            polished(pso), spec, pre.retry_walk, jitter=pre.retry_walk_jitter), sub, 1))
+    else:
+        retry = dataclasses.replace(pso, init_mode=pre.retry_init_mode)
+        stages += [("retry_round_base", base(retry), sub, 3),
+                   ("retry_round_base_polish", polished(retry), sub, 3)]
+    out = _stage_times(device, stages, build_tree_solver(model, spec, swarms, device),
+                       batched, gen)
+    out["retry_bucket"] = bucket
+    return out
+
+
+def phase_tree(device, model, card):
+    """A tree path through run_tree at its preset's batch, launch counts
+    read around it (every kernel A launch must be the tree's variant);
+    then its stage times."""
+    from ikpso_tpu_torch.harness.trees import tree_configs, run_tree
+
+    pre, _, _ = tree_configs(model)
+    swarms, iters = TREE_SWARMS[model], TREE_ITERS[model]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_tree(model, swarms=swarms, device=device, seed=0, warmup=1, iters=iters)
+    phase_s = time.perf_counter() - t0
+    launches = read_counts()
+    solves = 1 + iters
+    if pre.retry_walk:
+        want = {f"{model}/warm/none": solves * (1 + pre.retries * pre.retry_walk)}
+    else:
+        want = {f"{model}/warm/none": solves,
+                f"{model}/{pre.retry_init_mode}/none": solves * pre.retries}
+    ok = (launches["fused_solve_variants"] == want and out["finite"]
+          and out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= 0.999)
+    stages = _tree_stages(device, model, swarms)
+    emit(TREE_PATHS[model], **out, wall_ms=out["wall_s"] * 1e3, launches=launches,
+         expected_variant_launches=want, stages=stages, run_tree_seconds=phase_s,
+         timed_solves=iters, jax_record_tpu=JAX_TREES[model],
+         bars={"frac_under_1mm": 0.999, "p50_err_mm": 1.0}, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError(f"{model} path missed a bar or bypassed its kernel A variant")
+    return launches
+
+
+def phase_tree_timing(device, b_swarms=TIMING_SWARMS, c_swarms=4096):
+    """Per tree: kernel A alone at the preset's shape, kernel A against its
+    plain twin at ``TREE_PAIR_SWARMS``, kernels B (S=65,536, P=128) and C
+    (S=4,096, P=1,024) against their plain twins; each output held
+    against the plain one's, and the counted work of each timed launch
+    (the dual arm's kicks counted along the plain trajectory, in chunks
+    at the preset's batch)."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.ops.fitness_kernel import (
+        fk_fitness,
+        fk_fitness_plain,
+        fused_fitness,
+        fused_fitness_plain,
+    )
+    from ikpso_tpu_torch.pso.fused import fused_solve, fused_solve_plain
+    from ikpso_tpu_torch.utils import flops
+
+    times, counts, errs = {}, {}, {}
+    clocks = {"start": card_clocks()}
+    for model in TREE_SWARMS:
+        rng = np.random.default_rng(17)
+        s = TREE_PAIR_SWARMS[model]
+        pre, pso, fit, spec, meta, swarm, lim, seeds = _tree_setup(model, s, device, rng)
+        args = (spec, pso, fit, meta, swarm, lim, seeds, pre.particles)
+        times[f"fused_solve_{model}_pair_ms"], got = cuda_time(lambda: fused_solve(*args),
+                                                               reps=5)
+        times[f"fused_solve_{model}_pair_plain_ms"], want = cuda_time(
+            lambda: fused_solve_plain(*args), reps=1)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"kernel A ({model}) disagrees with fused_solve_plain "
+                                 "at the timed shape")
+        kicks = flops.fused_solve_kicks(*args) if pso.rekick_interval else 0.0
+        counts[f"a_{model}_pair"] = flops.fused_solve_count(
+            spec, pso, fit, num_particles=pre.particles, num_swarms=s, kicks=kicks)
+        big = TREE_SWARMS[model]
+        pre, pso, fit, spec, meta, swarm, lim, seeds = _tree_setup(model, big, device, rng)
+        args = (spec, pso, fit, meta, swarm, lim, seeds, pre.particles)
+        times[f"fused_solve_{model}_ms"], (_, gval) = cuda_time(
+            lambda: fused_solve(*args), reps=3)
+        kicks = 0.0
+        if pso.rekick_interval:
+            # Replays only the swarms whose final value is at or under the
+            # threshold; the others were kicked at every block start.
+            kicks = flops.fused_solve_kicks(*args, gval=gval)
+            times[f"fused_solve_{model}_kicked_share"] = kicks / (
+                big * (pso.iterations // pso.rekick_interval - 1))
+        counts[f"a_{model}"] = flops.fused_solve_count(
+            spec, pso, fit, num_particles=pre.particles, num_swarms=big, kicks=kicks)
+        del meta, swarm, seeds, args, gval
+        # Kernels B and C on random in-limit angles.
+        _, _, fit, spec, meta, swarm, lim, _ = _tree_setup(model, b_swarms, device, rng)
+        lo, hi = lim.cpu().numpy()
+        x = torch.as_tensor((lo + rng.random((b_swarms, 128, spec.dof)) * (hi - lo))
+                            .astype("float32"), device=device)
+        times[f"fk_fitness_{model}_ms"], got = cuda_time(
+            lambda: fk_fitness(spec, x, meta, swarm), reps=20)
+        times[f"fk_fitness_{model}_plain_ms"], want = cuda_time(
+            lambda: fk_fitness_plain(spec, x, meta, swarm), reps=3)
+        errs[("B", model)] = check_fitness(f"fk_fitness {model}", got, want, exact=True)
+        counts[f"b_{model}"] = flops.fitness_kernel_count(spec, fit, num_swarms=b_swarms,
+                                                          num_particles=128)
+        del x, got, want
+        x_dp = torch.as_tensor((lo[:, None] + rng.random((c_swarms, spec.dof, 1024))
+                                * (hi - lo)[:, None]).astype("float32"), device=device)
+        sw_c = swarm[:c_swarms]
+        times[f"fused_fitness_{model}_ms"], got = cuda_time(
+            lambda: fused_fitness(spec, x_dp, meta, sw_c), reps=20)
+        times[f"fused_fitness_{model}_plain_ms"], want = cuda_time(
+            lambda: fused_fitness_plain(spec, x_dp, meta, sw_c), reps=3)
+        errs[("C", model)] = check_fitness(f"fused_fitness {model}", got, want, exact=True)
+        counts[f"c_{model}"] = flops.fitness_kernel_count(spec, fit, num_swarms=c_swarms,
+                                                          num_particles=1024)
+        del x_dp, got, want
+    clocks["end"] = card_clocks()
+    emit("tree_timing", **times, pair_swarms=TREE_PAIR_SWARMS, preset_swarms=TREE_SWARMS,
+         b_shape=[b_swarms, 128], c_shape=[c_swarms, 1024], clocks=clocks,
+         max_abs_err_vs_plain={f"{k}_{m}": v for (k, m), v in errs.items()},
+         bar="bit-identical kernel A; max abs error 0.0 for B and C")
+    return times, counts, errs
+
+
 def phase_headline(device, swarms, card):
     from ikpso_tpu_torch.harness.headline import run_headline
 
     reset_counts()
     out = run_headline(swarms=swarms, device=device, seed=0, warmup=1, iters=3)
     launches = read_counts()
-    ok = (launches["fused_solve_variants"].get("warm/none", 0) > 0 and out["finite"]
+    ok = (launches["fused_solve_variants"].get("arm_7dof/warm/none", 0) > 0 and out["finite"]
           and out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= 0.999)
     emit("headline", **out, wall_ms=out["wall_s"] * 1e3, launches=launches,
          jax_reference_failures=JAX_REFERENCE_FAILURES, card=card, ok=bool(ok))
@@ -1160,7 +1613,16 @@ BOUND_ROWS = (
     ("B orientation", "b_orientation", "fk_fitness_orientation_ms",
      f"kernel B, arm_6dof, S={TIMING_SWARMS}, P=128, orientation"),
     ("C scan path", "c", "fused_fitness_ms", f"kernel C, S={SCAN_SWARMS}, D=9, P=1024"),
-)
+) + tuple(row for model in TREE_SWARMS for row in (
+    (f"A {model}", f"a_{model}", f"fused_solve_{model}_ms",
+     f"kernel A, {model}, S={TREE_SWARMS[model]}, the preset's P and base recipe"),
+    (f"A {model} pair", f"a_{model}_pair", f"fused_solve_{model}_pair_ms",
+     f"kernel A, {model}, S={TREE_PAIR_SWARMS[model]}, the preset's P and base recipe"),
+    (f"B {model}", f"b_{model}", f"fk_fitness_{model}_ms",
+     f"kernel B, {model}, S={TIMING_SWARMS}, P=128"),
+    (f"C {model}", f"c_{model}", f"fused_fitness_{model}_ms",
+     f"kernel C, {model}, S=4096, P=1024"),
+))
 
 
 def phase_bounds(times, counts, roof_timed, roof_counts, card):
@@ -1193,19 +1655,27 @@ def run_phases(device, card):
     a_obs_err = phase_fused_obstacles_replay(device)
     a_branch_err = phase_fused_branch_replay(device)
     phase_fused_tie(device)
+    phase_fused_tie(device, particles=1024, model="dual_arm_14dof")
     phase_fused_penalty_ties(device)
     phase_fused_philox(device)
     c_err = phase_fused_fitness(device)
     scan_err = phase_scan_replay(device)
+    tree_err = phase_tree_fitness(device)
+    a_tree_err = phase_fused_tree_replay(device)
+    phase_tensor_polish(device)
     paths = {
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
         "obstacles": phase_obstacles(device, OBSTACLE_SWARMS, card, "box"),
         "obstacles_capsule": phase_obstacles(device, CAPSULE_SWARMS, card, "capsule"),
         "orientation": phase_orientation(device, ORIENTATION_SWARMS, card),
+        **{TREE_PATHS[m]: phase_tree(device, m, card) for m in TREE_SWARMS},
         "scan": phase_scan(device, card),
     }
     paths["roofline"], roof_timed, roof_counts, d_err, sol = phase_roofline(device, card)
     t, counts, t_err = phase_timing(device, TIMING_SWARMS, HEADLINE_SWARMS)
+    tt, tree_counts, tt_err = phase_tree_timing(device)
+    t.update(tt)
+    counts.update(tree_counts)
     bounds = phase_bounds(t, counts, roof_timed, roof_counts, card)
 
     def by_path(name):
@@ -1215,6 +1685,32 @@ def run_phases(device, card):
         r = bounds[row]
         return {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "share": r["share"]}
 
+    def tree_variants(name):
+        """Per tree model: the timed kernel against its bound and its plain
+        twin, and (kernels A and B, which A inlines) the launches of its
+        kernel A variants by path; kernel C runs only on the scan path,
+        whose model is arm_7dof."""
+        key = {"A": "fused_solve", "B": "fk_fitness", "C": "fused_fitness"}[name]
+        out = {}
+        for m in TREE_SWARMS:
+            row = {"ms": t[f"{key}_{m}_ms"], **bound_keys(f"{name} {m}"),
+                   "max_abs_err": max(tree_err.get((name, m), 0.0),
+                                      tt_err.get((name, m), 0.0))}
+            if name != "C":
+                row["launches_by_path"] = {
+                    k: sum(n for var, n in v["fused_solve_variants"].items()
+                           if var.startswith(m + "/")) for k, v in paths.items()}
+            if name == "A":
+                row.update(pair_ms=t[f"{key}_{m}_pair_ms"],
+                           pair_plain_ms=t[f"{key}_{m}_pair_plain_ms"],
+                           pair_swarms=TREE_PAIR_SWARMS[m],
+                           bound_pair=bound_keys(f"A {m} pair"), swarms=TREE_SWARMS[m],
+                           kicked_share=t.get(f"{key}_{m}_kicked_share"))
+            else:
+                row["plain_ms"] = t[f"{key}_{m}_plain_ms"]
+            out[m] = row
+        return out
+
     kernels = [
         {"name": "fused_solve", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/fused_solve.cu",
@@ -1222,8 +1718,9 @@ def run_phases(device, card):
          "launches": paths["obstacles"]["fused_solve"],
          "launches_by_path": by_path("fused_solve"),
          "variants_by_path": by_path("fused_solve_variants"),
-         "max_abs_err": max(a_err, a_obs_err, a_branch_err),
+         "max_abs_err": max(a_err, a_obs_err, a_branch_err, a_tree_err),
          "max_abs_err_branch_replay": a_branch_err,
+         "max_abs_err_tree_replay": a_tree_err, "trees": tree_variants("A"),
          "ms": t["fused_solve_box_ms"], "plain_ms": t["fused_solve_box_plain_ms"],
          **bound_keys("A box"), "library_ms": None,
          "timed_swarms": TIMING_SWARMS, "timed": "warm, 8 iterations, 4-box scene",
@@ -1243,7 +1740,8 @@ def run_phases(device, card):
         {"name": "fk_fitness", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/fk_fitness.cuh",
          "replaces": "ikpso_tpu/ops/pallas_fitness.py:256",
-         "branches": ["none", "box", "capsule", "orientation"],
+         "branches": ["none", "box", "capsule", "orientation", *TREE_SWARMS],
+         "trees": tree_variants("B"),
          "launches": paths["obstacles"]["fused_solve"],
          "launches_by_path": by_path("fused_solve"),
          "orientation_launches_by_path": {
@@ -1253,7 +1751,8 @@ def run_phases(device, card):
          "inlined_into": ["fused_solve", "fused_fitness"],
          "max_abs_err": max(b_err, *b_obs_err.values(), t_err["fk_fitness"],
                             t_err["fk_fitness_box"], t_err["fk_fitness_capsule"],
-                            t_err["fk_fitness_orientation"]),
+                            t_err["fk_fitness_orientation"],
+                            *(v for (k, _), v in {**tree_err, **tt_err}.items() if k == "B")),
          "max_abs_err_by_branch": {"none": b_err, **b_obs_err},
          "max_abs_err_at_timed_shape": {"none": t_err["fk_fitness"],
                                         "box": t_err["fk_fitness_box"],
@@ -1276,7 +1775,9 @@ def run_phases(device, card):
          "replaces": "ikpso_tpu/ops/pallas_fitness.py:482",
          "launches": paths["scan"]["fused_fitness"],
          "launches_by_path": by_path("fused_fitness"),
-         "max_abs_err": max(*c_err.values(), scan_err, t_err["fused_fitness"]),
+         "max_abs_err": max(*c_err.values(), scan_err, t_err["fused_fitness"],
+                            *(v for (k, _), v in {**tree_err, **tt_err}.items() if k == "C")),
+         "trees": tree_variants("C"),
          "max_abs_err_by_branch": c_err,
          "max_abs_err_at_scan_shape": t_err["fused_fitness"],
          "ms": t["fused_fitness_ms"], "plain_ms": t["fused_fitness_plain_ms"],
@@ -1305,11 +1806,24 @@ def run_phases(device, card):
     return kernels
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke test of the port.")
+    ap.add_argument("--against", metavar="CHECKOUT",
+                    help="only build, and compare the kernels' ptxas lines and kernel "
+                         "A's times and outputs with those of another checkout's sources")
+    args = ap.parse_args(argv)
+    LOG.parent.mkdir(exist_ok=True)
+    if not args.against:
+        LOG.write_text("")
     card = phase_environment()
     import torch
 
     phase_build()
+    if args.against:
+        phase_against(args.against, torch.device("cuda", 0))
+        return
     kernels = run_phases(torch.device("cuda", 0), card)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

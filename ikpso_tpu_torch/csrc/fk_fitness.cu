@@ -72,6 +72,11 @@ extern "C" int ikpso_fk_fitness(int topo, int collider, int orient, int n_obs,
   } else if (topo == 2 && collider == kNoCollider && orient) {
     launch_fk_fitness<Arm6Dof, kNoCollider, true>(x, meta, swarm, K, scene, out, total,
                                                   P, st);
+  } else if (topo == 3 && collider == kNoCollider && !orient) {
+    launch_fk_fitness<DualArm14, kNoCollider>(x, meta, swarm, K, scene, out, total, P, st);
+  } else if (topo == 4 && collider == kNoCollider && !orient) {
+    launch_fk_fitness<Humanoid45, kNoCollider>(x, meta, swarm, K, scene, out, total, P,
+                                               st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

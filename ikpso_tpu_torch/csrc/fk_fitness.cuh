@@ -58,8 +58,10 @@ __host__ __device__ constexpr int popcount_u32(unsigned m) {
 }
 
 // Tree topology as template data: node k's parent sits in bits [4k, 4k+4)
-// of PARENTS (k >= 1), effector nodes are the set bits of EFFMASK, in
-// ascending node order (the Python side checks effector_idx is sorted).
+// of PARENTS (k >= 1; a 64-bit word, so up to 16 nodes), effector nodes are
+// the set bits of EFFMASK, in ascending node order (the Python side checks
+// effector_idx is sorted). The effector terms are added in node order, as
+// the Pallas tile walks the nodes.
 template <int N_, unsigned long long PARENTS_, unsigned EFFMASK_>
 struct Topology {
   static constexpr int N = N_;
@@ -81,6 +83,14 @@ struct Topology {
 using Arm7Dof = Topology<4, 0x2100ull, 0x8u>;            // id 0
 using ReferenceArm = Topology<8, 0x44432100ull, 0xE0u>;  // id 1
 using Arm6Dof = Topology<3, 0x100ull, 0x4u>;             // id 2
+using DualArm14 = Topology<7, 0x5402100ull, 0x48u>;      // id 3
+using Humanoid45 = Topology<16, 0xED0BA08725422100ull, 0x9248u>;  // id 4
+static_assert(Humanoid45::parent(15) == 14 && Humanoid45::parent(13) == 0 &&
+                  Humanoid45::parent(7) == 2 && Humanoid45::E == 5 &&
+                  Humanoid45::effector_slot(15) == 4,
+              "parent fields are unsigned 64-bit shifts up to bit 63");
+static_assert(DualArm14::parent(4) == 0 && DualArm14::D == 18 && DualArm14::E == 2,
+              "dual-arm topology");
 
 // Scene colliders; ids must match COLLIDERS in
 // ikpso_tpu_torch/utils/kernels.py.

@@ -85,6 +85,10 @@ extern "C" int ikpso_fused_fitness(int topo, int collider, int orient, int n_obs
     IKPSO_LAUNCH(Arm6Dof, kNoCollider, false);
   } else if (topo == 2 && collider == kNoCollider && orient) {
     IKPSO_LAUNCH(Arm6Dof, kNoCollider, true);
+  } else if (topo == 3 && collider == kNoCollider && !orient) {
+    IKPSO_LAUNCH(DualArm14, kNoCollider, false);
+  } else if (topo == 4 && collider == kNoCollider && !orient) {
+    IKPSO_LAUNCH(Humanoid45, kNoCollider, false);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,12 +13,16 @@
 // memory).
 //
 // Layout: one thread block per swarm, one thread per particle
-// (blockDim = P, a multiple of 32, <= 1024). x, v, lbest (D floats each)
-// and lval live in registers for the whole solve; the chain's packed meta,
-// the swarm's constant row and the joint limits are copied to shared
-// memory once. The TPU kernel's 8x128 tiles, swarm packing, roll-tree
-// reductions and constant hoisting are TPU layout devices and have no
-// counterpart here.
+// (blockDim = P, a multiple of 32, <= KernelAThreads<T>: 1024, and 512 for
+// the 45-DOF humanoid, so a thread may hold 128 registers instead of 64).
+// x, v, lbest (D floats each) and lval live in registers for the whole
+// solve (the trees spill part of them: at D = 18 and 45 they exceed the
+// budget); the chain's packed meta, the swarm's constant row and the joint
+// limits are copied to shared memory once. The trees draw their uniforms
+// four DOFs at a time next to their use (StreamDraws), so no D-float draw
+// array is live beside x, v and lbest. The TPU kernel's 8x128 tiles, swarm
+// packing, roll-tree reductions and constant hoisting are TPU layout
+// devices and have no counterpart here.
 //
 // gbest: a block-wide argmin over (lval, particle id) -- warp butterfly
 // with __shfl_xor_sync, then one pass over the per-warp winners in shared
@@ -98,6 +102,28 @@ __device__ __forceinline__ void draw(float (&u)[D], int slot, unsigned particle,
   }
 }
 
+// Uniforms of DOFs 4g .. 4g+3 of one draw slot (one Philox call): the
+// streamed form of draw(), for the topologies under StreamDraws.
+template <int D, bool REPLAY>
+__device__ __forceinline__ void draw_group(float (&u)[4], int g, int slot,
+                                           unsigned particle, int P, uint2 key,
+                                           const float* __restrict__ u_swarm) {
+  if constexpr (REPLAY) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (4 * g + j < D) u[j] = u_swarm[(slot * D + 4 * g + j) * P + particle];
+    }
+  } else {
+    const uint4 w = philox4x32_10(
+        make_uint4(particle, static_cast<unsigned>(slot), static_cast<unsigned>(g), 0u),
+        key);
+    u[0] = bits_to_uniform(w.x);
+    u[1] = bits_to_uniform(w.y);
+    u[2] = bits_to_uniform(w.z);
+    u[3] = bits_to_uniform(w.w);
+  }
+}
+
 __device__ __forceinline__ bool better_pair(float va, int ia, float vb, int ib) {
   return va < vb || (va == vb && ia < ib);
 }
@@ -134,6 +160,41 @@ __device__ __forceinline__ int block_argmin(float val, int id, float* s_wval,
   return bi;
 }
 
+// Kernel A's thread-block bound per topology (its __launch_bounds__, and so
+// the most particles a swarm may have); must match MAX_PARTICLES in
+// ikpso_tpu_torch/utils/kernels.py.
+template <class T>
+struct KernelAThreads {
+  static constexpr int value = 1024;
+};
+template <>
+struct KernelAThreads<Humanoid45> {
+  static constexpr int value = 512;
+};
+
+// Whether kernel A draws its uniforms four DOFs at a time next to their
+// use (draw_group) instead of a whole D-float array per slot (draw). The
+// values and the arithmetic are the same either way; what differs is
+// what the registers hold. The trees stream: two D-float draw arrays
+// beside x, v and lbest exceed the registers a thread has (with whole
+// arrays the humanoid ran 3.8x and the dual arm 8% slower). The short
+// chains keep whole arrays: streamed, kernel A ran 2.4-2.7% slower on
+// arm_7dof and 1.0% slower on arm_6dof with orientation (interleaved
+// pairs on an H100, PERF.md); arm_7dof's box scene ran 0.7% faster
+// streamed, but shares the headline's topology and follows it.
+template <class T>
+struct StreamDraws {
+  static constexpr bool value = false;
+};
+template <>
+struct StreamDraws<DualArm14> {
+  static constexpr bool value = true;
+};
+template <>
+struct StreamDraws<Humanoid45> {
+  static constexpr bool value = true;
+};
+
 // The update's runtime branches (host-checked: gbest_interval >= 1 and it
 // divides rekick_interval when the re-kick is on).
 struct Update {
@@ -145,7 +206,7 @@ struct Update {
 };
 
 template <class T, int C, bool O, bool REPLAY>
-__global__ void __launch_bounds__(1024) fused_solve_kernel(
+__global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
     const float* __restrict__ meta, int M, const float* __restrict__ swarm, int K,
     const float* __restrict__ limits, const int* __restrict__ seeds,
     const float* __restrict__ inertia, int iters, float c1, float c2, float vscale,
@@ -177,30 +238,53 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
   const float* u_swarm =
       REPLAY ? uniforms + static_cast<long long>(s) * n_draws * D * P : nullptr;
 
-  float x[D], v[D], lb[D], uc[D], us[D];
+  constexpr bool kStream = StreamDraws<T>::value;
+  constexpr int kGroups = (D + 3) / 4;
+  float x[D], v[D], lb[D], uc[kStream ? 4 : D], us[kStream ? 4 : D];
   const int n_init = init_mode == kInitWarm ? 1 : 2;
   if (init_mode == kInitWarm || (init_mode == kInitHybrid && p == 0)) {
 #pragma unroll
     for (int d = 0; d < D; ++d) x[d] = s_sw[kSwAnchor + d];
   }
-  if (init_mode != kInitWarm) {
-    // U(lo, hi) over the joint range clamped to +-2pi (pso/fused.py:269-283).
-    draw<D, REPLAY>(uc, 0, p, P, key, u_swarm);
-    if (init_mode == kInitUniform || p != 0) {
-      constexpr float kTwoPi = 0x1.921fb6p+2f;
+  if constexpr (kStream) {
+    const bool draw_x = init_mode == kInitUniform || (init_mode == kInitHybrid && p != 0);
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float lo_c = fmaxf(s_lo[d], -kTwoPi);
-        const float hi_c = fminf(s_hi[d], kTwoPi);
-        x[d] = lo_c + uc[d] * (hi_c - lo_c);
+    for (int g = 0; g < kGroups; ++g) {
+      if (draw_x) draw_group<D, REPLAY>(us, g, 0, p, P, key, u_swarm);
+      draw_group<D, REPLAY>(uc, g, n_init - 1, p, P, key, u_swarm);
+#pragma unroll
+      for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
+        const int d = 4 * g + j;
+        if (draw_x) {
+          constexpr float kTwoPi = 0x1.921fb6p+2f;
+          const float lo_c = fmaxf(s_lo[d], -kTwoPi);
+          const float hi_c = fminf(s_hi[d], kTwoPi);
+          x[d] = lo_c + us[j] * (hi_c - lo_c);
+        }
+        v[d] = (uc[j] * 2.0f - 1.0f) * vscale;
+        lb[d] = x[d];
       }
     }
-  }
-  draw<D, REPLAY>(uc, n_init - 1, p, P, key, u_swarm);
+  } else {
+    if (init_mode != kInitWarm) {
+      // U(lo, hi) over the joint range clamped to +-2pi (pso/fused.py:269-283).
+      draw<D, REPLAY>(uc, 0, p, P, key, u_swarm);
+      if (init_mode == kInitUniform || p != 0) {
+        constexpr float kTwoPi = 0x1.921fb6p+2f;
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    v[d] = (uc[d] * 2.0f - 1.0f) * vscale;
-    lb[d] = x[d];
+        for (int d = 0; d < D; ++d) {
+          const float lo_c = fmaxf(s_lo[d], -kTwoPi);
+          const float hi_c = fminf(s_hi[d], kTwoPi);
+          x[d] = lo_c + uc[d] * (hi_c - lo_c);
+        }
+      }
+    }
+    draw<D, REPLAY>(uc, n_init - 1, p, P, key, u_swarm);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      v[d] = (uc[d] * 2.0f - 1.0f) * vscale;
+      lb[d] = x[d];
+    }
   }
   float lval = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
 
@@ -222,9 +306,21 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
       }
       __syncthreads();
       if (kick && (up.rekick_threshold < 0.0f || best > up.rekick_threshold)) {
-        draw<D, REPLAY>(uc, n_init + it * dpi + dpi - 1, p, P, key, u_swarm);
+        if constexpr (kStream) {
+          const int slot = n_init + it * dpi + dpi - 1;
 #pragma unroll
-        for (int d = 0; d < D; ++d) v[d] = (uc[d] * 2.0f - 1.0f) * up.rekick_scale;
+          for (int g = 0; g < kGroups; ++g) {
+            draw_group<D, REPLAY>(uc, g, slot, p, P, key, u_swarm);
+#pragma unroll
+            for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
+              v[4 * g + j] = (uc[j] * 2.0f - 1.0f) * up.rekick_scale;
+            }
+          }
+        } else {
+          draw<D, REPLAY>(uc, n_init + it * dpi + dpi - 1, p, P, key, u_swarm);
+#pragma unroll
+          for (int d = 0; d < D; ++d) v[d] = (uc[d] * 2.0f - 1.0f) * up.rekick_scale;
+        }
       }
     }
     // The inertia term first (w * v, or (w * u_w) * v), rounded into v: the
@@ -232,21 +328,38 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
     --refresh_in;
     const int base = n_init + it * dpi;
     const float w = inertia[it];
-    if (up.randomized) {
-      draw<D, REPLAY>(uc, base + 2, p, P, key, u_swarm);
+    if constexpr (kStream) {
 #pragma unroll
-      for (int d = 0; d < D; ++d) v[d] = (w * uc[d]) * v[d];
+      for (int g = 0; g < kGroups; ++g) {
+        float uw[4];
+        if (up.randomized) draw_group<D, REPLAY>(uw, g, base + 2, p, P, key, u_swarm);
+        draw_group<D, REPLAY>(uc, g, base, p, P, key, u_swarm);
+        draw_group<D, REPLAY>(us, g, base + 1, p, P, key, u_swarm);
+#pragma unroll
+        for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
+          const int d = 4 * g + j;
+          v[d] = up.randomized ? (w * uw[j]) * v[d] : w * v[d];
+          v[d] = v[d] + c1 * uc[j] * (lb[d] - x[d]) + c2 * us[j] * (s_gb[d] - x[d]);
+          x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
+        }
+      }
     } else {
+      if (up.randomized) {
+        draw<D, REPLAY>(uc, base + 2, p, P, key, u_swarm);
 #pragma unroll
-      for (int d = 0; d < D; ++d) v[d] = w * v[d];
-    }
-    draw<D, REPLAY>(uc, base, p, P, key, u_swarm);
-    draw<D, REPLAY>(us, base + 1, p, P, key, u_swarm);
+        for (int d = 0; d < D; ++d) v[d] = (w * uc[d]) * v[d];
+      } else {
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      const float gb = s_gb[d];
-      v[d] = v[d] + c1 * uc[d] * (lb[d] - x[d]) + c2 * us[d] * (gb - x[d]);
-      x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
+        for (int d = 0; d < D; ++d) v[d] = w * v[d];
+      }
+      draw<D, REPLAY>(uc, base, p, P, key, u_swarm);
+      draw<D, REPLAY>(us, base + 1, p, P, key, u_swarm);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float gb = s_gb[d];
+        v[d] = v[d] + c1 * uc[d] * (lb[d] - x[d]) + c2 * us[d] * (gb - x[d]);
+        x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
+      }
     }
     const float f = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
     if (f < lval) {
@@ -266,13 +379,14 @@ __global__ void __launch_bounds__(1024) fused_solve_kernel(
 }
 
 template <class T, int C, bool O = false>
-static void launch_fused_solve(bool replay, const float* meta, int M,
-                               const float* swarm, int K, const float* limits,
-                               const int* seeds, const float* inertia, int iters,
-                               float c1, float c2, float vscale, int init_mode,
-                               Scene scene, Update up, const float* uniforms,
-                               int n_draws, float* gbest, float* gval, int S, int P,
-                               cudaStream_t stream) {
+static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
+                                      const float* swarm, int K, const float* limits,
+                                      const int* seeds, const float* inertia, int iters,
+                                      float c1, float c2, float vscale, int init_mode,
+                                      Scene scene, Update up, const float* uniforms,
+                                      int n_draws, float* gbest, float* gval, int S,
+                                      int P, cudaStream_t stream) {
+  if (P > KernelAThreads<T>::value) return cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (M + K + 3 * T::D + 32) + sizeof(int) * 32;
   if (replay) {
     fused_solve_kernel<T, C, O, true><<<S, P, smem, stream>>>(
@@ -283,6 +397,7 @@ static void launch_fused_solve(bool replay, const float* meta, int M,
         meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
         scene, up, uniforms, n_draws, gbest, gval);
   }
+  return cudaSuccess;
 }
 
 }  // namespace ikpso
@@ -310,10 +425,11 @@ extern "C" int ikpso_fused_solve(int topo, int collider, int orient, int replay,
   const Scene scene{n_obs, node_half, link_half, node_r2, link_r2};
   const Update up{randomized != 0, gbest_interval, rekick_interval, rekick_scale,
                   rekick_threshold};
-#define IKPSO_LAUNCH(TOPO, C, O)                                                         \
-  launch_fused_solve<TOPO, C, O>(replay != 0, meta, M, swarm, K, limits, seeds, inertia, \
-                                 iters, c1, c2, vscale, init_mode, scene, up, uniforms, \
-                                 n_draws, gbest, gval, S, P, st)
+  cudaError_t rc = cudaSuccess;
+#define IKPSO_LAUNCH(TOPO, C, O)                                                       \
+  rc = launch_fused_solve<TOPO, C, O>(replay != 0, meta, M, swarm, K, limits, seeds,  \
+                                      inertia, iters, c1, c2, vscale, init_mode, scene, \
+                                      up, uniforms, n_draws, gbest, gval, S, P, st)
   if (topo == 0 && collider == kNoCollider) {
     IKPSO_LAUNCH(Arm7Dof, kNoCollider, false);
   } else if (topo == 0 && collider == kBoxCollider) {
@@ -326,9 +442,14 @@ extern "C" int ikpso_fused_solve(int topo, int collider, int orient, int replay,
     IKPSO_LAUNCH(Arm6Dof, kNoCollider, false);
   } else if (topo == 2 && collider == kNoCollider && orient) {
     IKPSO_LAUNCH(Arm6Dof, kNoCollider, true);
+  } else if (topo == 3 && collider == kNoCollider && !orient) {
+    IKPSO_LAUNCH(DualArm14, kNoCollider, false);
+  } else if (topo == 4 && collider == kNoCollider && !orient) {
+    IKPSO_LAUNCH(Humanoid45, kNoCollider, false);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef IKPSO_LAUNCH
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

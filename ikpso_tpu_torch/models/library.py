@@ -1,10 +1,10 @@
 """Prebuilt kinematic models.
 
 Port of ``ikpso_tpu/models/library.py``: ``reference_arm``,
-``planar_3dof`` and ``arm_6dof`` (via ``serial_chain``), ``arm_7dof``
-and ``batched_problem``. The rest of the zoo (``snake``,
-``dual_arm_14dof``, ``humanoid_45dof``) waits for ROADMAP queue A
-item 8. Every model function takes the device its tensors live on.
+``planar_3dof`` and ``arm_6dof`` (via ``serial_chain``), ``arm_7dof``,
+the trees ``dual_arm_14dof`` and ``humanoid_45dof``, and
+``batched_problem``. ``snake`` waits for ROADMAP queue A item 8. Every
+model function takes the device its tensors live on.
 """
 
 from __future__ import annotations
@@ -122,6 +122,79 @@ def arm_7dof(target=(1.0, 1.2, -0.8), device="cpu") -> Tuple[ChainSpec, IKProble
         device=device,
     )
     return spec, _problem(np.zeros((n, 3), np.float32), [target], device=device)
+
+
+def dual_arm_14dof(target_a=(1.0, 1.0, 0.5), target_b=(-1.0, 1.0, 0.5),
+                   device="cpu") -> Tuple[ChainSpec, IKProblem]:
+    """Two 7-DOF arms branching from one origin (N=7 nodes, D=18, effectors
+    3 and 6): nodes 1-3 arm A, 4-6 arm B, each a 7-DOF arm's limits."""
+    n = 7
+    min_rot = np.zeros((n, 3), np.float32)
+    max_rot = np.zeros((n, 3), np.float32)
+    for base in (1, 4):
+        min_rot[base:base + 2, :] = -PI
+        max_rot[base:base + 2, :] = PI
+        min_rot[base + 2, 2] = -PI
+        max_rot[base + 2, 2] = PI
+    spec = make_chain_spec(
+        parent=[-1, 0, 1, 2, 0, 4, 5],
+        length=[0.0, 1.0, 1.0, 0.5, 1.0, 1.0, 0.5],
+        min_rotation=min_rot,
+        max_rotation=max_rot,
+        effector_idx=[3, 6],
+        effector_weight=[1.0, 1.0],
+        device=device,
+    )
+    return spec, _problem(np.zeros((n, 3), np.float32), [target_a, target_b],
+                          device=device)
+
+
+def humanoid_45dof(device="cpu") -> Tuple[ChainSpec, IKProblem]:
+    """The 5-effector humanoid tree (N=16 nodes, D=45): spine and chest
+    from the pelvis, head and both arms branching at the chest, both legs
+    at the pelvis; limits +-2 on every joint axis. The targets are the
+    effector positions of a fixed bent pose, computed by this package's
+    ``fk_points``; the solve starts from the straight pose."""
+    from ikpso_tpu_torch.ops.fk import fk_points
+
+    # pelvis, spine, chest, head, L shoulder, L elbow, L hand, R shoulder,
+    # R elbow, R hand, L hip, L knee, L foot, R hip, R knee, R foot
+    parent = [-1, 0, 1, 2, 2, 4, 5, 2, 7, 8, 0, 10, 11, 0, 13, 14]
+    length = [0.0, 0.5, 0.5, 0.3,
+              0.4, 0.5, 0.5,
+              0.4, 0.5, 0.5,
+              0.3, 0.6, 0.6,
+              0.3, 0.6, 0.6]
+    n = len(parent)
+    min_rot = np.full((n, 3), -2.0, np.float32)
+    max_rot = np.full((n, 3), 2.0, np.float32)
+    min_rot[0] = max_rot[0] = 0.0
+    effectors = [3, 6, 9, 12, 15]
+    spec = make_chain_spec(
+        parent=parent,
+        length=length,
+        min_rotation=min_rot,
+        max_rotation=max_rot,
+        effector_idx=effectors,
+        effector_weight=[1.0] * len(effectors),
+        device=device,
+    )
+    target_pose = np.zeros((n, 3), np.float32)
+    target_pose[1] = (0.0, 0.15, 0.10)
+    target_pose[2] = (0.0, 0.10, 0.10)
+    target_pose[3] = (0.10, 0.0, 0.20)
+    target_pose[4] = (0.0, 0.80, 0.50)
+    target_pose[5] = (0.0, 0.0, 0.70)
+    target_pose[7] = (0.0, -0.80, -0.50)
+    target_pose[8] = (0.0, 0.0, -0.70)
+    target_pose[10] = (0.0, -0.60, 0.40)
+    target_pose[11] = (0.0, 0.0, -0.80)
+    target_pose[13] = (0.0, 0.60, -0.40)
+    target_pose[14] = (0.0, 0.0, 0.80)
+    points = fk_points(spec, torch.as_tensor(target_pose, device=device),
+                       torch.zeros(3, device=device))
+    return spec, _problem(np.zeros((n, 3), np.float32),
+                          points[effectors].cpu().numpy(), device=device)
 
 
 def batched_problem(

@@ -27,7 +27,7 @@ effector's world rotation to its target, times the orientation and
 effector weights), the angular-locality term and obstacle rejection (box
 SAT or capsule colliders against the scene boxes packed into ``meta``;
 a hit costs ``COLLISION_PENALTY``). The node-position (distance) term
-and ``trig_impl="exact"`` raise (ROADMAP "What remains" item 1).
+and ``trig_impl="exact"`` raise (ROADMAP "What remains" item 2).
 """
 
 from __future__ import annotations

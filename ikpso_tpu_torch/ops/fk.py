@@ -7,11 +7,10 @@ Port of ``ikpso_tpu/ops/fk.py`` (``fk``, ``fk_points``,
   * node k: ``M_k = M_parent @ Rxyz(pose_k) @ T_x(length_k)``
 
 carried as rotation ``R`` plus translation ``p`` with
-``p_k = p_parent + L_k * R_k[:, 0]``. The 3x3 composes are
-``torch.matmul`` in full float32: the package turns TF32 off at import
-(see ``ikpso_tpu_torch/__init__.py``), the counterpart of the JAX
-``precision="highest"``. ``fk_serial_scan`` waits (ROADMAP queue A
-item 9).
+``p_k = p_parent + L_k * R_k[:, 0]``. The 3x3 composes are elementwise
+products summed in float32, in a fixed order, so no TF32 setting of a
+caller can reach them: the counterpart of the JAX ``precision="highest"``.
+``fk_serial_scan`` waits (ROADMAP queue A item 9).
 """
 
 from __future__ import annotations
@@ -24,6 +23,13 @@ from ikpso_tpu_torch.models.chain import ChainSpec
 from ikpso_tpu_torch.ops.rotations import euler_xyz_to_matrix
 
 
+def _compose(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for ``(..., 3, 3)`` rotations: ``(a0 b0 + a1 b1) + a2 b2``
+    over the inner index, each term an elementwise product."""
+    return ((a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :])
+            + a[..., :, 2:3] * b[..., 2:3, :])
+
+
 def fk(
     spec: ChainSpec, pose: torch.Tensor, origin: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -34,7 +40,7 @@ def fk(
     poss = [origin.expand(local.shape[:-3] + (3,))]
     for k in range(1, spec.num_nodes):
         p = spec.parent[k]
-        rk = torch.matmul(rots[p], local[..., k, :, :])
+        rk = _compose(rots[p], local[..., k, :, :])
         poss.append(poss[p] + spec.length[k] * rk[..., :, 0])
         rots.append(rk)
     return torch.stack(poss, dim=-2), torch.stack(rots, dim=-3)

@@ -6,6 +6,12 @@ Port of ``ikpso_tpu/ops/rotations.py``: ``euler_xyz_to_matrix``
 ``quaternion_to_euler_xyz``, through which the orientation harness
 builds its Euler target rotations as ``bench.py:112-120`` does.
 Quaternions are ``(x, y, z, w)``.
+
+The sines and cosines are taken in float64 and rounded to the input's
+dtype: a float32 ``sin`` differs by an ulp between the CPU and the GPU,
+a float64 one rounded to float32 does not (but for inputs within a few
+float64 ulps of a rounding midpoint), so the FK built on them rounds
+alike on every device.
 """
 
 from __future__ import annotations
@@ -13,12 +19,18 @@ from __future__ import annotations
 import torch
 
 
+def cos_sin(x: torch.Tensor):
+    """``(cos x, sin x)`` taken in float64, rounded to ``x``'s dtype."""
+    xd = x.double()
+    return torch.cos(xd).to(x.dtype), torch.sin(xd).to(x.dtype)
+
+
 def euler_xyz_to_matrix(angles: torch.Tensor) -> torch.Tensor:
     """Euler XYZ angles ``(..., 3)`` -> rotation matrices ``(..., 3, 3)``."""
     x, y, z = angles[..., 0], angles[..., 1], angles[..., 2]
-    cx, sx = torch.cos(x), torch.sin(x)
-    cy, sy = torch.cos(y), torch.sin(y)
-    cz, sz = torch.cos(z), torch.sin(z)
+    cx, sx = cos_sin(x)
+    cy, sy = cos_sin(y)
+    cz, sz = cos_sin(z)
     r00 = cy * cz
     r01 = -cy * sz
     r02 = sy

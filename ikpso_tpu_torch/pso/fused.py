@@ -14,8 +14,10 @@ Supported: canonical inertia (with or without ``inertia_end``) or
 randomized inertia, ``init_mode`` ``"warm"``, ``"uniform"`` or
 ``"hybrid"``, any ``gbest_interval``, the velocity re-kick with or
 without its threshold, the orientation term, obstacles with the
-closed-form (``"sat"``) colliders of either shape. The distance term and
-exact trig raise (ROADMAP "What remains" item 1). The TPU-only knobs
+closed-form (``"sat"``) colliders of either shape; on the card, the
+topologies and combinations ``utils.kernels.INSTANTIATED`` lists, with
+at most ``utils.kernels.max_particles`` particles a swarm. The distance
+term and exact trig raise (ROADMAP "What remains" item 2). The TPU-only knobs
 (``swarms_per_tile``, ``gbest_mode``, ``const_mode``, VMEM gates,
 multi-row output) have no counterpart.
 
@@ -66,7 +68,7 @@ def check_supported(pso: PSOConfig, fit: FitnessConfig, num_obstacles: int = 0) 
     if float(fit.distance_weight) != 0.0 or fit.trig_impl != "poly":
         raise NotImplementedError(
             "fused solver with the distance term or exact trig is not ported yet "
-            "(ROADMAP \"What remains\" item 1; queue B items 1(c), 2)"
+            "(ROADMAP \"What remains\" item 2; queue B items 1(c), 2)"
         )
     if num_obstacles and fit.collision_backend != "sat":
         raise NotImplementedError(
@@ -119,9 +121,12 @@ def inertia_schedule(pso: PSOConfig) -> np.ndarray:
 def _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms):
     s = swarm.shape[0]
     d = spec.dof
-    if num_particles % 32 or not 32 <= num_particles <= 1024:
+    most = kernels.max_particles(spec)
+    if num_particles % 32 or not 32 <= num_particles <= most:
         raise ValueError(
-            f"num_particles={num_particles} must be a multiple of 32 in [32, 1024]"
+            f"num_particles={num_particles} must be a multiple of 32 in [32, {most}]"
+            + ("" if most == 1024 else " (kernel A's thread-block bound for this "
+               "topology)")
         )
     if tuple(limits.shape) != (2, d):
         raise ValueError(f"limits must be (2, {d}), got {tuple(limits.shape)}")
@@ -288,14 +293,16 @@ def fused_solve(
     )
     kernels.check(rc, "fused_solve")
     fused_solve.launches += 1
-    variant = f"{pso.init_mode}/{fit.collision_shape if num_obstacles else 'none'}"
+    variant = (f"{kernels.TOPOLOGY_NAMES[topo]}/{pso.init_mode}/"
+               f"{fit.collision_shape if num_obstacles else 'none'}")
     if use_orientation:
         variant += "/orientation"
     fused_solve.variant_launches[variant] = fused_solve.variant_launches.get(variant, 0) + 1
     return gbest, gval
 
 
-# Launch counts: in all, and per (init mode / collider [/ orientation]) variant.
+# Launch counts: in all, and per (topology / init mode / collider
+# [/ orientation]) variant.
 fused_solve.launches = 0
 fused_solve.variant_launches = {}
 

@@ -1,11 +1,13 @@
 """Per-model solver recipes.
 
 Port of ``ikpso_tpu/pso/presets.py`` (``FusedPreset`` without the TPU's
-``swarms_per_tile``, and the ``arm_7dof`` and ``arm_6dof`` entries). The recipe: a short
-basin-finding PSO stage (canonical inertia decaying 0.5 -> 0.2), an
-SoA LM polish of each swarm's gbest, and top-k retry rounds with
-geometrically shrinking buckets. The other models' presets wait for
-ROADMAP queue A item 8.
+``swarms_per_tile``; the ``arm_7dof``, ``arm_6dof``, ``dual_arm_14dof``
+and ``humanoid_45dof`` entries, field for field). The recipe: a short
+basin-finding PSO stage (canonical inertia decaying 0.5 -> 0.2), an LM
+polish of each swarm's gbest, and top-k retry rounds (shrinking buckets,
+diverse inits or warm target walks, per model). The ``planar_3dof``,
+``reference_arm`` and ``snake_30dof`` presets wait for ROADMAP queue A
+item 8.
 """
 
 from __future__ import annotations
@@ -47,6 +49,15 @@ FUSED_PRESETS = {
     # iterations over a constant bucket (its wrong-basin failures do not
     # shrink geometrically).
     "arm_6dof": FusedPreset(128, 40, 20, 4, 20, "uniform", retry_iterations=80),
+    # Two 7-DOF arms on one origin (D=18, two effectors): 262,144 swarms of
+    # 1,024 particles, 8 iterations with a re-kick every 4, 4 LM steps,
+    # then 4 hybrid-init retry rounds over a constant bucket.
+    "dual_arm_14dof": FusedPreset(1024, 8, 4, 4, 4, "hybrid"),
+    # The 45-DOF, 5-effector humanoid: 16,384 swarms of 512 particles, 60
+    # iterations, 6 LM steps on the tensor path, then 6 retry rounds over a
+    # constant bucket of 8,192, each an 8-step warm target walk.
+    "humanoid_45dof": FusedPreset(512, 60, 0, 6, 6, retry_iterations=60,
+                                  retry_bucket=8192, retry_walk=8, swarms=16_384),
 }
 
 

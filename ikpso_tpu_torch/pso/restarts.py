@@ -9,9 +9,9 @@ bit-stable: ``better = (retry < prev) & (prev > threshold)``.
 
 The port has no tiles, so the bucket alignment is the identity; bucket
 decay is kept. Retry streams continue the caller's generator (the base
-solve draws first). Walk retries (``wrap_solver_with_target_walk``) and
-the host-gather ``solve_with_retries`` are not ported yet (ROADMAP
-queue A item 8).
+solve draws first). ``wrap_solver_with_target_walk`` makes a retry round
+a W-step warm target walk (``retry_walk_steps``). The host-gather
+``solve_with_retries`` is not ported yet (ROADMAP queue A item 8).
 """
 
 from __future__ import annotations
@@ -20,9 +20,11 @@ import dataclasses
 import numbers
 from typing import Callable, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ikpso_tpu_torch.models.chain import IKProblem
+from ikpso_tpu_torch.ops.fk import fk_points
 from ikpso_tpu_torch.pso.solver import SolveResult
 
 Solver = Callable[[IKProblem, torch.Generator], SolveResult]
@@ -45,6 +47,43 @@ def worst_indices(err: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(err, descending=True, stable=True).indices[:k]
 
 
+def wrap_solver_with_target_walk(solver: Solver, spec, steps: int,
+                                 jitter: float = 0.0) -> Solver:
+    """Re-solve by a ``steps``-step warm target walk instead of one jump.
+
+    The targets move from the problem pose's effector positions to the
+    true targets in ``steps`` equal fractions; each step re-solves warm
+    from the previous step's pose, and the last step, at the true
+    targets, returns the result (``ikpso_tpu/pso/restarts.py:124-199``).
+    Orientation targets stay fixed. ``jitter`` > 0 offsets each
+    intermediate waypoint by a standard normal draw (from the caller's
+    generator) times ``jitter * 4 f (1 - f)`` times the effector's
+    start-to-target distance, so each call walks another curved path
+    that still starts at the pose and ends at the targets.
+    """
+    if steps < 1:
+        raise ValueError(f"target walk needs steps >= 1, got {steps}")
+    eff = list(spec.effector_idx)
+
+    def _solve(problem: IKProblem, generator: torch.Generator) -> SolveResult:
+        if steps > 1:
+            start = fk_points(spec, problem.pose, problem.origin)[:, eff, :]
+            span = torch.linalg.norm(problem.targets - start, dim=-1, keepdim=True)
+            pose = problem.pose
+            for i in range(1, steps):
+                f = float(np.float32(i) / np.float32(steps))
+                tgt = start + f * (problem.targets - start)
+                if jitter:
+                    off = torch.randn(start.shape, generator=generator,
+                                      device=generator.device).to(start.device)
+                    tgt = tgt + (jitter * 4.0 * f * (1.0 - f)) * span * off
+                pose = solver(problem.replace(pose=pose, targets=tgt), generator).pose
+            problem = problem.replace(pose=pose)
+        return solver(problem, generator)
+
+    return _solve
+
+
 def wrap_with_topk_retries(
     build: Callable,
     pso,
@@ -54,27 +93,33 @@ def wrap_with_topk_retries(
     err_threshold: float = 1e-3,
     retry_init_mode: Optional[str] = None,
     retry_iterations: Optional[int] = None,
+    spec=None,
     retry_walk_steps: int = 0,
+    retry_walk_jitter: float = 0.0,
     bucket_decay: int = 1,
 ) -> Solver:
     """Build a solver with ``build(pso_config)`` and wrap it in top-k
     retries; ``retry_init_mode`` / ``retry_iterations`` give the retry
-    rounds their own solver."""
-    if retry_walk_steps:
-        raise NotImplementedError(
-            "walk retries are not ported yet (ROADMAP queue A item 8)"
-        )
+    rounds their own solver. ``retry_walk_steps=W`` (needs ``spec``)
+    makes each retry round a W-step warm target walk
+    (:func:`wrap_solver_with_target_walk`) from the problem's pose; a walk
+    needs its warm start, so it ignores ``retry_init_mode``."""
+    if retry_walk_steps and spec is None:
+        raise ValueError("retry_walk_steps requires spec")
     solver = build(pso)
     if not rounds:
         return solver
     retry_cfg = {}
-    if retry_init_mode and retry_init_mode != pso.init_mode:
+    if retry_init_mode and retry_init_mode != pso.init_mode and not retry_walk_steps:
         retry_cfg["init_mode"] = retry_init_mode
     if retry_iterations and retry_iterations != pso.iterations:
         retry_cfg["iterations"] = retry_iterations
         if pso.rekick_interval and retry_iterations % pso.rekick_interval:
             retry_cfg["rekick_interval"] = 0
     retry_solver = build(dataclasses.replace(pso, **retry_cfg)) if retry_cfg else None
+    if retry_walk_steps:
+        retry_solver = wrap_solver_with_target_walk(
+            retry_solver or solver, spec, retry_walk_steps, jitter=retry_walk_jitter)
     return make_topk_retry_solver(
         solver, err_threshold=err_threshold, rounds=rounds,
         bucket=bucket_schedule(bucket, rounds, bucket_decay),

@@ -48,13 +48,24 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 SOURCES = ("fused_solve.cu", "fk_fitness.cu", "fused_fitness.cu", "roofline.cu")
 
 # (num_nodes, packed parents, effector bit mask) -> id; must match the
-# instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm, Arm6Dof),
-# which the launchers of kernels A, B and C all instantiate.
+# instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm, Arm6Dof,
+# DualArm14, Humanoid45), which the launchers of kernels A, B and C all
+# instantiate.
 KERNEL_TOPOLOGIES = {
     (4, 0x2100, 0x8): 0,  # arm_7dof: serial 3 links, effector node 3
     (8, 0x44432100, 0xE0): 1,  # reference_arm: 4 elbows + 3 effector children
     (3, 0x100, 0x4): 2,  # arm_6dof: serial 2 links, effector node 2
+    (7, 0x5402100, 0x48): 3,  # dual_arm_14dof: two 3-link arms, effectors 3, 6
+    (16, 0xED0BA08725422100, 0x9248): 4,  # humanoid_45dof: 5 effectors
 }
+TOPOLOGY_NAMES = ("arm_7dof", "reference_arm", "arm_6dof", "dual_arm_14dof",
+                  "humanoid_45dof")
+
+# Kernel A's thread-block bound per topology id (its __launch_bounds__,
+# KernelAThreads in csrc/fused_solve.cu): one thread per particle, so the
+# most particles a swarm may have. The humanoid's 512 lets a thread hold
+# 128 registers instead of 64.
+MAX_PARTICLES = {4: 512}
 
 # Collider variants (enum Collider in csrc/fk_fitness.cuh; 0 = none).
 COLLIDERS = {"box": 1, "capsule": 2}
@@ -65,6 +76,7 @@ INSTANTIATED = {
     (0, 0, False), (0, 1, False), (0, 2, False),  # arm_7dof: headline, scenes
     (1, 0, False),  # reference_arm
     (2, 0, False), (2, 0, True),  # arm_6dof, position only and with orientation
+    (3, 0, False), (4, 0, False),  # dual_arm_14dof, humanoid_45dof
 }
 
 _VP = ctypes.c_void_p
@@ -98,11 +110,18 @@ def topology_id(spec) -> int:
     ):
         raise NotImplementedError(
             f"no CUDA kernel instantiated for topology parent={spec.parent}, "
-            f"effector_idx={spec.effector_idx} (instantiated: arm_7dof, "
-            "reference_arm); more topologies are ROADMAP queue A item 8 "
-            "(the rest of the zoo)"
+            f"effector_idx={spec.effector_idx} (instantiated: "
+            f"{', '.join(TOPOLOGY_NAMES)}); more topologies are ROADMAP queue A "
+            "item 8 (the rest of the zoo)"
         )
     return KERNEL_TOPOLOGIES[code]
+
+
+def max_particles(spec) -> int:
+    """The most particles kernel A takes per swarm for ``spec``'s topology
+    (1024 for a topology without a kernel: its plain solve's bound)."""
+    code = topology_code(spec) if spec.num_nodes <= 16 else None
+    return MAX_PARTICLES.get(KERNEL_TOPOLOGIES.get(code), 1024)
 
 
 def kernel_variant(spec, num_obstacles: int, collision_shape: str,
@@ -121,9 +140,9 @@ def kernel_variant(spec, num_obstacles: int, collision_shape: str,
             f"no CUDA kernel instantiated for parent={spec.parent} with "
             f"{collision_shape if collider else 'no'} colliders and orientation "
             f"{'on' if use_orientation else 'off'} (instantiated: arm_7dof with "
-            "or without a scene, reference_arm, arm_6dof with or without "
-            "orientation); more combinations are ROADMAP queue A item 8 (the "
-            "rest of the zoo)"
+            "or without a scene, arm_6dof with or without orientation, and "
+            "reference_arm, dual_arm_14dof and humanoid_45dof without either); "
+            "more combinations are ROADMAP queue A item 8 (the rest of the zoo)"
         )
     return key[0], key[1], int(key[2])
 

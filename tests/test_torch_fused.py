@@ -379,14 +379,17 @@ def test_cpu_wrapper_dispatches_to_plain():
 
 
 @pytest.mark.parametrize("kw", [
-    # Randomized inertia, gbest_interval, the re-kick and orientation are
-    # ported (tests/test_torch_orientation.py); these branches still raise.
+    # Randomized inertia, gbest_interval, the re-kick, orientation
+    # (tests/test_torch_orientation.py) and walk retries
+    # (tests/test_torch_restarts.py) are ported; these branches still raise.
     dict(fit=dict(distance_weight=0.5)),
     dict(fit=dict(trig_impl="exact", orientation_weight=1.0)),
     dict(fit=dict(collision_backend="gjk"), obstacles=True),
-    dict(retry_walk_steps=4),
+    # The locality-cost accept gate of the polish, under walk retries.
+    dict(locality_weight=0.5, retry_walk_steps=4),
 ])
 def test_unported_branches_raise(kw):
+    from ikpso_tpu_torch.pso.polish import wrap_with_polish
     from ikpso_tpu_torch.pso.restarts import wrap_with_topk_retries
 
     spec, _ = library.arm_7dof()
@@ -394,11 +397,17 @@ def test_unported_branches_raise(kw):
                                        rekick_interval=2))
     fit = FitnessConfig(**kw.get("fit", {}))
     obs = Obstacles.from_boxes(**REPLAY_SCENE) if kw.get("obstacles") else None
+
+    def build(cfg):
+        solver = make_fused_solver(spec, pso=cfg, fit=fit, num_particles=128,
+                                   device="cpu", obstacles=obs)
+        if "locality_weight" in kw:
+            solver = wrap_with_polish(solver, spec, locality_weight=kw["locality_weight"])
+        return solver
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wrap_with_topk_retries(
-            lambda cfg: make_fused_solver(spec, pso=cfg, fit=fit, num_particles=128,
-                                          device="cpu", obstacles=obs),
-            pso, rounds=1, bucket=8, retry_walk_steps=kw.get("retry_walk_steps", 0))
+        wrap_with_topk_retries(build, pso, rounds=1, bucket=8, spec=spec,
+                               retry_walk_steps=kw.get("retry_walk_steps", 0))
 
 
 def test_fused_solver_end_to_end_shapes_and_error():
@@ -430,14 +439,19 @@ def test_obstacle_refusals_name_their_roadmap_items():
         make_fused_solver(spec, pso=pso, fit=FitnessConfig(collision_backend="gjk"),
                           num_particles=128, obstacles=obs, device="cpu")
     # The CUDA collider variants exist for the serial 4-node topology only,
-    # the orientation term for arm_6dof without a scene only.
+    # the orientation term for arm_6dof without a scene only; the trees run
+    # without either.
     assert kernels.kernel_variant(spec, 0, "box", False) == (0, 0, 0)
     assert kernels.kernel_variant(spec, 2, "box", False) == (0, 1, 0)
     assert kernels.kernel_variant(spec, 2, "capsule", False) == (0, 2, 0)
     assert kernels.kernel_variant(library.planar_3dof()[0], 2, "box", False) == (0, 1, 0)
     assert kernels.kernel_variant(library.arm_6dof()[0], 0, "box", True) == (2, 0, 1)
+    dual, human = library.dual_arm_14dof()[0], library.humanoid_45dof()[0]
+    assert kernels.kernel_variant(dual, 0, "box", False) == (3, 0, 0)
+    assert kernels.kernel_variant(human, 0, "capsule", False) == (4, 0, 0)
     for other, n_obs, orient in ((library.reference_arm()[0], 2, False), (spec, 2, True),
-                                 (spec, 0, True), (library.arm_6dof()[0], 2, True)):
+                                 (spec, 0, True), (library.arm_6dof()[0], 2, True),
+                                 (dual, 2, False), (human, 0, True)):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
             kernels.kernel_variant(other, n_obs, "box", orient)
     # Such a combination runs its plain version on the CPU: arm_7dof with a
@@ -493,9 +507,18 @@ def test_topology_codes_and_refusal():
     assert kernels.topology_code(spec6) == (3, 0x100, 0x4)
     assert kernels.topology_id(spec7) == 0 and kernels.topology_id(spec_ref) == 1
     assert kernels.topology_id(spec6) == 2
-    # planar_3dof shares arm_7dof's serial 4-node topology; a 6-node
-    # chain has no instantiation.
+    # The trees: node 15's parent fills bits 60-63 of the humanoid's word.
+    dual, human = library.dual_arm_14dof()[0], library.humanoid_45dof()[0]
+    assert kernels.topology_code(dual) == (7, 0x5402100, 0x48)
+    assert kernels.topology_code(human) == (16, 0xED0BA08725422100, 0x9248)
+    assert kernels.topology_id(dual) == 3 and kernels.topology_id(human) == 4
+    # planar_3dof shares arm_7dof's serial 4-node topology; a 6-node chain
+    # has no instantiation, and an 11-node snake (snake:10) none either.
     assert kernels.topology_id(library.planar_3dof()[0]) == 0
-    spec5, _ = library.serial_chain(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.topology_id(spec5)
+    for links in (5, 10):
+        spec_n, _ = library.serial_chain(links)
+        with pytest.raises(NotImplementedError, match="humanoid_45dof.*ROADMAP"):
+            kernels.topology_id(spec_n)
+    # Beyond 16 nodes the 4-bit parent fields run out.
+    with pytest.raises(NotImplementedError, match="4-bit"):
+        kernels.topology_code(library.serial_chain(16)[0])

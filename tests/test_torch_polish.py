@@ -184,3 +184,88 @@ def test_soa_gate_and_refusals():
     # locality-cost accept gate is not.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         wrap_with_polish(lambda p, g: None, spec, locality_weight=0.5)
+
+
+def _oriented_case(name, s, seed, noise):
+    """``_case`` with target rotations: the generating poses' effector
+    world rotations (bench.py:117-120)."""
+    from ikpso_tpu.ops import rotations as jrot
+
+    spec_j, problem_j = getattr(jlib, name)()
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(spec_j.min_rotation[1:]).reshape(-1)
+    hi = np.asarray(spec_j.max_rotation[1:]).reshape(-1)
+    truth = (lo + rng.random((s, spec_j.dof)) * (hi - lo)).astype(np.float32)
+    pose = jfk.angles_to_pose(spec_j, jnp.broadcast_to(problem_j.pose[0], (s, 3)),
+                              jnp.asarray(truth))
+    eff = list(spec_j.effector_idx)
+    pos, rot = jfk.fk(spec_j, pose, problem_j.origin)
+    batched_j = jlib.batched_problem(
+        problem_j, pos[:, eff],
+        target_rot=jrot.quaternion_to_euler_xyz(jrot.matrix_to_quaternion(rot[:, eff])))
+    start = np.clip(truth + rng.normal(0, noise, truth.shape), lo, hi).astype(np.float32)
+    return spec_j, batched_j, start
+
+
+@pytest.mark.parametrize("name,orientation,steps", [
+    # The humanoid's m = 15 rows take the dual (M, M) form of the tensor
+    # path; arm_6dof with orientation (m = 6 = D) too, with the
+    # rotation-vector rows; the dual arm runs it here through soa=False.
+    ("humanoid_45dof", False, 6), ("arm_6dof", True, 4), ("dual_arm_14dof", False, 4),
+])
+def test_tensor_polish_matches_jax(name, orientation, steps):
+    # JAX polish_angles(..., soa=False), S=64, starts 0.1 rad off the truth.
+    spec_j, batched_j, start = _oriented_case(name, 64, seed=24, noise=0.1)
+    if not orientation:
+        batched_j = batched_j.replace(target_rot=None)
+    want = j_polish(spec_j, batched_j, jnp.asarray(start), steps=steps,
+                    use_orientation=orientation, soa=False)
+    spec = convert.chain_spec_from(spec_j)
+    batched = convert.problem_from(batched_j)
+    got = polish_angles(spec, batched, torch.as_tensor(start), steps=steps,
+                        use_orientation=orientation, soa=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    e0 = true_effector_error_rows(spec, batched, torch.as_tensor(start))
+    e1 = true_effector_error_rows(spec, batched, got)
+    assert float(e1.mean()) < 0.1 * float(e0.mean())
+
+
+def test_tensor_polish_cost_and_primal_form_match_jax():
+    # With locality rows m = 3E + D > D: the primal (D, D) form; and the
+    # residual cost it minimizes, against JAX.
+    from ikpso_tpu.pso.polish import residual_cost as j_cost
+    from ikpso_tpu_torch.pso.polish import residual_cost
+
+    spec_j, batched_j, start = _case("dual_arm_14dof", 16, seed=25)
+    want = j_polish(spec_j, batched_j, jnp.asarray(start), steps=3, locality_weight=0.01,
+                    soa=False)
+    spec = convert.chain_spec_from(spec_j)
+    batched = convert.problem_from(batched_j)
+    got = polish_angles(spec, batched, torch.as_tensor(start), steps=3,
+                        locality_weight=0.01, soa=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(
+        residual_cost(spec, batched, got, locality_weight=0.01).numpy(),
+        np.asarray(j_cost(spec_j, batched_j, want, locality_weight=0.01)), rtol=1e-4,
+        atol=1e-7)
+
+
+def test_soa_routing_gate_matches_jax():
+    # tests/test_polish.py:388-409: every zoo model lands on the LM path JAX
+    # routes it to; the humanoid (m = 15, m^2 D = 10,125) on the tensor
+    # path, snakes of any depth on the SoA core.
+    from ikpso_tpu.pso.polish import soa_traceable as j_soa_traceable
+    from ikpso_tpu_torch.models import library
+
+    for name, orient, want_soa in [
+        ("arm_7dof", False, True), ("planar_3dof", False, True), ("arm_6dof", True, True),
+        ("dual_arm_14dof", False, True), ("reference_arm", False, True),
+        ("humanoid_45dof", False, False),
+    ]:
+        spec, _ = getattr(library, name)()
+        assert soa_traceable(spec, spec.dof, orient) == want_soa, name
+        spec_j, _ = getattr(jlib, name)()
+        assert j_soa_traceable(spec_j, spec_j.dof, orient) == want_soa, name
+    for links in (30, 50, 100, 150, 170):
+        spec, _ = library.serial_chain(links)
+        assert soa_traceable(spec, spec.dof, False), f"snake:{links}"
