@@ -3,10 +3,11 @@
 
 Builds the port's CUDA kernels from ``ikpso_tpu_torch/csrc``, checks each
 against its plain torch version on the card (kernel B with and without a
-scene, with the orientation term and on the two trees; kernel A in replay
-with every init mode, collider, inertia mode, re-kick and gbest interval,
-with orientation and on the trees; kernel C with every collider,
-orientation and the trees, and the scan solve through it in replay; the
+scene, with the orientation term, on the two trees, on snake_30dof and on
+the serial-chain variant; kernel A in replay with every init mode,
+collider, inertia mode, re-kick and gbest interval, with orientation, on
+the trees, on snake_30dof, the serial-chain variant and reference_arm;
+kernel C likewise, and the scan solve through it in replay; the
 tensor-path LM polish on the card against the CPU), drives the main paths
 through their entry points -- the 7-DOF headline solve
 (``harness.headline.run_headline``, S=1,048,576), the 7-DOF obstacle-scene
@@ -14,7 +15,9 @@ solve (``harness.obstacles.run_obstacles``, S=524,288 with box colliders,
 S=65,536 with capsules), the 6-DOF position + orientation solve
 (``harness.orientation.run_orientation``, S=262,144), the dual-arm tree
 (``harness.trees.run_tree``, ``dual_arm_14dof``, S=262,144), the 45-DOF
-humanoid tree (``humanoid_45dof``, S=16,384), the scan solver on kernel C
+humanoid tree (``humanoid_45dof``, S=16,384), the rest of the zoo through
+``run_tree`` (``planar_3dof`` S=1,048,576, ``reference_arm`` S=262,144,
+``snake_30dof`` and ``snake:50`` S=65,536), the scan solver on kernel C
 (``harness.scan.run_scan``, S=16,384, P=1,024, 60 iterations) and the
 roofline (``utils.roofline``: kernels D and E, the kernel C and kernel A
 rates, the headline's ``sol_frac``) -- with the launch counts read around
@@ -70,25 +73,78 @@ SCAN_FRAC_BAR = SCAN_JAX_FRAC_UNDER_1MM - 4.0 * (
     SCAN_JAX_FRAC_UNDER_1MM * (1.0 - SCAN_JAX_FRAC_UNDER_1MM)
     * (1.0 / SCAN_JAX_SWARMS + 1.0 / SCAN_SWARMS)) ** 0.5
 SCAN_REPLAY_SWARMS = 256
-# The tree paths (bench.py --model dual_arm_14dof / humanoid_45dof): the
-# presets' batches, not cut.
-TREE_SWARMS = {"dual_arm_14dof": 262_144, "humanoid_45dof": 16_384}
-TREE_PATHS = {"dual_arm_14dof": "dual_arm", "humanoid_45dof": "humanoid"}
-# Timed solves per tree path after one warm-up: the humanoid solve runs 49
-# kernel A launches and 49 tensor-polish calls, ~20 s on the card.
-TREE_ITERS = {"dual_arm_14dof": 3, "humanoid_45dof": 1}
+# The zoo's paths through harness.trees.run_tree (bench.py --model <m>): the
+# presets' batches, not cut, and each path's name in the kernels line.
+TREE_SWARMS = {"dual_arm_14dof": 262_144, "humanoid_45dof": 16_384,
+               "planar_3dof": 1_048_576, "reference_arm": 262_144, "snake_30dof": 65_536,
+               "snake:50": 65_536}
+TREE_PATHS = {"dual_arm_14dof": "dual_arm", "humanoid_45dof": "humanoid",
+              "planar_3dof": "planar", "reference_arm": "reference_arm",
+              "snake_30dof": "snake_30dof", "snake:50": "snake50"}
+# Timed solves per path after one warm-up (3 where not listed): the humanoid
+# solve runs 49 kernel A launches and 49 tensor-polish calls, ~20 s on the card.
+TREE_ITERS = {"humanoid_45dof": 1}
 # JAX's records of the same recipes (bench_records/r5_sweep.jsonl r5-dualarm,
-# r5-humanoid-walkfix; taken on a TPU, quoted for accuracy only): shares
-# rounded to 4 places, so no failure count (the humanoid's 0.9999 of 16,384
-# is 1-2 swarms).
+# r5-humanoid-walkfix, r5-planar-S32, r5-snake30, r5-snake150; taken on a
+# TPU, quoted for accuracy only): shares rounded to 4 places, so no failure
+# count (the humanoid's 0.9999 of 16,384 is 1-2 swarms); and the share
+# under 1 mm each path must reach.
 JAX_TREES = {
     "dual_arm_14dof": {"frac_under_1mm": 1.0, "p50_err_mm": 0.0003, "p90_err_mm": 0.0185},
     "humanoid_45dof": {"frac_under_1mm": 0.9999, "p50_err_mm": 0.0006,
                        "p90_err_mm": 0.0009},
+    "planar_3dof": {"frac_under_1mm": 1.0, "p50_err_mm": 0.0001, "p90_err_mm": 0.0002},
+    "snake_30dof": {"frac_under_1mm": 1.0, "p50_err_mm": 0.0006, "p90_err_mm": 0.001},
+    "snake:50": {"frac_under_1mm": 1.0, "p50_err_mm": 0.0037, "p90_err_mm": 0.0067},
 }
-# Kernel/plain timing batches of the trees: the plain solve's (S, P, D)
-# temporaries at the presets' P (1,024 and 512).
-TREE_PAIR_SWARMS = {"dual_arm_14dof": 4096, "humanoid_45dof": 256}
+TREE_FRAC_BAR = {"dual_arm_14dof": 0.999, "humanoid_45dof": 0.999, "planar_3dof": 0.9999,
+                 "snake_30dof": 0.9999, "snake:50": 0.9999}
+# reference_arm has no fused row in JAX's records, and the fused kernel's
+# in-kernel PRNG has no CPU lowering, so its bar is JAX's scan solver with
+# the same recipe on 1,024 swarms, `JAX_PLATFORMS=cpu python
+# tests/test_torch_zoo.py` (bench.py --cpu --impl jnp --model reference_arm
+# --inertia-mode canonical --particles 256 --iterations 100 --polish 0
+# --retries 0 --swarms 1024 --no-sol): p50 460.2116 mm, p90 1364.8679 mm,
+# 1 swarm of 1,024 under 1 mm (single-shot far targets, not this model's
+# protocol). The port's p50 and p90 must lie inside the 99% distribution-free
+# intervals of JAX's, from the order statistics of its 1,024 errors (ranks
+# 471-554 and 896-947).
+REFERENCE_ARM_JAX = {"p50_err_mm": 460.2116, "p90_err_mm": 1364.8679,
+                     "frac_under_1mm": 0.001, "swarms": 1024}
+REFERENCE_ARM_P50_INTERVAL_MM = (409.07135009765625, 512.2057495117188)
+REFERENCE_ARM_P90_INTERVAL_MM = (1233.37548828125, 1505.63330078125)
+# Kernels B and C against their plain twins on the trees, snake_30dof (id 5)
+# and the serial-chain variant at 17 nodes (the first past the 4-bit parent
+# fields), 21 and 51.
+FITNESS_MODELS = ("dual_arm_14dof", "humanoid_45dof", "snake_30dof", "snake:16", "snake:20",
+                  "snake:50")
+# Kernel A's replays against its plain twin: (swarms, Philox swarms, cases),
+# each case a tag and PSOConfig fields over the model's base recipe. The
+# snakes' base re-kicks every 2 iterations above 1e-6, reference_arm's does
+# not re-kick; at 2,048 swarms the serial-chain variant's grid strides.
+ZOO_REPLAY_CASES = (
+    ("base", {}),
+    ("uniform_rekick_all", dict(init_mode="uniform", rekick_threshold=-1.0)),
+    # A threshold that splits the swarms: some kicked, some not.
+    ("hybrid_rekick_split", dict(init_mode="hybrid", rekick_threshold=1.0)),
+)
+REPLAY_MODELS = {
+    "dual_arm_14dof": (256, 256, (("base", {}), ("retry", dict(init_mode="hybrid")))),
+    "humanoid_45dof": (64, 64, (("base", {}),)),
+    **{m: (128, 2048, ZOO_REPLAY_CASES)
+       for m in ("snake_30dof", "snake:16", "snake:20", "snake:50", "reference_arm")},
+}
+# Timed kernels per model: kernel A against its plain twin at the pair batch
+# (the plain solve's (S, P, D) temporaries at the preset's P) and alone at the
+# preset's batch; kernels B (P=128) and C (P=1,024) against their plain twins
+# at their batches (None: not timed).
+TIMED_MODELS = {
+    "dual_arm_14dof": (4096, 65_536, 4096),
+    "humanoid_45dof": (256, 65_536, 4096),
+    "snake_30dof": (1024, 8192, 1024),
+    "snake:50": (256, 8192, 1024),
+    "reference_arm": (512, None, None),
+}
 POLISH_CARD_CPU_ATOL = 1e-5  # rad: the tensor polish, card against CPU
 D_RTOL = 1e-6  # kernel D vs plain: fmaf vs a float64 FMA, libdevice sinf vs torch.sin
 D_STEPS = 4  # a step count at which every recurrence stays finite
@@ -253,7 +309,8 @@ def phase_against(other_root, device, pairs=10):
     build's: every kernel whose registers or spill bytes differ, and those
     in one build only. Then time kernel A's path variants that both builds
     hold, at the timing phase's shapes (the dual arm at S=65,536, the
-    humanoid at its preset's S=16,384), through this checkout's wrapper
+    humanoid at its preset's S=16,384, reference_arm at S=16,384 and its
+    preset's P=256), through this checkout's wrapper
     from each library in turn (``pairs`` pairs, this build first in the
     even ones), and check that both return the same bits."""
     import dataclasses
@@ -315,6 +372,13 @@ def phase_against(other_root, device, pairs=10):
             args_t = (spec_t, pso_t, fit_t, meta_t, swarm_t, lim_t, seeds_t, pre.particles)
             cases[f"{model} S={swarms}"] = (lambda args_t=args_t: fused_solve(*args_t), 3)
 
+    # reference_arm at its preset's P = 256: this build's 256-thread launch
+    # bound against a build without it.
+    pre_r, pso_r, fit_r, spec_r, meta_r, swarm_r, lim_r, seeds_r = _tree_setup(
+        "reference_arm", 16_384, rng=rng, device=device)
+    args_r = (spec_r, pso_r, fit_r, meta_r, swarm_r, lim_r, seeds_r, pre_r.particles)
+    cases["reference_arm S=16384"] = (lambda: fused_solve(*args_r), 3)
+
     library = kernels.library
     rows = {}
     try:
@@ -348,10 +412,11 @@ def _problem(name, swarms, rng, device, orientation=False):
     import torch
 
     from ikpso_tpu_torch.harness.orientation import orientation_targets
+    from ikpso_tpu_torch.harness.trees import model_spec
     from ikpso_tpu_torch.models import library
     from ikpso_tpu_torch.ops import fk as fk_ops
 
-    spec, problem = getattr(library, name)(device=device)
+    spec, problem = model_spec(name, device)
     lim = spec.limits().cpu().numpy()
     ang = lim[0] + rng.random((swarms, spec.dof)) * (lim[1] - lim[0])
     ang = torch.as_tensor(ang.astype("float32"), device=device)
@@ -439,8 +504,13 @@ def _compare_solve(tag, spec, pso, fit, meta, swarm, seeds, particles, uniforms,
 
 
 def spec_name(spec):
-    return {3: "arm_6dof", 4: "arm_7dof", 7: "dual_arm_14dof", 8: "reference_arm",
-            16: "humanoid_45dof"}.get(spec.num_nodes, str(spec.parent))
+    from ikpso_tpu_torch.utils import kernels
+
+    names = {3: "arm_6dof", 4: "arm_7dof", 7: "dual_arm_14dof", 8: "reference_arm",
+             11: "snake_30dof", 16: "humanoid_45dof"}
+    if spec.num_nodes in names:
+        return names[spec.num_nodes]
+    return f"snake:{spec.num_nodes - 1}" if kernels.is_serial(spec) else str(spec.parent)
 
 
 def _headline_configs():
@@ -479,6 +549,14 @@ TIE_CHAINS = {
     "arm_7dof": ([-1, 0, 1, 2], [0.0, 1.0, 1.0, 0.0], [3], [6, 7, 8]),
     "dual_arm_14dof": ([-1, 0, 1, 2, 0, 4, 5], [0.0, 1.0, 1.0, 0.0, 1.0, 1.0, 0.0], [3, 6],
                        [6, 7, 8, 15, 16, 17]),
+    # snake_30dof's topology (id 5) and a 17-node serial chain (the
+    # serial-chain variant).
+    "snake_30dof": (list(range(-1, 10)), [0.0] + [1.0] * 9 + [0.0], [10], [27, 28, 29]),
+    "snake:16": (list(range(-1, 16)), [0.0] + [1.0] * 15 + [0.0], [16], [45, 46, 47]),
+    # reference_arm's topology (id 1): three zero-length effector links, so
+    # the effectors sit on node 4 whatever their nine angles.
+    "reference_arm": ([-1, 0, 1, 2, 3, 4, 4, 4], [0.0] + [1.0] * 4 + [0.0] * 3, [5, 6, 7],
+                      list(range(12, 21))),
 }
 
 
@@ -1046,7 +1124,7 @@ def _stage_times(device, stages, full, problem, gen):
         t = getattr(e, "self_device_time_total", None)
         t = e.self_cuda_time_total if t is None else t
         busy += t
-        if "fused_solve_kernel" in e.key:
+        if "fused_solve_kernel" in e.key or "fused_solve_serial_kernel" in e.key:
             kernel_a += t
     out.update(profiled_wall_ms=wall_ms,
                device_busy_ms=busy / 1e3 if busy else None,
@@ -1143,7 +1221,7 @@ def _tree_setup(model, swarms, device, rng, particles=None):
 
 
 def phase_tree_fitness(device, swarms=4096, particles=128, c_swarms=64, c_particles=1024):
-    """Kernels B (S=4,096, P=128) and C (S=64, P=1,024) on both trees
+    """Kernels B (S=4,096, P=128) and C (S=64, P=1,024) on ``FITNESS_MODELS``
     against their plain twins on random in-limit angles: equal bit for
     bit."""
     import numpy as np
@@ -1155,9 +1233,10 @@ def phase_tree_fitness(device, swarms=4096, particles=128, c_swarms=64, c_partic
         fused_fitness,
         fused_fitness_plain,
     )
+    from ikpso_tpu_torch.utils import kernels
 
     errs = {}
-    for model in TREE_SWARMS:
+    for model in FITNESS_MODELS:
         rng = np.random.default_rng(14)
         _, _, fit, spec, meta, swarm, lim, _ = _tree_setup(model, swarms, device, rng)
         lo, hi = lim.cpu().numpy()
@@ -1173,36 +1252,40 @@ def phase_tree_fitness(device, swarms=4096, particles=128, c_swarms=64, c_partic
         errs[("B", model)] = check_fitness(f"fk_fitness {model}", got, want, exact=True)
         errs[("C", model)] = check_fitness(f"fused_fitness {model}", got_c, want_c,
                                            exact=True)
-        emit("tree_fitness", model=model, b_shape=[swarms, particles, spec.dof],
+        emit("tree_fitness", model=model,
+             topology=kernels.TOPOLOGY_NAMES[kernels.topology_id(spec)],
+             b_shape=[swarms, particles, spec.dof],
              c_shape=[c_swarms, spec.dof, c_particles],
              b_bitwise_equal=bool(torch.equal(got, want)),
              c_bitwise_equal=bool(torch.equal(got_c, want_c)),
              max_abs_err={"B": errs[("B", model)], "C": errs[("C", model)]},
              bar="max abs error 0.0", ok=True)
+        del x, got, want, x_dp, got_c, want_c
     return errs
 
 
 def phase_fused_tree_replay(device):
-    """Kernel A on both trees at the presets' P against fused_solve_plain,
-    bit for bit: in replay with the base recipe (the dual arm's re-kick
-    every 4 above 1e-6; the humanoid's 60 iterations) and the dual arm's
-    hybrid-init retry recipe, then on the live Philox stream."""
+    """Kernel A on ``REPLAY_MODELS`` at the presets' P against
+    fused_solve_plain, bit for bit: in replay, the base recipe and each
+    model's other cases (the dual arm's hybrid-init retry recipe; on
+    snake_30dof (id 5), the serial-chain variant and reference_arm at its
+    256-thread bound, uniform init with every swarm kicked and hybrid init
+    with a splitting threshold), then on the live Philox stream."""
     import dataclasses
 
     import numpy as np
     import torch
 
     from ikpso_tpu_torch.pso.fused import fused_solve_plain, num_draws
+    from ikpso_tpu_torch.utils import kernels
 
     worst = 0.0
-    for model, s in (("dual_arm_14dof", 256), ("humanoid_45dof", 64)):
+    for model, (s, philox_s, cases) in REPLAY_MODELS.items():
         rng = np.random.default_rng(15)
-        pre, pso, fit, spec, meta, swarm, lim, seeds = _tree_setup(model, s, device, rng)
-        cases = [("base", pso)]
-        if pre.retry_init_mode and not pre.retry_walk:
-            cases.append(("retry", dataclasses.replace(pso, init_mode=pre.retry_init_mode)))
+        pre, pso, fit, spec, meta, swarm, lim, _ = _tree_setup(model, s, device, rng)
         zeros = torch.zeros((s, 2), dtype=torch.int32, device=device)
-        for tag, cfg in cases:
+        for tag, fields in cases:
+            cfg = dataclasses.replace(pso, **fields)
             u = torch.as_tensor(rng.random((s, num_draws(cfg), spec.dof, pre.particles),
                                            dtype=np.float32), device=device)
             kicked = []
@@ -1212,9 +1295,15 @@ def phase_fused_tree_replay(device):
                 "fused_tree_replay", spec, cfg, fit, meta, swarm, zeros, pre.particles, u,
                 bitwise=True, case=tag, kicked_per_block=kicked))
             del u
+        _, _, _, _, meta, swarm, _, seeds = _tree_setup(model, philox_s, device, rng)
+        extra = {}
+        if kernels.topology_id(spec) == kernels.SERIAL:
+            extra["serial_grid"] = kernels.library().ikpso_fused_solve_serial_blocks(
+                0, pre.particles, meta.numel(), swarm.shape[1], spec.num_nodes)
         worst = max(worst, _compare_solve(
             "fused_tree_philox", spec, pso, fit, meta, swarm, seeds, pre.particles, None,
-            bitwise=True, case="base"))
+            bitwise=True, case="base", **extra))
+        del meta, swarm, seeds
     return worst
 
 
@@ -1269,10 +1358,10 @@ def phase_tensor_polish(device, swarms=256):
 
 
 def _tree_stages(device, model, swarms):
-    """Stage walls of a tree path: the base solve, base + polish, and one
-    retry round at the bucket (the dual arm's hybrid-init base and base +
-    polish; the humanoid's 8-step walk of base + polish); then device busy
-    over one more full solve."""
+    """Stage walls of a zoo path: the base solve, base + polish, and one
+    retry round at the bucket (the retry init's base and base + polish; the
+    humanoid's 8-step walk of base + polish), each where the preset has
+    it; then device busy over one more full solve."""
     import dataclasses
 
     import torch
@@ -1300,12 +1389,14 @@ def _tree_stages(device, model, swarms):
     def polished(cfg):
         return wrap_with_polish(base(cfg), spec, steps=pre.polish)
 
-    stages = [("base", base(pso), batched, 3), ("base_polish", polished(pso), batched, 3)]
+    stages = [("base", base(pso), batched, 3)]
+    if pre.polish:
+        stages.append(("base_polish", polished(pso), batched, 3))
     if pre.retry_walk:
         stages.append(("retry_round_walk", wrap_solver_with_target_walk(
             polished(pso), spec, pre.retry_walk, jitter=pre.retry_walk_jitter), sub, 1))
-    else:
-        retry = dataclasses.replace(pso, init_mode=pre.retry_init_mode)
+    elif pre.retries:
+        retry = dataclasses.replace(pso, init_mode=pre.retry_init_mode or pso.init_mode)
         stages += [("retry_round_base", base(retry), sub, 3),
                    ("retry_round_base_polish", polished(retry), sub, 3)]
     out = _stage_times(device, stages, build_tree_solver(model, spec, swarms, device),
@@ -1315,43 +1406,62 @@ def _tree_stages(device, model, swarms):
 
 
 def phase_tree(device, model, card):
-    """A tree path through run_tree at its preset's batch, launch counts
-    read around it (every kernel A launch must be the tree's variant);
-    then its stage times."""
-    from ikpso_tpu_torch.harness.trees import tree_configs, run_tree
+    """A zoo path through run_tree at its preset's batch, launch counts read
+    around it (every kernel A launch must be the model's variant: planar_3dof
+    runs on arm_7dof's topology, snake:50 on the serial-chain variant); then
+    its stage times. Bars: ``TREE_FRAC_BAR`` under 1 mm and p50 under 1 mm;
+    reference_arm's p50 and p90 inside JAX's 99% intervals."""
+    from ikpso_tpu_torch.harness.trees import model_spec, run_tree, tree_configs
+    from ikpso_tpu_torch.utils import kernels
 
     pre, _, _ = tree_configs(model)
-    swarms, iters = TREE_SWARMS[model], TREE_ITERS[model]
+    swarms, iters = TREE_SWARMS[model], TREE_ITERS.get(model, 3)
+    name = kernels.TOPOLOGY_NAMES[kernels.topology_id(model_spec(model)[0])]
     reset_counts()
     t0 = time.perf_counter()
     out = run_tree(model, swarms=swarms, device=device, seed=0, warmup=1, iters=iters)
     phase_s = time.perf_counter() - t0
     launches = read_counts()
     solves = 1 + iters
-    if pre.retry_walk:
-        want = {f"{model}/warm/none": solves * (1 + pre.retries * pre.retry_walk)}
+    # A walk round runs retry_walk base solves; a retry round without a
+    # retry init mode is warm.
+    retry_init = "warm" if pre.retry_walk else pre.retry_init_mode or "warm"
+    per_round = pre.retry_walk or 1
+    want = {f"{name}/warm/none": solves * (1 + (pre.retries * per_round
+                                                if retry_init == "warm" else 0))}
+    if pre.retries and retry_init != "warm":
+        want[f"{name}/{retry_init}/none"] = solves * pre.retries
+    if model == "reference_arm":
+        lo50, hi50 = REFERENCE_ARM_P50_INTERVAL_MM
+        lo90, hi90 = REFERENCE_ARM_P90_INTERVAL_MM
+        accurate = lo50 <= out["p50_err_mm"] <= hi50 and lo90 <= out["p90_err_mm"] <= hi90
+        jax = {**REFERENCE_ARM_JAX, "record": "CPU, scan solver, tests/test_torch_zoo.py",
+               "failures_ge_1mm": round(REFERENCE_ARM_JAX["swarms"]
+                                        * (1 - REFERENCE_ARM_JAX["frac_under_1mm"]))}
+        bars = {"p50_err_mm": REFERENCE_ARM_P50_INTERVAL_MM,
+                "p90_err_mm": REFERENCE_ARM_P90_INTERVAL_MM}
     else:
-        want = {f"{model}/warm/none": solves,
-                f"{model}/{pre.retry_init_mode}/none": solves * pre.retries}
-    ok = (launches["fused_solve_variants"] == want and out["finite"]
-          and out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= 0.999)
+        accurate = out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= TREE_FRAC_BAR[model]
+        jax = {**JAX_TREES[model], "record": "TPU, bench_records/r5_sweep.jsonl"}
+        bars = {"frac_under_1mm": TREE_FRAC_BAR[model], "p50_err_mm": 1.0}
+    ok = launches["fused_solve_variants"] == want and out["finite"] and accurate
     stages = _tree_stages(device, model, swarms)
     emit(TREE_PATHS[model], **out, wall_ms=out["wall_s"] * 1e3, launches=launches,
          expected_variant_launches=want, stages=stages, run_tree_seconds=phase_s,
-         timed_solves=iters, jax_record_tpu=JAX_TREES[model],
-         bars={"frac_under_1mm": 0.999, "p50_err_mm": 1.0}, card=card, ok=bool(ok))
+         timed_solves=iters, jax=jax, bars=bars, card=card, ok=bool(ok))
     if not ok:
         raise AssertionError(f"{model} path missed a bar or bypassed its kernel A variant")
     return launches
 
 
-def phase_tree_timing(device, b_swarms=TIMING_SWARMS, c_swarms=4096):
-    """Per tree: kernel A alone at the preset's shape, kernel A against its
-    plain twin at ``TREE_PAIR_SWARMS``, kernels B (S=65,536, P=128) and C
-    (S=4,096, P=1,024) against their plain twins; each output held
+def phase_tree_timing(device):
+    """Per model of ``TIMED_MODELS``: kernel A against its plain twin at the
+    pair batch and alone at the preset's batch (snake_30dof on id 5,
+    snake:50 on the serial-chain variant, reference_arm at its 256-thread
+    bound), kernels B and C against their plain twins; each output held
     against the plain one's, and the counted work of each timed launch
-    (the dual arm's kicks counted along the plain trajectory, in chunks
-    at the preset's batch)."""
+    (kicks counted from the final values and, for the rest, along the
+    plain trajectory, in chunks)."""
     import numpy as np
     import torch
 
@@ -1366,9 +1476,8 @@ def phase_tree_timing(device, b_swarms=TIMING_SWARMS, c_swarms=4096):
 
     times, counts, errs = {}, {}, {}
     clocks = {"start": card_clocks()}
-    for model in TREE_SWARMS:
+    for model, (s, b_swarms, c_swarms) in TIMED_MODELS.items():
         rng = np.random.default_rng(17)
-        s = TREE_PAIR_SWARMS[model]
         pre, pso, fit, spec, meta, swarm, lim, seeds = _tree_setup(model, s, device, rng)
         args = (spec, pso, fit, meta, swarm, lim, seeds, pre.particles)
         times[f"fused_solve_{model}_pair_ms"], got = cuda_time(lambda: fused_solve(*args),
@@ -1381,6 +1490,7 @@ def phase_tree_timing(device, b_swarms=TIMING_SWARMS, c_swarms=4096):
         kicks = flops.fused_solve_kicks(*args) if pso.rekick_interval else 0.0
         counts[f"a_{model}_pair"] = flops.fused_solve_count(
             spec, pso, fit, num_particles=pre.particles, num_swarms=s, kicks=kicks)
+        del got, want, args
         big = TREE_SWARMS[model]
         pre, pso, fit, spec, meta, swarm, lim, seeds = _tree_setup(model, big, device, rng)
         args = (spec, pso, fit, meta, swarm, lim, seeds, pre.particles)
@@ -1396,6 +1506,8 @@ def phase_tree_timing(device, b_swarms=TIMING_SWARMS, c_swarms=4096):
         counts[f"a_{model}"] = flops.fused_solve_count(
             spec, pso, fit, num_particles=pre.particles, num_swarms=big, kicks=kicks)
         del meta, swarm, seeds, args, gval
+        if b_swarms is None:
+            continue
         # Kernels B and C on random in-limit angles.
         _, _, fit, spec, meta, swarm, lim, _ = _tree_setup(model, b_swarms, device, rng)
         lo, hi = lim.cpu().numpy()
@@ -1419,13 +1531,45 @@ def phase_tree_timing(device, b_swarms=TIMING_SWARMS, c_swarms=4096):
         errs[("C", model)] = check_fitness(f"fused_fitness {model}", got, want, exact=True)
         counts[f"c_{model}"] = flops.fitness_kernel_count(spec, fit, num_swarms=c_swarms,
                                                           num_particles=1024)
-        del x_dp, got, want
+        del x_dp, got, want, meta, swarm, sw_c
     clocks["end"] = card_clocks()
-    emit("tree_timing", **times, pair_swarms=TREE_PAIR_SWARMS, preset_swarms=TREE_SWARMS,
-         b_shape=[b_swarms, 128], c_shape=[c_swarms, 1024], clocks=clocks,
-         max_abs_err_vs_plain={f"{k}_{m}": v for (k, m), v in errs.items()},
+    emit("tree_timing", **times, timed_models=TIMED_MODELS, preset_swarms=TREE_SWARMS,
+         clocks=clocks, max_abs_err_vs_plain={f"{k}_{m}": v for (k, m), v in errs.items()},
          bar="bit-identical kernel A; max abs error 0.0 for B and C")
     return times, counts, errs
+
+
+def kernel_names(model):
+    """Prefixes of the demangled names of a model's kernel A, B and C
+    instantiations (its compile-time topology's, or the serial-chain
+    variant's)."""
+    from ikpso_tpu_torch.harness.trees import model_spec
+    from ikpso_tpu_torch.utils import kernels
+
+    spec = model_spec(model)[0]
+    if kernels.topology_id(spec) == kernels.SERIAL:
+        return {"A": "fused_solve_serial_kernel", "B": "fk_fitness_serial_kernel",
+                "C": "fused_fitness_serial_kernel"}
+    n = spec.num_nodes
+    return {"A": f"fused_solve_kernel<Topology<{n}, ",
+            "B": f"fk_fitness_kernel<Topology<{n}, ",
+            "C": f"fused_fitness_kernel<Topology<{n}, "}
+
+
+def phase_ptxas():
+    """The registers and spill bytes of the timed models' kernel A, B and C
+    instantiations (ptxas, from the build's log; kernel A's replay build
+    too)."""
+    from ikpso_tpu_torch.utils import kernels
+
+    report = ptxas_report(kernels.build().with_suffix(".log").read_text())
+    rows = {f"{k} {m}": [r for r in report if r["kernel"].startswith(prefix)]
+            for m in TIMED_MODELS for k, prefix in kernel_names(m).items()}
+    emit("ptxas_models", rows=rows, ok=all(rows.values()))
+    if not all(rows.values()):
+        raise AssertionError("an instantiation is missing from the build: "
+                             f"{[k for k, v in rows.items() if not v]}")
+    return rows
 
 
 def phase_headline(device, swarms, card):
@@ -1613,16 +1757,17 @@ BOUND_ROWS = (
     ("B orientation", "b_orientation", "fk_fitness_orientation_ms",
      f"kernel B, arm_6dof, S={TIMING_SWARMS}, P=128, orientation"),
     ("C scan path", "c", "fused_fitness_ms", f"kernel C, S={SCAN_SWARMS}, D=9, P=1024"),
-) + tuple(row for model in TREE_SWARMS for row in (
+) + tuple(row for model, (pair, b_swarms, c_swarms) in TIMED_MODELS.items() for row in (
     (f"A {model}", f"a_{model}", f"fused_solve_{model}_ms",
      f"kernel A, {model}, S={TREE_SWARMS[model]}, the preset's P and base recipe"),
     (f"A {model} pair", f"a_{model}_pair", f"fused_solve_{model}_pair_ms",
-     f"kernel A, {model}, S={TREE_PAIR_SWARMS[model]}, the preset's P and base recipe"),
+     f"kernel A, {model}, S={pair}, the preset's P and base recipe"),
+) + (() if b_swarms is None else (
     (f"B {model}", f"b_{model}", f"fk_fitness_{model}_ms",
-     f"kernel B, {model}, S={TIMING_SWARMS}, P=128"),
+     f"kernel B, {model}, S={b_swarms}, P=128"),
     (f"C {model}", f"c_{model}", f"fused_fitness_{model}_ms",
-     f"kernel C, {model}, S=4096, P=1024"),
-))
+     f"kernel C, {model}, S={c_swarms}, P=1024"),
+)))
 
 
 def phase_bounds(times, counts, roof_timed, roof_counts, card):
@@ -1662,6 +1807,10 @@ def run_phases(device, card):
     scan_err = phase_scan_replay(device)
     tree_err = phase_tree_fitness(device)
     a_tree_err = phase_fused_tree_replay(device)
+    phase_fused_tie(device, particles=256, model="snake_30dof")
+    phase_fused_tie(device, particles=1024, model="snake:16")
+    phase_fused_tie(device, particles=256, model="reference_arm")
+    ptxas = phase_ptxas()
     phase_tensor_polish(device)
     paths = {
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
@@ -1685,25 +1834,31 @@ def run_phases(device, card):
         r = bounds[row]
         return {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "share": r["share"]}
 
-    def tree_variants(name):
-        """Per tree model: the timed kernel against its bound and its plain
-        twin, and (kernels A and B, which A inlines) the launches of its
-        kernel A variants by path; kernel C runs only on the scan path,
-        whose model is arm_7dof."""
+    def model_variants(name):
+        """Per timed model: the timed kernel against its bound and its plain
+        twin, its ptxas lines, and (kernels A and B, which A inlines) the
+        launches of its kernel A variant by path; kernel C runs only on the
+        scan path, whose model is arm_7dof."""
+        from ikpso_tpu_torch.harness.trees import model_spec
+        from ikpso_tpu_torch.utils.kernels import TOPOLOGY_NAMES, topology_id
+
         key = {"A": "fused_solve", "B": "fk_fitness", "C": "fused_fitness"}[name]
         out = {}
-        for m in TREE_SWARMS:
-            row = {"ms": t[f"{key}_{m}_ms"], **bound_keys(f"{name} {m}"),
+        for m, (pair, b_swarms, _) in TIMED_MODELS.items():
+            if name != "A" and b_swarms is None:
+                continue
+            topo = TOPOLOGY_NAMES[topology_id(model_spec(m)[0])]
+            row = {"instantiation": topo, "ms": t[f"{key}_{m}_ms"],
+                   **bound_keys(f"{name} {m}"), "ptxas": ptxas[f"{name} {m}"],
                    "max_abs_err": max(tree_err.get((name, m), 0.0),
                                       tt_err.get((name, m), 0.0))}
             if name != "C":
                 row["launches_by_path"] = {
                     k: sum(n for var, n in v["fused_solve_variants"].items()
-                           if var.startswith(m + "/")) for k, v in paths.items()}
+                           if var.startswith(topo + "/")) for k, v in paths.items()}
             if name == "A":
                 row.update(pair_ms=t[f"{key}_{m}_pair_ms"],
-                           pair_plain_ms=t[f"{key}_{m}_pair_plain_ms"],
-                           pair_swarms=TREE_PAIR_SWARMS[m],
+                           pair_plain_ms=t[f"{key}_{m}_pair_plain_ms"], pair_swarms=pair,
                            bound_pair=bound_keys(f"A {m} pair"), swarms=TREE_SWARMS[m],
                            kicked_share=t.get(f"{key}_{m}_kicked_share"))
             else:
@@ -1720,7 +1875,7 @@ def run_phases(device, card):
          "variants_by_path": by_path("fused_solve_variants"),
          "max_abs_err": max(a_err, a_obs_err, a_branch_err, a_tree_err),
          "max_abs_err_branch_replay": a_branch_err,
-         "max_abs_err_tree_replay": a_tree_err, "trees": tree_variants("A"),
+         "max_abs_err_tree_replay": a_tree_err, "models": model_variants("A"),
          "ms": t["fused_solve_box_ms"], "plain_ms": t["fused_solve_box_plain_ms"],
          **bound_keys("A box"), "library_ms": None,
          "timed_swarms": TIMING_SWARMS, "timed": "warm, 8 iterations, 4-box scene",
@@ -1740,8 +1895,9 @@ def run_phases(device, card):
         {"name": "fk_fitness", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/fk_fitness.cuh",
          "replaces": "ikpso_tpu/ops/pallas_fitness.py:256",
-         "branches": ["none", "box", "capsule", "orientation", *TREE_SWARMS],
-         "trees": tree_variants("B"),
+         "branches": ["none", "box", "capsule", "orientation", "dual_arm_14dof",
+                      "humanoid_45dof", "snake_30dof", "serial"],
+         "models": model_variants("B"),
          "launches": paths["obstacles"]["fused_solve"],
          "launches_by_path": by_path("fused_solve"),
          "orientation_launches_by_path": {
@@ -1777,7 +1933,7 @@ def run_phases(device, card):
          "launches_by_path": by_path("fused_fitness"),
          "max_abs_err": max(*c_err.values(), scan_err, t_err["fused_fitness"],
                             *(v for (k, _), v in {**tree_err, **tt_err}.items() if k == "C")),
-         "trees": tree_variants("C"),
+         "models": model_variants("C"),
          "max_abs_err_by_branch": c_err,
          "max_abs_err_at_scan_shape": t_err["fused_fitness"],
          "ms": t["fused_fitness_ms"], "plain_ms": t["fused_fitness_plain_ms"],

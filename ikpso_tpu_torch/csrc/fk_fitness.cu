@@ -6,6 +6,9 @@
 // the standalone Pallas kernel (ikpso_tpu/ops/pallas_fitness.py:
 // fused_fitness, lane-major (S, D, P)) is kernel C, fused_fitness.cu.
 //
+// The serial-chain variant (fk_fitness_eval_serial) has its own entry
+// point, ikpso_fk_fitness_serial, with the node count as an argument.
+//
 // Bound on this card: arithmetic (see fk_fitness.cuh); memory traffic is
 // D floats in and one float out per particle. Reads of x are D-strided
 // per thread (the (S, P, D) layout the solver's state uses); at D = 9
@@ -30,6 +33,17 @@ __global__ void fk_fitness_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int d = 0; d < D; ++d) xr[d] = x[t * D + d];
   out[t] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
+}
+
+// The serial-chain variant: n nodes at run time (fk_fitness_eval_serial).
+__global__ void fk_fitness_serial_kernel(int n, const float* __restrict__ x,
+                                         const float* __restrict__ meta,
+                                         const float* __restrict__ swarm, int K,
+                                         float* __restrict__ out, long long total, int P) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long s = t / P;
+  out[t] = fk_fitness_eval_serial(x + t * 3 * (n - 1), 1, n, meta, swarm + s * K);
 }
 
 template <class T, int C, bool O = false>
@@ -77,8 +91,23 @@ extern "C" int ikpso_fk_fitness(int topo, int collider, int orient, int n_obs,
   } else if (topo == 4 && collider == kNoCollider && !orient) {
     launch_fk_fitness<Humanoid45, kNoCollider>(x, meta, swarm, K, scene, out, total, P,
                                                st);
+  } else if (topo == 5 && collider == kNoCollider && !orient) {
+    launch_fk_fitness<Snake30, kNoCollider>(x, meta, swarm, K, scene, out, total, P, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ikpso_fk_fitness_serial(int n_nodes, const float* x, const float* meta,
+                                       const float* swarm, int K, float* out,
+                                       long long total, int P, void* stream) {
+  using namespace ikpso;
+  if (total <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_nodes < 2 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kThreads = 256;
+  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+  fk_fitness_serial_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      n_nodes, x, meta, swarm, K, out, total, P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,6 +57,12 @@ __host__ __device__ constexpr int popcount_u32(unsigned m) {
   return m ? static_cast<int>(m & 1u) + popcount_u32(m >> 1) : 0;
 }
 
+// Serial chains (fk_fitness_eval_serial, below): node k hangs off node k - 1
+// and the last node is the one effector; the node count is a run-time
+// value, so one instantiation walks chains of any length (the 4-bit parent
+// fields stop at 16 nodes, and at 50 links x, v and lbest outgrow a
+// thread's registers in kernel A, which keeps them in global memory there).
+//
 // Tree topology as template data: node k's parent sits in bits [4k, 4k+4)
 // of PARENTS (k >= 1; a 64-bit word, so up to 16 nodes), effector nodes are
 // the set bits of EFFMASK, in ascending node order (the Python side checks
@@ -91,6 +97,11 @@ static_assert(Humanoid45::parent(15) == 14 && Humanoid45::parent(13) == 0 &&
               "parent fields are unsigned 64-bit shifts up to bit 63");
 static_assert(DualArm14::parent(4) == 0 && DualArm14::D == 18 && DualArm14::E == 2,
               "dual-arm topology");
+using Snake30 = Topology<11, 0x98765432100ull, 0x400u>;  // id 5: snake(10)
+static_assert(Snake30::parent(10) == 9 && Snake30::parent(1) == 0 && Snake30::D == 30 &&
+                  Snake30::E == 1 && Snake30::is_effector(10) &&
+                  Snake30::effector_slot(10) == 0,
+              "snake_30dof topology: node k hangs off k - 1, effector node 10");
 
 // Scene colliders; ids must match COLLIDERS in
 // ikpso_tpu_torch/utils/kernels.py.
@@ -362,6 +373,50 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
   const float total = cost + (meta[kMetaAw] / static_cast<float>(N - 1)) * rot_diff;
   if constexpr (C != kNoCollider) return hit ? FLT_MAX : total;
   return total;
+}
+
+// Fitness of one particle of a serial chain of n nodes (n >= 2), without a
+// scene or the orientation term: the walk carries one world rotation and
+// one position from node to node, in fk_fitness_eval's op order. Angle d
+// is read at x[d * stride] (stride 1 for a particle's (S, P, D) row, P for
+// the lane-major (S, D, P) layout and kernel A's scratch). x is not
+// __restrict__: kernel A's serial variant reads back angles it has just
+// written, which a read-only (non-coherent) load could miss.
+__device__ __forceinline__ float fk_fitness_eval_serial(const float* x, long long stride,
+                                                        int n,
+                                                        const float* __restrict__ meta,
+                                                        const float* __restrict__ sw) {
+  const int d_total = 3 * (n - 1);
+  const int meta_ew = kMetaLen + (n - 1);
+  const int sw_tgt = kSwAnchor + d_total;
+  float rot[9], pos[3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) rot[i] = sw[kSwRoot + i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) pos[i] = sw[kSwOrigin + i];
+  float rot_diff = 0.0f;
+  for (int k = 1; k < n; ++k) {
+    const int d0 = 3 * (k - 1);
+    const float ax = x[d0 * stride], ay = x[(d0 + 1) * stride], az = x[(d0 + 2) * stride];
+    float local[9], world[9];
+    rot_xyz(ax, ay, az, local);
+    mat_mul(rot, local, world);
+#pragma unroll
+    for (int i = 0; i < 9; ++i) rot[i] = world[i];
+    const float len = meta[kMetaLen + (k - 1)];
+    pos[0] = pos[0] + len * rot[0];
+    pos[1] = pos[1] + len * rot[3];
+    pos[2] = pos[2] + len * rot[6];
+    const float da = ax - sw[kSwAnchor + d0];
+    const float db = ay - sw[kSwAnchor + d0 + 1];
+    const float dc = az - sw[kSwAnchor + d0 + 2];
+    rot_diff = rot_diff + (da * da + db * db + dc * dc);
+  }
+  const float ex = pos[0] - sw[sw_tgt];
+  const float ey = pos[1] - sw[sw_tgt + 1];
+  const float ez = pos[2] - sw[sw_tgt + 2];
+  const float cost = meta[meta_ew] * (ex * ex + ey * ey + ez * ez);
+  return cost + (meta[kMetaAw] / static_cast<float>(n - 1)) * rot_diff;
 }
 
 }  // namespace ikpso

@@ -12,7 +12,8 @@
 // and the swarm's constant row are read through the read-only cache.
 // The evaluation is kernel B's device function (fk_fitness.cuh), inlined
 // for every (topology, collider, orientation) instantiation of kernel B's
-// launcher.
+// launcher, and its serial-chain variant behind its own entry point
+// (ikpso_fused_fitness_serial).
 //
 // Bound on this card: bytes without a scene (D + 1 floats per particle
 // against ~510 counted FP32 ops, under the ~20 ops/byte the card balances
@@ -42,6 +43,20 @@ __global__ void __launch_bounds__(kFitnessThreads) fused_fitness_kernel(
 #pragma unroll
   for (int d = 0; d < D; ++d) xr[d] = __ldg(xs + static_cast<long long>(d) * P);
   out[s * P + p] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
+}
+
+// The serial-chain variant: n nodes at run time; thread p reads x[s, d, p]
+// at stride P, as above.
+__global__ void __launch_bounds__(kFitnessThreads) fused_fitness_serial_kernel(
+    int n, const float* __restrict__ x, const float* __restrict__ meta,
+    const float* __restrict__ swarm, int K, float* __restrict__ out, int P,
+    int blocks_per_swarm) {
+  const long long s = blockIdx.x / blocks_per_swarm;
+  const int p = (blockIdx.x % blocks_per_swarm) * kFitnessThreads + threadIdx.x;
+  if (p >= P) return;
+  const long long d_total = 3 * (n - 1);
+  out[s * P + p] =
+      fk_fitness_eval_serial(x + s * d_total * P + p, P, n, meta, swarm + s * K);
 }
 
 template <class T, int C, bool O = false>
@@ -89,9 +104,27 @@ extern "C" int ikpso_fused_fitness(int topo, int collider, int orient, int n_obs
     IKPSO_LAUNCH(DualArm14, kNoCollider, false);
   } else if (topo == 4 && collider == kNoCollider && !orient) {
     IKPSO_LAUNCH(Humanoid45, kNoCollider, false);
+  } else if (topo == 5 && collider == kNoCollider && !orient) {
+    IKPSO_LAUNCH(Snake30, kNoCollider, false);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef IKPSO_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ikpso_fused_fitness_serial(int n_nodes, const float* x, const float* meta,
+                                          const float* swarm, int K, float* out, int S,
+                                          int P, void* stream) {
+  using namespace ikpso;
+  if (S <= 0 || P <= 0) return static_cast<int>(cudaGetLastError());
+  const int per_swarm = (P + kFitnessThreads - 1) / kFitnessThreads;
+  if (n_nodes < 2 || static_cast<long long>(S) * per_swarm > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(S) * per_swarm);
+  fused_fitness_serial_kernel<<<blocks, kFitnessThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      n_nodes, x, meta, swarm, K, out, P, per_swarm);
   return static_cast<int>(cudaGetLastError());
 }

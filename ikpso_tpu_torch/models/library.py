@@ -1,10 +1,10 @@
 """Prebuilt kinematic models.
 
-Port of ``ikpso_tpu/models/library.py``: ``reference_arm``,
-``planar_3dof`` and ``arm_6dof`` (via ``serial_chain``), ``arm_7dof``,
-the trees ``dual_arm_14dof`` and ``humanoid_45dof``, and
-``batched_problem``. ``snake`` waits for ROADMAP queue A item 8. Every
-model function takes the device its tensors live on.
+Port of ``ikpso_tpu/models/library.py``: ``reference_arm`` and its
+``reference_reset_targets``, ``planar_3dof``, ``arm_6dof``, ``snake`` and
+``snake_30dof`` (via ``serial_chain``), ``arm_7dof``, the trees
+``dual_arm_14dof`` and ``humanoid_45dof``, and ``batched_problem``.
+Every model function takes the device its tensors live on.
 """
 
 from __future__ import annotations
@@ -51,6 +51,14 @@ def reference_arm(device="cpu") -> Tuple[ChainSpec, IKProblem]:
     return spec, _problem(pose, targets, device=device)
 
 
+def reference_reset_targets(device="cpu") -> torch.Tensor:
+    """``reference_arm``'s targets after the experiment harness's reset
+    (the reference's Main.cpp:330-337)."""
+    return torch.as_tensor(np.asarray(
+        [(0.75, 1.0, -2.5), (-0.75, 1.0, -2.5), (0.0, 0.0, -2.5)], np.float32),
+        device=device)
+
+
 def serial_chain(
     num_links: int,
     link_length: float = 1.0,
@@ -91,6 +99,21 @@ def planar_3dof(target=(1.5, 1.5, 0.0), device="cpu") -> Tuple[ChainSpec, IKProb
     """3-DOF planar arm (rotation about Z only)."""
     return serial_chain(3, link_length=1.0, free_axes=(2,), target=target,
                         device=device)
+
+
+def snake(num_links: int, device="cpu") -> Tuple[ChainSpec, IKProblem]:
+    """Long-chain family (``snake:<links>``): ``num_links`` spherical
+    links of length 1, +-pi/2 on every axis, a 0.1 rad initial bend off
+    the straight singular start, the target at (0.4, 0.3, 0.2) x reach."""
+    reach = float(num_links)
+    return serial_chain(num_links, link_length=1.0, free_axes=(0, 1, 2), limit=PI / 2,
+                        target=(0.4 * reach, 0.3 * reach, 0.2 * reach),
+                        initial_bend=0.1, device=device)
+
+
+def snake_30dof(device="cpu") -> Tuple[ChainSpec, IKProblem]:
+    """The 10-link :func:`snake` (11 nodes, D=30)."""
+    return snake(10, device=device)
 
 
 def arm_6dof(target=(1.2, 0.8, 0.5), target_rot=(0.0, 0.3, 0.2),

@@ -26,8 +26,10 @@ effector cost, the orientation term (squared Frobenius distance of each
 effector's world rotation to its target, times the orientation and
 effector weights), the angular-locality term and obstacle rejection (box
 SAT or capsule colliders against the scene boxes packed into ``meta``;
-a hit costs ``COLLISION_PENALTY``). The node-position (distance) term
-and ``trig_impl="exact"`` raise (ROADMAP "What remains" item 2).
+a hit costs ``COLLISION_PENALTY``); on the card, the topologies of
+``utils.kernels.INSTANTIATED``, every serial chain among them. The
+node-position (distance) term and ``trig_impl="exact"`` raise (ROADMAP
+B1(a), B1(b)).
 """
 
 from __future__ import annotations
@@ -235,12 +237,12 @@ def _refuse_unported(*, use_distance_term=False, trig_impl="poly",
     if use_distance_term:
         raise NotImplementedError(
             "the node-position locality (distance) term is not ported yet "
-            "(ROADMAP queue B item 2)"
+            "(ROADMAP B1(a); a JSON config reaches it, A7)"
         )
     if trig_impl != "poly":
         raise NotImplementedError(
             f"trig_impl={trig_impl!r}: the port's tile implements the "
-            "polynomial sincos only (ROADMAP queue B item 2)"
+            "polynomial sincos only (ROADMAP B1(b); a JSON config reaches it, A7)"
         )
     if collision_shape not in ("box", "capsule"):
         raise ValueError(
@@ -499,11 +501,13 @@ def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
                                                 num_obstacles, collision_shape,
                                                 use_orientation)
     out = torch.empty((s, p), dtype=torch.float32, device=x.device)
-    rc = kernels.library().ikpso_fk_fitness(
-        topo, collider, orient, num_obstacles, *scene_constants(gizmo_size),
-        x.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
-        out.data_ptr(), s * p, p, kernels.stream_ptr(x.device),
-    )
+    tail = (x.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
+            out.data_ptr(), s * p, p, kernels.stream_ptr(x.device))
+    if topo == kernels.SERIAL:
+        rc = kernels.library().ikpso_fk_fitness_serial(spec.num_nodes, *tail)
+    else:
+        rc = kernels.library().ikpso_fk_fitness(
+            topo, collider, orient, num_obstacles, *scene_constants(gizmo_size), *tail)
     kernels.check(rc, "fk_fitness")
     fk_fitness.launches += 1
     return out
@@ -559,11 +563,13 @@ def fused_fitness(spec: ChainSpec, x_dp: torch.Tensor, meta: torch.Tensor,
                                                 use_orientation)
     s, _, p = x_dp.shape
     out = torch.empty((s, p), dtype=torch.float32, device=x_dp.device)
-    rc = kernels.library().ikpso_fused_fitness(
-        topo, collider, orient, num_obstacles, *scene_constants(gizmo_size),
-        x_dp.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
-        out.data_ptr(), s, p, kernels.stream_ptr(x_dp.device),
-    )
+    tail = (x_dp.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
+            out.data_ptr(), s, p, kernels.stream_ptr(x_dp.device))
+    if topo == kernels.SERIAL:
+        rc = kernels.library().ikpso_fused_fitness_serial(spec.num_nodes, *tail)
+    else:
+        rc = kernels.library().ikpso_fused_fitness(
+            topo, collider, orient, num_obstacles, *scene_constants(gizmo_size), *tail)
     kernels.check(rc, "fused_fitness")
     fused_fitness.launches += 1
     return out

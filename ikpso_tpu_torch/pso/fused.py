@@ -5,7 +5,9 @@ Port of ``ikpso_tpu/pso/fused.py`` (``fused_solve_raw``,
 
   * ``fused_solve`` — kernel A (``csrc/fused_solve.cu``): one thread
     block per swarm, one thread per particle, the whole solve in
-    registers; CPU tensors run ``fused_solve_plain`` instead;
+    registers (serial chains without a compile-time topology: x, v and
+    lbest in a global scratch, ``snake:50`` among them); CPU tensors run
+    ``fused_solve_plain`` instead;
   * ``fused_solve_plain`` — the same solve on ``(S, P, D)`` tensors,
     with ``torch.argmin`` (first occurrence) for gbest;
   * ``make_fused_solver`` — ``(problem, generator) -> SolveResult``.
@@ -15,9 +17,10 @@ randomized inertia, ``init_mode`` ``"warm"``, ``"uniform"`` or
 ``"hybrid"``, any ``gbest_interval``, the velocity re-kick with or
 without its threshold, the orientation term, obstacles with the
 closed-form (``"sat"``) colliders of either shape; on the card, the
-topologies and combinations ``utils.kernels.INSTANTIATED`` lists, with
-at most ``utils.kernels.max_particles`` particles a swarm. The distance
-term and exact trig raise (ROADMAP "What remains" item 2). The TPU-only knobs
+topologies and combinations ``utils.kernels.INSTANTIATED`` lists (every
+serial chain among them), with at most ``utils.kernels.max_particles``
+particles a swarm. The distance term and exact trig raise (ROADMAP
+B1(a), B1(b); A7 reaches them). The TPU-only knobs
 (``swarms_per_tile``, ``gbest_mode``, ``const_mode``, VMEM gates,
 multi-row output) have no counterpart.
 
@@ -68,7 +71,7 @@ def check_supported(pso: PSOConfig, fit: FitnessConfig, num_obstacles: int = 0) 
     if float(fit.distance_weight) != 0.0 or fit.trig_impl != "poly":
         raise NotImplementedError(
             "fused solver with the distance term or exact trig is not ported yet "
-            "(ROADMAP \"What remains\" item 2; queue B items 1(c), 2)"
+            "(ROADMAP B1(a), B1(b); a JSON config reaches them, A7)"
         )
     if num_obstacles and fit.collision_backend != "sat":
         raise NotImplementedError(
@@ -277,21 +280,26 @@ def fused_solve(
     kernels.require_cuda_contiguous("fused_solve", *tensors)
     gbest = torch.empty((s, d), dtype=torch.float32, device=dev)
     gval = torch.empty((s,), dtype=torch.float32, device=dev)
-    rc = kernels.library().ikpso_fused_solve(
-        topo, collider, orient, int(uniforms is not None), INIT_MODES[pso.init_mode],
-        num_obstacles, *scene_constants(fit.gizmo_size),
-        meta.data_ptr(), meta.numel(),
-        swarm.data_ptr(), swarm.shape[1],
+    replay = int(uniforms is not None)
+    update = (
         limits.data_ptr(), seeds.data_ptr(), inertia.data_ptr(), pso.iterations,
         float(np.float32(pso.cognitive)), float(np.float32(pso.social)),
         float(np.float32(pso.init_velocity_scale)),
         int(pso.inertia_mode == "randomized"), interval, pso.rekick_interval,
         float(np.float32(pso.rekick_scale)), float(np.float32(pso.rekick_threshold)),
         None if uniforms is None else uniforms.data_ptr(), num_draws(pso),
-        gbest.data_ptr(), gval.data_ptr(), s, num_particles,
-        kernels.stream_ptr(dev),
     )
-    kernels.check(rc, "fused_solve")
+    if topo == kernels.SERIAL:
+        _launch_serial(spec, INIT_MODES[pso.init_mode], replay, meta, swarm, update,
+                       gbest, gval, num_particles)
+    else:
+        rc = kernels.library().ikpso_fused_solve(
+            topo, collider, orient, replay, INIT_MODES[pso.init_mode],
+            num_obstacles, *scene_constants(fit.gizmo_size),
+            meta.data_ptr(), meta.numel(), swarm.data_ptr(), swarm.shape[1], *update,
+            gbest.data_ptr(), gval.data_ptr(), s, num_particles, kernels.stream_ptr(dev),
+        )
+        kernels.check(rc, "fused_solve")
     fused_solve.launches += 1
     variant = (f"{kernels.TOPOLOGY_NAMES[topo]}/{pso.init_mode}/"
                f"{fit.collision_shape if num_obstacles else 'none'}")
@@ -299,6 +307,29 @@ def fused_solve(
         variant += "/orientation"
     fused_solve.variant_launches[variant] = fused_solve.variant_launches.get(variant, 0) + 1
     return gbest, gval
+
+
+def _launch_serial(spec, init_mode, replay, meta, swarm, update, gbest, gval,
+                   num_particles):
+    """Launch kernel A's serial-chain variant: a grid of the blocks that fit
+    the card at once strides over the swarms, each block keeping its
+    swarm's x, v and lbest in a ``(3, D, P)`` slice of a scratch allocated
+    here on the caller's device."""
+    lib = kernels.library()
+    s, d, p = swarm.shape[0], spec.dof, num_particles
+    blocks = lib.ikpso_fused_solve_serial_blocks(replay, p, meta.numel(), swarm.shape[1],
+                                                 spec.num_nodes)
+    if blocks <= 0:
+        raise RuntimeError(f"fused_solve: no block of the serial-chain variant fits "
+                           f"the card at D={d}, P={p}")
+    grid = min(s, blocks)
+    scratch = torch.empty((grid, 3, d, p), dtype=torch.float32, device=swarm.device)
+    rc = lib.ikpso_fused_solve_serial(
+        replay, init_mode, spec.num_nodes, meta.data_ptr(), meta.numel(),
+        swarm.data_ptr(), swarm.shape[1], *update, scratch.data_ptr(), grid,
+        gbest.data_ptr(), gval.data_ptr(), s, p, kernels.stream_ptr(swarm.device),
+    )
+    kernels.check(rc, "fused_solve")
 
 
 # Launch counts: in all, and per (topology / init mode / collider

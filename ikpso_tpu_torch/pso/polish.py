@@ -6,7 +6,7 @@ tensor-shaped path otherwise: the 45-DOF humanoid), ``residual_cost`` and
 ``wrap_with_polish`` (accept-if-better per swarm, gated on the true
 effector error and, with a scene, on the polished pose being
 collision-free). Not ported yet: the Tikhonov-locality accept gate
-(ROADMAP queue A item 8).
+(ROADMAP A4).
 
 The tensor path keeps JAX's arithmetic: the analytic Jacobian
 (``ops.jacobian.fk_with_jacobian``), the gradient-projection active set,
@@ -242,7 +242,7 @@ def wrap_with_polish(
     if locality_weight:
         raise NotImplementedError(
             "the locality-cost accept gate is not ported yet "
-            "(ROADMAP queue A item 8, distance and locality terms)"
+            "(ROADMAP A4, the locality polish gate)"
         )
 
     def _solve(problem: IKProblem, generator: torch.Generator):

@@ -11,7 +11,7 @@ The port has no tiles, so the bucket alignment is the identity; bucket
 decay is kept. Retry streams continue the caller's generator (the base
 solve draws first). ``wrap_solver_with_target_walk`` makes a retry round
 a W-step warm target walk (``retry_walk_steps``). The host-gather
-``solve_with_retries`` is not ported yet (ROADMAP queue A item 8).
+``solve_with_retries`` is not ported yet (ROADMAP A8).
 """
 
 from __future__ import annotations

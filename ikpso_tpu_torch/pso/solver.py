@@ -7,7 +7,7 @@ of plain torch ops; the fitness is the plain ``ops.fitness.fitness``
 unless the caller passes a ``fitness_fn`` -- kernel C's
 ``ops.fitness_kernel.make_kernel_fitness`` is the ``impl="pallas"``
 path of ``bench.py``. The cross-device ``gbest_reduce`` and
-``vary_axes`` wait for ``parallel/`` (ROADMAP queue A item 12).
+``vary_axes`` wait for ``parallel/`` (ROADMAP A10).
 
 Random draws: U[0, 1) float32 from ``torch.rand`` on the caller's
 ``torch.Generator``, in the JAX package's order -- the init position

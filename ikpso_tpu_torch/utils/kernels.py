@@ -11,11 +11,12 @@ Every C entry point returns ``cudaGetLastError()``; :func:`check`
 raises when it is non-zero. Kernels launch on PyTorch's current stream.
 
 Topology, scene collider and the orientation term are compile-time
-constants of the kernels (the TPU kernels unroll them at trace time).
-:func:`topology_id` maps a ``ChainSpec`` to one of the instantiated
-topologies and :func:`kernel_variant` a (topology, scene, orientation)
-combination to its instantiation; both raise for anything not
-instantiated.
+constants of the kernels (the TPU kernels unroll them at trace time),
+except in the serial-chain variant, which takes a serial chain's node
+count at run time. :func:`topology_id` maps a ``ChainSpec`` to one of the
+instantiated topologies or to that variant and :func:`kernel_variant` a
+(topology, scene, orientation) combination to its instantiation; both
+raise for anything not instantiated.
 """
 
 from __future__ import annotations
@@ -49,23 +50,30 @@ SOURCES = ("fused_solve.cu", "fk_fitness.cu", "fused_fitness.cu", "roofline.cu")
 
 # (num_nodes, packed parents, effector bit mask) -> id; must match the
 # instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm, Arm6Dof,
-# DualArm14, Humanoid45), which the launchers of kernels A, B and C all
-# instantiate.
+# DualArm14, Humanoid45, Snake30), which the launchers of kernels A, B and
+# C all instantiate. planar_3dof has arm_7dof's code and runs on id 0.
 KERNEL_TOPOLOGIES = {
     (4, 0x2100, 0x8): 0,  # arm_7dof: serial 3 links, effector node 3
     (8, 0x44432100, 0xE0): 1,  # reference_arm: 4 elbows + 3 effector children
     (3, 0x100, 0x4): 2,  # arm_6dof: serial 2 links, effector node 2
     (7, 0x5402100, 0x48): 3,  # dual_arm_14dof: two 3-link arms, effectors 3, 6
     (16, 0xED0BA08725422100, 0x9248): 4,  # humanoid_45dof: 5 effectors
+    (11, 0x98765432100, 0x400): 5,  # snake_30dof: serial 10 links, effector node 10
 }
+# The serial-chain variant of kernels A, B and C (csrc/fk_fitness.cuh,
+# fk_fitness_eval_serial): any chain whose node k hangs off node k - 1 and
+# whose one effector is the last node, the node count a run-time value.
+# It runs every serial chain without a compile-time instantiation.
+SERIAL = 6
 TOPOLOGY_NAMES = ("arm_7dof", "reference_arm", "arm_6dof", "dual_arm_14dof",
-                  "humanoid_45dof")
+                  "humanoid_45dof", "snake_30dof", "serial")
 
 # Kernel A's thread-block bound per topology id (its __launch_bounds__,
 # KernelAThreads in csrc/fused_solve.cu): one thread per particle, so the
-# most particles a swarm may have. The humanoid's 512 lets a thread hold
-# 128 registers instead of 64.
-MAX_PARTICLES = {4: 512}
+# most particles a swarm may have; 1024 where not listed. 256 (the
+# reference_arm and snake presets' P) lets a thread hold 255 registers,
+# 512 (the humanoid's) 128, 1024 only 64.
+MAX_PARTICLES = {1: 256, 4: 512, 5: 256}
 
 # Collider variants (enum Collider in csrc/fk_fitness.cuh; 0 = none).
 COLLIDERS = {"box": 1, "capsule": 2}
@@ -73,10 +81,11 @@ COLLIDERS = {"box": 1, "capsule": 2}
 # The (topology id, collider id, orientation) combinations that the
 # launchers of kernels A, B and C instantiate: the ones a path runs.
 INSTANTIATED = {
-    (0, 0, False), (0, 1, False), (0, 2, False),  # arm_7dof: headline, scenes
+    (0, 0, False), (0, 1, False), (0, 2, False),  # arm_7dof, planar_3dof; scenes
     (1, 0, False),  # reference_arm
     (2, 0, False), (2, 0, True),  # arm_6dof, position only and with orientation
     (3, 0, False), (4, 0, False),  # dual_arm_14dof, humanoid_45dof
+    (5, 0, False), (SERIAL, 0, False),  # snake_30dof; any other serial chain
 }
 
 _VP = ctypes.c_void_p
@@ -84,44 +93,62 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
+def is_serial(spec) -> bool:
+    """Whether node k's parent is k - 1 for every k and the last node is
+    the one effector: the chains the serial-chain variant runs."""
+    n = spec.num_nodes
+    return (n >= 2 and list(spec.parent[1:]) == list(range(n - 1))
+            and list(spec.effector_idx) == [n - 1])
+
+
 def topology_code(spec):
     """``(num_nodes, packed parents, effector mask)`` of a ChainSpec:
-    parent of node k in bits ``[4k, 4k+4)``, effector k at bit k."""
+    parent of node k in bits ``[4k, 4k+4)``, effector k at bit k. A serial
+    chain of more than 16 nodes has no parent word (``None``): the
+    serial-chain variant walks it without one."""
     n = spec.num_nodes
+    mask = 0
+    for e in spec.effector_idx:
+        mask |= 1 << e
     if n > 16:
+        if is_serial(spec):
+            return n, None, mask
         raise NotImplementedError(
-            f"{n}-node chains: the CUDA kernels pack parents in 4-bit fields "
-            "(ROADMAP queue A item 8, the rest of the zoo)"
+            f"a {n}-node tree: the CUDA kernels pack parents in 4-bit fields of "
+            "one 64-bit word, and only serial chains run past 16 nodes "
+            "(ROADMAP B1(d), any tree)"
         )
     parents = 0
     for k in range(1, n):
         parents |= spec.parent[k] << (4 * k)
-    mask = 0
-    for e in spec.effector_idx:
-        mask |= 1 << e
     return n, parents, mask
 
 
 def topology_id(spec) -> int:
-    """Id of the kernel instantiation for ``spec``'s topology."""
+    """Id of the kernel instantiation for ``spec``'s topology: the
+    compile-time one where it exists, else :data:`SERIAL` for a serial
+    chain; raises for any other tree."""
     code = topology_code(spec)
-    if code not in KERNEL_TOPOLOGIES or list(spec.effector_idx) != sorted(
-        spec.effector_idx
-    ):
-        raise NotImplementedError(
-            f"no CUDA kernel instantiated for topology parent={spec.parent}, "
-            f"effector_idx={spec.effector_idx} (instantiated: "
-            f"{', '.join(TOPOLOGY_NAMES)}); more topologies are ROADMAP queue A "
-            "item 8 (the rest of the zoo)"
-        )
-    return KERNEL_TOPOLOGIES[code]
+    if code in KERNEL_TOPOLOGIES and list(spec.effector_idx) == sorted(spec.effector_idx):
+        return KERNEL_TOPOLOGIES[code]
+    if is_serial(spec):
+        return SERIAL
+    raise NotImplementedError(
+        f"no CUDA kernel instantiated for topology parent={spec.parent}, "
+        f"effector_idx={spec.effector_idx} (instantiated: "
+        f"{', '.join(TOPOLOGY_NAMES[:SERIAL])} and any serial chain with its "
+        "one effector at the last node); any other tree is ROADMAP B1(d)"
+    )
 
 
 def max_particles(spec) -> int:
     """The most particles kernel A takes per swarm for ``spec``'s topology
     (1024 for a topology without a kernel: its plain solve's bound)."""
-    code = topology_code(spec) if spec.num_nodes <= 16 else None
-    return MAX_PARTICLES.get(KERNEL_TOPOLOGIES.get(code), 1024)
+    try:
+        topo = topology_id(spec)
+    except NotImplementedError:
+        return 1024
+    return MAX_PARTICLES.get(topo, 1024)
 
 
 def kernel_variant(spec, num_obstacles: int, collision_shape: str,
@@ -139,10 +166,10 @@ def kernel_variant(spec, num_obstacles: int, collision_shape: str,
         raise NotImplementedError(
             f"no CUDA kernel instantiated for parent={spec.parent} with "
             f"{collision_shape if collider else 'no'} colliders and orientation "
-            f"{'on' if use_orientation else 'off'} (instantiated: arm_7dof with "
-            "or without a scene, arm_6dof with or without orientation, and "
-            "reference_arm, dual_arm_14dof and humanoid_45dof without either); "
-            "more combinations are ROADMAP queue A item 8 (the rest of the zoo)"
+            f"{'on' if use_orientation else 'off'} (instantiated: arm_7dof's "
+            "topology with or without a scene, arm_6dof with or without "
+            "orientation, and reference_arm, the trees and the serial chains "
+            "without either); any other combination is ROADMAP B1(d)"
         )
     return key[0], key[1], int(key[2])
 
@@ -202,43 +229,71 @@ def build() -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    lib = ctypes.CDLL(str(build()))
-    scene = [_I, _F, _F, _F, _F]  # obstacle count, collider sizes
-    lib.ikpso_fk_fitness.argtypes = [
-        _I, _I, _I, *scene,  # topology id, collider id, orientation flag, scene
+_SCENE = [_I, _F, _F, _F, _F]  # obstacle count, collider sizes
+_UPDATE = [
+    _VP, _VP, _VP, _I,  # limits, seeds, inertia, iterations
+    _F, _F, _F,  # c1, c2, init velocity scale
+    _I, _I,  # randomized inertia flag, gbest interval
+    _I, _F, _F,  # re-kick interval (0: off), scale, threshold (< 0: kick all)
+    _VP, _I,  # uniforms, n_draws
+]
+# Every C entry point's arguments; each returns a CUDA error code (the
+# occupancy query: a block count, <= 0 on error).
+SIGNATURES = {
+    "ikpso_fk_fitness": [
+        _I, _I, _I, *_SCENE,  # topology id, collider id, orientation flag, scene
         _VP, _VP, _VP, _I, _VP, ctypes.c_longlong, _I, _VP,
-    ]
-    lib.ikpso_fk_fitness.restype = _I
-    lib.ikpso_fused_solve.argtypes = [
+    ],
+    "ikpso_fk_fitness_serial": [
+        _I,  # nodes, then ikpso_fk_fitness's arguments after the scene
+        _VP, _VP, _VP, _I, _VP, ctypes.c_longlong, _I, _VP,
+    ],
+    "ikpso_fused_solve": [
         _I, _I, _I, _I, _I,  # topology id, collider id, orientation, replay, init mode
-        *scene,
+        *_SCENE,
         _VP, _I,  # meta, M
         _VP, _I,  # swarm, K
-        _VP, _VP, _VP, _I,  # limits, seeds, inertia, iterations
-        _F, _F, _F,  # c1, c2, init velocity scale
-        _I, _I,  # randomized inertia flag, gbest interval
-        _I, _F, _F,  # re-kick interval (0: off), scale, threshold (< 0: kick all)
-        _VP, _I,  # uniforms, n_draws
+        *_UPDATE,
         _VP, _VP,  # out gbest, out gval
         _I, _I, _VP,  # S, P, stream
-    ]
-    lib.ikpso_fused_solve.restype = _I
-    lib.ikpso_fused_fitness.argtypes = [
-        _I, _I, _I, *scene,  # topology id, collider id, orientation flag, scene
+    ],
+    "ikpso_fused_solve_serial": [
+        _I, _I, _I,  # replay, init mode, nodes
+        _VP, _I, _VP, _I,  # meta, M, swarm, K
+        *_UPDATE,
+        _VP, _I,  # scratch, grid
+        _VP, _VP,  # out gbest, out gval
+        _I, _I, _VP,  # S, P, stream
+    ],
+    "ikpso_fused_solve_serial_blocks": [_I, _I, _I, _I, _I],  # replay, P, M, K, nodes
+    "ikpso_fused_fitness": [
+        _I, _I, _I, *_SCENE,  # topology id, collider id, orientation flag, scene
         _VP, _VP, _VP, _I, _VP, _I, _I, _VP,  # x, meta, swarm, K, out, S, P, stream
-    ]
-    lib.ikpso_fused_fitness.restype = _I
-    lib.ikpso_roofline_body.argtypes = [
+    ],
+    "ikpso_fused_fitness_serial": [
+        _I,  # nodes, then ikpso_fused_fitness's arguments after the scene
+        _VP, _VP, _VP, _I, _VP, _I, _I, _VP,
+    ],
+    "ikpso_roofline_body": [
         _I, _VP, _VP, ctypes.c_longlong, _I, _I, _I, _VP,  # body, x, out, n, steps, grid
-    ]
-    lib.ikpso_roofline_body.restype = _I
-    lib.ikpso_philox_xor.argtypes = [
+    ],
+    "ikpso_philox_xor": [
         ctypes.c_uint, ctypes.c_uint, _VP, ctypes.c_longlong, _I, _VP,  # key, out, n, steps
-    ]
-    lib.ikpso_philox_xor.restype = _I
+    ],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use). Entry points a
+    library lacks (one built from an older checkout's sources) are left
+    undeclared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = _I
     return lib
 
 

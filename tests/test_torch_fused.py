@@ -452,7 +452,7 @@ def test_obstacle_refusals_name_their_roadmap_items():
     for other, n_obs, orient in ((library.reference_arm()[0], 2, False), (spec, 2, True),
                                  (spec, 0, True), (library.arm_6dof()[0], 2, True),
                                  (dual, 2, False), (human, 0, True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A item 8"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP B1\(d\)"):
             kernels.kernel_variant(other, n_obs, "box", orient)
     # Such a combination runs its plain version on the CPU: arm_7dof with a
     # scene and an orientation target.
@@ -512,13 +512,23 @@ def test_topology_codes_and_refusal():
     assert kernels.topology_code(dual) == (7, 0x5402100, 0x48)
     assert kernels.topology_code(human) == (16, 0xED0BA08725422100, 0x9248)
     assert kernels.topology_id(dual) == 3 and kernels.topology_id(human) == 4
-    # planar_3dof shares arm_7dof's serial 4-node topology; a 6-node chain
-    # has no instantiation, and an 11-node snake (snake:10) none either.
+    # planar_3dof shares arm_7dof's serial 4-node topology; an 11-node snake
+    # (snake:10) has its own (id 5); a 6-node chain has none and runs the
+    # serial-chain variant, as does a 17-node one, which has no parent word.
     assert kernels.topology_id(library.planar_3dof()[0]) == 0
-    for links in (5, 10):
-        spec_n, _ = library.serial_chain(links)
-        with pytest.raises(NotImplementedError, match="humanoid_45dof.*ROADMAP"):
-            kernels.topology_id(spec_n)
-    # Beyond 16 nodes the 4-bit parent fields run out.
+    assert kernels.topology_id(library.serial_chain(10)[0]) == 5
+    assert kernels.topology_id(library.serial_chain(5)[0]) == kernels.SERIAL
+    spec17 = library.serial_chain(16)[0]
+    assert kernels.topology_code(spec17) == (17, None, 1 << 16)
+    assert kernels.topology_id(spec17) == kernels.SERIAL
+    # A tree that is not a serial chain still raises: past 16 nodes the
+    # 4-bit parent fields run out; within them, its topology has no kernel.
+    n = 17
+    lim = np.zeros((n, 3), np.float32)
+    branched = make_chain_spec([-1] + list(range(n - 2)) + [0], [0.0] + [1.0] * (n - 1),
+                               lim, lim, [n - 1])
     with pytest.raises(NotImplementedError, match="4-bit"):
-        kernels.topology_code(library.serial_chain(16)[0])
+        kernels.topology_code(branched)
+    short = make_chain_spec([-1, 0, 1, 2, 1], [0.0] + [1.0] * 4, lim[:5], lim[:5], [3, 4])
+    with pytest.raises(NotImplementedError, match="humanoid_45dof.*ROADMAP"):
+        kernels.topology_id(short)

@@ -40,6 +40,7 @@ from ikpso_tpu.pso.presets import FUSED_PRESETS as J_PRESETS
 from ikpso_tpu.utils import flops as jflops
 from ikpso_tpu_torch.harness import trees
 from ikpso_tpu_torch.models import convert, library
+from ikpso_tpu_torch.models.chain import make_chain_spec
 from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.ops.fitness_kernel import (
     fk_fitness,
@@ -197,11 +198,23 @@ def test_fk_with_jacobian_matches_jax(name, orientation):
 
 
 def test_kernel_particle_bound_follows_the_topology():
-    # Kernel A's humanoid instantiation is bounded at 512 threads a block.
+    # Kernel A's humanoid instantiation is bounded at 512 threads a block,
+    # reference_arm's and snake_30dof's at 256; a 21-node serial chain runs
+    # the serial-chain variant (1024), and a tree with no kernel is bounded
+    # by its plain solve (1024) while its routing raises.
     spec, problem = library.humanoid_45dof()
     assert kernels.max_particles(spec) == 512
     assert kernels.max_particles(library.dual_arm_14dof()[0]) == 1024
-    assert kernels.max_particles(library.serial_chain(20)[0]) == 1024
+    assert kernels.max_particles(library.reference_arm()[0]) == 256
+    assert kernels.max_particles(library.snake_30dof()[0]) == 256
+    spec20 = library.serial_chain(20)[0]
+    assert kernels.topology_id(spec20) == kernels.SERIAL
+    assert kernels.max_particles(spec20) == 1024
+    tree = make_chain_spec([-1, 0, 1, 1], [0.0, 1.0, 1.0, 1.0], np.zeros((4, 3)),
+                           np.zeros((4, 3)), [2, 3])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.topology_id(tree)
+    assert kernels.max_particles(tree) == 1024
     pre, pso, fit = trees.tree_configs("humanoid_45dof")
     batched = library.batched_problem(problem, problem.targets[None])
     with pytest.raises(ValueError, match="512"):
@@ -244,8 +257,10 @@ def test_humanoid_path_on_cpu_with_a_cut_recipe(monkeypatch):
 def test_tree_path_refuses_absent_gpu():
     with pytest.raises(RuntimeError, match="no GPU"):
         trees.run_tree("dual_arm_14dof", swarms=8, device="cuda")
-    with pytest.raises(ValueError, match="unknown tree model"):
-        trees.tree_configs("arm_7dof")
+    # Any preset model and snake:<links> run; other names do not.
+    for name in ("no_such_model", "snake:0", "snake:ten"):
+        with pytest.raises(ValueError, match="unknown model"):
+            trees.tree_configs(name)
 
 
 def test_kick_count_from_final_values_matches_the_full_replay(monkeypatch):
