@@ -145,6 +145,93 @@ TIMED_MODELS = {
     "snake:50": (256, 8192, 1024),
     "reference_arm": (512, None, None),
 }
+# The JSON-config path (harness/configs.py over cli.build_solver, the
+# solve subcommand's solver): each document of ikpso_tpu_torch/configs at
+# its batch, with its polish steps.
+CONFIG_DIR = Path(__file__).resolve().parent / "ikpso_tpu_torch" / "configs"
+CONFIGS = {"arm7_locality": (1_048_576, 4), "arm7_exact": (1_048_576, 4),
+           "dual_arm_box": (262_144, 4), "hand21": (16_384, 6)}
+# JAX's bars for them: `JAX_PLATFORMS=cpu python tests/test_torch_configs.py`
+# (ikpso_tpu.utils.configio.load_config, the scan solver make_solver,
+# wrap_with_polish with the document's scene and the steps above, on 1,024
+# targets from numpy seed 0; taken on a CPU), compiled and op by op. The
+# port's p50 and p90 (mm) must lie inside the hull of the two evaluations'
+# 99% distribution-free intervals: where a configuration converges to the
+# float32 noise floor (~0.1-0.3 um), JAX's compiled and op-by-op p50 fall
+# outside each other's intervals (hand21: 0.192 and 0.214 um), and the
+# port's op-by-op rounding sits between them. The raw count at >= 1 mm is
+# printed beside JAX's.
+JAX_CONFIGS = {
+    "arm7_locality": {
+        "p50_bar_mm": (1.742683700285852, 5.698193795979023),
+        "p90_bar_mm": (173.17341268062592, 427.2228181362152),
+        "p50_jit": (3.0752018792554736, (1.742683700285852, 5.698103923350573)),
+        "p50_op_by_op": (3.075299086049199, (1.74269441049546, 5.698193795979023)),
+        "p90_jit": (279.44023311138164, (173.176109790802, 427.22246050834656)),
+        "p90_op_by_op": (279.4382303953172, (173.17341268062592, 427.2228181362152)),
+        "failures_ge_1mm": 591,
+        "failures_ge_1mm_op_by_op": 591,
+        "swarms": 1024,
+    },
+    "arm7_exact": {
+        "p50_bar_mm": (0.00011920928955078125, 0.00012731557319511921),
+        "p90_bar_mm": (0.00026151431598009367, 0.0016924630017456366),
+        "p50_jit": (0.00012013700256829907, (0.00011920928955078125, 0.00012287812012345967)),
+        "p50_op_by_op": (0.00012287812012345967, (0.00011920928955078125, 0.00012731557319511921)),
+        "p90_jit": (0.0003406104752912159, (0.00026151431598009367, 0.0016924630017456366)),
+        "p90_op_by_op": (0.000313183562639097, (0.00026656007889869215, 0.0016492268741785665)),
+        "failures_ge_1mm": 30,
+        "failures_ge_1mm_op_by_op": 30,
+        "swarms": 1024,
+    },
+    "dual_arm_box": {
+        "p50_bar_mm": (0.0003223545945729711, 0.00039408399743479094),
+        "p90_bar_mm": (0.16947831318248063, 2.8230648022145033),
+        "p50_jit": (0.00034984108765456767, (0.0003223545945729711, 0.0003752097654796671)),
+        "p50_op_by_op": (0.0003712453633397672, (0.00033978869851125637, 0.00039408399743479094)),
+        "p90_jit": (0.580660876585171, (0.16947831318248063, 2.8229900635778904)),
+        "p90_op_by_op": (0.580750597873703, (0.16961492656264454, 2.8230648022145033)),
+        "failures_ge_1mm": 91,
+        "failures_ge_1mm_op_by_op": 91,
+        "swarms": 1024,
+        "frac_targets_feasible": 1.0,
+        "colliding_solutions": 0,
+    },
+    "hand21": {
+        "p50_bar_mm": (0.00018666948164991481, 0.0002197077719756635),
+        "p90_bar_mm": (0.0002600899904336984, 0.0003027230093266553),
+        "p50_jit": (0.0001920593462045872, (0.00018666948164991481, 0.00019729485245534306)),
+        "p50_op_by_op": (0.0002141716421988349, (0.00020845234871558205, 0.0002197077719756635)),
+        "p90_jit": (0.00027178393224858155, (0.0002600899904336984, 0.0002839771582330286)),
+        "p90_op_by_op": (0.0002921645204878587, (0.00028149398190180364, 0.0003027230093266553)),
+        "failures_ge_1mm": 4,
+        "failures_ge_1mm_op_by_op": 4,
+        "swarms": 1024,
+    },
+}
+CONFIG_COLLIDING_PER_SWARM = 1e-4
+# Kernels A, B and C built on demand, each held bit for bit against its
+# plain twin: (source, particles, PSOConfig fields over the source's recipe
+# for the replays (None: the recipe), scene, orientation). A source is a
+# document of ikpso_tpu_torch/configs or a zoo model with its preset's
+# recipe; "near" is a 4-box ring at 0.35 of the chain's reach, where
+# random poses hit it.
+ON_DEMAND_CASES = {
+    "distance": ("arm7_locality", 128, None, None, False),
+    "exact": ("arm7_exact", 128, None, None, False),
+    "dual_arm_box": ("dual_arm_box", 1024, None, "near", False),
+    "hand21": ("hand21", 512, dict(iterations=8), None, False),
+    "dual_arm_orientation": ("dual_arm_14dof", 1024, None, None, True),
+    "snake20_box": ("snake:20", 256, None, "near", False),
+}
+# Swarms of the kernel A replays and Philox runs (the scratch layout's
+# Philox run strides: more swarms than the grid holds).
+OD_REPLAY_SWARMS, OD_PHILOX_SWARMS = 64, {"hand21": 2048, "snake20_box": 2048}
+# Timed per case: kernel A against its plain twin (swarms), kernels B (P=128)
+# and C (P=1,024) against theirs (swarms).
+OD_TIMED = {"distance": (65_536, 65_536, 1024), "exact": (65_536, 65_536, 1024),
+            "dual_arm_box": (4096, 8192, 256), "hand21": (1024, 8192, 256),
+            "dual_arm_orientation": (4096, 8192, 256), "snake20_box": (1024, 8192, 256)}
 POLISH_CARD_CPU_ATOL = 1e-5  # rad: the tensor polish, card against CPU
 D_RTOL = 1e-6  # kernel D vs plain: fmaf vs a float64 FMA, libdevice sinf vs torch.sin
 D_STEPS = 4  # a step count at which every recurrence stays finite
@@ -290,17 +377,27 @@ def ptxas_report(log: str):
     return rows
 
 
-def phase_build():
+def phase_build(on_demand=False):
+    """Build the prebuilt library; with ``on_demand``, every on-demand key
+    of ``ON_DEMAND_CASES`` beside it, all nvcc processes at once
+    (``phase_on_demand_build``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from ikpso_tpu_torch.utils import kernels
 
     t0 = time.perf_counter()
-    lib = kernels.build()
-    kernels.library()
-    seconds = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        od = pool.submit(phase_on_demand_build) if on_demand else None
+        lib = kernels.build()
+        kernels.library()
+        seconds = time.perf_counter() - t0
+        ptxas = od.result() if od else None
     log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
     m = re.search(r"build_seconds=([\d.]+)", log)
     emit("build", seconds=seconds, nvcc_seconds=float(m.group(1)) if m else None,
-         library=lib.name, kernels=ptxas_report(log))
+         library=lib.name, kernels=ptxas_report(log),
+         with_on_demand_seconds=time.perf_counter() - t0)
+    return ptxas
 
 
 def phase_against(other_root, device, pairs=10):
@@ -510,7 +607,8 @@ def spec_name(spec):
              11: "snake_30dof", 16: "humanoid_45dof"}
     if spec.num_nodes in names:
         return names[spec.num_nodes]
-    return f"snake:{spec.num_nodes - 1}" if kernels.is_serial(spec) else str(spec.parent)
+    return (f"snake:{spec.num_nodes - 1}" if kernels.is_serial(spec)
+            else kernels.topology_name(spec))
 
 
 def _headline_configs():
@@ -557,6 +655,11 @@ TIE_CHAINS = {
     # the effectors sit on node 4 whatever their nine angles.
     "reference_arm": ([-1, 0, 1, 2, 3, 4, 4, 4], [0.0] + [1.0] * 4 + [0.0] * 3, [5, 6, 7],
                       list(range(12, 21))),
+    # hand21's topology, built on demand (the scratch layout): each
+    # fingertip link of length 0.
+    "hand21": ([-1, 0, 1, 2, 3, 0, 5, 6, 7, 0, 9, 10, 11, 0, 13, 14, 15, 0, 17, 18, 19],
+               [0.0] + [0.3, 0.3, 0.3, 0.0] * 5, [4, 8, 12, 16, 20],
+               [d for k in (4, 8, 12, 16, 20) for d in range(3 * (k - 1), 3 * k)]),
 }
 
 
@@ -1124,7 +1227,8 @@ def _stage_times(device, stages, full, problem, gen):
         t = getattr(e, "self_device_time_total", None)
         t = e.self_cuda_time_total if t is None else t
         busy += t
-        if "fused_solve_kernel" in e.key or "fused_solve_serial_kernel" in e.key:
+        if any(k in e.key for k in ("fused_solve_kernel", "fused_solve_serial_kernel",
+                                    "fused_solve_tree_scratch_kernel")):
             kernel_a += t
     out.update(profiled_wall_ms=wall_ms,
                device_busy_ms=busy / 1e3 if busy else None,
@@ -1770,6 +1874,12 @@ BOUND_ROWS = (
 )))
 
 
+BOUND_ROWS += tuple(
+    (f"{k} {tag}", f"{k.lower()}_{tag}", f"{k.lower()}_{tag}_ms",
+     f"kernel {k}, {tag} (built on demand), S={OD_TIMED[tag]['ABC'.index(k)]}")
+    for tag in OD_TIMED for k in "ABC")
+
+
 def phase_bounds(times, counts, roof_timed, roof_counts, card):
     """Each timed kernel launch against its roofline bound (published
     peaks); raises if any share is above 1."""
@@ -1790,7 +1900,434 @@ def phase_bounds(times, counts, roof_timed, roof_counts, card):
     return out
 
 
-def run_phases(device, card):
+def _config(name, device):
+    from ikpso_tpu_torch.utils.configio import load_config
+
+    return load_config(str(CONFIG_DIR / f"{name}.json"), device)
+
+
+def _near_scene(spec, device):
+    """A 4-box ring at 0.35 of the chain's reach (harness/obstacles.py's
+    scene sits at 0.55), where random in-limit poses of the dual arm and
+    the snakes hit it."""
+    import numpy as np
+
+    from ikpso_tpu_torch.models.chain import Obstacles
+
+    reach = float(np.abs(spec.length.cpu().numpy()).sum())
+    ang = np.arange(4) * (np.pi / 2) + 0.4
+    centers = np.stack([0.35 * reach * np.cos(ang), 0.35 * reach * np.sin(ang),
+                        0.2 * reach * np.array([1.0, -1.0, 1.0, -1.0])], axis=-1)
+    return Obstacles.from_boxes(centers.astype("float32"),
+                                np.full((4, 3), 0.15 * reach, "float32"), device=device)
+
+
+def od_case(tag, device, swarms, rng, philox=False):
+    """One ``ON_DEMAND_CASES`` case at ``swarms`` reachable targets: ``(spec,
+    pso, fit, particles, meta, swarm, obstacles, orientation)``; the PSO
+    recipe cut for the replays unless ``philox``."""
+    import dataclasses
+
+    from ikpso_tpu_torch.harness.orientation import orientation_targets
+    from ikpso_tpu_torch.harness.trees import model_spec, tree_configs
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.ops import fk as fk_ops
+
+    source, particles, cut, scene, orient = ON_DEMAND_CASES[tag]
+    if source in CONFIGS:
+        cfg = _config(source, device)
+        spec, base, pso, fit = cfg.spec, cfg.problem, cfg.pso, cfg.fitness
+    else:
+        spec, base = model_spec(source, device)
+        _, pso, fit = tree_configs(source)
+        fit = dataclasses.replace(fit, orientation_weight=1.0 if orient else 0.0)
+    if cut and not philox:
+        pso = dataclasses.replace(pso, **cut)
+    obs = _near_scene(spec, device) if scene == "near" else None
+    lim = spec.limits().cpu().numpy()
+    ang = lim[0] + rng.random((swarms, spec.dof)) * (lim[1] - lim[0])
+    pose = fk_ops.angles_to_pose(spec, base.pose[0].expand(swarms, 3),
+                                 _t(ang.astype("float32"), device))
+    if orient:
+        targets, target_rot = orientation_targets(spec, base, pose)
+        batched = library.batched_problem(base, targets, target_rot=target_rot)
+    else:
+        batched = library.batched_problem(
+            base, fk_ops.fk_points(spec, pose, base.origin)[:, list(spec.effector_idx)])
+    meta, swarm = _packed(spec, batched, fit, obs, use_orientation=orient)
+    return spec, pso, fit, particles, meta, swarm, obs, orient
+
+
+def _t(a, device):
+    import torch
+
+    return torch.as_tensor(a, device=device)
+
+
+def od_keys():
+    """The on-demand library of every ``ON_DEMAND_CASES`` case."""
+    from ikpso_tpu_torch.pso.fused import uses_distance
+    from ikpso_tpu_torch.utils import kernels
+
+    import numpy as np
+
+    keys = {}
+    for tag in ON_DEMAND_CASES:
+        spec, _, fit, _, _, _, obs, orient = od_case(tag, "cpu", 1, np.random.default_rng(0))
+        topo, collider, o = kernels.kernel_variant(
+            spec, 0 if obs is None else obs.count, fit.collision_shape, orient,
+            uses_distance(fit), fit.trig_impl)
+        if topo != kernels.ON_DEMAND:
+            raise AssertionError(f"{tag} routes to a prebuilt kernel")
+        keys[tag] = kernels.on_demand_key(spec, collider, o, uses_distance(fit),
+                                          fit.trig_impl == "exact")
+    return keys
+
+
+def od_variant(tag):
+    """The ``fused_solve.variant_launches`` name of a case's warm solve."""
+    import numpy as np
+
+    from ikpso_tpu_torch.utils import kernels
+
+    spec, _, fit, _, _, _, obs, orient = od_case(tag, "cpu", 1, np.random.default_rng(0))
+    name = (f"{kernels.topology_name(spec)}/warm/"
+            f"{fit.collision_shape if obs is not None else 'none'}")
+    for flag, on in (("orientation", orient), ("distance", fit.distance_weight != 0.0),
+                     ("exact", fit.trig_impl == "exact")):
+        if on:
+            name += f"/{flag}"
+    return name
+
+
+def phase_on_demand_build():
+    """Compile every on-demand key at once (kernels.prebuild), outside any
+    timed window; one ptxas report per key."""
+    from ikpso_tpu_torch.utils import kernels
+
+    keys = od_keys()
+    t0 = time.perf_counter()
+    seconds = kernels.prebuild(keys.values())
+    wall = time.perf_counter() - t0
+    ptxas = {tag: ptxas_report(kernels.on_demand_path(k).with_suffix(".log").read_text())
+             for tag, k in keys.items()}
+    for tag, k in keys.items():
+        kernels.on_demand_library(k)
+    emit("on_demand_build", seconds=wall, per_key={tag: seconds[k] for tag, k in keys.items()},
+         keys={tag: k._asdict() for tag, k in keys.items()},
+         libraries={tag: kernels.on_demand_path(k).name for tag, k in keys.items()},
+         ptxas=ptxas, ok=True)
+    return ptxas
+
+
+def phase_on_demand_checks(device):
+    """Kernels B (S=4,096, P=128), C (S=64, P=1,024) and A (replay at
+    ``OD_REPLAY_SWARMS``, then the full recipe on Philox) of each on-demand
+    case against their plain twins: equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.ops.fitness_kernel import (
+        fk_fitness,
+        fk_fitness_plain,
+        fused_fitness,
+        fused_fitness_plain,
+    )
+    from ikpso_tpu_torch.pso.fused import fused_solve_plain, num_draws, uses_distance
+    from ikpso_tpu_torch.utils import kernels
+
+    errs = {}
+    keys = od_keys()
+    for tag in ON_DEMAND_CASES:
+        rng = np.random.default_rng(21)
+        spec, pso, fit, p, meta, swarm, obs, orient = od_case(tag, device, 4096, rng)
+        kw = dict(num_obstacles=0 if obs is None else obs.count,
+                  collision_shape=fit.collision_shape, use_orientation=orient,
+                  use_distance_term=uses_distance(fit), trig_impl=fit.trig_impl)
+        lo, hi = spec.limits().cpu().numpy()
+        x = _t((lo + rng.random((4096, 128, spec.dof)) * (hi - lo)).astype("float32"), device)
+        got_b, want_b = fk_fitness(spec, x, meta, swarm, **kw), fk_fitness_plain(
+            spec, x, meta, swarm, **kw)
+        x_dp = _t((lo[:, None] + rng.random((64, spec.dof, 1024)) * (hi - lo)[:, None])
+                  .astype("float32"), device)
+        got_c = fused_fitness(spec, x_dp, meta, swarm[:64], **kw)
+        want_c = fused_fitness_plain(spec, x_dp, meta, swarm[:64], **kw)
+        torch.cuda.synchronize()
+        errs[("B", tag)] = check_fitness(f"fk_fitness {tag}", got_b, want_b, exact=True)
+        errs[("C", tag)] = check_fitness(f"fused_fitness {tag}", got_c, want_c, exact=True)
+        hit = float((want_b >= FLT_MAX).float().mean())
+        if obs is not None and not 0.01 < hit < 0.99:
+            raise AssertionError(f"{tag}: the check scene hits {hit} of the poses")
+        del x, got_b, want_b, x_dp, got_c, want_c
+        n_obs = kw["num_obstacles"]
+        s = OD_REPLAY_SWARMS
+        sw, zeros = swarm[:s], torch.zeros((s, 2), dtype=torch.int32, device=device)
+        u = _t(rng.random((s, num_draws(pso), spec.dof, p), dtype=np.float32), device)
+        kicked = []
+        fused_solve_plain(spec, pso, fit, meta, sw, spec.limits(), zeros, p, uniforms=u,
+                          num_obstacles=n_obs, use_orientation=orient,
+                          on_kick=lambda k: kicked.append(int(k.sum())))
+        errs[("A", tag)] = _compare_solve(
+            "on_demand_replay", spec, pso, fit, meta, sw, zeros, p, u, num_obstacles=n_obs,
+            bitwise=True, use_orientation=orient, case=tag, kicked_per_block=kicked)
+        del u
+        s = OD_PHILOX_SWARMS.get(tag, 1024)
+        spec, pso, fit, p, meta, swarm, obs, orient = od_case(tag, device, s, rng, philox=True)
+        seeds = _t(rng.integers(-2**31, 2**31, (s, 2), dtype=np.int64).astype(np.int32),
+                   device)
+        key = keys[tag]
+        extra = {}
+        if key.scratch:
+            extra["scratch_grid"] = kernels.on_demand_library(key).ikpso_od_fused_solve_blocks(
+                0, p, meta.numel(), swarm.shape[1])
+        errs[("A", tag)] = max(errs[("A", tag)], _compare_solve(
+            "on_demand_philox", spec, pso, fit, meta, swarm, seeds, p, None,
+            num_obstacles=n_obs, bitwise=True, use_orientation=orient, case=tag, **extra))
+        emit("on_demand_fitness", case=tag, key=key.name(), b_shape=[4096, 128, spec.dof],
+             c_shape=[64, spec.dof, 1024], hit_share=hit,
+             max_abs_err={"B": errs[("B", tag)], "C": errs[("C", tag)]},
+             bar="max abs error 0.0", ok=True)
+    return errs
+
+
+def phase_config(device, name, card):
+    """A document of ikpso_tpu_torch/configs at its batch through
+    harness.configs.run_config (solve's solver), launch counts read around
+    it; then its stage times (base solve, base + polish) and device busy
+    with kernel A's share. Bars: ``JAX_CONFIGS``."""
+    import torch
+
+    from ikpso_tpu_torch.harness.cli import build_solver, pick_impl
+    from ikpso_tpu_torch.harness.configs import config_problem, run_config
+
+    swarms, polish = CONFIGS[name]
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_config(CONFIG_DIR / f"{name}.json", swarms, polish, device, seed=0)
+    phase_s = time.perf_counter() - t0
+    launches = read_counts()
+    jax = JAX_CONFIGS[name]
+    lo50, hi50 = jax["p50_bar_mm"]
+    lo90, hi90 = jax["p90_bar_mm"]
+    accurate = lo50 <= out["p50_err_mm"] <= hi50 and lo90 <= out["p90_err_mm"] <= hi90
+    if "colliding_solutions" in out:
+        accurate = accurate and out["colliding_solutions"] <= CONFIG_COLLIDING_PER_SWARM * swarms
+    cfg = _config(name, device)
+    impl = pick_impl("auto", cfg, device)
+    variant = od_variant({"arm7_locality": "distance", "arm7_exact": "exact"}.get(name, name))
+    ok = (out["finite"] and accurate and impl == "fused"
+          and launches["fused_solve_variants"] == {variant: 4})
+    gen = torch.Generator(device=device).manual_seed(0)
+    batched, _ = config_problem(cfg, swarms, gen)
+    stages = _stage_times(device, [("base", build_solver(cfg, impl, 0, device), batched, 3)],
+                          build_solver(cfg, impl, polish, device), batched, gen)
+    emit(f"config_{name}", **out, wall_ms=out["wall_s"] * 1e3, launches=launches,
+         expected_variant_launches={variant: 4}, stages=stages, run_config_seconds=phase_s,
+         jax={**jax, "record": "CPU, scan solver, tests/test_torch_configs.py"},
+         bars={"p50_err_mm": jax["p50_bar_mm"], "p90_err_mm": jax["p90_bar_mm"],
+               **({"colliding_solutions": CONFIG_COLLIDING_PER_SWARM * swarms}
+                  if "colliding_solutions" in out else {})},
+         card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError(f"config {name} missed a bar or bypassed its kernel A variant")
+    return launches, out
+
+
+def phase_exact_vs_poly(device, exact_out, card):
+    """arm7_exact's share under 1 mm against the same run with polynomial
+    trig (same targets and seed): within 4 standard errors of the
+    difference of two binomial shares."""
+    import json as json_
+
+    from ikpso_tpu_torch.harness.configs import run_config
+
+    swarms, polish = CONFIGS["arm7_exact"]
+    doc = json_.loads((CONFIG_DIR / "arm7_exact.json").read_text())
+    doc["fitness"]["trig_impl"] = "poly"
+    poly = run_config(doc, swarms, polish, device, seed=0, warmup=0, iters=1)
+    a, b = exact_out["frac_under_1mm"], poly["frac_under_1mm"]
+    pooled = (a + b) / 2
+    se = (pooled * (1 - pooled) * 2 / swarms) ** 0.5
+    ok = abs(a - b) <= 4 * se
+    emit("exact_vs_poly", exact=a, poly=b, exact_failures=exact_out["failures_ge_1mm"],
+         poly_failures=poly["failures_ge_1mm"], poly_p50_err_mm=poly["p50_err_mm"],
+         poly_p90_err_mm=poly["p90_err_mm"], four_se=4 * se, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("arm7_exact's share under 1 mm departs from polynomial trig's")
+
+
+CLI_RUNS = {
+    "hand21": ("--config", "ikpso_tpu_torch/configs/hand21.json"),
+    "reference_arm": (),
+    "arm_7dof_preset": ("--model", "arm_7dof", "--preset"),
+}
+
+
+def phase_cli(card):
+    """``python -m ikpso_tpu_torch.harness.cli solve`` as a user runs it,
+    one process each: hand21's document (kernel A, built on demand), the
+    default reference_arm (16,384 particles: the scan solver on kernel C)
+    and arm_7dof's preset; each prints one JSON line with solve's keys."""
+    root = Path(__file__).resolve().parent
+    rows = {}
+    for tag, args in CLI_RUNS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "ikpso_tpu_torch.harness.cli", "solve",
+                               *args], capture_output=True, text=True, cwd=root, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"cli solve {tag} failed:\n{proc.stderr[-3000:]}")
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        if set(out) != {"angles", "fitness", "effector_error", "trace"}:
+            raise AssertionError(f"cli solve {tag} printed {sorted(out)}")
+        rows[tag] = dict(seconds=time.perf_counter() - t0, dof=len(out["angles"]),
+                         fitness=out["fitness"], effector_error=out["effector_error"],
+                         trace_len=len(out["trace"]))
+    # In process, with the launch counts read around it: the same solve on
+    # the scan solver (--impl jnp), whose fitness is kernel C built on
+    # demand for hand21, one launch per evaluation.
+    import contextlib
+    import io
+
+    from ikpso_tpu_torch.harness import cli
+
+    iterations = 8
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        cli.main(["solve", *CLI_RUNS["hand21"], "--impl", "jnp", "--particles", "1024",
+                  "--iterations", str(iterations)])
+    launches = read_counts()
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    ok = (launches["fused_fitness"] == iterations + 1 and launches["fused_solve"] == 0
+          and len(line["trace"]) == iterations + 1)
+    rows["hand21_jnp"] = dict(launches=launches, effector_error=line["effector_error"],
+                              trace_len=len(line["trace"]))
+    emit("cli", runs=rows, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("cli solve --impl jnp bypassed kernel C")
+    return launches
+
+
+def phase_on_demand_timing(device):
+    """Per ``OD_TIMED`` case: kernel A against its plain twin (each output
+    held against the plain one's), kernels B and C against theirs, and the
+    counted work of each timed launch (kicks and collider work along the
+    plain trajectory)."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.ops.fitness_kernel import (
+        fk_fitness,
+        fk_fitness_plain,
+        fused_fitness,
+        fused_fitness_plain,
+    )
+    from ikpso_tpu_torch.pso.fused import fused_solve, fused_solve_plain, uses_distance
+    from ikpso_tpu_torch.utils import flops
+
+    times, counts = {}, {}
+    clocks = {"start": card_clocks()}
+    for tag, (a_s, b_s, c_s) in OD_TIMED.items():
+        rng = np.random.default_rng(22)
+        spec, pso, fit, p, meta, swarm, obs, orient = od_case(tag, device, a_s, rng,
+                                                              philox=True)
+        n_obs = 0 if obs is None else obs.count
+        seeds = _t(rng.integers(-2**31, 2**31, (a_s, 2), dtype=np.int64).astype(np.int32),
+                   device)
+        args = (spec, pso, fit, meta, swarm, spec.limits(), seeds, p)
+        kw = dict(num_obstacles=n_obs, use_orientation=orient)
+        times[f"a_{tag}_ms"], got = cuda_time(lambda: fused_solve(*args, **kw), reps=3)
+        times[f"a_{tag}_plain_ms"], want = cuda_time(lambda: fused_solve_plain(*args, **kw),
+                                                     reps=1)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"kernel A ({tag}) disagrees with its plain twin at the "
+                                 "timed shape")
+        kicks = flops.fused_solve_kicks(*args, **kw) if pso.rekick_interval else 0.0
+        collider = (flops.fused_solve_collider_work(*args, num_obstacles=n_obs)
+                    if n_obs else 0.0)
+        counts[f"a_{tag}"] = flops.fused_solve_count(
+            spec, pso, fit, num_particles=p, num_swarms=a_s, num_obstacles=n_obs,
+            collider_ops=collider, use_orientation=orient, kicks=kicks)
+        del got, want, args
+        fkw = dict(num_obstacles=n_obs, collision_shape=fit.collision_shape,
+                   use_orientation=orient, use_distance_term=uses_distance(fit),
+                   trig_impl=fit.trig_impl)
+        lo, hi = spec.limits().cpu().numpy()
+        for kernel, s_k, p_k in (("b", b_s, 128), ("c", c_s, 1024)):
+            _, _, _, _, meta_k, swarm_k, _, _ = od_case(tag, device, s_k, rng)
+            if kernel == "b":
+                x = _t((lo + rng.random((s_k, p_k, spec.dof)) * (hi - lo)).astype("float32"),
+                       device)
+                kfn, pfn = fk_fitness, fk_fitness_plain
+                x_spd = x
+            else:
+                x = _t((lo[:, None] + rng.random((s_k, spec.dof, p_k)) * (hi - lo)[:, None])
+                       .astype("float32"), device)
+                kfn, pfn = fused_fitness, fused_fitness_plain
+                x_spd = x.transpose(1, 2)
+            times[f"{kernel}_{tag}_ms"], got = cuda_time(
+                lambda: kfn(spec, x, meta_k, swarm_k, **fkw), reps=20)
+            times[f"{kernel}_{tag}_plain_ms"], want = cuda_time(
+                lambda: pfn(spec, x, meta_k, swarm_k, **fkw), reps=3)
+            check_fitness(f"{kernel} {tag} timed", got, want, exact=True)
+            work = (flops.collider_work(spec, x_spd, meta_k, swarm_k, num_obstacles=n_obs,
+                                        collision_shape=fit.collision_shape)
+                    if n_obs else 0.0)
+            counts[f"{kernel}_{tag}"] = flops.fitness_kernel_count(
+                spec, fit, num_swarms=s_k, num_particles=p_k, num_obstacles=n_obs,
+                collider_ops=work, use_orientation=orient)
+            del x, got, want, x_spd
+    clocks["end"] = card_clocks()
+    emit("on_demand_timing", **times, timed=OD_TIMED, clocks=clocks,
+         bar="bit-identical kernel A; max abs error 0.0 for B and C")
+    return times, counts
+
+
+def phase_sass_sincos():
+    """The instructions libdevice's sinf and cosf issue on their fast path,
+    from the SASS of two probe kernels built with the port's flags
+    (cuobjdump -sass): the range reduction up to the slow-path branch and
+    its reconvergence, then each polynomial and quadrant select up to the
+    store; address arithmetic, loads, stores and the exit are not counted.
+    Held against ``utils.flops.EXACT_SINCOS_OPS``."""
+    import tempfile
+
+    from ikpso_tpu_torch.utils import flops, kernels
+
+    src = ('extern "C" __global__ void k_sin(const float* x, float* y) '
+           '{ y[threadIdx.x] = sinf(x[threadIdx.x]); }\n'
+           'extern "C" __global__ void k_cos(const float* x, float* y) '
+           '{ y[threadIdx.x] = cosf(x[threadIdx.x]); }\n')
+    skip = ("LDC", "S2R", "LDG", "STG", "EXIT", "ULDC", "IMAD.WIDE", "LEA", "NOP",
+            "SHF.R.S32.HI")
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, cubin = Path(tmp) / "sincos.cu", Path(tmp) / "sincos.cubin"
+        cu.write_text(src)
+        run([kernels._nvcc(), "-cubin", *kernels.NVCC_FLAGS[:2], "-O3", "-fmad=false",
+             "-o", str(cubin), str(cu)])
+        sass = run([str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(cubin)])
+    parts = {}
+    for fn in ("k_sin", "k_cos"):
+        body = sass.split(f"Function : {fn}")[1].split("Function : ")[0]
+        ins = [(int(a, 16), t) for a, t in
+               re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]+);", body)]
+        b_addr, target = next((a, int(t.split("0x")[1], 16)) for a, t in ins
+                              if re.match(r"@!P\d BRA 0x", t))
+        fast = [(a, t) for a, t in ins if (a <= b_addr or a >= target)
+                and not re.sub(r"^@!?P\d ", "", t).startswith(skip)
+                and not (t.startswith("BRA") and a > target)]
+        shared = sum(1 for a, t in fast if a <= b_addr or t.startswith("BSYNC"))
+        parts[fn] = (shared, len(fast) - shared)
+    total = parts["k_sin"][0] + parts["k_sin"][1] + parts["k_cos"][1]
+    ok = parts["k_sin"][0] == parts["k_cos"][0] and total == flops.EXACT_SINCOS_OPS
+    emit("sass_sincos", shared=parts["k_sin"][0], sin_tail=parts["k_sin"][1],
+         cos_tail=parts["k_cos"][1], sincos_ops=total,
+         flops_exact_sincos_ops=flops.EXACT_SINCOS_OPS, ok=bool(ok))
+    if not ok:
+        raise AssertionError("sinf / cosf's fast path differs from utils/flops.py's count")
+    return total
+
+
+def run_phases(device, card, od_ptxas):
     """Every phase after the build, in order; returns the ``kernels``
     list of the next-to-last line."""
     b_err = phase_fk_fitness(device)
@@ -1811,6 +2348,9 @@ def run_phases(device, card):
     phase_fused_tie(device, particles=1024, model="snake:16")
     phase_fused_tie(device, particles=256, model="reference_arm")
     ptxas = phase_ptxas()
+    od_err = phase_on_demand_checks(device)
+    phase_fused_tie(device, particles=512, model="hand21")
+    phase_sass_sincos()
     phase_tensor_polish(device)
     paths = {
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
@@ -1820,11 +2360,19 @@ def run_phases(device, card):
         **{TREE_PATHS[m]: phase_tree(device, m, card) for m in TREE_SWARMS},
         "scan": phase_scan(device, card),
     }
+    config_out = {}
+    for name in CONFIGS:
+        paths[f"config_{name}"], config_out[name] = phase_config(device, name, card)
+    phase_exact_vs_poly(device, config_out["arm7_exact"], card)
+    paths["cli_hand21_jnp"] = phase_cli(card)
     paths["roofline"], roof_timed, roof_counts, d_err, sol = phase_roofline(device, card)
     t, counts, t_err = phase_timing(device, TIMING_SWARMS, HEADLINE_SWARMS)
     tt, tree_counts, tt_err = phase_tree_timing(device)
     t.update(tt)
     counts.update(tree_counts)
+    od_t, od_counts = phase_on_demand_timing(device)
+    t.update(od_t)
+    counts.update(od_counts)
     bounds = phase_bounds(t, counts, roof_timed, roof_counts, card)
 
     def by_path(name):
@@ -1833,6 +2381,26 @@ def run_phases(device, card):
     def bound_keys(row):
         r = bounds[row]
         return {"bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "share": r["share"]}
+
+    def on_demand(name):
+        """Per on-demand case: the timed kernel against its bound and plain
+        twin, its max abs error against the plain twin, its ptxas lines,
+        and (kernel A, and B which A inlines) the launches of its variant
+        by path."""
+        prefix = {"A": "fused_solve", "B": "fk_fitness_kernel", "C": "fused_fitness_kernel"}
+        out = {}
+        for tag in OD_TIMED:
+            k = name.lower()
+            row = {"ms": t[f"{k}_{tag}_ms"], "plain_ms": t[f"{k}_{tag}_plain_ms"],
+                   "swarms": OD_TIMED[tag]["ABC".index(name)],
+                   **bound_keys(f"{name} {tag}"), "max_abs_err": od_err[(name, tag)],
+                   "ptxas": [r for r in od_ptxas[tag] if r["kernel"].startswith(prefix[name])]}
+            if name != "C":
+                variant = od_variant(tag)
+                row["launches_by_path"] = {
+                    k2: v["fused_solve_variants"].get(variant, 0) for k2, v in paths.items()}
+            out[tag] = row
+        return out
 
     def model_variants(name):
         """Per timed model: the timed kernel against its bound and its plain
@@ -1873,7 +2441,8 @@ def run_phases(device, card):
          "launches": paths["obstacles"]["fused_solve"],
          "launches_by_path": by_path("fused_solve"),
          "variants_by_path": by_path("fused_solve_variants"),
-         "max_abs_err": max(a_err, a_obs_err, a_branch_err, a_tree_err),
+         "max_abs_err": max(a_err, a_obs_err, a_branch_err, a_tree_err,
+                            *(v for (k, _), v in od_err.items() if k == "A")),
          "max_abs_err_branch_replay": a_branch_err,
          "max_abs_err_tree_replay": a_tree_err, "models": model_variants("A"),
          "ms": t["fused_solve_box_ms"], "plain_ms": t["fused_solve_box_plain_ms"],
@@ -1885,6 +2454,8 @@ def run_phases(device, card):
          "orientation_timed": "arm_6dof, warm, 40 iterations, re-kick, orientation",
          "orientation_kicked_share": t["fused_solve_orientation_kicked_share"],
          "bound_orientation": bound_keys("A orientation"),
+         "on_demand": on_demand("A"),
+         "on_demand_source": "ikpso_tpu_torch/csrc/on_demand.cuh",
          "ms_at_headline_swarms": t["fused_solve_big_ms"],
          "bound_at_headline_swarms": bound_keys("A headline, no scene"),
          "box_ms_at_headline_swarms": t["fused_solve_box_big_ms"],
@@ -1908,7 +2479,8 @@ def run_phases(device, card):
          "max_abs_err": max(b_err, *b_obs_err.values(), t_err["fk_fitness"],
                             t_err["fk_fitness_box"], t_err["fk_fitness_capsule"],
                             t_err["fk_fitness_orientation"],
-                            *(v for (k, _), v in {**tree_err, **tt_err}.items() if k == "B")),
+                            *(v for (k, _), v in {**tree_err, **tt_err, **od_err}.items()
+                              if k == "B")),
          "max_abs_err_by_branch": {"none": b_err, **b_obs_err},
          "max_abs_err_at_timed_shape": {"none": t_err["fk_fitness"],
                                         "box": t_err["fk_fitness_box"],
@@ -1925,6 +2497,7 @@ def run_phases(device, card):
                                 "orientation": t["fk_fitness_orientation_plain_ms"]},
          "bound_by_branch": {b: bound_keys(f"B {b}")
                              for b in ("none", "box", "capsule", "orientation")},
+         "on_demand": on_demand("B"),
          "timed_swarms": TIMING_SWARMS},
         {"name": "fused_fitness", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/fused_fitness.cu",
@@ -1932,10 +2505,12 @@ def run_phases(device, card):
          "launches": paths["scan"]["fused_fitness"],
          "launches_by_path": by_path("fused_fitness"),
          "max_abs_err": max(*c_err.values(), scan_err, t_err["fused_fitness"],
-                            *(v for (k, _), v in {**tree_err, **tt_err}.items() if k == "C")),
+                            *(v for (k, _), v in {**tree_err, **tt_err, **od_err}.items()
+                              if k == "C")),
          "models": model_variants("C"),
          "max_abs_err_by_branch": c_err,
          "max_abs_err_at_scan_shape": t_err["fused_fitness"],
+         "on_demand": on_demand("C"),
          "ms": t["fused_fitness_ms"], "plain_ms": t["fused_fitness_plain_ms"],
          **bound_keys("C scan path"), "library_ms": None,
          "timed": f"S={SCAN_SWARMS}, D=9, P=1024, no scene"},
@@ -1976,11 +2551,11 @@ def main(argv=None) -> None:
     card = phase_environment()
     import torch
 
-    phase_build()
+    od_ptxas = phase_build(on_demand=not args.against)
     if args.against:
         phase_against(args.against, torch.device("cuda", 0))
         return
-    kernels = run_phases(torch.device("cuda", 0), card)
+    kernels = run_phases(torch.device("cuda", 0), card, od_ptxas)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,12 @@
 // Kernel B, standalone launcher: (S, P, D) angles -> (S, P) fitness.
 //
 // Evaluates the fk_fitness_eval device function (fk_fitness.cuh) with one
-// thread per particle, so the device function kernels A and C inline can
-// be checked and timed on its own against fk_fitness_plain. The port of
+// thread per particle (fk_fitness_kernel, in the header so an on-demand
+// library instantiates it too), so the device function kernels A and C
+// inline can be checked and timed on its own against fk_fitness_plain.
+// This library holds the prebuilt instantiations; any other (topology,
+// collider, orientation, distance, trig) is built on demand
+// (on_demand.cuh). The port of
 // the standalone Pallas kernel (ikpso_tpu/ops/pallas_fitness.py:
 // fused_fitness, lane-major (S, D, P)) is kernel C, fused_fitness.cu.
 //
@@ -20,21 +24,6 @@
 
 namespace ikpso {
 
-template <class T, int C, bool O>
-__global__ void fk_fitness_kernel(const float* __restrict__ x,
-                                  const float* __restrict__ meta,
-                                  const float* __restrict__ swarm, int K, Scene scene,
-                                  float* __restrict__ out, long long total, int P) {
-  constexpr int D = T::D;
-  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= total) return;
-  const long long s = t / P;
-  float xr[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) xr[d] = x[t * D + d];
-  out[t] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
-}
-
 // The serial-chain variant: n nodes at run time (fk_fitness_eval_serial).
 __global__ void fk_fitness_serial_kernel(int n, const float* __restrict__ x,
                                          const float* __restrict__ meta,
@@ -44,16 +33,6 @@ __global__ void fk_fitness_serial_kernel(int n, const float* __restrict__ x,
   if (t >= total) return;
   const long long s = t / P;
   out[t] = fk_fitness_eval_serial(x + t * 3 * (n - 1), 1, n, meta, swarm + s * K);
-}
-
-template <class T, int C, bool O = false>
-static void launch_fk_fitness(const float* x, const float* meta, const float* swarm,
-                              int K, Scene scene, float* out, long long total, int P,
-                              cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  fk_fitness_kernel<T, C, O><<<blocks, kThreads, 0, stream>>>(x, meta, swarm, K, scene,
-                                                               out, total, P);
 }
 
 }  // namespace ikpso
@@ -105,9 +84,9 @@ extern "C" int ikpso_fk_fitness_serial(int n_nodes, const float* x, const float*
   using namespace ikpso;
   if (total <= 0) return static_cast<int>(cudaGetLastError());
   if (n_nodes < 2 || P <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kThreads = 256;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  fk_fitness_serial_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const unsigned blocks =
+      static_cast<unsigned>((total + kFkFitnessThreads - 1) / kFkFitnessThreads);
+  fk_fitness_serial_kernel<<<blocks, kFkFitnessThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       n_nodes, x, meta, swarm, K, out, total, P);
   return static_cast<int>(cudaGetLastError());
 }

@@ -23,8 +23,20 @@
 // rounds op by op like the plain torch version (fk_fitness_plain).
 //
 // Supported terms: weighted squared effector error, angular locality
-// (aw / (N-1)), obstacle rejection and the orientation term. The distance
-// term is refused by the Python wrapper and is not compiled here.
+// (aw / (N-1)), node-position locality (dw / (N-1), the distance term),
+// obstacle rejection and the orientation term, with polynomial or stock
+// trig. The distance term and stock ("exact") trig are compile-time traits
+// of the topology type (T::kDistance, T::kExact): false for the prebuilt
+// Topology<...> instantiations, the flags of an OnDemandTopology<...>,
+// which utils/kernels.py generates and compiles for one request.
+//
+// Distance (pallas_fitness.py:335-339, 394-396): per node, the squared
+// distance of its position to its anchor position (swarm row, after the
+// targets), accumulated like the angular term; added after it as
+// total + (dw / (N-1)) * pos_diff.
+//
+// Exact trig (pallas_fitness.py:76-79): sinf / cosf, the libdevice
+// routines torch.sin / torch.cos reach on the card, each on its own.
 //
 // Orientation (pallas_fitness.py:383-392): a template flag O. For each
 // effector, the squared Frobenius distance of its world rotation to the
@@ -47,6 +59,8 @@
 // the inputs where the plain version's does; they stop at the first
 // separating axis or the first hit, which leaves the result unchanged.
 #pragma once
+
+#include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
@@ -73,6 +87,8 @@ struct Topology {
   static constexpr int N = N_;
   static constexpr int D = 3 * (N_ - 1);
   static constexpr int E = popcount_u32(EFFMASK_);
+  static constexpr bool kDistance = false;
+  static constexpr bool kExact = false;
   __host__ __device__ static constexpr int parent(int k) {
     return static_cast<int>((PARENTS_ >> (4 * k)) & 15ull);
   }
@@ -103,6 +119,53 @@ static_assert(Snake30::parent(10) == 9 && Snake30::parent(1) == 0 && Snake30::D 
                   Snake30::effector_slot(10) == 0,
               "snake_30dof topology: node k hangs off k - 1, effector node 10");
 
+// A list of ints as template data, read by constexpr folds (no array, so
+// device code needs no memory for it): the unrolled walks call at() and
+// index_of() with constant arguments, which fold to constants.
+template <int... V>
+struct IntList {
+  static constexpr int size = static_cast<int>(sizeof...(V));
+  __host__ __device__ static constexpr int at(int i) {
+    int k = 0, out = -1;
+    ((k++ == i ? (out = V, 0) : 0), ...);
+    return out;
+  }
+  __host__ __device__ static constexpr int index_of(int x) {
+    int k = 0, out = -1;
+    ((V == x && out < 0 ? (out = k, 0) : 0, ++k), ...);
+    return out;
+  }
+};
+
+// A topology compiled for one request (utils/kernels.py, on demand): any
+// tree, node k's parent PARENTS::at(k) (PARENTS::at(0) = -1), the
+// effectors in EFFECTORS' order (their weights and targets follow it, as
+// effector_idx orders them), with the kernel traits chosen when it is
+// generated: kernel A's thread-block bound THREADS, whether kernel A
+// streams its draws four DOFs at a time, and the distance and exact-trig
+// flags. The Topology<...> interface, so every kernel template takes it.
+template <class PARENTS, class EFFECTORS, int THREADS, bool STREAM, bool DIST, bool EXACT>
+struct OnDemandTopology {
+  static constexpr int N = PARENTS::size;
+  static constexpr int D = 3 * (N - 1);
+  static constexpr int E = EFFECTORS::size;
+  static constexpr int kThreads = THREADS;
+  static constexpr bool kStream = STREAM;
+  static constexpr bool kDistance = DIST;
+  static constexpr bool kExact = EXACT;
+  __host__ __device__ static constexpr int parent(int k) { return PARENTS::at(k); }
+  __host__ __device__ static constexpr bool is_effector(int k) {
+    return EFFECTORS::index_of(k) >= 0;
+  }
+  __host__ __device__ static constexpr int effector_slot(int k) {
+    return EFFECTORS::index_of(k);
+  }
+};
+static_assert(IntList<-1, 0, 1, 1>::at(3) == 1 && IntList<-1, 0, 1, 1>::at(0) == -1 &&
+                  IntList<8, 4, 12>::index_of(4) == 1 &&
+                  IntList<8, 4, 12>::index_of(5) == -1,
+              "IntList folds");
+
 // Scene colliders; ids must match COLLIDERS in
 // ikpso_tpu_torch/utils/kernels.py.
 enum Collider : int { kNoCollider = 0, kBoxCollider = 1, kCapsuleCollider = 2 };
@@ -121,6 +184,7 @@ struct Scene {
 // Packed-constant offsets (MetaLayout; the topology-dependent ones are
 // computed in fk_fitness_eval).
 constexpr int kMetaAw = 0;
+constexpr int kMetaDw = 1;
 constexpr int kMetaLen = 2;
 constexpr int kSwRoot = 0;
 constexpr int kSwOrigin = 9;
@@ -148,11 +212,25 @@ __device__ __forceinline__ void sincos_poly(float x, float& s, float& c) {
   c = cp;
 }
 
+// Stock trig (trig_impl="exact"): sinf and cosf, each the libdevice
+// routine torch.sin / torch.cos call for a float32 tensor on the card.
+__device__ __forceinline__ void sincos_exact(float x, float& s, float& c) {
+  s = sinf(x);
+  c = cosf(x);
+}
+
+template <bool EXACT = false>
 __device__ __forceinline__ void rot_xyz(float ax, float ay, float az, float (&r)[9]) {
   float sx, cx, sy, cy, sz, cz;
-  sincos_poly(ax, sx, cx);
-  sincos_poly(ay, sy, cy);
-  sincos_poly(az, sz, cz);
+  if constexpr (EXACT) {
+    sincos_exact(ax, sx, cx);
+    sincos_exact(ay, sy, cy);
+    sincos_exact(az, sz, cz);
+  } else {
+    sincos_poly(ax, sx, cx);
+    sincos_poly(ay, sy, cy);
+    sincos_poly(az, sz, cz);
+  }
   r[0] = cy * cz;
   r[1] = -cy * sz;
   r[2] = sy;
@@ -305,20 +383,21 @@ __device__ __forceinline__ bool node_hits(const float (&pk)[3], const float (&rk
   return false;
 }
 
-// Fitness of one particle: x holds its D angles; meta / sw point at the
-// packed per-chain / per-swarm constants (MetaLayout); scene is read only
-// when C != kNoCollider; O adds the orientation term.
-template <class T, int C = kNoCollider, bool O = false>
-__device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
-                                                 const float* __restrict__ meta,
-                                                 const float* __restrict__ sw,
-                                                 Scene scene) {
+// Fitness of one particle: x(d) returns its angle d; meta / sw point at
+// the packed per-chain / per-swarm constants (MetaLayout); scene is read
+// only when C != kNoCollider; O adds the orientation term; T::kDistance the
+// distance term, T::kExact stock trig.
+template <class T, int C, bool O, class X>
+__device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict__ meta,
+                                                    const float* __restrict__ sw,
+                                                    Scene scene) {
   constexpr int N = T::N;
   constexpr int D = T::D;
   constexpr int kMetaEw = kMetaLen + (N - 1);
   constexpr int kMetaObs = kMetaEw + T::E;
   constexpr int kSwTgt = kSwAnchor + D;
-  constexpr int kSwTrot = kSwTgt + 3 * T::E + 3 * (N - 1);
+  constexpr int kSwApos = kSwTgt + 3 * T::E;
+  constexpr int kSwTrot = kSwApos + 3 * (N - 1);
   float rot[N][9];
   float pos[N][3];
 #pragma unroll
@@ -326,15 +405,16 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
 #pragma unroll
   for (int i = 0; i < 3; ++i) pos[0][i] = sw[kSwOrigin + i];
   float rot_diff = 0.0f;
+  float pos_diff = 0.0f;
   float cost = 0.0f;
   bool hit = false;
 #pragma unroll
   for (int k = 1; k < N; ++k) {
     const int d0 = 3 * (k - 1);
     const int p = T::parent(k);
-    const float ax = x[d0], ay = x[d0 + 1], az = x[d0 + 2];
+    const float ax = x(d0), ay = x(d0 + 1), az = x(d0 + 2);
     float local[9];
-    rot_xyz(ax, ay, az, local);
+    rot_xyz<T::kExact>(ax, ay, az, local);
     mat_mul(rot[p], local, rot[k]);
     const float len = meta[kMetaLen + (k - 1)];
     pos[k][0] = pos[p][0] + len * rot[k][0];
@@ -345,6 +425,13 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
     const float db = ay - sw[kSwAnchor + d0 + 1];
     const float dc = az - sw[kSwAnchor + d0 + 2];
     rot_diff = rot_diff + (da * da + db * db + dc * dc);
+
+    if constexpr (T::kDistance) {
+      const float ox = pos[k][0] - sw[kSwApos + d0];
+      const float oy = pos[k][1] - sw[kSwApos + d0 + 1];
+      const float oz = pos[k][2] - sw[kSwApos + d0 + 2];
+      pos_diff = pos_diff + (ox * ox + oy * oy + oz * oz);
+    }
 
     if constexpr (C != kNoCollider) {
       if (!hit) hit = node_hits<C>(pos[k], rot[k], pos[p], len, meta + kMetaObs, scene);
@@ -370,9 +457,33 @@ __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
       }
     }
   }
-  const float total = cost + (meta[kMetaAw] / static_cast<float>(N - 1)) * rot_diff;
+  float total = cost + (meta[kMetaAw] / static_cast<float>(N - 1)) * rot_diff;
+  if constexpr (T::kDistance) {
+    total = total + (meta[kMetaDw] / static_cast<float>(N - 1)) * pos_diff;
+  }
   if constexpr (C != kNoCollider) return hit ? FLT_MAX : total;
   return total;
+}
+
+// fk_fitness_eval_at on a register array of the D angles.
+template <class T, int C = kNoCollider, bool O = false>
+__device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
+                                                 const float* __restrict__ meta,
+                                                 const float* __restrict__ sw,
+                                                 Scene scene) {
+  return fk_fitness_eval_at<T, C, O>([&](int d) { return x[d]; }, meta, sw, scene);
+}
+
+// fk_fitness_eval_at on angles at x[d * stride]: the lane-major (S, D, P)
+// layout and kernel A's scratch. x is not __restrict__, as in
+// fk_fitness_eval_serial below.
+template <class T, int C = kNoCollider, bool O = false>
+__device__ __forceinline__ float fk_fitness_eval_strided(const float* x, long long stride,
+                                                         const float* __restrict__ meta,
+                                                         const float* __restrict__ sw,
+                                                         Scene scene) {
+  return fk_fitness_eval_at<T, C, O>([=](int d) { return x[d * stride]; }, meta, sw,
+                                     scene);
 }
 
 // Fitness of one particle of a serial chain of n nodes (n >= 2), without a
@@ -417,6 +528,35 @@ __device__ __forceinline__ float fk_fitness_eval_serial(const float* x, long lon
   const float ez = pos[2] - sw[sw_tgt + 2];
   const float cost = meta[meta_ew] * (ex * ex + ey * ey + ez * ez);
   return cost + (meta[kMetaAw] / static_cast<float>(n - 1)) * rot_diff;
+}
+
+// Kernel B's standalone launcher body: (S, P, D) angles -> (S, P) fitness,
+// one thread per particle (fk_fitness.cu, and on demand on_demand.cuh).
+template <class T, int C, bool O>
+__global__ void fk_fitness_kernel(const float* __restrict__ x,
+                                  const float* __restrict__ meta,
+                                  const float* __restrict__ swarm, int K, Scene scene,
+                                  float* __restrict__ out, long long total, int P) {
+  constexpr int D = T::D;
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const long long s = t / P;
+  float xr[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) xr[d] = x[t * D + d];
+  out[t] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
+}
+
+constexpr int kFkFitnessThreads = 256;
+
+template <class T, int C, bool O = false>
+static void launch_fk_fitness(const float* x, const float* meta, const float* swarm,
+                              int K, Scene scene, float* out, long long total, int P,
+                              cudaStream_t stream) {
+  const unsigned blocks =
+      static_cast<unsigned>((total + kFkFitnessThreads - 1) / kFkFitnessThreads);
+  fk_fitness_kernel<T, C, O><<<blocks, kFkFitnessThreads, 0, stream>>>(x, meta, swarm, K,
+                                                                      scene, out, total, P);
 }
 
 }  // namespace ikpso

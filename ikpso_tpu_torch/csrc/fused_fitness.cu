@@ -13,7 +13,8 @@
 // The evaluation is kernel B's device function (fk_fitness.cuh), inlined
 // for every (topology, collider, orientation) instantiation of kernel B's
 // launcher, and its serial-chain variant behind its own entry point
-// (ikpso_fused_fitness_serial).
+// (ikpso_fused_fitness_serial). Any other (topology, collider,
+// orientation, distance, trig) is built on demand (on_demand.cuh).
 //
 // Bound on this card: bytes without a scene (D + 1 floats per particle
 // against ~510 counted FP32 ops, under the ~20 ops/byte the card balances
@@ -23,27 +24,9 @@
 // byte bound.
 #include <cuda_runtime.h>
 
-#include "fk_fitness.cuh"
+#include "fused_fitness.cuh"
 
 namespace ikpso {
-
-constexpr int kFitnessThreads = 256;
-
-template <class T, int C, bool O>
-__global__ void __launch_bounds__(kFitnessThreads) fused_fitness_kernel(
-    const float* __restrict__ x, const float* __restrict__ meta,
-    const float* __restrict__ swarm, int K, Scene scene, float* __restrict__ out,
-    int P, int blocks_per_swarm) {
-  constexpr int D = T::D;
-  const long long s = blockIdx.x / blocks_per_swarm;
-  const int p = (blockIdx.x % blocks_per_swarm) * kFitnessThreads + threadIdx.x;
-  if (p >= P) return;
-  const float* xs = x + s * D * P + p;
-  float xr[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) xr[d] = __ldg(xs + static_cast<long long>(d) * P);
-  out[s * P + p] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
-}
 
 // The serial-chain variant: n nodes at run time; thread p reads x[s, d, p]
 // at stride P, as above.
@@ -57,16 +40,6 @@ __global__ void __launch_bounds__(kFitnessThreads) fused_fitness_serial_kernel(
   const long long d_total = 3 * (n - 1);
   out[s * P + p] =
       fk_fitness_eval_serial(x + s * d_total * P + p, P, n, meta, swarm + s * K);
-}
-
-template <class T, int C, bool O = false>
-static void launch_fused_fitness(const float* x, const float* meta, const float* swarm,
-                                 int K, Scene scene, float* out, int S, int P,
-                                 cudaStream_t stream) {
-  const int per_swarm = (P + kFitnessThreads - 1) / kFitnessThreads;
-  const unsigned blocks = static_cast<unsigned>(static_cast<long long>(S) * per_swarm);
-  fused_fitness_kernel<T, C, O><<<blocks, kFitnessThreads, 0, stream>>>(
-      x, meta, swarm, K, scene, out, P, per_swarm);
 }
 
 }  // namespace ikpso

@@ -16,8 +16,13 @@
 // (blockDim = P, a multiple of 32, <= KernelAThreads<T>: 1024, 512 for the
 // 45-DOF humanoid, so a thread may hold 128 registers instead of 64, and
 // 256 for reference_arm and snake_30dof, 255 registers). Serial chains
-// without a compile-time topology run the serial-chain variant at the end
-// of this file, which keeps x, v and lbest in global scratch.
+// without a compile-time topology run the serial-chain variant, which
+// keeps x, v and lbest in global scratch (scratch_solve in
+// fused_solve.cuh, with the design notes of the scratch layout); a tree
+// past 45 DOFs built on demand takes the same layout
+// (fused_solve_tree_scratch_kernel, on_demand.cuh). The kernel templates
+// live in fused_solve.cuh; this file instantiates the prebuilt topologies
+// behind the C entry points.
 // x, v, lbest (D floats each) and lval live in registers for the whole
 // solve (the trees spill part of them: at D = 18 and 45 they exceed the
 // budget); the chain's packed meta, the swarm's constant row and the joint
@@ -72,527 +77,7 @@
 // the constants and the argmin scratch, so many blocks fit per SM.
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
-#include "fk_fitness.cuh"
-#include "philox.cuh"
-
-namespace ikpso {
-
-// Init modes; ids must match INIT_MODES in ikpso_tpu_torch/pso/fused.py.
-enum InitMode : int { kInitWarm = 0, kInitUniform = 1, kInitHybrid = 2 };
-
-// Uniforms of one draw slot for this particle, one per DOF.
-template <int D, bool REPLAY>
-__device__ __forceinline__ void draw(float (&u)[D], int slot, unsigned particle,
-                                     int P, uint2 key,
-                                     const float* __restrict__ u_swarm) {
-  if constexpr (REPLAY) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) u[d] = u_swarm[(slot * D + d) * P + particle];
-  } else {
-#pragma unroll
-    for (int g = 0; g < (D + 3) / 4; ++g) {
-      const uint4 w = philox4x32_10(
-          make_uint4(particle, static_cast<unsigned>(slot), static_cast<unsigned>(g), 0u),
-          key);
-      const unsigned words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (4 * g + j < D) u[4 * g + j] = bits_to_uniform(words[j]);
-      }
-    }
-  }
-}
-
-// Uniforms of DOFs 4g .. 4g+3 of one draw slot of a chain of d_total DOFs
-// (one Philox call; the replay reads only the DOFs below d_total): the
-// streamed form of draw(), for the topologies under StreamDraws and the
-// serial-chain variant, whose d_total is a run-time value.
-template <bool REPLAY>
-__device__ __forceinline__ void draw_group(float (&u)[4], int g, int slot, int d_total,
-                                           unsigned particle, int P, uint2 key,
-                                           const float* __restrict__ u_swarm) {
-  if constexpr (REPLAY) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (4 * g + j < d_total) {
-        u[j] = u_swarm[(slot * d_total + 4 * g + j) * P + particle];
-      }
-    }
-  } else {
-    const uint4 w = philox4x32_10(
-        make_uint4(particle, static_cast<unsigned>(slot), static_cast<unsigned>(g), 0u),
-        key);
-    u[0] = bits_to_uniform(w.x);
-    u[1] = bits_to_uniform(w.y);
-    u[2] = bits_to_uniform(w.z);
-    u[3] = bits_to_uniform(w.w);
-  }
-}
-
-__device__ __forceinline__ bool better_pair(float va, int ia, float vb, int ib) {
-  return va < vb || (va == vb && ia < ib);
-}
-
-// Block-wide argmin over (val, id); every thread gets the winning id and,
-// in best, the winning value.
-__device__ __forceinline__ int block_argmin(float val, int id, float* s_wval,
-                                            int* s_wid, float& best) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, val, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, id, off);
-    if (better_pair(ov, oi, val, id)) {
-      val = ov;
-      id = oi;
-    }
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    s_wval[warp] = val;
-    s_wid[warp] = id;
-  }
-  __syncthreads();
-  float bv = s_wval[0];
-  int bi = s_wid[0];
-  const int nwarps = blockDim.x >> 5;
-  for (int w = 1; w < nwarps; ++w) {
-    if (better_pair(s_wval[w], s_wid[w], bv, bi)) {
-      bv = s_wval[w];
-      bi = s_wid[w];
-    }
-  }
-  best = bv;
-  return bi;
-}
-
-// Kernel A's thread-block bound per topology (its __launch_bounds__, and so
-// the most particles a swarm may have); must match MAX_PARTICLES in
-// ikpso_tpu_torch/utils/kernels.py.
-template <class T>
-struct KernelAThreads {
-  static constexpr int value = 1024;
-};
-template <>
-struct KernelAThreads<Humanoid45> {
-  static constexpr int value = 512;
-};
-// reference_arm's x, v and lbest are 63 floats; at 1024 threads (64
-// registers) its build spilled 800-856 bytes, and its preset runs P = 256.
-template <>
-struct KernelAThreads<ReferenceArm> {
-  static constexpr int value = 256;
-};
-// snake_30dof's x, v and lbest are 90 floats; its preset runs P = 256.
-template <>
-struct KernelAThreads<Snake30> {
-  static constexpr int value = 256;
-};
-
-// Whether kernel A draws its uniforms four DOFs at a time next to their
-// use (draw_group) instead of a whole D-float array per slot (draw). The
-// values and the arithmetic are the same either way; what differs is
-// what the registers hold. The trees and snake_30dof stream: two D-float
-// draw arrays beside x, v and lbest exceed the registers a thread has
-// (with whole arrays the humanoid ran 3.8x and the dual arm 8% slower).
-// The short chains keep whole arrays: streamed, kernel A ran 2.4-2.7%
-// slower on arm_7dof and 1.0% slower on arm_6dof with orientation
-// (interleaved pairs on an H100, PERF.md); arm_7dof's box scene ran 0.7%
-// faster streamed, but shares the headline's topology and follows it.
-template <class T>
-struct StreamDraws {
-  static constexpr bool value = false;
-};
-template <>
-struct StreamDraws<DualArm14> {
-  static constexpr bool value = true;
-};
-template <>
-struct StreamDraws<Humanoid45> {
-  static constexpr bool value = true;
-};
-template <>
-struct StreamDraws<Snake30> {
-  static constexpr bool value = true;
-};
-
-// The update's runtime branches (host-checked: gbest_interval >= 1 and it
-// divides rekick_interval when the re-kick is on).
-struct Update {
-  int randomized;        // inertia w * u_w instead of w
-  int gbest_interval;    // refresh gbest where it % gbest_interval == 0
-  int rekick_interval;   // 0: no re-kick
-  float rekick_scale;
-  float rekick_threshold;  // < 0: kick every swarm
-};
-
-template <class T, int C, bool O, bool REPLAY>
-__global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
-    const float* __restrict__ meta, int M, const float* __restrict__ swarm, int K,
-    const float* __restrict__ limits, const int* __restrict__ seeds,
-    const float* __restrict__ inertia, int iters, float c1, float c2, float vscale,
-    int init_mode, Scene scene, Update up, const float* __restrict__ uniforms,
-    int n_draws, float* __restrict__ out_gbest, float* __restrict__ out_gval) {
-  constexpr int D = T::D;
-  extern __shared__ float smem[];
-  float* s_meta = smem;
-  float* s_sw = s_meta + M;
-  float* s_lo = s_sw + K;
-  float* s_hi = s_lo + D;
-  float* s_gb = s_hi + D;
-  float* s_wval = s_gb + D;
-  int* s_wid = reinterpret_cast<int*>(s_wval + 32);
-
-  const int s = blockIdx.x;
-  const int P = blockDim.x;
-  const int p = threadIdx.x;
-  for (int i = p; i < M; i += P) s_meta[i] = meta[i];
-  for (int i = p; i < K; i += P) s_sw[i] = swarm[static_cast<long long>(s) * K + i];
-  for (int i = p; i < D; i += P) {
-    s_lo[i] = limits[i];
-    s_hi[i] = limits[D + i];
-  }
-  __syncthreads();
-
-  const uint2 key = make_uint2(static_cast<unsigned>(seeds[2 * s]),
-                               static_cast<unsigned>(seeds[2 * s + 1]));
-  const float* u_swarm =
-      REPLAY ? uniforms + static_cast<long long>(s) * n_draws * D * P : nullptr;
-
-  constexpr bool kStream = StreamDraws<T>::value;
-  constexpr int kGroups = (D + 3) / 4;
-  float x[D], v[D], lb[D], uc[kStream ? 4 : D], us[kStream ? 4 : D];
-  const int n_init = init_mode == kInitWarm ? 1 : 2;
-  if (init_mode == kInitWarm || (init_mode == kInitHybrid && p == 0)) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) x[d] = s_sw[kSwAnchor + d];
-  }
-  if constexpr (kStream) {
-    const bool draw_x = init_mode == kInitUniform || (init_mode == kInitHybrid && p != 0);
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      if (draw_x) draw_group<REPLAY>(us, g, 0, D, p, P, key, u_swarm);
-      draw_group<REPLAY>(uc, g, n_init - 1, D, p, P, key, u_swarm);
-#pragma unroll
-      for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
-        const int d = 4 * g + j;
-        if (draw_x) {
-          constexpr float kTwoPi = 0x1.921fb6p+2f;
-          const float lo_c = fmaxf(s_lo[d], -kTwoPi);
-          const float hi_c = fminf(s_hi[d], kTwoPi);
-          x[d] = lo_c + us[j] * (hi_c - lo_c);
-        }
-        v[d] = (uc[j] * 2.0f - 1.0f) * vscale;
-        lb[d] = x[d];
-      }
-    }
-  } else {
-    if (init_mode != kInitWarm) {
-      // U(lo, hi) over the joint range clamped to +-2pi (pso/fused.py:269-283).
-      draw<D, REPLAY>(uc, 0, p, P, key, u_swarm);
-      if (init_mode == kInitUniform || p != 0) {
-        constexpr float kTwoPi = 0x1.921fb6p+2f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          const float lo_c = fmaxf(s_lo[d], -kTwoPi);
-          const float hi_c = fminf(s_hi[d], kTwoPi);
-          x[d] = lo_c + uc[d] * (hi_c - lo_c);
-        }
-      }
-    }
-    draw<D, REPLAY>(uc, n_init - 1, p, P, key, u_swarm);
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      v[d] = (uc[d] * 2.0f - 1.0f) * vscale;
-      lb[d] = x[d];
-    }
-  }
-  float lval = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
-
-  const int dpi = (up.randomized ? 3 : 2) + (up.rekick_interval > 0 ? 1 : 0);
-  // Countdowns to the next gbest refresh and the next kick block start
-  // (it % gbest_interval == 0; it % rekick_interval == 0 and it > 0).
-  int refresh_in = 0;
-  int kick_in = up.rekick_interval;
-  for (int it = 0; it < iters; ++it) {
-    const bool kick = up.rekick_interval > 0 && kick_in == 0;
-    kick_in = (kick ? up.rekick_interval : kick_in) - 1;
-    if (refresh_in == 0) {
-      refresh_in = up.gbest_interval;
-      float best;
-      const int win = block_argmin(lval, p, s_wval, s_wid, best);
-      if (p == win) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) s_gb[d] = lb[d];
-      }
-      __syncthreads();
-      if (kick && (up.rekick_threshold < 0.0f || best > up.rekick_threshold)) {
-        if constexpr (kStream) {
-          const int slot = n_init + it * dpi + dpi - 1;
-#pragma unroll
-          for (int g = 0; g < kGroups; ++g) {
-            draw_group<REPLAY>(uc, g, slot, D, p, P, key, u_swarm);
-#pragma unroll
-            for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
-              v[4 * g + j] = (uc[j] * 2.0f - 1.0f) * up.rekick_scale;
-            }
-          }
-        } else {
-          draw<D, REPLAY>(uc, n_init + it * dpi + dpi - 1, p, P, key, u_swarm);
-#pragma unroll
-          for (int d = 0; d < D; ++d) v[d] = (uc[d] * 2.0f - 1.0f) * up.rekick_scale;
-        }
-      }
-    }
-    // The inertia term first (w * v, or (w * u_w) * v), rounded into v: the
-    // same rounding as the one expression, with no third draw array live.
-    --refresh_in;
-    const int base = n_init + it * dpi;
-    const float w = inertia[it];
-    if constexpr (kStream) {
-#pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        float uw[4];
-        if (up.randomized) draw_group<REPLAY>(uw, g, base + 2, D, p, P, key, u_swarm);
-        draw_group<REPLAY>(uc, g, base, D, p, P, key, u_swarm);
-        draw_group<REPLAY>(us, g, base + 1, D, p, P, key, u_swarm);
-#pragma unroll
-        for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
-          const int d = 4 * g + j;
-          v[d] = up.randomized ? (w * uw[j]) * v[d] : w * v[d];
-          v[d] = v[d] + c1 * uc[j] * (lb[d] - x[d]) + c2 * us[j] * (s_gb[d] - x[d]);
-          x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
-        }
-      }
-    } else {
-      if (up.randomized) {
-        draw<D, REPLAY>(uc, base + 2, p, P, key, u_swarm);
-#pragma unroll
-        for (int d = 0; d < D; ++d) v[d] = (w * uc[d]) * v[d];
-      } else {
-#pragma unroll
-        for (int d = 0; d < D; ++d) v[d] = w * v[d];
-      }
-      draw<D, REPLAY>(uc, base, p, P, key, u_swarm);
-      draw<D, REPLAY>(us, base + 1, p, P, key, u_swarm);
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float gb = s_gb[d];
-        v[d] = v[d] + c1 * uc[d] * (lb[d] - x[d]) + c2 * us[d] * (gb - x[d]);
-        x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
-      }
-    }
-    const float f = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
-    if (f < lval) {
-      lval = f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) lb[d] = x[d];
-    }
-  }
-
-  float best;
-  const int win = block_argmin(lval, p, s_wval, s_wid, best);
-  if (p == win) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) out_gbest[static_cast<long long>(s) * D + d] = lb[d];
-    out_gval[s] = lval;
-  }
-}
-
-template <class T, int C, bool O = false>
-static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
-                                      const float* swarm, int K, const float* limits,
-                                      const int* seeds, const float* inertia, int iters,
-                                      float c1, float c2, float vscale, int init_mode,
-                                      Scene scene, Update up, const float* uniforms,
-                                      int n_draws, float* gbest, float* gval, int S,
-                                      int P, cudaStream_t stream) {
-  if (P > KernelAThreads<T>::value) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (M + K + 3 * T::D + 32) + sizeof(int) * 32;
-  if (replay) {
-    fused_solve_kernel<T, C, O, true><<<S, P, smem, stream>>>(
-        meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
-        scene, up, uniforms, n_draws, gbest, gval);
-  } else {
-    fused_solve_kernel<T, C, O, false><<<S, P, smem, stream>>>(
-        meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
-        scene, up, uniforms, n_draws, gbest, gval);
-  }
-  return cudaSuccess;
-}
-
-// ---------------------------------------------------------------------------
-// Kernel A's serial-chain variant: any chain whose node k hangs off node
-// k - 1 with its one effector at the last node, n nodes at run time
-// (snake:<links>: the compile-time topologies are a fixed list, and their
-// parent words stop at 16 nodes).
-//
-// What rules out the design above: at snake:50 (D = 150) x, v and lbest
-// are 450 floats a thread, and at P = 256 a thread has at most 255
-// registers; lbest alone in shared memory would take 153.6 KB of a block's
-// 227 KB, so two such arrays do not fit either. Here x, v and lbest live in
-// global scratch laid out [block][3][D][P] (x, v, lbest), so for each d a
-// warp touches 32 consecutive floats, and a grid of the blocks that fit
-// the card at once strides over the swarms, so the scratch is grid x 3 x D
-// x P floats (the wrapper allocates it), not S x 3 x D x P. gbest, the
-// limits, meta and the swarm row stay in shared memory, as above.
-//
-// Everything else is the compile-time kernel's, in the same order: the
-// Philox counter layout and draw slots, uniforms drawn four DOFs at a time
-// (draw_group), the replay layout [S, n_draws, D, P], the inits, the
-// inertia modes, gbest_interval, the re-kick and its threshold, and the
-// first-minimum argmin with the lowest id on ties; so fused_solve_plain
-// stays its bit-for-bit twin. An iteration updates every DOF (x and v back
-// to the scratch), then walks the chain reading x back
-// (fk_fitness_eval_serial); a better particle copies x into its lbest.
-//
-// Bound on this card: the same work as the compile-time kernel (the
-// function's bytes are still the constants in and one row out a swarm),
-// but each particle-evaluation also moves ~7 D floats of scratch through
-// L2 and HBM (x, v and lbest read, x and v written, x read back, lbest
-// written where better): at snake:50 ~4.2 KB against 15.6 k counted
-// operations, so this variant is scratch-bound (share 0.11 on an H100,
-// PERF.md).
-
-constexpr int kSerialThreads = 1024;
-
-template <bool REPLAY>
-__global__ void __launch_bounds__(kSerialThreads) fused_solve_serial_kernel(
-    int n, const float* __restrict__ meta, int M, const float* __restrict__ swarm, int K,
-    const float* __restrict__ limits, const int* __restrict__ seeds,
-    const float* __restrict__ inertia, int iters, float c1, float c2, float vscale,
-    int init_mode, Update up, const float* __restrict__ uniforms, int n_draws,
-    float* scratch, float* __restrict__ out_gbest, float* __restrict__ out_gval, int S) {
-  const int D = 3 * (n - 1);
-  const int groups = (D + 3) / 4;
-  extern __shared__ float smem[];
-  float* s_meta = smem;
-  float* s_sw = s_meta + M;
-  float* s_lo = s_sw + K;
-  float* s_hi = s_lo + D;
-  float* s_gb = s_hi + D;
-  float* s_wval = s_gb + D;
-  int* s_wid = reinterpret_cast<int*>(s_wval + 32);
-
-  const int P = blockDim.x;
-  const int p = threadIdx.x;
-  const long long DP = static_cast<long long>(D) * P;
-  // This thread's column of the block's scratch: element d at [d * P].
-  float* xg = scratch + blockIdx.x * 3 * DP + p;
-  float* vg = xg + DP;
-  float* lg = vg + DP;
-  for (int i = p; i < M; i += P) s_meta[i] = meta[i];
-  for (int i = p; i < D; i += P) {
-    s_lo[i] = limits[i];
-    s_hi[i] = limits[D + i];
-  }
-  const int n_init = init_mode == kInitWarm ? 1 : 2;
-  const int dpi = (up.randomized ? 3 : 2) + (up.rekick_interval > 0 ? 1 : 0);
-  constexpr float kTwoPi = 0x1.921fb6p+2f;
-
-  for (int s = blockIdx.x; s < S; s += gridDim.x) {
-    // The previous swarm's last reads of s_sw, s_gb and the scratch are done.
-    __syncthreads();
-    for (int i = p; i < K; i += P) s_sw[i] = swarm[static_cast<long long>(s) * K + i];
-    __syncthreads();
-    const uint2 key = make_uint2(static_cast<unsigned>(seeds[2 * s]),
-                                 static_cast<unsigned>(seeds[2 * s + 1]));
-    const float* u_swarm =
-        REPLAY ? uniforms + static_cast<long long>(s) * n_draws * DP : nullptr;
-
-    const bool draw_x = init_mode == kInitUniform || (init_mode == kInitHybrid && p != 0);
-    for (int g = 0; g < groups; ++g) {
-      float ux[4], uv[4];
-      if (draw_x) draw_group<REPLAY>(ux, g, 0, D, p, P, key, u_swarm);
-      draw_group<REPLAY>(uv, g, n_init - 1, D, p, P, key, u_swarm);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int d = 4 * g + j;
-        if (d < D) {
-          float xd = s_sw[kSwAnchor + d];
-          if (draw_x) {
-            const float lo_c = fmaxf(s_lo[d], -kTwoPi);
-            const float hi_c = fminf(s_hi[d], kTwoPi);
-            xd = lo_c + ux[j] * (hi_c - lo_c);
-          }
-          xg[d * P] = xd;
-          lg[d * P] = xd;
-          vg[d * P] = (uv[j] * 2.0f - 1.0f) * vscale;
-        }
-      }
-    }
-    float lval = fk_fitness_eval_serial(xg, P, n, s_meta, s_sw);
-
-    int refresh_in = 0;
-    int kick_in = up.rekick_interval;
-    for (int it = 0; it < iters; ++it) {
-      const bool kick = up.rekick_interval > 0 && kick_in == 0;
-      kick_in = (kick ? up.rekick_interval : kick_in) - 1;
-      if (refresh_in == 0) {
-        refresh_in = up.gbest_interval;
-        float best;
-        const int win = block_argmin(lval, p, s_wval, s_wid, best);
-        // block_argmin's barrier makes every thread's lbest writes visible:
-        // the block copies the winner's column together.
-        const float* lw = lg - p + win;
-        for (int d = p; d < D; d += P) s_gb[d] = lw[d * P];
-        __syncthreads();
-        if (kick && (up.rekick_threshold < 0.0f || best > up.rekick_threshold)) {
-          const int slot = n_init + it * dpi + dpi - 1;
-          for (int g = 0; g < groups; ++g) {
-            float uk[4];
-            draw_group<REPLAY>(uk, g, slot, D, p, P, key, u_swarm);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (4 * g + j < D) {
-                vg[(4 * g + j) * P] = (uk[j] * 2.0f - 1.0f) * up.rekick_scale;
-              }
-            }
-          }
-        }
-      }
-      --refresh_in;
-      const int base = n_init + it * dpi;
-      const float w = inertia[it];
-      for (int g = 0; g < groups; ++g) {
-        float uc[4], us[4], uw[4];
-        if (up.randomized) draw_group<REPLAY>(uw, g, base + 2, D, p, P, key, u_swarm);
-        draw_group<REPLAY>(uc, g, base, D, p, P, key, u_swarm);
-        draw_group<REPLAY>(us, g, base + 1, D, p, P, key, u_swarm);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int d = 4 * g + j;
-          if (d < D) {
-            const float xd = xg[d * P];
-            float vd = vg[d * P];
-            vd = up.randomized ? (w * uw[j]) * vd : w * vd;
-            vd = vd + c1 * uc[j] * (lg[d * P] - xd) + c2 * us[j] * (s_gb[d] - xd);
-            xg[d * P] = fminf(fmaxf(xd + vd, s_lo[d]), s_hi[d]);
-            vg[d * P] = vd;
-          }
-        }
-      }
-      const float f = fk_fitness_eval_serial(xg, P, n, s_meta, s_sw);
-      if (f < lval) {
-        lval = f;
-        for (int d = 0; d < D; ++d) lg[d * P] = xg[d * P];
-      }
-    }
-
-    float best;
-    const int win = block_argmin(lval, p, s_wval, s_wid, best);
-    const float* lw = lg - p + win;
-    for (int d = p; d < D; d += P) out_gbest[static_cast<long long>(s) * D + d] = lw[d * P];
-    if (p == win) out_gval[s] = lval;
-  }
-}
-
-static size_t serial_smem_bytes(int M, int K, int D) {
-  return sizeof(float) * (M + K + 3 * D + 32) + sizeof(int) * 32;
-}
-
-}  // namespace ikpso
+#include "fused_solve.cuh"
 
 extern "C" int ikpso_fused_solve(int topo, int collider, int orient, int replay,
                                  int init_mode, int n_obs, float node_half,

@@ -1,0 +1,174 @@
+// Kernels A, B and C for one topology and term combination built on demand.
+//
+// The prebuilt library (fused_solve.cu, fk_fitness.cu, fused_fitness.cu)
+// holds the instantiations the ported paths were written for. Any other
+// tree, and any other (topology, collider, orientation, distance, trig)
+// combination -- a JSON config can name any of them -- is compiled when it
+// is first asked for: ikpso_tpu_torch/utils/kernels.py writes a small .cu
+// that defines the IKPSO_OD_* macros below and includes this header, and
+// compiles it into a library of its own. The kernels are the prebuilt
+// ones' templates (fused_solve.cuh, fk_fitness.cuh, fused_fitness.cuh)
+// instantiated for OnDemandTopology<...>; nothing here computes anything
+// they do not.
+//
+// The macros (all required):
+//   IKPSO_OD_PARENTS     node k's parent, k = 0..N-1 (the root's is -1)
+//   IKPSO_OD_EFFECTORS   the effector nodes, in effector_idx order
+//   IKPSO_OD_THREADS     kernel A's thread-block bound (the most particles)
+//   IKPSO_OD_STREAM      1: kernel A draws four DOFs at a time (StreamDraws)
+//   IKPSO_OD_SCRATCH     1: kernel A keeps x, v and lbest in global scratch
+//   IKPSO_OD_COLLIDER    enum Collider
+//   IKPSO_OD_ORIENTATION, IKPSO_OD_DISTANCE, IKPSO_OD_EXACT   0 or 1
+//
+// Entry points (one set per library, so fixed names): ikpso_od_fused_solve
+// (kernel A; the scratch layout takes a scratch of grid x 3 x D x P floats,
+// grid <= ikpso_od_fused_solve_blocks), ikpso_od_fk_fitness (kernel B's
+// standalone launcher) and ikpso_od_fused_fitness (kernel C). Each returns
+// a CUDA error code, as the prebuilt ones do.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "fused_fitness.cuh"
+#include "fused_solve.cuh"
+
+namespace ikpso {
+
+using OdTopology =
+    OnDemandTopology<IntList<IKPSO_OD_PARENTS>, IntList<IKPSO_OD_EFFECTORS>,
+                     IKPSO_OD_THREADS, IKPSO_OD_STREAM != 0, IKPSO_OD_DISTANCE != 0,
+                     IKPSO_OD_EXACT != 0>;
+constexpr int kOdCollider = IKPSO_OD_COLLIDER;
+constexpr bool kOdOrientation = IKPSO_OD_ORIENTATION != 0;
+constexpr bool kOdScratch = IKPSO_OD_SCRATCH != 0;
+static_assert(OdTopology::N >= 2 && OdTopology::parent(0) == -1, "a tree rooted at node 0");
+static_assert(kOdCollider >= kNoCollider && kOdCollider <= kCapsuleCollider, "collider id");
+
+static size_t od_smem_bytes(int M, int K) {
+  return sizeof(float) * (M + K + 3 * OdTopology::D + 32) + sizeof(int) * 32;
+}
+
+// Kernel A's two layouts behind a template flag: the member functions of a
+// class template are instantiated only where called, and if constexpr
+// discards the other layout, so only the chosen one is compiled.
+template <bool SCRATCH>
+struct OdKernelA {
+  static int blocks(int replay, int P, int M, int K) {
+    if constexpr (SCRATCH) {
+      int per_sm = 0, device = 0, sms = 0;
+      const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm,
+          replay
+              ? fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, true>
+              : fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, false>,
+          P, od_smem_bytes(M, K));
+      if (rc != cudaSuccess || cudaGetDevice(&device) != cudaSuccess ||
+          cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+              cudaSuccess) {
+        return -1;
+      }
+      return per_sm * sms;
+    } else {
+      return -1;
+    }
+  }
+
+  static cudaError_t launch(bool replay, Scene scene, const float* meta, int M,
+                            const float* swarm, int K, const float* limits, const int* seeds,
+                            const float* inertia, int iters, float c1, float c2,
+                            float vscale, int init_mode, Update up, const float* uniforms,
+                            int n_draws, float* scratch, int grid, float* gbest,
+                            float* gval, int S, int P, cudaStream_t st) {
+    if constexpr (SCRATCH) {
+      const size_t smem = od_smem_bytes(M, K);
+      if (replay) {
+        fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, true>
+            <<<grid, P, smem, st>>>(scene, meta, M, swarm, K, limits, seeds, inertia, iters,
+                                    c1, c2, vscale, init_mode, up, uniforms, n_draws,
+                                    scratch, gbest, gval, S);
+      } else {
+        fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, false>
+            <<<grid, P, smem, st>>>(scene, meta, M, swarm, K, limits, seeds, inertia, iters,
+                                    c1, c2, vscale, init_mode, up, uniforms, n_draws,
+                                    scratch, gbest, gval, S);
+      }
+      return cudaSuccess;
+    } else {
+      return launch_fused_solve<OdTopology, kOdCollider, kOdOrientation>(
+          replay, meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale,
+          init_mode, scene, up, uniforms, n_draws, gbest, gval, S, P, st);
+    }
+  }
+};
+
+}  // namespace ikpso
+
+// How many blocks of the scratch layout fit the card at once (its grid, and
+// so its scratch); <= 0 on an error or for the register layout.
+extern "C" int ikpso_od_fused_solve_blocks(int replay, int P, int M, int K) {
+  using namespace ikpso;
+  if (P <= 0 || P > OdTopology::kThreads) return -1;
+  return OdKernelA<kOdScratch>::blocks(replay, P, M, K);
+}
+
+extern "C" int ikpso_od_fused_solve(int replay, int init_mode, int n_obs, float node_half,
+                                    float link_half, float node_r2, float link_r2,
+                                    const float* meta, int M, const float* swarm, int K,
+                                    const float* limits, const int* seeds,
+                                    const float* inertia, int iters, float c1, float c2,
+                                    float vscale, int randomized, int gbest_interval,
+                                    int rekick_interval, float rekick_scale,
+                                    float rekick_threshold, const float* uniforms,
+                                    int n_draws, float* scratch, int grid, float* gbest,
+                                    float* gval, int S, int P, void* stream) {
+  using namespace ikpso;
+  if (S <= 0) return static_cast<int>(cudaGetLastError());
+  if (P <= 0 || P > OdTopology::kThreads || P % 32 != 0 || init_mode < kInitWarm ||
+      init_mode > kInitHybrid || n_obs < 0 || (kOdCollider == kNoCollider && n_obs) ||
+      gbest_interval < 1 || rekick_interval < 0 ||
+      (rekick_interval > 0 && rekick_interval % gbest_interval) ||
+      (kOdScratch && (grid <= 0 || scratch == nullptr)) ||
+      od_smem_bytes(M, K) > 48 * 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t rc = OdKernelA<kOdScratch>::launch(
+      replay != 0, Scene{n_obs, node_half, link_half, node_r2, link_r2}, meta, M, swarm, K,
+      limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+      Update{randomized != 0, gbest_interval, rekick_interval, rekick_scale,
+             rekick_threshold},
+      uniforms, n_draws, scratch, grid, gbest, gval, S, P, static_cast<cudaStream_t>(stream));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ikpso_od_fk_fitness(int n_obs, float node_half, float link_half,
+                                   float node_r2, float link_r2, const float* x,
+                                   const float* meta, const float* swarm, int K, float* out,
+                                   long long total, int P, void* stream) {
+  using namespace ikpso;
+  if (total <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_obs < 0 || (kOdCollider == kNoCollider && n_obs) || P <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  launch_fk_fitness<OdTopology, kOdCollider, kOdOrientation>(
+      x, meta, swarm, K, Scene{n_obs, node_half, link_half, node_r2, link_r2}, out, total, P,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ikpso_od_fused_fitness(int n_obs, float node_half, float link_half,
+                                      float node_r2, float link_r2, const float* x,
+                                      const float* meta, const float* swarm, int K,
+                                      float* out, int S, int P, void* stream) {
+  using namespace ikpso;
+  if (S <= 0 || P <= 0) return static_cast<int>(cudaGetLastError());
+  if (n_obs < 0 || (kOdCollider == kNoCollider && n_obs) ||
+      static_cast<long long>(S) * ((P + kFitnessThreads - 1) / kFitnessThreads) >
+          0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  launch_fused_fitness<OdTopology, kOdCollider, kOdOrientation>(
+      x, meta, swarm, K, Scene{n_obs, node_half, link_half, node_r2, link_r2}, out, S, P,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -21,15 +21,16 @@ the packed-constant layout (``MetaLayout``, ``pack_meta``,
 Each kernel wrapper runs its plain version on CPU tensors and launches
 the kernel (or raises) on CUDA tensors.
 
-Supported in this port: the FK tree walk, polynomial trig, the weighted
+Supported in this port: everything the Pallas tile computes -- the FK
+tree walk, polynomial or stock (``trig_impl="exact"``) trig, the weighted
 effector cost, the orientation term (squared Frobenius distance of each
 effector's world rotation to its target, times the orientation and
-effector weights), the angular-locality term and obstacle rejection (box
-SAT or capsule colliders against the scene boxes packed into ``meta``;
-a hit costs ``COLLISION_PENALTY``); on the card, the topologies of
-``utils.kernels.INSTANTIATED``, every serial chain among them. The
-node-position (distance) term and ``trig_impl="exact"`` raise (ROADMAP
-B1(a), B1(b)).
+effector weights), the angular- and node-position-locality terms and
+obstacle rejection (box SAT or capsule colliders against the scene boxes
+packed into ``meta``; a hit costs ``COLLISION_PENALTY``); on the card,
+any tree (``utils.kernels`` builds a combination the prebuilt library
+lacks on demand). The GJK collider is the plain fitness's only, as in
+JAX.
 """
 
 from __future__ import annotations
@@ -81,11 +82,19 @@ def sincos_poly(x: torch.Tensor):
     return s * r, c
 
 
-def rot_xyz(ax, ay, az):
+def sincos_exact(x: torch.Tensor):
+    """(sin x, cos x) by stock float32 trig (``trig_impl="exact"``):
+    ``torch.sin`` / ``torch.cos``, which on the card call the libdevice
+    routines kernel B's exact branch calls (``sinf`` / ``cosf``)."""
+    return torch.sin(x), torch.cos(x)
+
+
+def rot_xyz(ax, ay, az, trig_impl: str = "poly"):
     """Rx@Ry@Rz from elementwise angle tensors -> 9 row-major entries."""
-    sx, cx = sincos_poly(ax)
-    sy, cy = sincos_poly(ay)
-    sz, cz = sincos_poly(az)
+    sincos = sincos_exact if trig_impl == "exact" else sincos_poly
+    sx, cx = sincos(ax)
+    sy, cy = sincos(ay)
+    sz, cz = sincos(az)
     return (
         cy * cz, -cy * sz, sy,
         cx * sz + sx * sy * cz, cx * cz - sx * sy * sz, -sx * cy,
@@ -232,18 +241,9 @@ class MetaLayout:
         self.swarm_size = self.OFF_TROT + (9 * e_count if use_orientation else 0)
 
 
-def _refuse_unported(*, use_distance_term=False, trig_impl="poly",
-                     collision_shape="box") -> None:
-    if use_distance_term:
-        raise NotImplementedError(
-            "the node-position locality (distance) term is not ported yet "
-            "(ROADMAP B1(a); a JSON config reaches it, A7)"
-        )
-    if trig_impl != "poly":
-        raise NotImplementedError(
-            f"trig_impl={trig_impl!r}: the port's tile implements the "
-            "polynomial sincos only (ROADMAP B1(b); a JSON config reaches it, A7)"
-        )
+def _check_branches(*, trig_impl="poly", collision_shape="box") -> None:
+    if trig_impl not in ("poly", "exact"):
+        raise ValueError(f"unknown trig_impl {trig_impl!r}; expected 'poly' or 'exact'")
     if collision_shape not in ("box", "capsule"):
         raise ValueError(
             f"unknown collision_shape {collision_shape!r}; expected 'box' or 'capsule'"
@@ -336,7 +336,8 @@ def _stack_nodes(per_node):
 
 
 def fk_walk_tile(spec: ChainSpec, get_x, meta, sw, *, num_obstacles: int = 0,
-                 use_orientation: bool = False):
+                 use_orientation: bool = False, use_distance_term: bool = False,
+                 trig_impl: str = "poly"):
     """The FK walk and the collision-free cost of a tile (plain torch):
     returns ``(rots, poss, total)``, the per-node world rotations
     (9-tuples) and positions (3-tuples) keyed by node, and the cost.
@@ -351,12 +352,13 @@ def fk_walk_tile(spec: ChainSpec, get_x, meta, sw, *, num_obstacles: int = 0,
     rots = {0: tuple(sw(lay.OFF_ROOT + i) for i in range(9))}
     poss = {0: tuple(sw(lay.OFF_ORIGIN + i) for i in range(3))}
     rot_diff = 0.0
+    pos_diff = 0.0
     cost = 0.0
     for k in range(1, n):
         d0 = 3 * (k - 1)
         ax, ay, az = get_x(d0), get_x(d0 + 1), get_x(d0 + 2)
         parent = spec.parent[k]
-        rk = mat_mul(rots[parent], rot_xyz(ax, ay, az))
+        rk = mat_mul(rots[parent], rot_xyz(ax, ay, az, trig_impl))
         length = meta(lay.OFF_LEN + (k - 1))
         pp = poss[parent]
         pk = (pp[0] + length * rk[0], pp[1] + length * rk[3],
@@ -368,6 +370,13 @@ def fk_walk_tile(spec: ChainSpec, get_x, meta, sw, *, num_obstacles: int = 0,
         db = ay - sw(lay.OFF_ANCHOR + d0 + 1)
         dc = az - sw(lay.OFF_ANCHOR + d0 + 2)
         rot_diff = rot_diff + (da * da + db * db + dc * dc)
+
+        if use_distance_term:
+            # Node-position locality (pallas_fitness.py:335-339).
+            ox = pk[0] - sw(lay.OFF_APOS + d0)
+            oy = pk[1] - sw(lay.OFF_APOS + d0 + 1)
+            oz = pk[2] - sw(lay.OFF_APOS + d0 + 2)
+            pos_diff = pos_diff + (ox * ox + oy * oy + oz * oz)
 
         if k in eff_slot:
             e = eff_slot[k]
@@ -383,26 +392,33 @@ def fk_walk_tile(spec: ChainSpec, get_x, meta, sw, *, num_obstacles: int = 0,
                     dr = rk[i] - sw(lay.OFF_TROT + 9 * e + i)
                     fro = fro + dr * dr
                 cost = cost + ow * w * fro
-    return rots, poss, cost + (aw / num_joints) * rot_diff
+    total = cost + (aw / num_joints) * rot_diff
+    if use_distance_term:
+        total = total + (meta(1) / num_joints) * pos_diff
+    return rots, poss, total
 
 
 def fk_fitness_tile(spec: ChainSpec, get_x, meta, sw, *, obstacles=None,
                     collision_shape: str = "box", gizmo_size: float = 0.2,
-                    use_orientation: bool = False):
+                    use_orientation: bool = False, use_distance_term: bool = False,
+                    trig_impl: str = "poly"):
     """FK rollout + cost for a tile of particles (plain torch).
 
     ``get_x(d)`` returns the angle tile of DOF ``d``; ``meta(i)`` /
     ``sw(i)`` read the packed per-chain / per-swarm constants, shaped
     to broadcast against the tile; ``obstacles`` is the ``(C, 15)``
     scene block of meta, or None; ``use_orientation`` adds the
-    orientation term (meta and swarm in its ``MetaLayout``). Same
-    arithmetic, in the same order, as
+    orientation term (meta and swarm in its ``MetaLayout``),
+    ``use_distance_term`` the node-position locality term, and
+    ``trig_impl`` picks the trig. Same arithmetic, in the same order, as
     ``ikpso_tpu/ops/pallas_fitness.py::fk_fitness_tile`` and the CUDA
     device function ``fk_fitness_eval`` (``csrc/fk_fitness.cuh``).
     """
     num_obstacles = 0 if obstacles is None else obstacles.shape[0]
     rots, poss, total = fk_walk_tile(spec, get_x, meta, sw, num_obstacles=num_obstacles,
-                                     use_orientation=use_orientation)
+                                     use_orientation=use_orientation,
+                                     use_distance_term=use_distance_term,
+                                     trig_impl=trig_impl)
     if obstacles is not None:
         # The hit test reads only FK outputs, so all nodes are tested in
         # one pass after the walk (the OR of the per-node hits).
@@ -444,8 +460,7 @@ def fk_fitness_plain(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
                      use_orientation: bool = False,
                      trig_impl: str = "poly") -> torch.Tensor:
     """``(S, P, D)`` angles -> ``(S, P)`` fitness, plain torch."""
-    _refuse_unported(use_distance_term=use_distance_term, trig_impl=trig_impl,
-                     collision_shape=collision_shape)
+    _check_branches(trig_impl=trig_impl, collision_shape=collision_shape)
     check_meta(spec, meta, num_obstacles, use_orientation)
     check_swarm(spec, swarm, num_obstacles, use_orientation)
     m = meta.reshape(-1)
@@ -454,24 +469,35 @@ def fk_fitness_plain(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
     return fk_fitness_tile(
         spec, lambda d: x[..., d], lambda i: m[i], lambda i: swarm[:, i:i + 1],
         obstacles=obstacles, collision_shape=collision_shape, gizmo_size=gizmo_size,
-        use_orientation=use_orientation,
+        use_orientation=use_orientation, use_distance_term=use_distance_term,
+        trig_impl=trig_impl,
     )
 
 
-def _launch_args(name, spec, x, meta, swarm, num_obstacles, collision_shape,
-                 use_orientation):
-    """Check what a kernel launch is handed (device, dtype, contiguity)
-    and pick its instantiation: ``(topology id, collider id, orientation
-    flag, flat meta)``."""
+def _launch(name, spec, x, meta, swarm, num_obstacles, collision_shape, gizmo_size,
+            use_orientation, use_distance_term, trig_impl, prebuilt, serial, on_demand):
+    """Check what a kernel launch is handed (device, dtype, contiguity),
+    pick its instantiation and launch it through the caller's
+    ``prebuilt(lib, topo, collider, orient, scene)``, ``serial(lib)`` or
+    ``on_demand(lib, scene)``."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     for arg, t in (("x", x), ("meta", meta), ("swarm", swarm)):
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: {arg} must be float32")
-    meta = meta.reshape(-1)
     kernels.require_cuda_contiguous(name, x, meta, swarm)
-    return (*kernels.kernel_variant(spec, num_obstacles, collision_shape,
-                                    use_orientation), meta)
+    topo, collider, orient = kernels.kernel_variant(
+        spec, num_obstacles, collision_shape, use_orientation, use_distance_term, trig_impl)
+    scene = (num_obstacles, *scene_constants(gizmo_size))
+    if topo == kernels.ON_DEMAND:
+        key = kernels.on_demand_key(spec, collider, orient, use_distance_term,
+                                    trig_impl == "exact")
+        rc = on_demand(kernels.on_demand_library(key), scene)
+    elif topo == kernels.SERIAL:
+        rc = serial(kernels.library())
+    else:
+        rc = prebuilt(kernels.library(), topo, collider, orient, scene)
+    kernels.check(rc, name)
 
 
 def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
@@ -485,30 +511,27 @@ def fk_fitness(spec: ChainSpec, x: torch.Tensor, meta: torch.Tensor,
     A CPU tensor runs :func:`fk_fitness_plain`; a CUDA tensor launches
     the kernel (one thread per particle) or raises.
     """
-    _refuse_unported(use_distance_term=use_distance_term, trig_impl=trig_impl,
-                     collision_shape=collision_shape)
+    _check_branches(trig_impl=trig_impl, collision_shape=collision_shape)
     check_meta(spec, meta, num_obstacles, use_orientation)
     check_swarm(spec, swarm, num_obstacles, use_orientation)
+    branches = dict(num_obstacles=num_obstacles, collision_shape=collision_shape,
+                    gizmo_size=gizmo_size, use_orientation=use_orientation,
+                    use_distance_term=use_distance_term, trig_impl=trig_impl)
     if x.device.type == "cpu":
-        return fk_fitness_plain(spec, x, meta, swarm, num_obstacles=num_obstacles,
-                                collision_shape=collision_shape,
-                                gizmo_size=gizmo_size, use_orientation=use_orientation)
+        return fk_fitness_plain(spec, x, meta, swarm, **branches)
     s, p, d = x.shape
     if d != spec.dof or swarm.shape[0] != s:
         raise ValueError(f"fk_fitness: shapes x {tuple(x.shape)}, swarm "
                          f"{tuple(swarm.shape)} do not match dof {spec.dof}")
-    topo, collider, orient, meta = _launch_args("fk_fitness", spec, x, meta, swarm,
-                                                num_obstacles, collision_shape,
-                                                use_orientation)
+    meta = meta.reshape(-1)
     out = torch.empty((s, p), dtype=torch.float32, device=x.device)
     tail = (x.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
             out.data_ptr(), s * p, p, kernels.stream_ptr(x.device))
-    if topo == kernels.SERIAL:
-        rc = kernels.library().ikpso_fk_fitness_serial(spec.num_nodes, *tail)
-    else:
-        rc = kernels.library().ikpso_fk_fitness(
-            topo, collider, orient, num_obstacles, *scene_constants(gizmo_size), *tail)
-    kernels.check(rc, "fk_fitness")
+    _launch("fk_fitness", spec, x, meta, swarm, **branches,
+            prebuilt=lambda lib, topo, collider, orient, scene: lib.ikpso_fk_fitness(
+                topo, collider, orient, *scene, *tail),
+            serial=lambda lib: lib.ikpso_fk_fitness_serial(spec.num_nodes, *tail),
+            on_demand=lambda lib, scene: lib.ikpso_od_fk_fitness(*scene, *tail))
     fk_fitness.launches += 1
     return out
 
@@ -549,28 +572,25 @@ def fused_fitness(spec: ChainSpec, x_dp: torch.Tensor, meta: torch.Tensor,
     A CPU tensor runs :func:`fused_fitness_plain`; a CUDA tensor launches
     the kernel (one thread per particle) or raises.
     """
-    _refuse_unported(use_distance_term=use_distance_term, trig_impl=trig_impl,
-                     collision_shape=collision_shape)
+    _check_branches(trig_impl=trig_impl, collision_shape=collision_shape)
     check_meta(spec, meta, num_obstacles, use_orientation)
     _check_lane_major(spec, x_dp, swarm)
     check_swarm(spec, swarm, num_obstacles, use_orientation)
+    branches = dict(num_obstacles=num_obstacles, collision_shape=collision_shape,
+                    gizmo_size=gizmo_size, use_orientation=use_orientation,
+                    use_distance_term=use_distance_term, trig_impl=trig_impl)
     if x_dp.device.type == "cpu":
-        return fused_fitness_plain(spec, x_dp, meta, swarm, num_obstacles=num_obstacles,
-                                   collision_shape=collision_shape,
-                                   gizmo_size=gizmo_size, use_orientation=use_orientation)
-    topo, collider, orient, meta = _launch_args("fused_fitness", spec, x_dp, meta, swarm,
-                                                num_obstacles, collision_shape,
-                                                use_orientation)
+        return fused_fitness_plain(spec, x_dp, meta, swarm, **branches)
     s, _, p = x_dp.shape
+    meta = meta.reshape(-1)
     out = torch.empty((s, p), dtype=torch.float32, device=x_dp.device)
     tail = (x_dp.data_ptr(), meta.data_ptr(), swarm.data_ptr(), swarm.shape[1],
             out.data_ptr(), s, p, kernels.stream_ptr(x_dp.device))
-    if topo == kernels.SERIAL:
-        rc = kernels.library().ikpso_fused_fitness_serial(spec.num_nodes, *tail)
-    else:
-        rc = kernels.library().ikpso_fused_fitness(
-            topo, collider, orient, num_obstacles, *scene_constants(gizmo_size), *tail)
-    kernels.check(rc, "fused_fitness")
+    _launch("fused_fitness", spec, x_dp, meta, swarm, **branches,
+            prebuilt=lambda lib, topo, collider, orient, scene: lib.ikpso_fused_fitness(
+                topo, collider, orient, *scene, *tail),
+            serial=lambda lib: lib.ikpso_fused_fitness_serial(spec.num_nodes, *tail),
+            on_demand=lambda lib, scene: lib.ikpso_od_fused_fitness(*scene, *tail))
     fused_fitness.launches += 1
     return out
 
@@ -596,8 +616,7 @@ def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
     use_distance = float(fit.distance_weight) != 0.0
     use_orientation = (problem.target_rot is not None
                        and float(fit.orientation_weight) != 0.0)
-    _refuse_unported(use_distance_term=use_distance, trig_impl=fit.trig_impl,
-                     collision_shape=fit.collision_shape)
+    _check_branches(trig_impl=fit.trig_impl, collision_shape=fit.collision_shape)
     meta = pack_meta(spec, fit, obstacles, use_orientation).to(problem.pose.device)
     swarm = pack_swarm(spec, problem, fk_ops.pose_to_angles(spec, problem.pose),
                        fk_ops.fk_points(spec, problem.pose, problem.origin),
@@ -607,6 +626,7 @@ def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
         return fused_fitness(spec, x.transpose(-1, -2).contiguous(), meta, swarm,
                              num_obstacles=num_obstacles,
                              collision_shape=fit.collision_shape,
-                             gizmo_size=fit.gizmo_size, use_orientation=use_orientation)
+                             gizmo_size=fit.gizmo_size, use_orientation=use_orientation,
+                             use_distance_term=use_distance, trig_impl=fit.trig_impl)
 
     return fitness_fn

@@ -15,14 +15,14 @@ Port of ``ikpso_tpu/pso/fused.py`` (``fused_solve_raw``,
 Supported: canonical inertia (with or without ``inertia_end``) or
 randomized inertia, ``init_mode`` ``"warm"``, ``"uniform"`` or
 ``"hybrid"``, any ``gbest_interval``, the velocity re-kick with or
-without its threshold, the orientation term, obstacles with the
-closed-form (``"sat"``) colliders of either shape; on the card, the
-topologies and combinations ``utils.kernels.INSTANTIATED`` lists (every
-serial chain among them), with at most ``utils.kernels.max_particles``
-particles a swarm. The distance term and exact trig raise (ROADMAP
-B1(a), B1(b); A7 reaches them). The TPU-only knobs
-(``swarms_per_tile``, ``gbest_mode``, ``const_mode``, VMEM gates,
-multi-row output) have no counterpart.
+without its threshold, the orientation and distance terms, polynomial or
+exact trig, obstacles with the closed-form (``"sat"``) colliders of
+either shape, on any tree: on the card, the prebuilt instantiations of
+``utils.kernels`` or one built on demand for the request, with at most
+``utils.kernels.max_particles`` particles a swarm. Only the GJK collider
+raises, as it does in JAX. The TPU-only knobs (``swarms_per_tile``,
+``gbest_mode``, ``const_mode``, VMEM gates, multi-row output) have no
+counterpart.
 
 Random stream: per-swarm seed words ``(S, 2)`` int32 drawn from the
 caller's ``torch.Generator``; the kernel's in-register Philox and
@@ -67,18 +67,20 @@ INIT_MODES = {"warm": 0, "uniform": 1, "hybrid": 2}
 
 
 def check_supported(pso: PSOConfig, fit: FitnessConfig, num_obstacles: int = 0) -> None:
-    """Refuse the branches kernel A does not implement yet."""
-    if float(fit.distance_weight) != 0.0 or fit.trig_impl != "poly":
-        raise NotImplementedError(
-            "fused solver with the distance term or exact trig is not ported yet "
-            "(ROADMAP B1(a), B1(b); a JSON config reaches them, A7)"
-        )
+    """Refuse what JAX's kernel refuses: the GJK collider
+    (``ikpso_tpu/pso/fused.py:733-741``)."""
     if num_obstacles and fit.collision_backend != "sat":
         raise NotImplementedError(
             f"collision_backend={fit.collision_backend!r}: the kernels fuse only "
             "the closed-form 'sat' colliders; GJK is ROADMAP queue A item 9 "
             "(ops/gjk.py)"
         )
+
+
+def uses_distance(fit: FitnessConfig) -> bool:
+    """Whether the fitness has the distance term (a non-zero weight), as
+    JAX's kernel decides it at trace time."""
+    return float(fit.distance_weight) != 0.0
 
 
 def num_draws(pso: PSOConfig) -> int:
@@ -121,10 +123,12 @@ def inertia_schedule(pso: PSOConfig) -> np.ndarray:
     ).astype(np.float32)
 
 
-def _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms):
+def _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
+                num_obstacles=0, use_orientation=False):
     s = swarm.shape[0]
     d = spec.dof
-    most = kernels.max_particles(spec)
+    most = kernels.max_particles(spec, num_obstacles, fit.collision_shape, use_orientation,
+                                 uses_distance(fit), fit.trig_impl)
     if num_particles % 32 or not 32 <= num_particles <= most:
         raise ValueError(
             f"num_particles={num_particles} must be a multiple of 32 in [32, {most}]"
@@ -168,7 +172,8 @@ def fused_solve_plain(
     collider work on them); ``on_kick``, the ``(S,)`` mask of the swarms
     kicked at each block start (it counts the kicks)."""
     check_supported(pso, fit, num_obstacles)
-    _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms)
+    _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
+                num_obstacles, use_orientation)
     interval = gbest_interval(pso)
     s, d, p = swarm.shape[0], spec.dof, num_particles
 
@@ -183,7 +188,8 @@ def fused_solve_plain(
         return fk_fitness_plain(spec, x, meta, swarm, num_obstacles=num_obstacles,
                                 collision_shape=fit.collision_shape,
                                 gizmo_size=fit.gizmo_size,
-                                use_orientation=use_orientation)
+                                use_distance_term=uses_distance(fit),
+                                use_orientation=use_orientation, trig_impl=fit.trig_impl)
 
     lay = MetaLayout(spec, num_obstacles)
     lo, hi = limits[0], limits[1]
@@ -254,7 +260,8 @@ def fused_solve(
     with it).
     """
     check_supported(pso, fit, num_obstacles)
-    _check_args(spec, pso, swarm, limits, seeds, num_particles, uniforms)
+    _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
+                num_obstacles, use_orientation)
     check_meta(spec, meta, num_obstacles, use_orientation)
     check_swarm(spec, swarm, num_obstacles, use_orientation)
     interval = gbest_interval(pso)
@@ -264,8 +271,10 @@ def fused_solve(
                                  use_orientation=use_orientation)
     if swarm.device.type != "cuda":
         raise ValueError(f"fused_solve: unsupported device {swarm.device}")
+    distance = uses_distance(fit)
     topo, collider, orient = kernels.kernel_variant(spec, num_obstacles,
-                                                    fit.collision_shape, use_orientation)
+                                                    fit.collision_shape, use_orientation,
+                                                    distance, fit.trig_impl)
     dev = swarm.device
     s, d = swarm.shape[0], spec.dof
     meta = meta.reshape(-1).to(torch.float32).contiguous()
@@ -289,7 +298,13 @@ def fused_solve(
         float(np.float32(pso.rekick_scale)), float(np.float32(pso.rekick_threshold)),
         None if uniforms is None else uniforms.data_ptr(), num_draws(pso),
     )
-    if topo == kernels.SERIAL:
+    if topo == kernels.ON_DEMAND:
+        _launch_on_demand(kernels.on_demand_key(spec, collider, orient, distance,
+                                                fit.trig_impl == "exact"),
+                          INIT_MODES[pso.init_mode], replay, num_obstacles,
+                          scene_constants(fit.gizmo_size), meta, swarm, update, gbest,
+                          gval, num_particles)
+    elif topo == kernels.SERIAL:
         _launch_serial(spec, INIT_MODES[pso.init_mode], replay, meta, swarm, update,
                        gbest, gval, num_particles)
     else:
@@ -301,10 +316,12 @@ def fused_solve(
         )
         kernels.check(rc, "fused_solve")
     fused_solve.launches += 1
-    variant = (f"{kernels.TOPOLOGY_NAMES[topo]}/{pso.init_mode}/"
+    variant = (f"{kernels.topology_name(spec)}/{pso.init_mode}/"
                f"{fit.collision_shape if num_obstacles else 'none'}")
-    if use_orientation:
-        variant += "/orientation"
+    for flag, on in (("orientation", use_orientation), ("distance", distance),
+                     ("exact", fit.trig_impl == "exact")):
+        if on:
+            variant += f"/{flag}"
     fused_solve.variant_launches[variant] = fused_solve.variant_launches.get(variant, 0) + 1
     return gbest, gval
 
@@ -332,8 +349,31 @@ def _launch_serial(spec, init_mode, replay, meta, swarm, update, gbest, gval,
     kernels.check(rc, "fused_solve")
 
 
+def _launch_on_demand(key, init_mode, replay, num_obstacles, scene, meta, swarm, update,
+                      gbest, gval, num_particles):
+    """Launch kernel A from the on-demand library of ``key``; its scratch
+    layout takes a scratch sized as :func:`_launch_serial`'s."""
+    lib = kernels.on_demand_library(key)
+    s, p = swarm.shape[0], num_particles
+    scratch, grid = None, 0
+    if key.scratch:
+        blocks = lib.ikpso_od_fused_solve_blocks(replay, p, meta.numel(), swarm.shape[1])
+        if blocks <= 0:
+            raise RuntimeError(f"fused_solve: no block of the scratch layout fits the "
+                               f"card for {key.name()} at P={p}")
+        grid = min(s, blocks)
+        d = 3 * (len(key.parents) - 1)
+        scratch = torch.empty((grid, 3, d, p), dtype=torch.float32, device=swarm.device)
+    rc = lib.ikpso_od_fused_solve(
+        replay, init_mode, num_obstacles, *scene, meta.data_ptr(), meta.numel(),
+        swarm.data_ptr(), swarm.shape[1], *update,
+        None if scratch is None else scratch.data_ptr(), grid,
+        gbest.data_ptr(), gval.data_ptr(), s, p, kernels.stream_ptr(swarm.device))
+    kernels.check(rc, "fused_solve")
+
+
 # Launch counts: in all, and per (topology / init mode / collider
-# [/ orientation]) variant.
+# [/ orientation][/ distance][/ exact]) variant.
 fused_solve.launches = 0
 fused_solve.variant_launches = {}
 

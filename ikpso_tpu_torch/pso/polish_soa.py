@@ -23,13 +23,17 @@ import torch
 
 from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem
 from ikpso_tpu_torch.ops.jacobian import ancestry_mask
+from ikpso_tpu_torch.ops.rotations import cos_sin
 
 
 def _euler_rows(ax, ay, az):
-    """Rx@Ry@Rz components from (S,) angle rows: (9-list, (cos x, sin x))."""
-    cx, sx = torch.cos(ax), torch.sin(ax)
-    cy, sy = torch.cos(ay), torch.sin(ay)
-    cz, sz = torch.cos(az), torch.sin(az)
+    """Rx@Ry@Rz components from (S,) angle rows: (9-list, (cos x, sin x)).
+    The trig is ``ops.rotations.cos_sin``'s, as in ``ops.fk``: the row FK
+    and the tensor FK then round alike, and alike on every device (the
+    card's float32 ``sin`` is not the CPU's)."""
+    cx, sx = cos_sin(ax)
+    cy, sy = cos_sin(ay)
+    cz, sz = cos_sin(az)
     return [
         cy * cz, -cy * sz, sy,
         cx * sz + sx * sy * cz, cx * cz - sx * sy * sz, -sx * cy,

@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (``ikpso_tpu_torch/csrc``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into one
-plain-C shared library and loaded with ``ctypes`` — no PyTorch headers,
-so a build takes seconds. The library is built at first use into
+The sources are compiled with ``nvcc`` for ``sm_90a`` into plain-C
+shared libraries and loaded with ``ctypes`` — no PyTorch headers, so a
+build takes seconds. The libraries are built at first use into
 ``build/ikpso_tpu_torch/`` under the repository root and rebuilt when
 the hash of the sources (or of the flags) changes. Nothing is
 downloaded and nothing outside ``csrc/`` is compiled.
@@ -10,13 +10,23 @@ downloaded and nothing outside ``csrc/`` is compiled.
 Every C entry point returns ``cudaGetLastError()``; :func:`check`
 raises when it is non-zero. Kernels launch on PyTorch's current stream.
 
-Topology, scene collider and the orientation term are compile-time
-constants of the kernels (the TPU kernels unroll them at trace time),
-except in the serial-chain variant, which takes a serial chain's node
-count at run time. :func:`topology_id` maps a ``ChainSpec`` to one of the
-instantiated topologies or to that variant and :func:`kernel_variant` a
-(topology, scene, orientation) combination to its instantiation; both
-raise for anything not instantiated.
+Topology, scene collider, the orientation and distance terms and the
+trig are compile-time constants of the kernels (the TPU kernels unroll
+them at trace time), except in the serial-chain variant, which takes a
+serial chain's node count at run time. Two kinds of library hold them:
+
+  * the prebuilt library (:func:`library`): the topologies of
+    :data:`KERNEL_TOPOLOGIES` in the combinations of
+    :data:`INSTANTIATED`, and the serial-chain variant;
+  * an on-demand library per :class:`OnDemandKey`
+    (:func:`on_demand_library`): any other tree or combination, compiled
+    from a generated ``.cu`` that instantiates ``csrc/on_demand.cuh`` for
+    that key (:func:`on_demand_source`); :func:`prebuild` compiles many
+    keys in parallel.
+
+:func:`kernel_variant` routes a (chain, scene, orientation, distance,
+trig) request to one of them; nothing is refused but an unknown collider
+shape or trig.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Dict, Iterable, NamedTuple, Tuple
 
 import torch
 
@@ -63,10 +74,15 @@ KERNEL_TOPOLOGIES = {
 # The serial-chain variant of kernels A, B and C (csrc/fk_fitness.cuh,
 # fk_fitness_eval_serial): any chain whose node k hangs off node k - 1 and
 # whose one effector is the last node, the node count a run-time value.
-# It runs every serial chain without a compile-time instantiation.
+# It runs every serial chain without a compile-time instantiation, with
+# neither a scene, the orientation or distance term nor exact trig.
 SERIAL = 6
+# Any other tree, or a combination the prebuilt library lacks: built on
+# demand (OnDemandKey).
+ON_DEMAND = 7
 TOPOLOGY_NAMES = ("arm_7dof", "reference_arm", "arm_6dof", "dual_arm_14dof",
-                  "humanoid_45dof", "snake_30dof", "serial")
+                  "humanoid_45dof", "snake_30dof", "serial", "on_demand")
+TRIG_IMPLS = ("poly", "exact")
 
 # Kernel A's thread-block bound per topology id (its __launch_bounds__,
 # KernelAThreads in csrc/fused_solve.cu): one thread per particle, so the
@@ -74,12 +90,22 @@ TOPOLOGY_NAMES = ("arm_7dof", "reference_arm", "arm_6dof", "dual_arm_14dof",
 # reference_arm and snake presets' P) lets a thread hold 255 registers,
 # 512 (the humanoid's) 128, 1024 only 64.
 MAX_PARTICLES = {1: 256, 4: 512, 5: 256}
+# The prebuilt topologies whose kernel A streams its draws (StreamDraws in
+# csrc/fused_solve.cuh); an on-demand topology streams from STREAM_DOF DOFs.
+STREAM_IDS = (3, 4, 5)
+STREAM_DOF = 18
+# Past this many DOFs an on-demand topology's kernel A keeps x, v and lbest
+# in global scratch (the serial-chain variant's layout): the humanoid's 45
+# already take 128 registers and spill at a 512-thread bound (PERF.md).
+SCRATCH_DOF = 45
 
 # Collider variants (enum Collider in csrc/fk_fitness.cuh; 0 = none).
 COLLIDERS = {"box": 1, "capsule": 2}
 
 # The (topology id, collider id, orientation) combinations that the
-# launchers of kernels A, B and C instantiate: the ones a path runs.
+# prebuilt launchers of kernels A, B and C instantiate (without the
+# distance term, with polynomial trig): the ones the earlier paths run.
+# Any other combination is built on demand.
 INSTANTIATED = {
     (0, 0, False), (0, 1, False), (0, 2, False),  # arm_7dof, planar_3dof; scenes
     (1, 0, False),  # reference_arm
@@ -87,6 +113,30 @@ INSTANTIATED = {
     (3, 0, False), (4, 0, False),  # dual_arm_14dof, humanoid_45dof
     (5, 0, False), (SERIAL, 0, False),  # snake_30dof; any other serial chain
 }
+
+
+class OnDemandKey(NamedTuple):
+    """What an on-demand library instantiates (``csrc/on_demand.cuh``): the
+    tree, the collider id, the three term flags, and kernel A's traits
+    chosen for the topology (:func:`on_demand_key`). Kernel A's replay and
+    Philox instantiations share a library."""
+
+    parents: Tuple[int, ...]
+    effectors: Tuple[int, ...]
+    collider: int
+    orientation: bool
+    distance: bool
+    exact: bool
+    threads: int
+    stream: bool
+    scratch: bool
+
+    def name(self) -> str:
+        """A short readable tag: nodes, collider and terms."""
+        flags = "".join(c for c, on in (("o", self.orientation), ("d", self.distance),
+                                        ("x", self.exact)) if on)
+        return (f"n{len(self.parents)}-c{self.collider}-{flags or 'p'}"
+                f"{'-scratch' if self.scratch else ''}")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,75 +153,101 @@ def is_serial(spec) -> bool:
 
 def topology_code(spec):
     """``(num_nodes, packed parents, effector mask)`` of a ChainSpec:
-    parent of node k in bits ``[4k, 4k+4)``, effector k at bit k. A serial
-    chain of more than 16 nodes has no parent word (``None``): the
-    serial-chain variant walks it without one."""
+    parent of node k in bits ``[4k, 4k+4)``, effector k at bit k. Past 16
+    nodes there is no parent word (``None``): the prebuilt topologies all
+    fit one."""
     n = spec.num_nodes
     mask = 0
     for e in spec.effector_idx:
         mask |= 1 << e
     if n > 16:
-        if is_serial(spec):
-            return n, None, mask
-        raise NotImplementedError(
-            f"a {n}-node tree: the CUDA kernels pack parents in 4-bit fields of "
-            "one 64-bit word, and only serial chains run past 16 nodes "
-            "(ROADMAP B1(d), any tree)"
-        )
+        return n, None, mask
     parents = 0
     for k in range(1, n):
         parents |= spec.parent[k] << (4 * k)
     return n, parents, mask
 
 
-def topology_id(spec) -> int:
-    """Id of the kernel instantiation for ``spec``'s topology: the
-    compile-time one where it exists, else :data:`SERIAL` for a serial
-    chain; raises for any other tree."""
+def _prebuilt_id(spec):
+    """The prebuilt compile-time topology of ``spec``, or None."""
     code = topology_code(spec)
     if code in KERNEL_TOPOLOGIES and list(spec.effector_idx) == sorted(spec.effector_idx):
         return KERNEL_TOPOLOGIES[code]
-    if is_serial(spec):
-        return SERIAL
-    raise NotImplementedError(
-        f"no CUDA kernel instantiated for topology parent={spec.parent}, "
-        f"effector_idx={spec.effector_idx} (instantiated: "
-        f"{', '.join(TOPOLOGY_NAMES[:SERIAL])} and any serial chain with its "
-        "one effector at the last node); any other tree is ROADMAP B1(d)"
-    )
+    return None
 
 
-def max_particles(spec) -> int:
-    """The most particles kernel A takes per swarm for ``spec``'s topology
-    (1024 for a topology without a kernel: its plain solve's bound)."""
-    try:
-        topo = topology_id(spec)
-    except NotImplementedError:
-        return 1024
-    return MAX_PARTICLES.get(topo, 1024)
+def topology_id(spec) -> int:
+    """Id of ``spec``'s topology: the prebuilt compile-time one where it
+    exists, else :data:`SERIAL` for a serial chain, else :data:`ON_DEMAND`."""
+    topo = _prebuilt_id(spec)
+    if topo is not None:
+        return topo
+    return SERIAL if is_serial(spec) else ON_DEMAND
+
+
+def topology_name(spec) -> str:
+    """A prebuilt topology's name, ``serial``, or ``tree<N>`` for a tree
+    that is compiled on demand."""
+    topo = topology_id(spec)
+    return f"tree{spec.num_nodes}" if topo == ON_DEMAND else TOPOLOGY_NAMES[topo]
 
 
 def kernel_variant(spec, num_obstacles: int, collision_shape: str,
-                   use_orientation: bool):
-    """``(topology id, collider id, orientation flag)`` of the kernel
-    instantiation for a chain, an obstacle scene (collider 0 without one)
-    and the orientation term; raises for a combination no path uses."""
+                   use_orientation: bool, use_distance: bool = False,
+                   trig_impl: str = "poly"):
+    """``(topology id, collider id, orientation flag)`` of the kernels that
+    run a chain with an obstacle scene (collider 0 without one), the
+    orientation and distance terms and ``trig_impl``: a prebuilt
+    instantiation where :data:`INSTANTIATED` holds it (no distance term,
+    polynomial trig), else :data:`ON_DEMAND` (:func:`on_demand_key`)."""
     collider = 0
     if num_obstacles:
         if collision_shape not in COLLIDERS:
             raise ValueError(f"unknown collision_shape {collision_shape!r}")
         collider = COLLIDERS[collision_shape]
-    key = (topology_id(spec), collider, bool(use_orientation))
-    if key not in INSTANTIATED:
-        raise NotImplementedError(
-            f"no CUDA kernel instantiated for parent={spec.parent} with "
-            f"{collision_shape if collider else 'no'} colliders and orientation "
-            f"{'on' if use_orientation else 'off'} (instantiated: arm_7dof's "
-            "topology with or without a scene, arm_6dof with or without "
-            "orientation, and reference_arm, the trees and the serial chains "
-            "without either); any other combination is ROADMAP B1(d)"
-        )
-    return key[0], key[1], int(key[2])
+    if trig_impl not in TRIG_IMPLS:
+        raise ValueError(f"unknown trig_impl {trig_impl!r}; expected one of {TRIG_IMPLS}")
+    topo = topology_id(spec)
+    key = (topo, collider, bool(use_orientation))
+    if key in INSTANTIATED and not use_distance and trig_impl == "poly":
+        return topo, collider, int(use_orientation)
+    return ON_DEMAND, collider, int(use_orientation)
+
+
+def on_demand_threads(spec) -> int:
+    """Kernel A's thread-block bound for ``spec`` built on demand: a
+    prebuilt topology's own bound, 1024 up to :data:`STREAM_DOF` DOFs
+    and in the scratch layout, else 512 (128 registers a thread)."""
+    topo = _prebuilt_id(spec)
+    if topo is not None:
+        return MAX_PARTICLES.get(topo, 1024)
+    if spec.dof <= STREAM_DOF or spec.dof > SCRATCH_DOF:
+        return 1024
+    return 512
+
+
+def on_demand_key(spec, collider: int, orientation: bool, distance: bool = False,
+                  exact: bool = False) -> OnDemandKey:
+    """The on-demand library of ``spec`` with a collider id and term flags."""
+    topo = _prebuilt_id(spec)
+    scratch = topo is None and spec.dof > SCRATCH_DOF
+    stream = scratch or (topo in STREAM_IDS if topo is not None else spec.dof >= STREAM_DOF)
+    return OnDemandKey(tuple(int(p) for p in spec.parent),
+                       tuple(int(e) for e in spec.effector_idx), int(collider),
+                       bool(orientation), bool(distance), bool(exact),
+                       on_demand_threads(spec), bool(stream), bool(scratch))
+
+
+def max_particles(spec, num_obstacles: int = 0, collision_shape: str = "box",
+                  use_orientation: bool = False, use_distance: bool = False,
+                  trig_impl: str = "poly") -> int:
+    """The most particles kernel A takes per swarm for ``spec`` with the
+    given scene and terms (its thread-block bound)."""
+    topo, _, _ = kernel_variant(spec, num_obstacles, collision_shape, use_orientation,
+                                use_distance, trig_impl)
+    if topo == ON_DEMAND:
+        return on_demand_threads(spec)
+    return MAX_PARTICLES.get(topo, 1024)
 
 
 def _source_hash() -> str:
@@ -281,6 +357,97 @@ SIGNATURES = {
         ctypes.c_uint, ctypes.c_uint, _VP, ctypes.c_longlong, _I, _VP,  # key, out, n, steps
     ],
 }
+
+
+# The entry points of an on-demand library (csrc/on_demand.cuh).
+OD_SIGNATURES = {
+    "ikpso_od_fused_solve": [
+        _I, _I, *_SCENE,  # replay, init mode, scene
+        _VP, _I, _VP, _I,  # meta, M, swarm, K
+        *_UPDATE,
+        _VP, _I,  # scratch, grid (the scratch layout)
+        _VP, _VP,  # out gbest, out gval
+        _I, _I, _VP,  # S, P, stream
+    ],
+    "ikpso_od_fused_solve_blocks": [_I, _I, _I, _I],  # replay, P, M, K
+    "ikpso_od_fk_fitness": [*_SCENE, _VP, _VP, _VP, _I, _VP, ctypes.c_longlong, _I, _VP],
+    "ikpso_od_fused_fitness": [*_SCENE, _VP, _VP, _VP, _I, _VP, _I, _I, _VP],
+}
+
+
+def on_demand_source(key: OnDemandKey) -> str:
+    """The ``.cu`` that instantiates ``csrc/on_demand.cuh`` for ``key``:
+    the key's macros and the include, no kernel code."""
+    macros = {
+        "PARENTS": ", ".join(map(str, key.parents)),
+        "EFFECTORS": ", ".join(map(str, key.effectors)),
+        "THREADS": key.threads, "STREAM": int(key.stream), "SCRATCH": int(key.scratch),
+        "COLLIDER": key.collider, "ORIENTATION": int(key.orientation),
+        "DISTANCE": int(key.distance), "EXACT": int(key.exact),
+    }
+    lines = [f"// Kernels A, B and C on demand for {key.name()}: generated by",
+             "// ikpso_tpu_torch/utils/kernels.py (on_demand_source); see",
+             "// ikpso_tpu_torch/csrc/on_demand.cuh."]
+    lines += [f"#define IKPSO_OD_{k} {v}" for k, v in macros.items()]
+    lines.append('#include "on_demand.cuh"')
+    return "\n".join(lines) + "\n"
+
+
+def on_demand_path(key: OnDemandKey) -> Path:
+    """The library of ``key``, named by the hash of the kernel sources and
+    flags (:func:`library_path`'s) and of the key itself."""
+    h = hashlib.sha256(f"{_source_hash()} {key!r}".encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libikpso_od-{key.name()}-{h}.so"
+
+
+def prebuild(keys: Iterable[OnDemandKey]) -> Dict[OnDemandKey, float]:
+    """Compile the on-demand libraries of ``keys`` that are not built yet,
+    one ``nvcc`` per key, all started together; returns the seconds each
+    key's compile took (0.0 where it was built already). Each library's
+    ptxas report is written beside it (``<lib>.log``). A failed compile
+    raises with nvcc's log."""
+    keys = list(dict.fromkeys(keys))
+    seconds = {k: 0.0 for k in keys}
+    todo = [k for k in keys if not on_demand_path(k).exists()]
+    if not todo:
+        return seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = {}
+        for i, key in enumerate(todo):
+            src = Path(tmp) / f"od{i}.cu"
+            src.write_text(on_demand_source(key))
+            cmd = [_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(CSRC), "-o",
+                   str(Path(tmp) / f"od{i}.so"), str(src)]
+            procs[key] = (cmd, time.perf_counter(), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for i, (key, (cmd, t0, proc)) in enumerate(procs.items()):
+            out = proc.communicate()[0]
+            seconds[key] = time.perf_counter() - t0
+            log = (f"$ {' '.join(cmd)}\n{out}\nkey={key!r}\n"
+                   f"build_seconds={seconds[key]:.3f}\n")
+            lib = on_demand_path(key)
+            lib.with_suffix(".log").write_text(log)
+            if proc.returncode:
+                failed.append(f"{key.name()} (rc {proc.returncode}):\n{log}")
+            else:
+                os.replace(Path(tmp) / f"od{i}.so", lib)
+        if failed:
+            raise RuntimeError("nvcc failed for an on-demand key:\n" + "\n".join(failed))
+    return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def on_demand_library(key: OnDemandKey) -> ctypes.CDLL:
+    """The loaded on-demand library of ``key`` (built on first use)."""
+    prebuild([key])
+    lib = ctypes.CDLL(str(on_demand_path(key)))
+    for name, argtypes in OD_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    return lib
 
 
 @functools.lru_cache(maxsize=None)

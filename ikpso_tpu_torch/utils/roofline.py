@@ -14,7 +14,7 @@ kernel A.
 
 The bound differs from the JAX model's on purpose. There the flops were
 rated at the best *observed* megakernel rate, so a kernel could read
-``sol_frac`` above 1 (ROADMAP A2). Here
+``sol_frac`` above 1 (ROADMAP A12). Here
 :func:`speed_of_light_seconds` is the roofline of published peaks: the
 larger of operations over 67 TFLOP/s (float32 outside the tensor cores;
 an FMA is two operations) and bytes over 3.35 TB/s (NVIDIA's H100 SXM

@@ -143,17 +143,44 @@ def test_fk_fitness_cpu_wrapper_runs_plain_and_counts_nothing():
 
 
 @pytest.mark.parametrize("kw", [
-    # Orientation is ported; the distance term beside it is not.
+    # Once refused, now computed: the distance term alone, beside the
+    # orientation term and beside a scene, and exact trig.
     dict(use_distance_term=True), dict(use_orientation=True, use_distance_term=True),
-    # Obstacles are ported; the distance term beside them is not.
     dict(num_obstacles=1, use_distance_term=True), dict(trig_impl="exact"),
 ])
 def test_unported_tile_branches_raise(kw):
-    spec = convert.chain_spec_from(jlib.arm_7dof()[0])
-    x = torch.zeros(1, 8, spec.dof)
-    meta = torch.zeros(1, 6 + 15 * kw.get("num_obstacles", 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fk_fitness(spec, x, meta, torch.zeros(1, 30), **kw)
+    # The name is kept from when these branches raised; each now runs the
+    # plain twin on the CPU and agrees with JAX's jnp fitness (stock trig,
+    # the accuracy oracle) at the poly tile's bar of
+    # test_fk_fitness_plain_matches_interpreted_pallas_kernel.
+    rng = np.random.default_rng(14)
+    spec_j, batched_j = _batched_case("arm_7dof", 2, rng)
+    orient = kw.get("use_orientation", False)
+    if orient:
+        batched_j = batched_j.replace(target_rot=jnp.asarray(
+            rng.normal(0, 0.5, (2, 1, 3)), jnp.float32))
+    n_obs = kw.get("num_obstacles", 0)
+    obs_j = (JObstacles.from_boxes(PALLAS_SCENE["centers"][:1], PALLAS_SCENE["full_dims"][:1])
+             if n_obs else None)
+    fit_j = JFit(angle_weight=3.0, distance_weight=0.7 if kw.get("use_distance_term") else 0.0,
+                 orientation_weight=0.5 if orient else 0.0,
+                 trig_impl=kw.get("trig_impl", "poly"))
+    spec = convert.chain_spec_from(spec_j)
+    batched = convert.problem_from(batched_j)
+    obs = None if obs_j is None else convert.obstacles_from(obs_j)
+    meta = pack_meta(spec, convert.fitness_config_from(fit_j), obs, orient)
+    swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
+                       fk_ops.fk_points(spec, batched.pose, batched.origin), orient)
+    x = torch.as_tensor(_angles(spec_j, (2, 64), rng))
+    before = fk_fitness.launches
+    got = fk_fitness(spec, x, meta, swarm, **kw)
+    assert fk_fitness.launches == before
+    assert torch.equal(got, fk_fitness_plain(spec, x, meta, swarm, **kw))
+    oracle = np.asarray(j_fitness(spec_j, jnp.asarray(x.numpy()), batched_j, config=fit_j,
+                                  obstacles=obs_j))
+    hit = oracle >= COLLISION_PENALTY
+    np.testing.assert_array_equal(got.numpy() >= COLLISION_PENALTY, hit)
+    np.testing.assert_allclose(got.numpy()[~hit], oracle[~hit], rtol=1e-4, atol=1e-4)
 
 
 def test_fitness_refuses_obstacles():

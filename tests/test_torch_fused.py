@@ -379,9 +379,9 @@ def test_cpu_wrapper_dispatches_to_plain():
 
 
 @pytest.mark.parametrize("kw", [
-    # Randomized inertia, gbest_interval, the re-kick, orientation
-    # (tests/test_torch_orientation.py) and walk retries
-    # (tests/test_torch_restarts.py) are ported; these branches still raise.
+    # The distance term and exact trig (with orientation) now run, under
+    # retries too; the GJK collider (refused by JAX's kernel too) and the
+    # polish's locality-cost accept gate (ROADMAP A4) still raise.
     dict(fit=dict(distance_weight=0.5)),
     dict(fit=dict(trig_impl="exact", orientation_weight=1.0)),
     dict(fit=dict(collision_backend="gjk"), obstacles=True),
@@ -405,9 +405,18 @@ def test_unported_branches_raise(kw):
             solver = wrap_with_polish(solver, spec, locality_weight=kw["locality_weight"])
         return solver
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wrap_with_topk_retries(build, pso, rounds=1, bucket=8, spec=spec,
-                               retry_walk_steps=kw.get("retry_walk_steps", 0))
+    def retried():
+        return wrap_with_topk_retries(build, pso, rounds=1, bucket=8, spec=spec,
+                                      retry_walk_steps=kw.get("retry_walk_steps", 0))
+
+    if "locality_weight" in kw or kw.get("obstacles"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            retried()
+        return
+    problem = library.batched_problem(library.arm_7dof()[1], torch.tensor(
+        [[[1.0, 1.2, -0.8]]] * 16), target_rot=torch.full((16, 1, 3), 0.2))
+    res = retried()(problem, torch.Generator().manual_seed(0))
+    assert torch.isfinite(res.angles).all() and torch.isfinite(res.fitness).all()
 
 
 def test_fused_solver_end_to_end_shapes_and_error():
@@ -438,9 +447,9 @@ def test_obstacle_refusals_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
         make_fused_solver(spec, pso=pso, fit=FitnessConfig(collision_backend="gjk"),
                           num_particles=128, obstacles=obs, device="cpu")
-    # The CUDA collider variants exist for the serial 4-node topology only,
-    # the orientation term for arm_6dof without a scene only; the trees run
-    # without either.
+    # The prebuilt collider variants exist for the serial 4-node topology,
+    # the orientation term for arm_6dof without a scene; every other
+    # (topology, scene, orientation) combination is built on demand.
     assert kernels.kernel_variant(spec, 0, "box", False) == (0, 0, 0)
     assert kernels.kernel_variant(spec, 2, "box", False) == (0, 1, 0)
     assert kernels.kernel_variant(spec, 2, "capsule", False) == (0, 2, 0)
@@ -452,8 +461,8 @@ def test_obstacle_refusals_name_their_roadmap_items():
     for other, n_obs, orient in ((library.reference_arm()[0], 2, False), (spec, 2, True),
                                  (spec, 0, True), (library.arm_6dof()[0], 2, True),
                                  (dual, 2, False), (human, 0, True)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP B1\(d\)"):
-            kernels.kernel_variant(other, n_obs, "box", orient)
+        assert kernels.kernel_variant(other, n_obs, "box", orient) == (
+            kernels.ON_DEMAND, 1 if n_obs else 0, int(orient))
     # Such a combination runs its plain version on the CPU: arm_7dof with a
     # scene and an orientation target.
     solver = make_fused_solver(spec, pso=pso, fit=FitnessConfig(orientation_weight=1.0),
@@ -521,14 +530,15 @@ def test_topology_codes_and_refusal():
     spec17 = library.serial_chain(16)[0]
     assert kernels.topology_code(spec17) == (17, None, 1 << 16)
     assert kernels.topology_id(spec17) == kernels.SERIAL
-    # A tree that is not a serial chain still raises: past 16 nodes the
-    # 4-bit parent fields run out; within them, its topology has no kernel.
+    # A tree that is not a serial chain is built on demand: past 16 nodes
+    # it has no parent word; within them, its topology has no prebuilt
+    # kernel.
     n = 17
     lim = np.zeros((n, 3), np.float32)
     branched = make_chain_spec([-1] + list(range(n - 2)) + [0], [0.0] + [1.0] * (n - 1),
                                lim, lim, [n - 1])
-    with pytest.raises(NotImplementedError, match="4-bit"):
-        kernels.topology_code(branched)
+    assert kernels.topology_code(branched) == (17, None, 1 << 16)
+    assert kernels.topology_id(branched) == kernels.ON_DEMAND
     short = make_chain_spec([-1, 0, 1, 2, 1], [0.0] + [1.0] * 4, lim[:5], lim[:5], [3, 4])
-    with pytest.raises(NotImplementedError, match="humanoid_45dof.*ROADMAP"):
-        kernels.topology_id(short)
+    assert kernels.topology_id(short) == kernels.ON_DEMAND
+    assert kernels.topology_name(short) == "tree5"

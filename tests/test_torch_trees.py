@@ -200,8 +200,8 @@ def test_fk_with_jacobian_matches_jax(name, orientation):
 def test_kernel_particle_bound_follows_the_topology():
     # Kernel A's humanoid instantiation is bounded at 512 threads a block,
     # reference_arm's and snake_30dof's at 256; a 21-node serial chain runs
-    # the serial-chain variant (1024), and a tree with no kernel is bounded
-    # by its plain solve (1024) while its routing raises.
+    # the serial-chain variant (1024), and a tree with no prebuilt kernel is
+    # built on demand, bounded as its DOFs choose (1024 up to 18).
     spec, problem = library.humanoid_45dof()
     assert kernels.max_particles(spec) == 512
     assert kernels.max_particles(library.dual_arm_14dof()[0]) == 1024
@@ -212,8 +212,7 @@ def test_kernel_particle_bound_follows_the_topology():
     assert kernels.max_particles(spec20) == 1024
     tree = make_chain_spec([-1, 0, 1, 1], [0.0, 1.0, 1.0, 1.0], np.zeros((4, 3)),
                            np.zeros((4, 3)), [2, 3])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.topology_id(tree)
+    assert kernels.topology_id(tree) == kernels.ON_DEMAND
     assert kernels.max_particles(tree) == 1024
     pre, pso, fit = trees.tree_configs("humanoid_45dof")
     batched = library.batched_problem(problem, problem.targets[None])

@@ -225,20 +225,23 @@ def test_zoo_routing_and_particle_bounds():
         assert kernels.max_particles(spec) == 1024
     assert kernels.topology_code(library.snake(16)[0]) == (17, None, 1 << 16)
     # Not serial: the effector is not the last node, or a node hangs off
-    # another than its predecessor; past 16 nodes that is any tree.
+    # another than its predecessor; past 16 nodes that is any tree. Each is
+    # built on demand, its 48 DOFs in kernel A's scratch layout.
     n = 17
     lim = np.zeros((n, 3), np.float32)
     chain = list(range(-1, n - 1))
     for parents, effectors in ((chain, [n - 2]), (chain[:-1] + [0], [n - 1])):
         tree = make_chain_spec(parents, [0.0] + [1.0] * (n - 1), lim, lim, effectors)
         assert not kernels.is_serial(tree)
-        with pytest.raises(NotImplementedError, match=r"B1\(d\)"):
-            kernels.topology_id(tree)
-        assert kernels.max_particles(tree) == 1024  # the plain solve's bound
-    # A serial chain with a scene or an orientation term has no kernel.
+        assert kernels.topology_id(tree) == kernels.ON_DEMAND
+        assert kernels.max_particles(tree) == 1024
+        assert kernels.on_demand_key(tree, 0, False).scratch
+    # A serial chain with a scene or an orientation term is built on demand,
+    # at its prebuilt topology's bound.
     for n_obs, orient in ((2, False), (0, True)):
-        with pytest.raises(NotImplementedError, match=r"B1\(d\)"):
-            kernels.kernel_variant(snake30, n_obs, "box", orient)
+        assert kernels.kernel_variant(snake30, n_obs, "box", orient) == (
+            kernels.ON_DEMAND, 1 if n_obs else 0, int(orient))
+        assert kernels.max_particles(snake30, n_obs, "box", orient) == 256
 
 
 def test_zoo_particle_bound_is_refused_in_python():
