@@ -35,6 +35,7 @@ It imports nothing of JAX and fails without a visible CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -400,106 +401,275 @@ def phase_build(on_demand=False):
     return ptxas
 
 
+class _OlderLibrary:
+    """Another checkout's prebuilt library as this checkout's wrappers call
+    it, where it predates the serial-chain variant's lbest placement
+    argument (it lacks ``ikpso_kernel_a_smem_bytes``): that argument is
+    dropped (its serial variant keeps lbest in global scratch, which the
+    caller then asks for) and every other entry point is passed through."""
+
+    def __init__(self, lib):
+        import ctypes
+
+        from ikpso_tpu_torch.utils import kernels
+
+        self._lib = lib
+        for name in ("ikpso_fused_solve_serial", "ikpso_fused_solve_serial_blocks"):
+            fn = getattr(lib, name)
+            fn.argtypes = [a for i, a in enumerate(kernels.SIGNATURES[name]) if i != 1]
+            fn.restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def ikpso_fused_solve_serial_blocks(self, replay, lb_shared, *rest):
+        assert not lb_shared
+        return self._lib.ikpso_fused_solve_serial_blocks(replay, *rest)
+
+    def ikpso_fused_solve_serial(self, replay, lb_shared, *rest):
+        assert not lb_shared
+        return self._lib.ikpso_fused_solve_serial(replay, *rest)
+
+
+class _sources:
+    """Point ``utils.kernels`` at another checkout's ``csrc`` (and a build
+    directory of its own) while the block runs."""
+
+    def __init__(self, root):
+        from ikpso_tpu_torch.utils import kernels
+
+        self.kernels = kernels
+        self.paths = (Path(root).resolve() / "ikpso_tpu_torch" / "csrc",
+                      kernels.BUILD_DIR.parent / "against")
+
+    def __enter__(self):
+        k = self.kernels
+        self.saved = (k.CSRC, k.BUILD_DIR)
+        k.CSRC, k.BUILD_DIR = self.paths
+        return k
+
+    def __exit__(self, *exc):
+        self.kernels.CSRC, self.kernels.BUILD_DIR = self.saved
+
+
+# phase_against's kernel A cases beyond the 7-DOF ones: (tag, model or
+# ON_DEMAND_CASES tag, swarms, reps). The trees at the shapes of the timing
+# phases (tree_timing, on_demand_timing), so the pair medians sit beside
+# those phases' bounds.
+AGAINST_TREES = (("dual_arm_14dof", 262_144, 3), ("humanoid_45dof", 16_384, 3),
+                 ("reference_arm", 262_144, 1), ("snake_30dof", 65_536, 3),
+                 ("snake:16", 65_536, 3), ("snake:20", 65_536, 3), ("snake:35", 65_536, 1),
+                 ("snake:50", 65_536, 1))
+AGAINST_ON_DEMAND = (("dual_arm_box", 4096, 3), ("dual_arm_orientation", 4096, 3),
+                     ("hand21", 1024, 3), ("snake20_box", 1024, 3))
+
+
 def phase_against(other_root, device, pairs=10):
     """Build another checkout's kernels (``<other_root>/ikpso_tpu_torch/csrc``)
     with this checkout's flags and hold their ptxas lines against this
     build's: every kernel whose registers or spill bytes differ, and those
-    in one build only. Then time kernel A's path variants that both builds
-    hold, at the timing phase's shapes (the dual arm at S=65,536, the
-    humanoid at its preset's S=16,384, reference_arm at S=16,384 and its
-    preset's P=256), through this checkout's wrapper
-    from each library in turn (``pairs`` pairs, this build first in the
-    even ones), and check that both return the same bits."""
+    in one build only. Then time kernel A through this checkout's wrapper
+    on each case, in ``pairs`` rounds that turn the order of the contenders
+    each round, and check that every contender returns the same bits:
+    the 7-DOF cases (this build against the other); the trees at the
+    timing phases' shapes (the serial-chain variant in both lbest
+    placements); and the on-demand cases, where this build's key in each
+    state placement (and, in the scratch layout, at either thread bound)
+    meets the other build's key. Each contender's row holds its
+    placement, shared-memory bytes, ptxas lines, times, median and
+    spread; a line per case, then one for all."""
     import dataclasses
     import statistics
 
     import numpy as np
     import torch
 
-    from ikpso_tpu_torch.pso.fused import fused_solve
+    from ikpso_tpu_torch.pso.fused import fused_solve, kernel_a_layout
     from ikpso_tpu_torch.utils import kernels
 
-    libs = {"this": kernels.library()}
     mine = ptxas_report(kernels.build().with_suffix(".log").read_text())
-    kernels.CSRC = Path(other_root).resolve() / "ikpso_tpu_torch" / "csrc"
-    kernels.BUILD_DIR = kernels.BUILD_DIR.parent / "against"
-    theirs = {r["kernel"]: r for r in
-              ptxas_report(kernels.build().with_suffix(".log").read_text())}
-    libs["other"] = kernels.library.__wrapped__()
+    with _sources(other_root) as other:
+        theirs = {r["kernel"]: r for r in
+                  ptxas_report(other.build().with_suffix(".log").read_text())}
+        other_lib = other.library.__wrapped__()
+    if not hasattr(other_lib, "ikpso_kernel_a_smem_bytes"):
+        other_lib = _OlderLibrary(other_lib)
+    libs = {"this": kernels.library(), "other": other_lib}
     mine = {r["kernel"]: r for r in mine}
     changed = [{"kernel": k, "this": mine[k], "other": theirs[k]}
                for k in sorted(mine.keys() & theirs.keys()) if mine[k] != theirs[k]]
-    emit("ptxas_against", other=str(other_root), kernels_in_both=len(mine.keys() & theirs.keys()),
+    emit("ptxas_against", other=str(other_root),
+         kernels_in_both=len(mine.keys() & theirs.keys()),
          changed=changed, only_this=sorted(mine.keys() - theirs.keys()),
          only_other=sorted(theirs.keys() - mine.keys()))
 
+    # On-demand contenders: this build's key, the other build's (its sources
+    # ignore IKPSO_OD_SHARED, so it runs the placement of before: v and
+    # lbest in registers, or lbest in global scratch at a 1,024-thread
+    # bound), and this build's key in the other placements (in the scratch
+    # layout, at either bound).
+    od_contenders, keys = {}, od_keys()
+    for tag, _, _ in AGAINST_ON_DEMAND:
+        key = keys[tag]
+        if key.scratch:
+            alts = {f"this/{t} {'shared' if sh else 'global'}":
+                    key._replace(threads=t, shared=sh)
+                    for t, sh in ((1024, False), (512, False), (512, True))}
+        else:
+            alts = {f"this/{'registers' if key.shared else 'shared'}":
+                    key._replace(shared=not key.shared)}
+        od_contenders[tag] = {
+            "this": key,
+            "other": key._replace(shared=False,
+                                  threads=1024 if key.scratch else key.threads),
+            **{name: alt for name, alt in alts.items() if alt != key}}
+    t0 = time.perf_counter()
+    od_libs, od_ptxas = {}, {}
+    for who in ("this", "other"):
+        todo = [(tag, name) for tag, c in od_contenders.items() for name in c
+                if (name == "other") == (who == "other")]
+        sources = _sources(other_root) if who == "other" else contextlib.nullcontext(kernels)
+        with sources as k:
+            k.prebuild({od_contenders[tag][name] for tag, name in todo})
+            for tag, name in todo:
+                key = od_contenders[tag][name]
+                od_libs[(tag, name)] = k.on_demand_library.__wrapped__(key)
+                log = k.on_demand_path(key).with_suffix(".log").read_text()
+                od_ptxas[(tag, name)] = [r for r in ptxas_report(log)
+                                         if r["kernel"].startswith("fused_solve")]
+    build_s = time.perf_counter() - t0
+
+    def seeds_of(rng, swarms):
+        return torch.as_tensor(rng.integers(-2**31, 2**31, (swarms, 2), dtype=np.int64)
+                               .astype(np.int32), device=device)
+
+    patched = ("library", "SHARED_IDS", "serial_lbest_shared", "on_demand_key",
+               "on_demand_library", "on_demand_threads")
+
+    def under(use, fn):
+        """``fn()`` with a contender's libraries and placement rules in place
+        (``use``), then the module's own again."""
+        saved = {n: getattr(kernels, n) for n in patched}
+        try:
+            use()
+            return fn()
+        finally:
+            for n, v in saved.items():
+                setattr(kernels, n, v)
+
+    def prebuilt(who, serial_shared=None):
+        """A build's prebuilt library and, for the serial-chain variant, an
+        lbest placement (where the other build predates the placements:
+        its own, registers and lbest in global scratch)."""
+        def use():
+            kernels.library = lambda: libs[who]
+            if isinstance(libs[who], _OlderLibrary):
+                kernels.SHARED_IDS = ()
+                kernels.serial_lbest_shared = lambda *a: False
+            elif serial_shared is not None:
+                kernels.serial_lbest_shared = lambda *a: serial_shared
+        return use
+
+    def on_demand(tag, name):
+        """An on-demand contender's key and library, its bound as the
+        particle bound."""
+        def use():
+            key, lib = od_contenders[tag][name], od_libs[(tag, name)]
+            kernels.on_demand_key = lambda *a, **kw: key
+            kernels.on_demand_library = lambda k: lib
+            kernels.on_demand_threads = lambda spec: key.threads
+        return use
+
+    def ptxas_of(prefix):
+        return {who: [r for name, r in rows.items() if name.startswith(prefix)]
+                for who, rows in (("this", mine), ("other", theirs))}
+
     rng = np.random.default_rng(4)
     pso, fit = _headline_configs()
-    cases = {}
+    two = {"this": prebuilt("this"), "other": prebuilt("other")}
+    cases = {}  # name -> (fn, reps, contenders, layout args, ptxas lines by contender)
+    arm = "fused_solve_kernel<Topology<4, 8448, 8>"
     for swarms in (HEADLINE_SWARMS, TIMING_SWARMS):
         spec, batched = _problem("arm_7dof", swarms, rng, device)
         meta, swarm = _packed(spec, batched, fit)
-        seeds = torch.as_tensor(rng.integers(-2**31, 2**31, (swarms, 2), dtype=np.int64)
-                                .astype(np.int32), device=device)
+        seeds = seeds_of(rng, swarms)
         args = (spec, pso, fit, meta, swarm, spec.limits(), seeds, 128)
-        cases[f"arm_7dof S={swarms}"] = (lambda args=args: fused_solve(*args), 10)
+        cases[f"arm_7dof S={swarms}"] = (lambda args=args: fused_solve(*args), 10, two,
+                                         (spec, fit, swarm, 128), ptxas_of(f"{arm}, 0, 0"))
     obs = _scene(spec, device)
-    for shape in ("box", "capsule"):
+    for c, shape in enumerate(("box", "capsule"), 1):
         fit_s = dataclasses.replace(fit, collision_shape=shape)
         meta_s, _ = _packed(spec, batched, fit_s, obs)
         args = (spec, pso, fit_s, meta_s, swarm, spec.limits(), seeds, 128)
         cases[f"arm_7dof {shape} S={TIMING_SWARMS}"] = (
-            lambda args=args: fused_solve(*args, num_obstacles=obs.count), 10)
+            lambda args=args: fused_solve(*args, num_obstacles=obs.count), 10, two,
+            (spec, fit_s, swarm, 128, obs.count), ptxas_of(f"{arm}, {c}, 0"))
     pso_o, fit_o = _orientation_configs()
     spec_o, batched_o = _problem("arm_6dof", TIMING_SWARMS, rng, device, orientation=True)
     meta_o, swarm_o = _packed(spec_o, batched_o, fit_o, use_orientation=True)
-    seeds_o = torch.as_tensor(rng.integers(-2**31, 2**31, (TIMING_SWARMS, 2),
-                                           dtype=np.int64).astype(np.int32), device=device)
-    args_o = (spec_o, pso_o, fit_o, meta_o, swarm_o, spec_o.limits(), seeds_o, 128)
+    args_o = (spec_o, pso_o, fit_o, meta_o, swarm_o, spec_o.limits(),
+              seeds_of(rng, TIMING_SWARMS), 128)
     cases[f"arm_6dof orientation re-kick S={TIMING_SWARMS}"] = (
-        lambda: fused_solve(*args_o, use_orientation=True), 10)
-    # The trees at their presets' P, where the other build holds them too
-    # (a checkout from before the trees does not).
-    for model, swarms in (("dual_arm_14dof", TIMING_SWARMS),
-                          ("humanoid_45dof", TREE_SWARMS["humanoid_45dof"])):
+        lambda: fused_solve(*args_o, use_orientation=True), 10, two,
+        (spec_o, fit_o, swarm_o, 128, 0, True),
+        ptxas_of("fused_solve_kernel<Topology<3, 256, 4>, 0, 1"))
+    for model, swarms, reps in AGAINST_TREES:
         pre, pso_t, fit_t, spec_t, meta_t, swarm_t, lim_t, seeds_t = _tree_setup(
             model, swarms, rng=rng, device=device)
-        n, parents, eff = kernels.topology_code(spec_t)
-        if f"fused_solve_kernel<Topology<{n}, {parents}, {eff}>, 0, 0, 0>" in theirs:
-            args_t = (spec_t, pso_t, fit_t, meta_t, swarm_t, lim_t, seeds_t, pre.particles)
-            cases[f"{model} S={swarms}"] = (lambda args_t=args_t: fused_solve(*args_t), 3)
+        args_t = (spec_t, pso_t, fit_t, meta_t, swarm_t, lim_t, seeds_t, pre.particles)
+        contenders = two
+        if kernels.topology_id(spec_t) == kernels.SERIAL:
+            rule = kernel_a_layout(spec_t, fit_t, swarm_t, pre.particles).placement
+            contenders = {**two, **{f"this/{placement}": prebuilt("this", shared)
+                                    for placement, shared in (("global", False),
+                                                              ("shared", True))
+                                    if placement != rule}}
+        cases[f"{model} S={swarms}"] = (lambda args_t=args_t: fused_solve(*args_t), reps,
+                                        contenders, (spec_t, fit_t, swarm_t, pre.particles),
+                                        ptxas_of(kernel_names(model)["A"]))
+    for tag, swarms, reps in AGAINST_ON_DEMAND:
+        spec_d, pso_d, fit_d, p, meta_d, swarm_d, obs_d, orient = od_case(
+            tag, device, swarms, rng, philox=True)
+        n_obs = 0 if obs_d is None else obs_d.count
+        args_d = (spec_d, pso_d, fit_d, meta_d, swarm_d, spec_d.limits(),
+                  seeds_of(rng, swarms), p)
+        cases[f"{tag} S={swarms}"] = (
+            lambda args_d=args_d, n_obs=n_obs, orient=orient: fused_solve(
+                *args_d, num_obstacles=n_obs, use_orientation=orient),
+            reps, {name: on_demand(tag, name) for name in od_contenders[tag]},
+            (spec_d, fit_d, swarm_d, p, n_obs, orient),
+            {name: od_ptxas[(tag, name)] for name in od_contenders[tag]})
 
-    # reference_arm at its preset's P = 256: this build's 256-thread launch
-    # bound against a build without it.
-    pre_r, pso_r, fit_r, spec_r, meta_r, swarm_r, lim_r, seeds_r = _tree_setup(
-        "reference_arm", 16_384, rng=rng, device=device)
-    args_r = (spec_r, pso_r, fit_r, meta_r, swarm_r, lim_r, seeds_r, pre_r.particles)
-    cases["reference_arm S=16384"] = (lambda: fused_solve(*args_r), 3)
-
-    library = kernels.library
     rows = {}
-    try:
-        for name, (fn, reps) in cases.items():
-            ms = {"this": [], "other": []}
-            out = {}
-            for i in range(pairs):
-                for who in (("this", "other") if i % 2 == 0 else ("other", "this")):
-                    kernels.library = lambda who=who: libs[who]
-                    t, out[who] = cuda_time(fn, reps=reps)
-                    ms[who].append(t)
-            same = all(torch.equal(a, b) for a, b in zip(out["this"], out["other"]))
-            med = {k: statistics.median(v) for k, v in ms.items()}
-            rows[name] = {"ms": ms, "median_ms": med,
-                          "this_over_other": med["this"] / med["other"],
-                          "this_faster_pairs": sum(t < o for t, o in zip(ms["this"],
-                                                                         ms["other"])),
-                          "bitwise_equal": same}
-            if not same:
-                raise AssertionError(f"kernel A ({name}): the two builds disagree")
-    finally:
-        kernels.library = library
+    for name, (fn, reps, contenders, layout_args, ptxas) in cases.items():
+        order = list(contenders)
+        ms = {who: [] for who in order}
+        out = {}
+        for i in range(pairs):
+            turn = order[i % len(order):] + order[:i % len(order)]
+            for who in (turn if i % 2 == 0 else turn[::-1]):
+                t, out[who] = under(contenders[who], lambda: cuda_time(fn, reps=reps))
+                ms[who].append(t)
+        same = all(torch.equal(a, b) for who in order[1:]
+                   for a, b in zip(out[order[0]], out[who]))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        row = {}
+        for who in order:
+            layout = under(contenders[who], lambda: kernel_a_layout(*layout_args))
+            row[who] = {"placement": layout.placement, "smem_bytes": layout.smem_bytes,
+                        "scratch_planes": layout.scratch_planes,
+                        "ptxas": ptxas[who if who in ptxas else who.split("/")[0]],
+                        "ms": ms[who], "median_ms": med[who],
+                        "spread_ms": max(ms[who]) - min(ms[who])}
+        rows[name] = {"contenders": row, "this_over_other": med["this"] / med["other"],
+                      "this_faster_pairs": sum(t < o for t, o in zip(ms["this"],
+                                                                     ms["other"])),
+                      "fastest": min(med, key=med.get), "bitwise_equal": same}
+        emit("kernel_a_against_case", case=name, **rows[name])
+        if not same:
+            raise AssertionError(f"kernel A ({name}): the contenders disagree")
     emit("kernel_a_against", other=str(other_root), pairs=pairs, cases=rows,
-         card=card_clocks())
+         on_demand_build_s=build_s, card=card_clocks())
 
 
 def _problem(name, swarms, rng, device, orientation=False):
@@ -1380,7 +1550,7 @@ def phase_fused_tree_replay(device):
     import numpy as np
     import torch
 
-    from ikpso_tpu_torch.pso.fused import fused_solve_plain, num_draws
+    from ikpso_tpu_torch.pso.fused import fused_solve_plain, kernel_a_layout, num_draws
     from ikpso_tpu_torch.utils import kernels
 
     worst = 0.0
@@ -1402,8 +1572,11 @@ def phase_fused_tree_replay(device):
         _, _, _, _, meta, swarm, _, seeds = _tree_setup(model, philox_s, device, rng)
         extra = {}
         if kernels.topology_id(spec) == kernels.SERIAL:
+            layout = kernel_a_layout(spec, fit, swarm, pre.particles)
+            extra["serial_lbest"] = layout.placement
             extra["serial_grid"] = kernels.library().ikpso_fused_solve_serial_blocks(
-                0, pre.particles, meta.numel(), swarm.shape[1], spec.num_nodes)
+                0, int(layout.placement == "shared"), pre.particles, meta.numel(),
+                swarm.shape[1], spec.num_nodes)
         worst = max(worst, _compare_solve(
             "fused_tree_philox", spec, pso, fit, meta, swarm, seeds, pre.particles, None,
             bitwise=True, case="base", **extra))
@@ -1660,20 +1833,48 @@ def kernel_names(model):
             "C": f"fused_fitness_kernel<Topology<{n}, "}
 
 
+def kernel_a_placement(spec, fit, particles, num_obstacles=0, use_orientation=False):
+    """Kernel A's state placement and dynamic shared-memory bytes for a
+    launch (``pso.fused.kernel_a_layout``, at the packed swarm width), the
+    bytes held against the kernels' own reckoning
+    (``ikpso_kernel_a_smem_bytes``)."""
+    from ikpso_tpu_torch.ops.fitness_kernel import MetaLayout
+    from ikpso_tpu_torch.utils import kernels
+
+    layout = kernels.kernel_a_layout(spec, particles, num_obstacles, fit.collision_shape,
+                                     use_orientation, fit.distance_weight != 0.0,
+                                     fit.trig_impl)
+    lay = MetaLayout(spec, num_obstacles, use_orientation)
+    planes = ((1 if layout.scratch else 2) if layout.placement == "shared" else 0)
+    bytes_c = kernels.library().ikpso_kernel_a_smem_bytes(
+        lay.meta_size, lay.swarm_size, spec.dof, particles, planes)
+    if bytes_c != layout.smem_bytes:
+        raise AssertionError(f"kernel A's shared memory: {layout.smem_bytes} bytes "
+                             f"reckoned in Python, {bytes_c} by the kernels")
+    return {"placement": layout.placement, "smem_bytes": layout.smem_bytes,
+            "scratch_planes": layout.scratch_planes}
+
+
 def phase_ptxas():
     """The registers and spill bytes of the timed models' kernel A, B and C
     instantiations (ptxas, from the build's log; kernel A's replay build
-    too)."""
+    too), and kernel A's state placement and shared-memory bytes at each
+    model's preset P."""
+    from ikpso_tpu_torch.harness.trees import model_spec, tree_configs
     from ikpso_tpu_torch.utils import kernels
 
     report = ptxas_report(kernels.build().with_suffix(".log").read_text())
     rows = {f"{k} {m}": [r for r in report if r["kernel"].startswith(prefix)]
             for m in TIMED_MODELS for k, prefix in kernel_names(m).items()}
-    emit("ptxas_models", rows=rows, ok=all(rows.values()))
+    placement = {}
+    for m in TIMED_MODELS:
+        pre, _, fit = tree_configs(m)
+        placement[m] = kernel_a_placement(model_spec(m)[0], fit, pre.particles)
+    emit("ptxas_models", rows=rows, kernel_a_placement=placement, ok=all(rows.values()))
     if not all(rows.values()):
         raise AssertionError("an instantiation is missing from the build: "
                              f"{[k for k, v in rows.items() if not v]}")
-    return rows
+    return rows, placement
 
 
 def phase_headline(device, swarms, card):
@@ -2347,7 +2548,7 @@ def run_phases(device, card, od_ptxas):
     phase_fused_tie(device, particles=256, model="snake_30dof")
     phase_fused_tie(device, particles=1024, model="snake:16")
     phase_fused_tie(device, particles=256, model="reference_arm")
-    ptxas = phase_ptxas()
+    ptxas, placement = phase_ptxas()
     od_err = phase_on_demand_checks(device)
     phase_fused_tie(device, particles=512, model="hand21")
     phase_sass_sincos()
@@ -2399,6 +2600,13 @@ def run_phases(device, card, od_ptxas):
                 variant = od_variant(tag)
                 row["launches_by_path"] = {
                     k2: v["fused_solve_variants"].get(variant, 0) for k2, v in paths.items()}
+            if name == "A":
+                import numpy as np
+
+                spec, _, fit, p, _, _, obs, orient = od_case(tag, "cpu", 1,
+                                                             np.random.default_rng(0))
+                row.update(kernel_a_placement(spec, fit, p, 0 if obs is None else obs.count,
+                                              orient))
             out[tag] = row
         return out
 
@@ -2425,6 +2633,7 @@ def run_phases(device, card, od_ptxas):
                     k: sum(n for var, n in v["fused_solve_variants"].items()
                            if var.startswith(topo + "/")) for k, v in paths.items()}
             if name == "A":
+                row.update(placement[m])
                 row.update(pair_ms=t[f"{key}_{m}_pair_ms"],
                            pair_plain_ms=t[f"{key}_{m}_pair_plain_ms"], pair_swarms=pair,
                            bound_pair=bound_keys(f"A {m} pair"), swarms=TREE_SWARMS[m],

@@ -15,18 +15,22 @@
 // Layout: one thread block per swarm, one thread per particle
 // (blockDim = P, a multiple of 32, <= KernelAThreads<T>: 1024, 512 for the
 // 45-DOF humanoid, so a thread may hold 128 registers instead of 64, and
-// 256 for reference_arm and snake_30dof, 255 registers). Serial chains
-// without a compile-time topology run the serial-chain variant, which
-// keeps x, v and lbest in global scratch (scratch_solve in
+// 256 for reference_arm and snake_30dof, two blocks an SM at 128
+// registers, KernelAMinBlocks). Serial chains without a compile-time
+// topology run the serial-chain variant, which keeps x and v (and lbest
+// where it does not fit shared memory) in global scratch (scratch_solve in
 // fused_solve.cuh, with the design notes of the scratch layout); a tree
 // past 45 DOFs built on demand takes the same layout
 // (fused_solve_tree_scratch_kernel, on_demand.cuh). The kernel templates
 // live in fused_solve.cuh; this file instantiates the prebuilt topologies
 // behind the C entry points.
-// x, v, lbest (D floats each) and lval live in registers for the whole
-// solve (the trees spill part of them: at D = 18 and 45 they exceed the
-// budget); the chain's packed meta, the swarm's constant row and the joint
-// limits are copied to shared memory once. The trees and snake_30dof
+// x (D floats) and lval live in registers for the whole solve; v and
+// lbest (D floats each) beside them for the short chains, and in dynamic
+// shared memory, [D][P] each, for the trees, reference_arm and snake_30dof
+// (StatePlacement in fused_solve.cuh: with all three in registers the
+// humanoid spilled 1,360 bytes and the dual arm 608); the chain's packed
+// meta, the swarm's constant row and the joint limits are copied to shared
+// memory once. The trees and snake_30dof
 // draw their uniforms four DOFs at a time next to their use
 // (StreamDraws), so no D-float draw array is live beside x, v and lbest.
 // The TPU kernel's 8x128 tiles, swarm packing, roll-tree reductions and
@@ -36,9 +40,10 @@
 // with __shfl_xor_sync, then one pass over the per-warp winners in shared
 // memory. Ties go to the lowest particle id, the first-minimum semantics
 // of pso/fused.py:255-260, 344-359 (thrust::min_element in the reference).
-// The winner writes its lbest to shared memory; everyone reads it after a
-// __syncthreads(). Two barriers per gbest refresh; an iteration without a
-// refresh (gbest_interval > 1) has none.
+// The winner's lbest is copied to shared memory (by the winner from its
+// registers, or by the block together where lbest is in shared memory);
+// everyone reads it after a __syncthreads(). Two barriers per gbest
+// refresh; an iteration without a refresh (gbest_interval > 1) has none.
 //
 // Re-kick (pso/fused.py:383-426): iterations run in blocks of
 // rekick_interval (a multiple of gbest_interval, so every block starts with
@@ -73,8 +78,10 @@
 // and one (D + 1)-float row out per swarm; per particle and iteration the
 // work is one FK + cost (fk_fitness.cuh), 3 Philox calls per draw slot
 // (10 rounds of 2 mul.hi + 2 mul.lo each) and the velocity update. The
-// design keeps all state in registers and spends shared memory only on
-// the constants and the argmin scratch, so many blocks fit per SM.
+// short chains keep all state in registers and spend shared memory only on
+// the constants and the argmin scratch, so many blocks fit per SM; a
+// tree's block fills its SM's registers on its own, so the shared memory
+// its v and lbest take costs it no occupancy.
 #include <cuda_runtime.h>
 
 #include "fused_solve.cuh"
@@ -133,17 +140,52 @@ extern "C" int ikpso_fused_solve(int topo, int collider, int orient, int replay,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel A's dynamic shared-memory bytes with `planes` [D][P] float planes
+// after the constants (kernel_a_smem_bytes): lets a caller hold its own
+// reckoning against the kernels'.
+extern "C" long long ikpso_kernel_a_smem_bytes(int M, int K, int D, int P, int planes) {
+  return static_cast<long long>(ikpso::kernel_a_smem_bytes(M, K, D, P, planes));
+}
+
+namespace {
+
+// The serial-chain variant's kernel for a replay flag and lbest placement,
+// allowed the card's opt-in shared memory (once per instantiation); most
+// is that maximum, 0 on an error.
+template <bool REPLAY, bool LB_SHARED>
+auto serial_kernel(int& most) {
+  static const int allowed =
+      ikpso::allow_dynamic_smem(ikpso::fused_solve_serial_kernel<REPLAY, LB_SHARED>);
+  most = allowed;
+  return ikpso::fused_solve_serial_kernel<REPLAY, LB_SHARED>;
+}
+
+auto serial_kernel(int replay, int lb_shared, int& most) {
+  if (lb_shared) {
+    return replay ? serial_kernel<true, true>(most) : serial_kernel<false, true>(most);
+  }
+  return replay ? serial_kernel<true, false>(most) : serial_kernel<false, false>(most);
+}
+
+size_t serial_smem_bytes(int M, int K, int n_nodes, int P, int lb_shared) {
+  return ikpso::kernel_a_smem_bytes(M, K, 3 * (n_nodes - 1), P, lb_shared ? 1 : 0);
+}
+
+}  // namespace
+
 // How many blocks of the serial-chain variant fit the card at once (its
-// grid, and so its scratch); <= 0 on an error.
-extern "C" int ikpso_fused_solve_serial_blocks(int replay, int P, int M, int K,
-                                               int n_nodes) {
+// grid, and so its scratch), lbest in shared memory where lb_shared; <= 0
+// on an error or where one block's shared memory does not fit.
+extern "C" int ikpso_fused_solve_serial_blocks(int replay, int lb_shared, int P, int M,
+                                               int K, int n_nodes) {
   using namespace ikpso;
   if (n_nodes < 2 || P <= 0 || P > kSerialThreads) return -1;
-  const size_t smem = serial_smem_bytes(M, K, 3 * (n_nodes - 1));
-  int per_sm = 0, device = 0, sms = 0;
-  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, replay ? fused_solve_serial_kernel<true> : fused_solve_serial_kernel<false>,
-      P, smem);
+  int most = 0, per_sm = 0, device = 0, sms = 0;
+  const auto kernel = serial_kernel(replay, lb_shared, most);
+  const size_t smem = serial_smem_bytes(M, K, n_nodes, P, lb_shared);
+  if (smem > static_cast<size_t>(most)) return -1;
+  const cudaError_t rc =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P, smem);
   if (rc != cudaSuccess || cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
     return -1;
@@ -151,38 +193,35 @@ extern "C" int ikpso_fused_solve_serial_blocks(int replay, int P, int M, int K,
   return per_sm * sms;
 }
 
-// The serial-chain variant of kernel A; scratch holds grid x 3 x D x P
-// floats, grid <= ikpso_fused_solve_serial_blocks(...).
-extern "C" int ikpso_fused_solve_serial(int replay, int init_mode, int n_nodes,
-                                        const float* meta, int M, const float* swarm,
-                                        int K, const float* limits, const int* seeds,
-                                        const float* inertia, int iters, float c1,
-                                        float c2, float vscale, int randomized,
+// The serial-chain variant of kernel A; scratch holds grid x planes x D x P
+// floats (planes 2 where lb_shared, else 3), grid <=
+// ikpso_fused_solve_serial_blocks(...).
+extern "C" int ikpso_fused_solve_serial(int replay, int lb_shared, int init_mode,
+                                        int n_nodes, const float* meta, int M,
+                                        const float* swarm, int K, const float* limits,
+                                        const int* seeds, const float* inertia, int iters,
+                                        float c1, float c2, float vscale, int randomized,
                                         int gbest_interval, int rekick_interval,
                                         float rekick_scale, float rekick_threshold,
-                                        const float* uniforms, int n_draws,
-                                        float* scratch, int grid, float* gbest,
-                                        float* gval, int S, int P, void* stream) {
+                                        const float* uniforms, int n_draws, float* scratch,
+                                        int grid, float* gbest, float* gval, int S, int P,
+                                        void* stream) {
   using namespace ikpso;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0) return static_cast<int>(cudaGetLastError());
-  const size_t smem = serial_smem_bytes(M, K, 3 * (n_nodes - 1));
   if (n_nodes < 2 || grid <= 0 || P <= 0 || P > kSerialThreads || P % 32 != 0 ||
       init_mode < kInitWarm || init_mode > kInitHybrid || gbest_interval < 1 ||
-      rekick_interval < 0 || (rekick_interval > 0 && rekick_interval % gbest_interval) ||
-      smem > 48 * 1024) {
+      rekick_interval < 0 || (rekick_interval > 0 && rekick_interval % gbest_interval)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  int most = 0;
+  const auto kernel = serial_kernel(replay, lb_shared, most);
+  const size_t smem = serial_smem_bytes(M, K, n_nodes, P, lb_shared);
+  if (smem > static_cast<size_t>(most)) return static_cast<int>(cudaErrorInvalidValue);
   const Update up{randomized != 0, gbest_interval, rekick_interval, rekick_scale,
                   rekick_threshold};
-  if (replay) {
-    fused_solve_serial_kernel<true><<<grid, P, smem, st>>>(
-        n_nodes, meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale,
-        init_mode, up, uniforms, n_draws, scratch, gbest, gval, S);
-  } else {
-    fused_solve_serial_kernel<false><<<grid, P, smem, st>>>(
-        n_nodes, meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale,
-        init_mode, up, uniforms, n_draws, scratch, gbest, gval, S);
-  }
+  kernel<<<grid, P, smem, st>>>(n_nodes, meta, M, swarm, K, limits, seeds, inertia, iters,
+                                c1, c2, vscale, init_mode, up, uniforms, n_draws, scratch,
+                                gbest, gval, S);
   return static_cast<int>(cudaGetLastError());
 }

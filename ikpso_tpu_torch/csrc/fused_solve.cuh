@@ -162,6 +162,120 @@ struct StreamDraws<OnDemandTopology<PA, EF, TH, ST, DI, EX>> {
   static constexpr bool value = ST;
 };
 
+// Where kernel A keeps a particle's velocity and personal best. x stays in
+// registers either way: the FK walk reads it. kRegisters: v and lbest in
+// registers beside x. kShared: v and lbest in dynamic shared memory, laid
+// out [D][P] each after the argmin scratch (kernel_a_smem_bytes); the
+// update reads and writes them at [d * P + p], so a warp touches 32
+// consecutive words, one a bank. The walk never reads them, and a block of
+// a tree already fills its SM's registers, so the shared memory they take
+// costs no occupancy while it takes two thirds of the state out of the
+// register file (the humanoid spilled 1,360 bytes and the dual arm 608 at
+// their bounds with all three in registers). The short chains keep
+// registers: their x, v and lbest fit. Must match SHARED_IDS in
+// ikpso_tpu_torch/utils/kernels.py; an on-demand topology's placement is
+// set in on_demand.cuh (IKPSO_OD_SHARED).
+enum Placement : int { kRegisters = 0, kShared = 1 };
+template <class T>
+struct StatePlacement {
+  static constexpr int value = kRegisters;
+};
+template <>
+struct StatePlacement<DualArm14> {
+  static constexpr int value = kShared;
+};
+template <>
+struct StatePlacement<Humanoid45> {
+  static constexpr int value = kShared;
+};
+template <>
+struct StatePlacement<ReferenceArm> {
+  static constexpr int value = kShared;
+};
+template <>
+struct StatePlacement<Snake30> {
+  static constexpr int value = kShared;
+};
+
+// The least blocks of kernel A per SM that ptxas must fit (the second
+// argument of __launch_bounds__): 2 where v and lbest left the registers of
+// a 256-thread topology and x and the walk fit 128 registers without a
+// spill, so two swarms share an SM and hide each other's issue latency.
+template <class T>
+struct KernelAMinBlocks {
+  static constexpr int value = 1;
+};
+template <>
+struct KernelAMinBlocks<ReferenceArm> {
+  static constexpr int value = 2;
+};
+template <>
+struct KernelAMinBlocks<Snake30> {
+  static constexpr int value = 2;
+};
+
+// A particle's v and lbest where StatePlacement puts them: vel(d) and
+// best(d) are element d, and copy_best writes the winner's lbest to
+// dst[0, D) -- the winner alone from its registers, or the block together
+// from shared memory (after a barrier that follows every lbest write).
+template <int D, int PLACE>
+struct ParticleState;
+template <int D>
+struct ParticleState<D, kRegisters> {
+  float v[D], lb[D];
+  int p;
+  __device__ ParticleState(float*, int, int p) : p(p) {}
+  __device__ __forceinline__ float& vel(int d) { return v[d]; }
+  __device__ __forceinline__ float& best(int d) { return lb[d]; }
+  __device__ __forceinline__ void copy_best(float* dst, int win) const {
+    if (p == win) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) dst[d] = lb[d];
+    }
+  }
+};
+template <int D>
+struct ParticleState<D, kShared> {
+  float* s_v;   // [D][P]
+  float* s_lb;  // [D][P]
+  int P, p;
+  __device__ ParticleState(float* s_state, int P, int p)
+      : s_v(s_state), s_lb(s_state + D * P), P(P), p(p) {}
+  __device__ __forceinline__ float& vel(int d) { return s_v[d * P + p]; }
+  __device__ __forceinline__ float& best(int d) { return s_lb[d * P + p]; }
+  __device__ __forceinline__ void copy_best(float* dst, int win) const {
+    for (int d = p; d < D; d += P) dst[d] = s_lb[d * P + win];
+  }
+};
+
+// Kernel A's dynamic shared memory: meta, the swarm row, the limits, gbest
+// and the argmin scratch (M + K + 3 D + 64 words), rounded up to 16 bytes,
+// then `planes` [D][P] float planes (v and lbest in the register layout's
+// shared placement; lbest in the scratch layout's). Must match
+// kernel_a_smem_bytes in ikpso_tpu_torch/utils/kernels.py.
+__host__ __device__ constexpr size_t smem_head_floats(int M, int K, int D) {
+  return (static_cast<size_t>(M) + K + 3 * D + 64 + 3) / 4 * 4;
+}
+static size_t kernel_a_smem_bytes(int M, int K, int D, int P, int planes) {
+  return sizeof(float) * (smem_head_floats(M, K, D) + static_cast<size_t>(planes) * D * P);
+}
+
+// Lets `kernel` take the card's opt-in maximum of dynamic shared memory
+// per block (past the default 48 KB) and returns that maximum, 0 on an
+// error. Each launcher calls it once per instantiation, from a static.
+template <class F>
+static int allow_dynamic_smem(F kernel) {
+  int device = 0, most = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+          cudaSuccess ||
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most) !=
+          cudaSuccess) {
+    return 0;
+  }
+  return most;
+}
+
 // The update's runtime branches (host-checked: gbest_interval >= 1 and it
 // divides rekick_interval when the re-kick is on).
 struct Update {
@@ -173,12 +287,14 @@ struct Update {
 };
 
 template <class T, int C, bool O, bool REPLAY>
-__global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
-    const float* __restrict__ meta, int M, const float* __restrict__ swarm, int K,
-    const float* __restrict__ limits, const int* __restrict__ seeds,
-    const float* __restrict__ inertia, int iters, float c1, float c2, float vscale,
-    int init_mode, Scene scene, Update up, const float* __restrict__ uniforms,
-    int n_draws, float* __restrict__ out_gbest, float* __restrict__ out_gval) {
+__global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>::value)
+    fused_solve_kernel(const float* __restrict__ meta, int M,
+                       const float* __restrict__ swarm, int K,
+                       const float* __restrict__ limits, const int* __restrict__ seeds,
+                       const float* __restrict__ inertia, int iters, float c1, float c2,
+                       float vscale, int init_mode, Scene scene, Update up,
+                       const float* __restrict__ uniforms, int n_draws,
+                       float* __restrict__ out_gbest, float* __restrict__ out_gval) {
   constexpr int D = T::D;
   extern __shared__ float smem[];
   float* s_meta = smem;
@@ -207,7 +323,8 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
 
   constexpr bool kStream = StreamDraws<T>::value;
   constexpr int kGroups = (D + 3) / 4;
-  float x[D], v[D], lb[D], uc[kStream ? 4 : D], us[kStream ? 4 : D];
+  float x[D], uc[kStream ? 4 : D], us[kStream ? 4 : D];
+  ParticleState<D, StatePlacement<T>::value> st(smem + smem_head_floats(M, K, D), P, p);
   const int n_init = init_mode == kInitWarm ? 1 : 2;
   if (init_mode == kInitWarm || (init_mode == kInitHybrid && p == 0)) {
 #pragma unroll
@@ -228,8 +345,8 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
           const float hi_c = fminf(s_hi[d], kTwoPi);
           x[d] = lo_c + us[j] * (hi_c - lo_c);
         }
-        v[d] = (uc[j] * 2.0f - 1.0f) * vscale;
-        lb[d] = x[d];
+        st.vel(d) = (uc[j] * 2.0f - 1.0f) * vscale;
+        st.best(d) = x[d];
       }
     }
   } else {
@@ -249,8 +366,8 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
     draw<D, REPLAY>(uc, n_init - 1, p, P, key, u_swarm);
 #pragma unroll
     for (int d = 0; d < D; ++d) {
-      v[d] = (uc[d] * 2.0f - 1.0f) * vscale;
-      lb[d] = x[d];
+      st.vel(d) = (uc[d] * 2.0f - 1.0f) * vscale;
+      st.best(d) = x[d];
     }
   }
   float lval = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
@@ -266,11 +383,9 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
     if (refresh_in == 0) {
       refresh_in = up.gbest_interval;
       float best;
+      // block_argmin's barrier follows every lbest write of the block.
       const int win = block_argmin(lval, p, s_wval, s_wid, best);
-      if (p == win) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) s_gb[d] = lb[d];
-      }
+      st.copy_best(s_gb, win);
       __syncthreads();
       if (kick && (up.rekick_threshold < 0.0f || best > up.rekick_threshold)) {
         if constexpr (kStream) {
@@ -280,13 +395,13 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
             draw_group<REPLAY>(uc, g, slot, D, p, P, key, u_swarm);
 #pragma unroll
             for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
-              v[4 * g + j] = (uc[j] * 2.0f - 1.0f) * up.rekick_scale;
+              st.vel(4 * g + j) = (uc[j] * 2.0f - 1.0f) * up.rekick_scale;
             }
           }
         } else {
           draw<D, REPLAY>(uc, n_init + it * dpi + dpi - 1, p, P, key, u_swarm);
 #pragma unroll
-          for (int d = 0; d < D; ++d) v[d] = (uc[d] * 2.0f - 1.0f) * up.rekick_scale;
+          for (int d = 0; d < D; ++d) st.vel(d) = (uc[d] * 2.0f - 1.0f) * up.rekick_scale;
         }
       }
     }
@@ -305,44 +420,45 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_kernel(
 #pragma unroll
         for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
           const int d = 4 * g + j;
-          v[d] = up.randomized ? (w * uw[j]) * v[d] : w * v[d];
-          v[d] = v[d] + c1 * uc[j] * (lb[d] - x[d]) + c2 * us[j] * (s_gb[d] - x[d]);
-          x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
+          float vd = st.vel(d);
+          vd = up.randomized ? (w * uw[j]) * vd : w * vd;
+          vd = vd + c1 * uc[j] * (st.best(d) - x[d]) + c2 * us[j] * (s_gb[d] - x[d]);
+          st.vel(d) = vd;
+          x[d] = fminf(fmaxf(x[d] + vd, s_lo[d]), s_hi[d]);
         }
       }
     } else {
       if (up.randomized) {
         draw<D, REPLAY>(uc, base + 2, p, P, key, u_swarm);
 #pragma unroll
-        for (int d = 0; d < D; ++d) v[d] = (w * uc[d]) * v[d];
+        for (int d = 0; d < D; ++d) st.vel(d) = (w * uc[d]) * st.vel(d);
       } else {
 #pragma unroll
-        for (int d = 0; d < D; ++d) v[d] = w * v[d];
+        for (int d = 0; d < D; ++d) st.vel(d) = w * st.vel(d);
       }
       draw<D, REPLAY>(uc, base, p, P, key, u_swarm);
       draw<D, REPLAY>(us, base + 1, p, P, key, u_swarm);
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         const float gb = s_gb[d];
-        v[d] = v[d] + c1 * uc[d] * (lb[d] - x[d]) + c2 * us[d] * (gb - x[d]);
-        x[d] = fminf(fmaxf(x[d] + v[d], s_lo[d]), s_hi[d]);
+        const float vd =
+            st.vel(d) + c1 * uc[d] * (st.best(d) - x[d]) + c2 * us[d] * (gb - x[d]);
+        st.vel(d) = vd;
+        x[d] = fminf(fmaxf(x[d] + vd, s_lo[d]), s_hi[d]);
       }
     }
     const float f = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
     if (f < lval) {
       lval = f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) lb[d] = x[d];
+      for (int d = 0; d < D; ++d) st.best(d) = x[d];
     }
   }
 
   float best;
   const int win = block_argmin(lval, p, s_wval, s_wid, best);
-  if (p == win) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) out_gbest[static_cast<long long>(s) * D + d] = lb[d];
-    out_gval[s] = lval;
-  }
+  st.copy_best(out_gbest + static_cast<long long>(s) * D, win);
+  if (p == win) out_gval[s] = lval;
 }
 
 template <class T, int C, bool O = false>
@@ -354,7 +470,13 @@ static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
                                       int n_draws, float* gbest, float* gval, int S,
                                       int P, cudaStream_t stream) {
   if (P > KernelAThreads<T>::value) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (M + K + 3 * T::D + 32) + sizeof(int) * 32;
+  static const int most_replay = allow_dynamic_smem(fused_solve_kernel<T, C, O, true>);
+  static const int most_philox = allow_dynamic_smem(fused_solve_kernel<T, C, O, false>);
+  const size_t smem = kernel_a_smem_bytes(M, K, T::D, P,
+                                          StatePlacement<T>::value == kShared ? 2 : 0);
+  if (smem > static_cast<size_t>(replay ? most_replay : most_philox)) {
+    return cudaErrorInvalidValue;
+  }
   if (replay) {
     fused_solve_kernel<T, C, O, true><<<S, P, smem, stream>>>(
         meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
@@ -375,13 +497,20 @@ static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
 //
 // What rules out the design above: at snake:50 (D = 150) x, v and lbest
 // are 450 floats a thread, and at P = 256 a thread has at most 255
-// registers; lbest alone in shared memory would take 153.6 KB of a block's
-// 227 KB, so two such arrays do not fit either. Here x, v and lbest live in
-// global scratch laid out [block][3][D][P] (x, v, lbest), so for each d a
-// warp touches 32 consecutive floats, and a grid of the blocks that fit
-// the card at once strides over the swarms, so the scratch is grid x 3 x D
-// x P floats (the wrapper allocates it), not S x 3 x D x P. gbest, the
-// limits, meta and the swarm row stay in shared memory, as above.
+// registers, and v and lbest together in shared memory would take 307 KB
+// of a block's 227 KB. Here x and v live in global scratch laid out
+// [block][planes][D][P] (x, v, then lbest where it is not in shared
+// memory), so for each d a warp touches 32 consecutive floats, and a grid
+// of the blocks that fit the card at once strides over the swarms, so the
+// scratch is grid x planes x D x P floats (the wrapper allocates it), not
+// S x planes x D x P. lbest goes to dynamic shared memory ([D][P] after
+// the argmin scratch, kernel_a_smem_bytes) where the launcher is asked to
+// (LB_SHARED; the serial variant takes it as a run-time argument, a tree a
+// compile-time one, StatePlacement): that cuts the scratch traffic from ~7
+// D to ~5 D floats a particle-evaluation, but at snake:50's P = 256 its
+// 153.6 KB leave room for one block an SM where four fit without it.
+// gbest, the limits, meta and the swarm row stay in shared memory, as
+// above.
 //
 // The same layout serves a compile-time tree whose state outgrows the
 // registers (fused_solve_tree_scratch_kernel, built on demand): the walk
@@ -400,9 +529,9 @@ static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
 // function's bytes are still the constants in and one row out a swarm),
 // but each particle-evaluation also moves ~7 D floats of scratch through
 // L2 and HBM (x, v and lbest read, x and v written, x read back, lbest
-// written where better): at snake:50 ~4.2 KB against 15.6 k counted
-// operations, so this variant is scratch-bound (share 0.11 on an H100,
-// PERF.md).
+// written where better; ~5 D with lbest in shared memory): at snake:50
+// ~4.2 KB against 15.6 k counted operations, so this variant is
+// scratch-bound (share 0.11 on an H100, PERF.md).
 
 constexpr int kSerialThreads = 1024;
 
@@ -429,9 +558,9 @@ struct TreeWalk {
   }
 };
 
-// The scratch-layout solve (see above) for any walk W; a grid of blocks
-// strides over the S swarms.
-template <class W, bool REPLAY>
+// The scratch-layout solve (see above) for any walk W, lbest in shared
+// memory where LB_SHARED; a grid of blocks strides over the S swarms.
+template <class W, bool REPLAY, bool LB_SHARED>
 __device__ __forceinline__ void scratch_solve(
     const W& walk, const float* __restrict__ meta, int M, const float* __restrict__ swarm,
     int K, const float* __restrict__ limits, const int* __restrict__ seeds,
@@ -452,10 +581,16 @@ __device__ __forceinline__ void scratch_solve(
   const int P = blockDim.x;
   const int p = threadIdx.x;
   const long long DP = static_cast<long long>(D) * P;
-  // This thread's column of the block's scratch: element d at [d * P].
-  float* xg = scratch + blockIdx.x * 3 * DP + p;
+  // This thread's column of the block's scratch (and of lbest): element d
+  // at [d * P].
+  float* xg = scratch + blockIdx.x * (LB_SHARED ? 2 : 3) * DP + p;
   float* vg = xg + DP;
-  float* lg = vg + DP;
+  float* lg;
+  if constexpr (LB_SHARED) {
+    lg = smem + smem_head_floats(M, K, D) + p;
+  } else {
+    lg = vg + DP;
+  }
   for (int i = p; i < M; i += P) s_meta[i] = meta[i];
   for (int i = p; i < D; i += P) {
     s_lo[i] = limits[i];
@@ -466,7 +601,8 @@ __device__ __forceinline__ void scratch_solve(
   constexpr float kTwoPi = 0x1.921fb6p+2f;
 
   for (int s = blockIdx.x; s < S; s += gridDim.x) {
-    // The previous swarm's last reads of s_sw, s_gb and the scratch are done.
+    // The previous swarm's last reads of s_sw, s_gb, lbest and the scratch
+    // are done.
     __syncthreads();
     for (int i = p; i < K; i += P) s_sw[i] = swarm[static_cast<long long>(s) * K + i];
     __syncthreads();
@@ -562,23 +698,24 @@ __device__ __forceinline__ void scratch_solve(
   }
 }
 
-template <bool REPLAY>
+template <bool REPLAY, bool LB_SHARED>
 __global__ void __launch_bounds__(kSerialThreads) fused_solve_serial_kernel(
     int n, const float* __restrict__ meta, int M, const float* __restrict__ swarm, int K,
     const float* __restrict__ limits, const int* __restrict__ seeds,
     const float* __restrict__ inertia, int iters, float c1, float c2, float vscale,
     int init_mode, Update up, const float* __restrict__ uniforms, int n_draws,
     float* scratch, float* __restrict__ out_gbest, float* __restrict__ out_gval, int S) {
-  scratch_solve<SerialWalk, REPLAY>(SerialWalk{n}, meta, M, swarm, K, limits, seeds,
-                                    inertia, iters, c1, c2, vscale, init_mode, up, uniforms,
-                                    n_draws, scratch, out_gbest, out_gval, S);
+  scratch_solve<SerialWalk, REPLAY, LB_SHARED>(
+      SerialWalk{n}, meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale,
+      init_mode, up, uniforms, n_draws, scratch, out_gbest, out_gval, S);
 }
 
 // The scratch layout for a compile-time tree whose x, v and lbest do not
 // fit a thread's registers (an on-demand topology past 45 DOFs: the
 // 21-keypoint hand's are 180 floats), with a scene and the orientation
 // term as the register kernel takes them; its thread bound is the
-// topology's (KernelAThreads).
+// topology's (KernelAThreads), and lbest is in shared memory where its
+// StatePlacement is kShared.
 template <class T, int C, bool O, bool REPLAY>
 __global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_tree_scratch_kernel(
     Scene scene, const float* __restrict__ meta, int M, const float* __restrict__ swarm,
@@ -586,14 +723,9 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value) fused_solve_tree_scr
     const float* __restrict__ inertia, int iters, float c1, float c2, float vscale,
     int init_mode, Update up, const float* __restrict__ uniforms, int n_draws,
     float* scratch, float* __restrict__ out_gbest, float* __restrict__ out_gval, int S) {
-  scratch_solve<TreeWalk<T, C, O>, REPLAY>(TreeWalk<T, C, O>{scene}, meta, M, swarm, K,
-                                           limits, seeds, inertia, iters, c1, c2, vscale,
-                                           init_mode, up, uniforms, n_draws, scratch,
-                                           out_gbest, out_gval, S);
-}
-
-static size_t serial_smem_bytes(int M, int K, int D) {
-  return sizeof(float) * (M + K + 3 * D + 32) + sizeof(int) * 32;
+  scratch_solve<TreeWalk<T, C, O>, REPLAY, StatePlacement<T>::value == kShared>(
+      TreeWalk<T, C, O>{scene}, meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2,
+      vscale, init_mode, up, uniforms, n_draws, scratch, out_gbest, out_gval, S);
 }
 
 }  // namespace ikpso

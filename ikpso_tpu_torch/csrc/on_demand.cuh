@@ -16,13 +16,16 @@
 //   IKPSO_OD_EFFECTORS   the effector nodes, in effector_idx order
 //   IKPSO_OD_THREADS     kernel A's thread-block bound (the most particles)
 //   IKPSO_OD_STREAM      1: kernel A draws four DOFs at a time (StreamDraws)
-//   IKPSO_OD_SCRATCH     1: kernel A keeps x, v and lbest in global scratch
+//   IKPSO_OD_SCRATCH     1: kernel A keeps x and v (and lbest) in global scratch
+//   IKPSO_OD_SHARED      1: kernel A keeps v and lbest (the scratch layout:
+//                        lbest) in dynamic shared memory (StatePlacement)
 //   IKPSO_OD_COLLIDER    enum Collider
 //   IKPSO_OD_ORIENTATION, IKPSO_OD_DISTANCE, IKPSO_OD_EXACT   0 or 1
 //
 // Entry points (one set per library, so fixed names): ikpso_od_fused_solve
-// (kernel A; the scratch layout takes a scratch of grid x 3 x D x P floats,
-// grid <= ikpso_od_fused_solve_blocks), ikpso_od_fk_fitness (kernel B's
+// (kernel A; the scratch layout takes a scratch of grid x planes x D x P
+// floats, planes 2 with IKPSO_OD_SHARED and 3 without, grid <=
+// ikpso_od_fused_solve_blocks), ikpso_od_fk_fitness (kernel B's
 // standalone launcher) and ikpso_od_fused_fitness (kernel C). Each returns
 // a CUDA error code, as the prebuilt ones do.
 #pragma once
@@ -44,24 +47,48 @@ constexpr bool kOdScratch = IKPSO_OD_SCRATCH != 0;
 static_assert(OdTopology::N >= 2 && OdTopology::parent(0) == -1, "a tree rooted at node 0");
 static_assert(kOdCollider >= kNoCollider && kOdCollider <= kCapsuleCollider, "collider id");
 
-static size_t od_smem_bytes(int M, int K) {
-  return sizeof(float) * (M + K + 3 * OdTopology::D + 32) + sizeof(int) * 32;
+template <>
+struct StatePlacement<OdTopology> {
+  static constexpr int value = IKPSO_OD_SHARED != 0 ? kShared : kRegisters;
+};
+
+// Kernel A's dynamic shared memory at P particles: the [D][P] planes in
+// shared memory are v and lbest in the register layout, lbest in the
+// scratch layout.
+static size_t od_smem_bytes(int M, int K, int P) {
+  const int planes =
+      StatePlacement<OdTopology>::value == kShared ? (kOdScratch ? 1 : 2) : 0;
+  return kernel_a_smem_bytes(M, K, OdTopology::D, P, planes);
 }
 
 // Kernel A's two layouts behind a template flag: the member functions of a
 // class template are instantiated only where called, and if constexpr
-// discards the other layout, so only the chosen one is compiled.
+// discards the other layout, so only the chosen one is compiled. In an
+// unnamed namespace: two libraries of one tree in two placements share
+// the topology's type, and a static of a class with external linkage
+// would be one object for both (a unique symbol), so the second library
+// would never allow its own kernel the shared memory.
+namespace {
 template <bool SCRATCH>
 struct OdKernelA {
+  // The scratch layout's kernel for a replay flag, allowed the card's opt-in
+  // shared memory (once per instantiation); most is that maximum.
+  template <bool REPLAY>
+  static auto scratch_kernel(int& most) {
+    static const int allowed = allow_dynamic_smem(
+        fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, REPLAY>);
+    most = allowed;
+    return fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, REPLAY>;
+  }
+
   static int blocks(int replay, int P, int M, int K) {
     if constexpr (SCRATCH) {
-      int per_sm = 0, device = 0, sms = 0;
-      const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm,
-          replay
-              ? fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, true>
-              : fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, false>,
-          P, od_smem_bytes(M, K));
+      int most = 0, per_sm = 0, device = 0, sms = 0;
+      const auto kernel = replay ? scratch_kernel<true>(most) : scratch_kernel<false>(most);
+      const size_t smem = od_smem_bytes(M, K, P);
+      if (smem > static_cast<size_t>(most)) return -1;
+      const cudaError_t rc =
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, P, smem);
       if (rc != cudaSuccess || cudaGetDevice(&device) != cudaSuccess ||
           cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
               cudaSuccess) {
@@ -80,18 +107,13 @@ struct OdKernelA {
                             int n_draws, float* scratch, int grid, float* gbest,
                             float* gval, int S, int P, cudaStream_t st) {
     if constexpr (SCRATCH) {
-      const size_t smem = od_smem_bytes(M, K);
-      if (replay) {
-        fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, true>
-            <<<grid, P, smem, st>>>(scene, meta, M, swarm, K, limits, seeds, inertia, iters,
+      int most = 0;
+      const auto kernel = replay ? scratch_kernel<true>(most) : scratch_kernel<false>(most);
+      const size_t smem = od_smem_bytes(M, K, P);
+      if (smem > static_cast<size_t>(most)) return cudaErrorInvalidValue;
+      kernel<<<grid, P, smem, st>>>(scene, meta, M, swarm, K, limits, seeds, inertia, iters,
                                     c1, c2, vscale, init_mode, up, uniforms, n_draws,
                                     scratch, gbest, gval, S);
-      } else {
-        fused_solve_tree_scratch_kernel<OdTopology, kOdCollider, kOdOrientation, false>
-            <<<grid, P, smem, st>>>(scene, meta, M, swarm, K, limits, seeds, inertia, iters,
-                                    c1, c2, vscale, init_mode, up, uniforms, n_draws,
-                                    scratch, gbest, gval, S);
-      }
       return cudaSuccess;
     } else {
       return launch_fused_solve<OdTopology, kOdCollider, kOdOrientation>(
@@ -100,11 +122,13 @@ struct OdKernelA {
     }
   }
 };
+}  // namespace
 
 }  // namespace ikpso
 
 // How many blocks of the scratch layout fit the card at once (its grid, and
-// so its scratch); <= 0 on an error or for the register layout.
+// so its scratch); <= 0 on an error, where one block's shared memory does
+// not fit, or for the register layout.
 extern "C" int ikpso_od_fused_solve_blocks(int replay, int P, int M, int K) {
   using namespace ikpso;
   if (P <= 0 || P > OdTopology::kThreads) return -1;
@@ -127,8 +151,7 @@ extern "C" int ikpso_od_fused_solve(int replay, int init_mode, int n_obs, float 
       init_mode > kInitHybrid || n_obs < 0 || (kOdCollider == kNoCollider && n_obs) ||
       gbest_interval < 1 || rekick_interval < 0 ||
       (rekick_interval > 0 && rekick_interval % gbest_interval) ||
-      (kOdScratch && (grid <= 0 || scratch == nullptr)) ||
-      od_smem_bytes(M, K) > 48 * 1024) {
+      (kOdScratch && (grid <= 0 || scratch == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t rc = OdKernelA<kOdScratch>::launch(

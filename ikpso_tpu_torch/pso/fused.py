@@ -4,10 +4,12 @@ Port of ``ikpso_tpu/pso/fused.py`` (``fused_solve_raw``,
 ``make_fused_solver``):
 
   * ``fused_solve`` — kernel A (``csrc/fused_solve.cu``): one thread
-    block per swarm, one thread per particle, the whole solve in
-    registers (serial chains without a compile-time topology: x, v and
-    lbest in a global scratch, ``snake:50`` among them); CPU tensors run
-    ``fused_solve_plain`` instead;
+    block per swarm, one thread per particle, the whole solve on chip: x
+    in registers, v and lbest in registers or shared memory (serial chains
+    without a compile-time topology and trees past 45 DOFs: x and v in a
+    global scratch, lbest in shared memory where it fits;
+    :func:`kernel_a_layout`); CPU tensors run ``fused_solve_plain``
+    instead;
   * ``fused_solve_plain`` — the same solve on ``(S, P, D)`` tensors,
     with ``torch.argmin`` (first occurrence) for gbest;
   * ``make_fused_solver`` — ``(problem, generator) -> SolveResult``.
@@ -123,6 +125,15 @@ def inertia_schedule(pso: PSOConfig) -> np.ndarray:
     ).astype(np.float32)
 
 
+def kernel_a_layout(spec, fit, swarm, num_particles, num_obstacles=0,
+                    use_orientation=False) -> kernels.KernelALayout:
+    """Where kernel A keeps its state for this solve, and the shared memory
+    a block takes (``utils.kernels.kernel_a_layout``)."""
+    return kernels.kernel_a_layout(spec, num_particles, num_obstacles, fit.collision_shape,
+                                   use_orientation, uses_distance(fit), fit.trig_impl,
+                                   swarm_width=swarm.shape[1])
+
+
 def _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
                 num_obstacles=0, use_orientation=False):
     s = swarm.shape[0]
@@ -135,6 +146,14 @@ def _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
             + ("" if most == 1024 else " (kernel A's thread-block bound for this "
                "topology)")
         )
+    layout = kernel_a_layout(spec, fit, swarm, num_particles, num_obstacles, use_orientation)
+    if layout.smem_bytes > kernels.SMEM_OPTIN:
+        raise ValueError(
+            f"kernel A needs {layout.smem_bytes} bytes of shared memory a block for "
+            f"{spec.num_nodes} nodes, P={num_particles} and {num_obstacles} obstacles "
+            f"(v and lbest: {layout.placement}); a block has at most "
+            f"{kernels.SMEM_OPTIN}"
+        )
     if tuple(limits.shape) != (2, d):
         raise ValueError(f"limits must be (2, {d}), got {tuple(limits.shape)}")
     if tuple(seeds.shape) != (s, 2) or seeds.dtype != torch.int32:
@@ -143,6 +162,7 @@ def _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
         want = (s, num_draws(pso), d, num_particles)
         if tuple(uniforms.shape) != want:
             raise ValueError(f"uniforms must be {want}, got {tuple(uniforms.shape)}")
+    return layout
 
 
 def fused_solve_plain(
@@ -260,8 +280,8 @@ def fused_solve(
     with it).
     """
     check_supported(pso, fit, num_obstacles)
-    _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
-                num_obstacles, use_orientation)
+    layout = _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
+                         num_obstacles, use_orientation)
     check_meta(spec, meta, num_obstacles, use_orientation)
     check_swarm(spec, swarm, num_obstacles, use_orientation)
     interval = gbest_interval(pso)
@@ -303,10 +323,10 @@ def fused_solve(
                                                 fit.trig_impl == "exact"),
                           INIT_MODES[pso.init_mode], replay, num_obstacles,
                           scene_constants(fit.gizmo_size), meta, swarm, update, gbest,
-                          gval, num_particles)
+                          gval, num_particles, layout)
     elif topo == kernels.SERIAL:
         _launch_serial(spec, INIT_MODES[pso.init_mode], replay, meta, swarm, update,
-                       gbest, gval, num_particles)
+                       gbest, gval, num_particles, layout)
     else:
         rc = kernels.library().ikpso_fused_solve(
             topo, collider, orient, replay, INIT_MODES[pso.init_mode],
@@ -326,23 +346,31 @@ def fused_solve(
     return gbest, gval
 
 
+def _scratch(layout, grid, d, p, device):
+    """The scratch layout's global scratch: ``(grid, planes, D, P)``, x and
+    v and, where lbest is not in shared memory, lbest (``layout``)."""
+    return torch.empty((grid, layout.scratch_planes, d, p), dtype=torch.float32,
+                       device=device)
+
+
 def _launch_serial(spec, init_mode, replay, meta, swarm, update, gbest, gval,
-                   num_particles):
+                   num_particles, layout):
     """Launch kernel A's serial-chain variant: a grid of the blocks that fit
     the card at once strides over the swarms, each block keeping its
-    swarm's x, v and lbest in a ``(3, D, P)`` slice of a scratch allocated
-    here on the caller's device."""
+    swarm's state in a slice of a scratch allocated here on the caller's
+    device (:func:`_scratch`)."""
     lib = kernels.library()
     s, d, p = swarm.shape[0], spec.dof, num_particles
-    blocks = lib.ikpso_fused_solve_serial_blocks(replay, p, meta.numel(), swarm.shape[1],
-                                                 spec.num_nodes)
+    shared = int(layout.placement == "shared")
+    blocks = lib.ikpso_fused_solve_serial_blocks(replay, shared, p, meta.numel(),
+                                                 swarm.shape[1], spec.num_nodes)
     if blocks <= 0:
         raise RuntimeError(f"fused_solve: no block of the serial-chain variant fits "
                            f"the card at D={d}, P={p}")
     grid = min(s, blocks)
-    scratch = torch.empty((grid, 3, d, p), dtype=torch.float32, device=swarm.device)
+    scratch = _scratch(layout, grid, d, p, swarm.device)
     rc = lib.ikpso_fused_solve_serial(
-        replay, init_mode, spec.num_nodes, meta.data_ptr(), meta.numel(),
+        replay, shared, init_mode, spec.num_nodes, meta.data_ptr(), meta.numel(),
         swarm.data_ptr(), swarm.shape[1], *update, scratch.data_ptr(), grid,
         gbest.data_ptr(), gval.data_ptr(), s, p, kernels.stream_ptr(swarm.device),
     )
@@ -350,7 +378,7 @@ def _launch_serial(spec, init_mode, replay, meta, swarm, update, gbest, gval,
 
 
 def _launch_on_demand(key, init_mode, replay, num_obstacles, scene, meta, swarm, update,
-                      gbest, gval, num_particles):
+                      gbest, gval, num_particles, layout):
     """Launch kernel A from the on-demand library of ``key``; its scratch
     layout takes a scratch sized as :func:`_launch_serial`'s."""
     lib = kernels.on_demand_library(key)
@@ -362,8 +390,7 @@ def _launch_on_demand(key, init_mode, replay, num_obstacles, scene, meta, swarm,
             raise RuntimeError(f"fused_solve: no block of the scratch layout fits the "
                                f"card for {key.name()} at P={p}")
         grid = min(s, blocks)
-        d = 3 * (len(key.parents) - 1)
-        scratch = torch.empty((grid, 3, d, p), dtype=torch.float32, device=swarm.device)
+        scratch = _scratch(layout, grid, 3 * (len(key.parents) - 1), p, swarm.device)
     rc = lib.ikpso_od_fused_solve(
         replay, init_mode, num_obstacles, *scene, meta.data_ptr(), meta.numel(),
         swarm.data_ptr(), swarm.shape[1], *update,

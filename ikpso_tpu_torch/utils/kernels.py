@@ -87,17 +87,38 @@ TRIG_IMPLS = ("poly", "exact")
 # Kernel A's thread-block bound per topology id (its __launch_bounds__,
 # KernelAThreads in csrc/fused_solve.cu): one thread per particle, so the
 # most particles a swarm may have; 1024 where not listed. 256 (the
-# reference_arm and snake presets' P) lets a thread hold 255 registers,
-# 512 (the humanoid's) 128, 1024 only 64.
+# reference_arm and snake presets' P) lets a thread hold 128 registers with
+# two blocks an SM (KernelAMinBlocks), 512 (the humanoid's) 128 with one,
+# 1024 only 64.
 MAX_PARTICLES = {1: 256, 4: 512, 5: 256}
 # The prebuilt topologies whose kernel A streams its draws (StreamDraws in
 # csrc/fused_solve.cuh); an on-demand topology streams from STREAM_DOF DOFs.
 STREAM_IDS = (3, 4, 5)
 STREAM_DOF = 18
-# Past this many DOFs an on-demand topology's kernel A keeps x, v and lbest
-# in global scratch (the serial-chain variant's layout): the humanoid's 45
-# already take 128 registers and spill at a 512-thread bound (PERF.md).
+# Past this many DOFs an on-demand topology's kernel A keeps x and v in
+# global scratch (the serial-chain variant's layout), at a 512-thread
+# bound: the humanoid's 45 already took 128 registers and spilled at 512
+# with all three in registers, and at a 1,024-thread bound the scratch
+# layout spilled 300 bytes on the 21-keypoint hand (PERF.md).
 SCRATCH_DOF = 45
+
+# The prebuilt topologies whose v and lbest are in shared memory: the trees,
+# reference_arm and snake_30dof. An on-demand topology in the register
+# layout follows its prebuilt twin's placement, else takes shared memory
+# where it streams its draws (from STREAM_DOF DOFs: the register budget
+# decides both); in the scratch layout lbest takes shared memory where it
+# fits at the topology's thread bound with SMEM_RESERVE to spare. The
+# serial-chain variant decides per launch (serial_lbest_shared).
+SHARED_IDS = (1, 3, 4, 5)
+# Dynamic shared memory a block may have on an H100 (the opt-in maximum,
+# cudaDevAttrMaxSharedMemoryPerBlockOptin; the kernels check the card's),
+# and what an SM holds for its blocks, 1 KB of it reserved a block.
+SMEM_OPTIN = 232_448
+SMEM_PER_SM = 233_472
+# Shared memory kept free for the constants when an on-demand key's
+# placement is chosen, before its scene is known: meta with ~250 scene
+# boxes beside the swarm row.
+SMEM_RESERVE = 16 * 1024
 
 # Collider variants (enum Collider in csrc/fk_fitness.cuh; 0 = none).
 COLLIDERS = {"box": 1, "capsule": 2}
@@ -118,8 +139,10 @@ INSTANTIATED = {
 class OnDemandKey(NamedTuple):
     """What an on-demand library instantiates (``csrc/on_demand.cuh``): the
     tree, the collider id, the three term flags, and kernel A's traits
-    chosen for the topology (:func:`on_demand_key`). Kernel A's replay and
-    Philox instantiations share a library."""
+    chosen for the topology (:func:`on_demand_key`): its thread bound,
+    streamed draws, the scratch layout and its state placement (``shared``:
+    v and lbest, in the scratch layout lbest, in shared memory). Kernel A's
+    replay and Philox instantiations share a library."""
 
     parents: Tuple[int, ...]
     effectors: Tuple[int, ...]
@@ -130,6 +153,7 @@ class OnDemandKey(NamedTuple):
     threads: int
     stream: bool
     scratch: bool
+    shared: bool
 
     def name(self) -> str:
         """A short readable tag: nodes, collider and terms."""
@@ -216,14 +240,48 @@ def kernel_variant(spec, num_obstacles: int, collision_shape: str,
 
 def on_demand_threads(spec) -> int:
     """Kernel A's thread-block bound for ``spec`` built on demand: a
-    prebuilt topology's own bound, 1024 up to :data:`STREAM_DOF` DOFs
-    and in the scratch layout, else 512 (128 registers a thread)."""
+    prebuilt topology's own bound, 1024 up to :data:`STREAM_DOF` DOFs,
+    else 512 (128 registers a thread), the scratch layout too."""
     topo = _prebuilt_id(spec)
     if topo is not None:
         return MAX_PARTICLES.get(topo, 1024)
-    if spec.dof <= STREAM_DOF or spec.dof > SCRATCH_DOF:
-        return 1024
-    return 512
+    return 1024 if spec.dof <= STREAM_DOF else 512
+
+
+def kernel_a_smem_bytes(m: int, k: int, d: int, p: int, planes: int) -> int:
+    """Kernel A's dynamic shared memory (``kernel_a_smem_bytes`` in
+    ``csrc/fused_solve.cuh``): meta (``m`` floats), the swarm row (``k``),
+    the limits and gbest (``3 d``) and the argmin scratch (64 words),
+    rounded up to 16 bytes, then ``planes`` ``[d][p]`` float planes."""
+    return 4 * ((m + k + 3 * d + 64 + 3) // 4 * 4 + planes * d * p)
+
+
+def _shared_fits(d: int, p: int, planes: int) -> bool:
+    return kernel_a_smem_bytes(0, 0, d, p, planes) + SMEM_RESERVE <= SMEM_OPTIN
+
+
+def on_demand_shared(spec, threads: int, scratch: bool) -> bool:
+    """Whether an on-demand kernel A of ``spec`` keeps v and lbest (the
+    scratch layout: lbest) in shared memory (see :data:`SHARED_IDS`)."""
+    if scratch:
+        return _shared_fits(spec.dof, threads, 1)
+    topo = _prebuilt_id(spec)
+    if topo is not None:
+        return topo in SHARED_IDS
+    return spec.dof >= STREAM_DOF and _shared_fits(spec.dof, threads, 2)
+
+
+def serial_lbest_shared(d: int, p: int, m: int, k: int) -> bool:
+    """Whether the serial-chain variant keeps lbest in shared memory at
+    ``d`` DOFs and ``p`` particles with ``m`` + ``k`` constants: where an
+    SM then still holds two of its blocks, or as many as their registers
+    let it where that is fewer (64 a thread at the variant's 1,024-thread
+    bound). At P = 256 (the snakes' presets), four blocks fit an SM without
+    lbest in shared memory; with it, ``snake:20`` kept three and ran 34%
+    faster, ``snake:50`` kept one and ran 16% slower (PERF.md)."""
+    by_registers = min(32, 65_536 // (64 * p))
+    fit = SMEM_PER_SM // (kernel_a_smem_bytes(m, k, d, p, 1) + 1024)
+    return fit >= min(2, by_registers)
 
 
 def on_demand_key(spec, collider: int, orientation: bool, distance: bool = False,
@@ -232,10 +290,56 @@ def on_demand_key(spec, collider: int, orientation: bool, distance: bool = False
     topo = _prebuilt_id(spec)
     scratch = topo is None and spec.dof > SCRATCH_DOF
     stream = scratch or (topo in STREAM_IDS if topo is not None else spec.dof >= STREAM_DOF)
+    threads = on_demand_threads(spec)
     return OnDemandKey(tuple(int(p) for p in spec.parent),
                        tuple(int(e) for e in spec.effector_idx), int(collider),
                        bool(orientation), bool(distance), bool(exact),
-                       on_demand_threads(spec), bool(stream), bool(scratch))
+                       threads, bool(stream), bool(scratch),
+                       on_demand_shared(spec, threads, scratch))
+
+
+class KernelALayout(NamedTuple):
+    """Where one launch of kernel A keeps its state (StatePlacement in
+    ``csrc/fused_solve.cuh``) and the dynamic shared memory a block takes.
+    In the register layout (``scratch`` false) x is in registers and v
+    and lbest are in registers too (``placement`` "registers") or in
+    shared memory, ``[D][P]`` each ("shared"); in the scratch layout x and
+    v are in global scratch (``scratch_planes`` ``[D][P]`` planes a block)
+    and lbest is in shared memory ("shared") or in the scratch too
+    ("global")."""
+
+    scratch: bool
+    placement: str
+    smem_bytes: int
+    scratch_planes: int
+
+
+def kernel_a_layout(spec, num_particles: int, num_obstacles: int = 0,
+                    collision_shape: str = "box", use_orientation: bool = False,
+                    use_distance: bool = False, trig_impl: str = "poly",
+                    swarm_width=None) -> KernelALayout:
+    """Kernel A's layout for ``spec`` at ``num_particles`` particles with
+    the given scene and terms (routed as :func:`kernel_variant` routes
+    them); ``swarm_width`` is the swarm rows' length (default: the packed
+    layout's)."""
+    from ikpso_tpu_torch.ops.fitness_kernel import MetaLayout
+
+    topo, collider, orient = kernel_variant(spec, num_obstacles, collision_shape,
+                                            use_orientation, use_distance, trig_impl)
+    lay = MetaLayout(spec, num_obstacles, use_orientation)
+    m, k = lay.meta_size, lay.swarm_size if swarm_width is None else int(swarm_width)
+    d, p = spec.dof, num_particles
+    if topo == SERIAL:
+        scratch, shared = True, serial_lbest_shared(d, p, m, k)
+    elif topo == ON_DEMAND:
+        key = on_demand_key(spec, collider, orient, use_distance, trig_impl == "exact")
+        scratch, shared = key.scratch, key.shared
+    else:
+        scratch, shared = False, topo in SHARED_IDS
+    planes = (1 if scratch else 2) if shared else 0
+    placement = "shared" if shared else ("global" if scratch else "registers")
+    return KernelALayout(scratch, placement, kernel_a_smem_bytes(m, k, d, p, planes),
+                         (2 if shared else 3) if scratch else 0)
 
 
 def max_particles(spec, num_obstacles: int = 0, collision_shape: str = "box",
@@ -334,14 +438,16 @@ SIGNATURES = {
         _I, _I, _VP,  # S, P, stream
     ],
     "ikpso_fused_solve_serial": [
-        _I, _I, _I,  # replay, init mode, nodes
+        _I, _I, _I, _I,  # replay, lbest in shared memory, init mode, nodes
         _VP, _I, _VP, _I,  # meta, M, swarm, K
         *_UPDATE,
         _VP, _I,  # scratch, grid
         _VP, _VP,  # out gbest, out gval
         _I, _I, _VP,  # S, P, stream
     ],
-    "ikpso_fused_solve_serial_blocks": [_I, _I, _I, _I, _I],  # replay, P, M, K, nodes
+    # replay, lbest in shared memory, P, M, K, nodes
+    "ikpso_fused_solve_serial_blocks": [_I, _I, _I, _I, _I, _I],
+    "ikpso_kernel_a_smem_bytes": [_I, _I, _I, _I, _I],  # M, K, D, P, planes
     "ikpso_fused_fitness": [
         _I, _I, _I, *_SCENE,  # topology id, collider id, orientation flag, scene
         _VP, _VP, _VP, _I, _VP, _I, _I, _VP,  # x, meta, swarm, K, out, S, P, stream
@@ -382,6 +488,7 @@ def on_demand_source(key: OnDemandKey) -> str:
         "PARENTS": ", ".join(map(str, key.parents)),
         "EFFECTORS": ", ".join(map(str, key.effectors)),
         "THREADS": key.threads, "STREAM": int(key.stream), "SCRATCH": int(key.scratch),
+        "SHARED": int(key.shared),
         "COLLIDER": key.collider, "ORIENTATION": int(key.orientation),
         "DISTANCE": int(key.distance), "EXACT": int(key.exact),
     }
@@ -461,6 +568,8 @@ def library() -> ctypes.CDLL:
         if fn is not None:
             fn.argtypes = argtypes
             fn.restype = _I
+    if hasattr(lib, "ikpso_kernel_a_smem_bytes"):
+        lib.ikpso_kernel_a_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 

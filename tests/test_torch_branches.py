@@ -5,12 +5,13 @@ on demand.
 (a) Kernel B's plain twin (``fk_fitness_plain``, what the CUDA tile is held
     to bit for bit on the card) against the interpreted Pallas tile
     (``fused_fitness(..., interpret=...)``): the distance term on
-    ``arm_7dof`` and ``hand21`` and exact trig on ``arm_7dof`` at PR 6's bar
-    (rtol 1e-6 x nodes / 11, atol 0; the same bar holds the tile to its own
-    float64 evaluation), ``dual_arm_14dof`` with a box scene (equal masks)
-    and with orientation; poly against exact at rtol 1e-5, atol 1e-5
-    (tests/test_pallas.py:167-182); and each against JAX's jnp ``fitness``
-    at rtol 1e-5.
+    ``arm_7dof`` and ``hand21`` and exact trig on ``arm_7dof``,
+    ``dual_arm_14dof`` with a box scene (equal masks) and with orientation,
+    each at four seeds, at a bar derived from float32 rounding
+    (``tile_rtol``: k * 2^-24 or the zoo's 1e-6 x nodes / 11, the larger;
+    atol 0; the same bar holds the tile to its own float64 evaluation);
+    poly against exact at rtol 1e-5, atol 1e-5 (tests/test_pallas.py:167-182);
+    and each against JAX's jnp ``fitness`` at rtol 1e-5.
 (b) Kernel A's plain twin against ``fused_solve_raw(..., interpret=...,
     uniforms=U)`` at the replay bars (atol 5e-4 on angles, rtol 1e-3 on
     values): the distance term on ``reference_arm`` (weights 3.0 / 0.7, as
@@ -119,10 +120,66 @@ TILE_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(TILE_CASES))
-def test_tile_branch_matches_pallas_kernel_and_jnp_fitness(case):
+# float32's unit roundoff: one rounded operation's relative error.
+U32 = 2.0 ** -24
+
+
+def rounding_steps(spec, fit, orientation):
+    """k of the tile's float32 floor k * 2^-24: the most rounded operations
+    that any summand of the cost passes through from the last cancelling
+    subtraction to the returned total (``ops/fitness_kernel.py``,
+    ``fk_walk_tile``). Every summand is non-negative, so the total's
+    relative error is at most the largest of its summands' chains:
+
+      * the subtraction, counted twice (its square doubles its relative
+        error), the square, and the two adds of a 3-vector's squares (eight
+        of the orientation term's nine);
+      * the sum over nodes past its first term (exact: 0 + t), n - 2 adds
+        for the joint and distance terms; over the cost's terms, T - 1 (T
+        = E, or 2 E with orientation);
+      * the weight: w * (.) for an effector; (aw / nj) * (.) for the joint
+        term and (dw / nj) * (.) for the distance term, the quotient
+        rounded too; (ow * w) * (.) for orientation;
+      * the adds that join the terms: cost + joint term, then + distance
+        term.
+
+    The FK walk's own rounding before the subtraction grows with the nodes
+    and is the zoo's per-node term (1e-6 x nodes / 11); the bar is the larger
+    of the two. The Pallas tile runs the same operations in the same order,
+    so it differs from the port only where XLA rounds one of them
+    otherwise, not by two independent errors: one floor holds both
+    comparisons."""
+    n, e = spec.num_nodes, spec.num_effectors
+    dist = fit.distance_weight != 0.0
+    terms = e * (2 if orientation else 1)
+    tail = 1 + int(dist)  # + joint term, + distance term
+    chains = [2 + 1 + 2 + (n - 2) + 2 + tail,  # joint angles
+              2 + 1 + 2 + 1 + (terms - 1) + tail]  # effector positions
+    if dist:
+        chains.append(2 + 1 + 2 + (n - 2) + 2 + 1)
+    if orientation:
+        chains.append(2 + 1 + 8 + 2 + (terms - 1) + tail)
+    return max(chains)
+
+
+def tile_rtol(spec, fit, orientation):
+    """The tile's bar: the float32 floor of :func:`rounding_steps` or the zoo's
+    per-node term, the larger. At 4 nodes the per-node term alone
+    (3.6e-7) sat below the port's distance from its own float64
+    evaluation (4.5e-7) and from the Pallas tile (5.8e-7)."""
+    return max(1e-6 * spec.num_nodes / 11, rounding_steps(spec, fit, orientation) * U32)
+
+
+# Each case at its first seed (the case's own id) and three more.
+TILE_SEEDS = (90, 91, 92, 93)
+
+
+@pytest.mark.parametrize("case,seed", [
+    pytest.param(case, seed, id=case if seed == TILE_SEEDS[0] else f"{case}-seed{seed}")
+    for case in TILE_CASES for seed in TILE_SEEDS])
+def test_tile_branch_matches_pallas_kernel_and_jnp_fitness(case, seed):
     name, fields, scene, orient = TILE_CASES[case]
-    rng = np.random.default_rng(90)
+    rng = np.random.default_rng(seed)
     s, p = 2, 1024
     spec_j, batched_j = _jax_case(name, s, rng, orient)
     fit_j = JFit(**fields)
@@ -156,7 +213,7 @@ def test_tile_branch_matches_pallas_kernel_and_jnp_fitness(case):
     if scene is not None:
         assert 0.01 < hit.mean() < 0.99
     free = ~hit
-    rtol = 1e-6 * spec.num_nodes / 11
+    rtol = tile_rtol(spec, fit, orient)
     np.testing.assert_allclose(got.numpy()[free], want[free], rtol=rtol, atol=0)
     exact = fk_fitness(spec, torch.as_tensor(x).double(), meta.double(), swarm.double(),
                        **kw)
@@ -277,9 +334,9 @@ def test_on_demand_routing_for_trees_that_used_to_raise():
         assert kernels.kernel_variant(spec, 0, "box", False) == (kernels.ON_DEMAND, 0, 0)
         assert kernels.topology_name(spec) == f"tree{spec.num_nodes}"
     assert kernels.topology_code(hand) == (21, None, sum(1 << e for e in (4, 8, 12, 16, 20)))
-    # The hand's 60 DOFs take the scratch layout at a 1,024-thread bound;
+    # The hand's 60 DOFs take the scratch layout at a 512-thread bound;
     # the 17-node tree's 48 too; the 5-node tree stays in registers.
-    assert kernels.max_particles(hand) == kernels.max_particles(branched17) == 1024
+    assert kernels.max_particles(hand) == kernels.max_particles(branched17) == 512
     assert kernels.on_demand_key(hand, 0, False).scratch
     assert not kernels.on_demand_key(short, 0, False).scratch
     assert kernels.max_particles(short) == 1024
@@ -351,11 +408,17 @@ struct dim3 { unsigned x = 1, y = 1, z = 1; };
 extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaDeviceAttr {
+  cudaDevAttrMultiProcessorCount = 16,
+  cudaDevAttrMaxSharedMemoryPerBlockOptin = 97
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 1; return 0; }
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 template <class F>
 cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) {
   *n = 1;

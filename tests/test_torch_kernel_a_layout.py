@@ -1,0 +1,306 @@
+"""Kernel A's state placement (``StatePlacement`` in
+``ikpso_tpu_torch/csrc/fused_solve.cuh``) against its Python mirror
+(``ikpso_tpu_torch/utils/kernels.py``).
+
+(a) The CUDA traits -- ``KernelAThreads``, ``StreamDraws``,
+    ``StatePlacement`` and ``KernelAMinBlocks`` -- parsed from the source
+    and held equal to ``MAX_PARTICLES``, ``STREAM_IDS`` and ``SHARED_IDS``,
+    so the two cannot drift; the kernels' shared-memory reckoning
+    (``kernel_a_smem_bytes``, compiled with g++ against a stand-in CUDA
+    runtime) equal to the Python one.
+(b) Every zoo preset and every config document at its own P gets a
+    placement whose shared memory fits a block (232,448 bytes on an H100).
+(c) A P or a scene that does not fit raises ``ValueError`` in
+    ``_check_args``, before any launch; a smaller one passes.
+(d) The scratch layout's scratch is ``(grid, 2, D, P)`` where lbest is in
+    shared memory and ``(grid, 3, D, P)`` where it is not, and the launch
+    is told which.
+"""
+
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ikpso_tpu_torch.harness.trees import model_spec, tree_configs
+from ikpso_tpu_torch.models import library
+from ikpso_tpu_torch.models.chain import Obstacles
+from ikpso_tpu_torch.ops.fitness import FitnessConfig
+from ikpso_tpu_torch.ops.fitness_kernel import MetaLayout, pack_meta
+from ikpso_tpu_torch.pso import fused
+from ikpso_tpu_torch.pso.config import PSOConfig
+from ikpso_tpu_torch.pso.presets import FUSED_PRESETS
+from ikpso_tpu_torch.utils import kernels
+from ikpso_tpu_torch.utils.configio import load_config
+
+from test_torch_branches import STANDIN
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "ikpso_tpu_torch" / "configs"
+FUSED_SOLVE_CUH = kernels.CSRC / "fused_solve.cuh"
+
+
+# (a) The traits and their mirrors.
+
+
+def _topology_ids():
+    """Name of each prebuilt topology in csrc/fk_fitness.cuh -> its id in
+    KERNEL_TOPOLOGIES, from the ``using Name = Topology<N, parents, mask>``
+    lines."""
+    src = (kernels.CSRC / "fk_fitness.cuh").read_text()
+    ids = {}
+    for name, n, parents, mask in re.findall(
+            r"using (\w+) = Topology<(\d+), (0x[0-9A-Fa-f]+)ull, (0x[0-9A-Fa-f]+)u>", src):
+        ids[name] = kernels.KERNEL_TOPOLOGIES[(int(n), int(parents, 16), int(mask, 16))]
+    return ids
+
+
+def _trait(name):
+    """``{topology id: value}`` of a trait's explicit specialisations, and its
+    primary template's value."""
+    src = FUSED_SOLVE_CUH.read_text()
+    primary = re.search(
+        rf"template <class T>\s*struct {name} {{\s*static constexpr \w+ value = (\w+);", src)
+    ids = _topology_ids()
+    special = {ids[topo]: value for topo, value in re.findall(
+        rf"template <>\s*struct {name}<(\w+)> {{\s*static constexpr \w+ value = (\w+);", src)}
+    return special, primary.group(1)
+
+
+def test_traits_match_their_python_mirrors():
+    ids = _topology_ids()
+    assert sorted(ids.values()) == sorted(set(kernels.KERNEL_TOPOLOGIES.values()))
+    threads, default = _trait("KernelAThreads")
+    assert default == "1024"
+    assert {t: int(v) for t, v in threads.items()} == kernels.MAX_PARTICLES
+    stream, default = _trait("StreamDraws")
+    assert default == "false" and set(stream.values()) == {"true"}
+    assert sorted(stream) == sorted(kernels.STREAM_IDS)
+    placement, default = _trait("StatePlacement")
+    assert default == "kRegisters" and set(placement.values()) == {"kShared"}
+    assert sorted(placement) == sorted(kernels.SHARED_IDS)
+    # Two blocks an SM only where v and lbest left the registers of a
+    # 256-thread topology.
+    min_blocks, default = _trait("KernelAMinBlocks")
+    assert default == "1" and set(min_blocks.values()) == {"2"}
+    assert all(t in kernels.SHARED_IDS and kernels.MAX_PARTICLES[t] == 256
+               for t in min_blocks)
+    # An on-demand topology takes its placement from the key's macro.
+    od = (kernels.CSRC / "on_demand.cuh").read_text()
+    assert re.search(r"struct StatePlacement<OdTopology> {\s*static constexpr int value ="
+                     r" IKPSO_OD_SHARED", od)
+
+
+def test_shared_memory_reckoning_matches_the_kernels(tmp_path):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    (tmp_path / "cuda_runtime.h").write_text(STANDIN)
+    for src in kernels.CSRC.glob("*.cuh"):
+        (tmp_path / src.name).write_text(
+            re.sub(r"<<<.*?>>>", "", src.read_text(), flags=re.S))
+    rng = np.random.default_rng(8)
+    cases = [tuple(int(v) for v in row) for row in np.stack(
+        [rng.integers(2, 3000, 40), rng.integers(12, 600, 40), rng.integers(3, 300, 40),
+         rng.integers(1, 33, 40) * 32, rng.integers(0, 3, 40)], axis=1)]
+    main = tmp_path / "smem.cpp"
+    main.write_text('#include <cstdio>\n#include "fused_solve.cuh"\nint main() {\n' + "".join(
+        f'  std::printf("%zu\\n", ikpso::kernel_a_smem_bytes({m}, {k}, {d}, {p}, {n}));\n'
+        for m, k, d, p, n in cases) + "}\n")
+    exe = tmp_path / "smem"
+    proc = subprocess.run(["g++", "-std=c++17", "-I", str(tmp_path), "-o", str(exe), str(main)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = [int(v) for v in subprocess.run([str(exe)], capture_output=True,
+                                          text=True).stdout.split()]
+    assert got == [kernels.kernel_a_smem_bytes(*c) for c in cases]
+    # 16-byte alignment of the planes after the constants.
+    assert all(kernels.kernel_a_smem_bytes(m, k, d, p, 0) % 16 == 0 for m, k, d, p, _ in cases)
+
+
+# (b) Every preset and config document fits.
+
+
+def _zoo():
+    return [*FUSED_PRESETS, "snake:16", "snake:20", "snake:35", "snake:43", "snake:50",
+            "snake:100"]
+
+
+@pytest.mark.parametrize("model", _zoo())
+def test_every_zoo_preset_fits_a_block(model):
+    pre, _, fit = tree_configs(model)
+    spec = model_spec(model)[0]
+    layout = kernels.kernel_a_layout(spec, pre.particles)
+    assert layout.smem_bytes <= kernels.SMEM_OPTIN
+    topo = kernels.topology_id(spec)
+    if topo == kernels.SERIAL:
+        assert layout.scratch and layout.placement in ("shared", "global")
+        assert layout.scratch_planes == (2 if layout.placement == "shared" else 3)
+    else:
+        assert not layout.scratch and layout.scratch_planes == 0
+        assert layout.placement == ("shared" if topo in kernels.SHARED_IDS else "registers")
+    lay = MetaLayout(spec)
+    planes = {"registers": 0, "shared": 1 if layout.scratch else 2, "global": 0}
+    assert layout.smem_bytes == kernels.kernel_a_smem_bytes(
+        lay.meta_size, lay.swarm_size, spec.dof, pre.particles, planes[layout.placement])
+
+
+def test_serial_placement_follows_the_measured_occupancy():
+    # At the snakes' P = 256 four blocks fit an SM with lbest in global
+    # scratch: lbest moves to shared memory while two still fit (snake:20
+    # keeps three, snake:35 two), not where one does (snake:43, snake:50).
+    placements = {m: kernels.kernel_a_layout(model_spec(m)[0], 256).placement
+                  for m in ("snake:16", "snake:20", "snake:35", "snake:43", "snake:50")}
+    assert placements == {"snake:16": "shared", "snake:20": "shared", "snake:35": "shared",
+                          "snake:43": "global", "snake:50": "global"}
+    # At P = 1,024 one block fills an SM's registers anyway: lbest moves
+    # where it fits at all.
+    assert kernels.kernel_a_layout(model_spec("snake:16")[0], 1024).placement == "shared"
+    assert kernels.kernel_a_layout(model_spec("snake:20")[0], 1024).placement == "global"
+
+
+@pytest.mark.parametrize("name", ["arm7_locality", "arm7_exact", "dual_arm_box", "hand21"])
+def test_every_config_document_fits_a_block(name):
+    cfg = load_config(str(CONFIG_DIR / f"{name}.json"))
+    n_obs = 0 if cfg.obstacles is None else cfg.obstacles.count
+    layout = kernels.kernel_a_layout(
+        cfg.spec, cfg.num_particles, n_obs, cfg.fitness.collision_shape,
+        cfg.fitness.orientation_weight != 0.0, cfg.fitness.distance_weight != 0.0,
+        cfg.fitness.trig_impl)
+    assert layout.smem_bytes <= kernels.SMEM_OPTIN
+    want = {"arm7_locality": "registers", "arm7_exact": "registers",
+            "dual_arm_box": "shared", "hand21": "shared"}[name]
+    assert layout.placement == want
+    assert layout.scratch == (name == "hand21")
+
+
+def test_on_demand_keys_carry_their_placement():
+    hand = load_config(str(CONFIG_DIR / "hand21.json")).spec
+    dual = library.dual_arm_14dof()[0]
+    arm = library.arm_7dof()[0]
+    key = kernels.on_demand_key(hand, 0, False)
+    assert (key.threads, key.scratch, key.shared) == (512, True, True)
+    assert kernels.on_demand_key(dual, 1, False).shared  # follows DualArm14
+    assert not kernels.on_demand_key(arm, 0, False, True).shared  # follows Arm7Dof
+    # A new tree in the register layout: shared memory from STREAM_DOF DOFs.
+    short = _tree([-1, 0, 1, 2, 0], [3, 4])
+    mid = _tree([-1, 0, 1, 2, 3, 4, 5, 6, 1, 8], [7, 9])
+    assert not kernels.on_demand_key(short, 0, False).shared
+    assert kernels.on_demand_key(mid, 0, False).shared
+    # The macro reaches the generated source, and the placement the hash.
+    assert "#define IKPSO_OD_SHARED 1" in kernels.on_demand_source(key)
+    assert (kernels.on_demand_path(key)
+            != kernels.on_demand_path(key._replace(shared=False)))
+
+
+def _tree(parents, effectors):
+    from ikpso_tpu_torch.models.chain import make_chain_spec
+
+    n = len(parents)
+    return make_chain_spec(parents, np.ones(n, np.float32), np.full((n, 3), -np.pi),
+                           np.full((n, 3), np.pi), effector_idx=effectors)
+
+
+# (c) What does not fit raises before any launch.
+
+
+def _boxes(count):
+    rng = np.random.default_rng(9)
+    return Obstacles.from_boxes(rng.normal(0, 3, (count, 3)).astype(np.float32),
+                                np.full((count, 3), 0.1, np.float32))
+
+
+def _args(spec, count, particles):
+    swarm = torch.zeros((4, MetaLayout(spec, count).swarm_size))
+    seeds = torch.zeros((4, 2), dtype=torch.int32)
+    return (spec, PSOConfig(iterations=2), FitnessConfig(collision_shape="box"), swarm,
+            spec.limits(), seeds, particles, None, count)
+
+
+@pytest.mark.parametrize("model,count,big,small", [
+    # v and lbest in shared memory: 147,456 bytes at P = 1,024.
+    ("dual_arm_14dof", 1500, 1024, 512),
+    # lbest in shared memory in the scratch layout.
+    ("hand21", 1800, 512, 256),
+    # Registers: the scene alone.
+    ("arm_7dof", 4000, 128, None),
+])
+def test_what_does_not_fit_raises_before_any_launch(model, count, big, small, monkeypatch):
+    spec = (load_config(str(CONFIG_DIR / "hand21.json")).spec if model == "hand21"
+            else getattr(library, model)()[0])
+
+    def no_launch(*_):
+        raise AssertionError("a kernel library was asked for")
+
+    monkeypatch.setattr(kernels, "library", no_launch)
+    monkeypatch.setattr(kernels, "on_demand_library", no_launch)
+    layout = kernels.kernel_a_layout(spec, big, count, "box")
+    assert layout.smem_bytes > kernels.SMEM_OPTIN
+    with pytest.raises(ValueError, match=f"needs {layout.smem_bytes} bytes of shared memory"):
+        fused._check_args(*_args(spec, count, big))
+    # The plain twin refuses it too, and so does the wrapper, before any
+    # library is loaded.
+    meta = pack_meta(spec, FitnessConfig(collision_shape="box"), _boxes(count))
+    spec_, pso, fit, swarm, lim, seeds, p, _, n = _args(spec, count, big)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        fused.fused_solve(spec_, pso, fit, meta, swarm, lim, seeds, p, num_obstacles=n)
+    if small is not None:
+        assert fused._check_args(*_args(spec, count, small)).smem_bytes <= kernels.SMEM_OPTIN
+
+
+# (d) The scratch follows the placement.
+
+
+class _Recorder:
+    """A stand-in kernel library: records each call's arguments, returns 0
+    (and ``blocks`` for the block-count queries)."""
+
+    def __init__(self, blocks):
+        self.blocks, self.calls = blocks, {}
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls[name] = args
+            return self.blocks if name.endswith("_blocks") else 0
+        return call
+
+
+@pytest.mark.parametrize("model,particles,planes", [
+    ("snake:20", 256, 2), ("snake:50", 256, 3), ("snake:20", 1024, 3), ("hand21", 512, 2)])
+def test_scratch_shape_follows_the_placement(model, particles, planes, monkeypatch):
+    spec = (load_config(str(CONFIG_DIR / "hand21.json")).spec if model == "hand21"
+            else model_spec(model)[0])
+    s = 6
+    lay = MetaLayout(spec)
+    meta = torch.zeros(lay.meta_size)
+    swarm = torch.zeros((s, lay.swarm_size))
+    layout = kernels.kernel_a_layout(spec, particles)
+    assert layout.scratch_planes == planes
+    shapes = []
+    scratch = fused._scratch
+
+    def spy(*args):
+        out = scratch(*args)
+        shapes.append(tuple(out.shape))
+        return out
+
+    lib = _Recorder(blocks=4)
+    monkeypatch.setattr(fused, "_scratch", spy)
+    monkeypatch.setattr(kernels, "library", lambda: lib)
+    monkeypatch.setattr(kernels, "on_demand_library", lambda key: lib)
+    monkeypatch.setattr(kernels, "stream_ptr", lambda device: None)
+    update = (0,) * 14
+    gbest, gval = torch.empty((s, spec.dof)), torch.empty(s)
+    if model == "hand21":
+        key = kernels.on_demand_key(spec, 0, False)
+        fused._launch_on_demand(key, 0, 0, 0, (0.0,) * 4, meta, swarm, update, gbest, gval,
+                                particles, layout)
+    else:
+        fused._launch_serial(spec, 0, 0, meta, swarm, update, gbest, gval, particles, layout)
+        shared = int(planes == 2)
+        # The launch and the block-count query are told the placement.
+        assert lib.calls["ikpso_fused_solve_serial_blocks"][1] == shared
+        assert lib.calls["ikpso_fused_solve_serial"][1] == shared
+    assert shapes == [(4, planes, spec.dof, particles)]

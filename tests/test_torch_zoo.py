@@ -226,7 +226,8 @@ def test_zoo_routing_and_particle_bounds():
     assert kernels.topology_code(library.snake(16)[0]) == (17, None, 1 << 16)
     # Not serial: the effector is not the last node, or a node hangs off
     # another than its predecessor; past 16 nodes that is any tree. Each is
-    # built on demand, its 48 DOFs in kernel A's scratch layout.
+    # built on demand, its 48 DOFs in kernel A's scratch layout at a
+    # 512-thread bound.
     n = 17
     lim = np.zeros((n, 3), np.float32)
     chain = list(range(-1, n - 1))
@@ -234,7 +235,7 @@ def test_zoo_routing_and_particle_bounds():
         tree = make_chain_spec(parents, [0.0] + [1.0] * (n - 1), lim, lim, effectors)
         assert not kernels.is_serial(tree)
         assert kernels.topology_id(tree) == kernels.ON_DEMAND
-        assert kernels.max_particles(tree) == 1024
+        assert kernels.max_particles(tree) == 512
         assert kernels.on_demand_key(tree, 0, False).scratch
     # A serial chain with a scene or an orientation term is built on demand,
     # at its prebuilt topology's bound.
