@@ -18,7 +18,13 @@ S=65,536 with capsules), the 6-DOF position + orientation solve
 humanoid tree (``humanoid_45dof``, S=16,384), the rest of the zoo through
 ``run_tree`` (``planar_3dof`` S=1,048,576, ``reference_arm`` S=262,144,
 ``snake_30dof`` and ``snake:50`` S=65,536), the scan solver on kernel C
-(``harness.scan.run_scan``, S=16,384, P=1,024, 60 iterations) and the
+(``harness.scan.run_scan``, S=16,384, P=1,024, 60 iterations), the
+reference's own protocol through the CLI (``experiment``: the three
+published protocols, frames to converge on reference_arm at P=16,384
+through kernel C, against JAX's ``parity_r02``; with ``--polish`` and
+``--outdir``, the locality gate and the native diagnostics streams;
+``track``: 4,096 circular paths x 100 chained frames through kernel A;
+``sweep``: 1,024 waypoints with a checkpoint, cut off and resumed) and the
 roofline (``utils.roofline``: kernels D and E, the kernel C and kernel A
 rates, the headline's ``sol_frac``) -- with the launch counts read around
 each, times kernel/plain pairs and holds every kernel's time against its
@@ -1209,24 +1215,71 @@ def phase_scan_replay(device, swarms=SCAN_REPLAY_SWARMS, particles=1024, iterati
     return g_err
 
 
+def _device_events(prof):
+    """``(name, start_ns, end_ns)`` of every device event in a profile (the
+    kernels, memcpys and memsets), read from the raw profiler events through
+    ``prof.profiler.kineto_results``, a private attribute of
+    ``torch.profiler.profile``: ``key_averages()`` first parses every event
+    into Python objects, which took minutes on the solves of 10^5 small
+    launches."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.end_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+
+
+def _device_ms(prof, groups):
+    """Device milliseconds in a profile: busy (the union of the device events'
+    spans, so events that overlap count once), and the summed spans of each
+    group of kernel-name substrings ``{name: (substring, ...)}``."""
+    busy, end = 0, None
+    out = {name: 0 for name in groups}
+    for name, t0, t1 in sorted(_device_events(prof), key=lambda e: e[1]):
+        if end is None or t0 >= end:
+            busy += t1 - t0
+            end = t1
+        elif t1 > end:
+            busy += t1 - end
+            end = t1
+        for group, keys in groups.items():
+            if any(k in name for k in keys):
+                out[group] += t1 - t0
+                break
+    return busy / 1e6, {k: v / 1e6 for k, v in out.items()}
+
+
+def _device_ms_readings(prof, kernel):
+    """One profile's device ms read three ways: the summed raw event spans,
+    their union (what ``_device_ms`` reports as busy), and the self device
+    time of ``key_averages()``'s device entries (the public reading); each in
+    all and for kernels whose name holds ``kernel``."""
+    from torch.autograd import DeviceType
+
+    events = _device_events(prof)
+    union, group = _device_ms(prof, {"k": (kernel,)})
+    averages = [a for a in prof.key_averages() if a.device_type == DeviceType.CUDA]
+
+    def self_us(a):
+        us = getattr(a, "self_device_time_total", None)
+        return a.self_cuda_time_total if us is None else us
+
+    return {"raw_sum_ms": sum(t1 - t0 for _, t0, t1 in events) / 1e6,
+            "union_ms": union,
+            "key_averages_ms": sum(self_us(a) for a in averages) / 1e3,
+            "raw_kernel_ms": group["k"],
+            "key_averages_kernel_ms": sum(self_us(a) for a in averages
+                                          if kernel in a.key) / 1e3,
+            "events": len(events)}
+
+
 def _device_busy(prof):
     """Device ms in a profile: every kernel, kernel C, and torch's random
     draws (``torch.rand``); None each when the profiler recorded no
     device time."""
-    from torch.autograd import DeviceType
-
-    busy = kernel_c = rng = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        t = e.self_cuda_time_total if t is None else t
-        busy += t
-        if "fused_fitness_kernel" in e.key:
-            kernel_c += t
-        elif "distribution" in e.key:
-            rng += t
-    return (busy / 1e3, kernel_c / 1e3, rng / 1e3) if busy > 0 else (None, None, None)
+    busy, ms = _device_ms(prof, {"c": ("fused_fitness_kernel",),
+                                 "rng": ("distribution",)})
+    return (busy, ms["c"], ms["rng"]) if busy > 0 else (None, None, None)
 
 
 def phase_scan(device, card, swarms=SCAN_SWARMS):
@@ -1257,6 +1310,7 @@ def phase_scan(device, card, swarms=SCAN_SWARMS):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, kernel_c_ms, rng_ms = _device_busy(prof)
+    readings = _device_ms_readings(prof, "fused_fitness_kernel")
     per_solve = ITERATIONS + 1
     ok = (launches["fused_fitness"] == per_solve * (warmup + iters) and out["finite"]
           and out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= SCAN_FRAC_BAR)
@@ -1264,6 +1318,7 @@ def phase_scan(device, card, swarms=SCAN_SWARMS):
          max_memory_allocated=peak, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
          kernel_c_device_ms=kernel_c_ms, torch_rand_device_ms=rng_ms,
          device_idle_share=None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+         device_ms_readings=readings,
          jax_frac_under_1mm=SCAN_JAX_FRAC_UNDER_1MM, frac_bar=SCAN_FRAC_BAR, card=card,
          ok=bool(ok))
     if not ok:
@@ -1370,10 +1425,9 @@ def phase_obstacles(device, swarms, card, shape):
 def _stage_times(device, stages, full, problem, gen):
     """Stage walls (``utils.profiling.measure``, median of ``iters`` after 1
     warm-up) of ``stages``, ``(key, solver, problem, iters)`` tuples; then
-    device busy, kernel A's share of it and the idle share over one more
-    solve of ``full`` under the profiler."""
+    device busy, kernel A's and kernel C's shares of it and the idle share
+    over one more solve of ``full`` under the profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ikpso_tpu_torch.utils.profiling import measure
@@ -1390,20 +1444,15 @@ def _stage_times(device, stages, full, problem, gen):
         full(problem, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy = kernel_a = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        t = e.self_cuda_time_total if t is None else t
-        busy += t
-        if any(k in e.key for k in ("fused_solve_kernel", "fused_solve_serial_kernel",
-                                    "fused_solve_tree_scratch_kernel")):
-            kernel_a += t
+    busy, ms = _device_ms(prof, {
+        "a": ("fused_solve_kernel", "fused_solve_serial_kernel",
+              "fused_solve_tree_scratch_kernel"),
+        "c": ("fused_fitness_kernel",)})
     out.update(profiled_wall_ms=wall_ms,
-               device_busy_ms=busy / 1e3 if busy else None,
-               kernel_a_device_ms=kernel_a / 1e3 if busy else None,
-               device_idle_share=1.0 - busy / 1e3 / wall_ms if busy else None)
+               device_busy_ms=busy if busy else None,
+               kernel_a_device_ms=ms["a"] if busy else None,
+               kernel_c_device_ms=ms["c"] if busy else None,
+               device_idle_share=1.0 - busy / wall_ms if busy else None)
     return out
 
 
@@ -2078,7 +2127,12 @@ BOUND_ROWS = (
 BOUND_ROWS += tuple(
     (f"{k} {tag}", f"{k.lower()}_{tag}", f"{k.lower()}_{tag}_ms",
      f"kernel {k}, {tag} (built on demand), S={OD_TIMED[tag]['ABC'.index(k)]}")
-    for tag in OD_TIMED for k in "ABC")
+    for tag in OD_TIMED for k in "ABC") + (
+    ("C experiment", "c_experiment", "fused_fitness_experiment_ms",
+     "kernel C, reference_arm, S=128, D=21, P=16,384, angle_weight 3.0"),
+    ("A track", "a_track", "fused_solve_track_ms",
+     "kernel A, arm_7dof, S=4,096, P=128, 8 iterations, re-kick every 4 above 1e-6"),
+)
 
 
 def phase_bounds(times, counts, roof_timed, roof_counts, card):
@@ -2386,18 +2440,11 @@ def phase_cli(card):
     # In process, with the launch counts read around it: the same solve on
     # the scan solver (--impl jnp), whose fitness is kernel C built on
     # demand for hand21, one launch per evaluation.
-    import contextlib
-    import io
-
-    from ikpso_tpu_torch.harness import cli
-
     iterations = 8
     reset_counts()
-    with contextlib.redirect_stdout(io.StringIO()) as out:
-        cli.main(["solve", *CLI_RUNS["hand21"], "--impl", "jnp", "--particles", "1024",
-                  "--iterations", str(iterations)])
+    line = _cli_lines(["solve", *CLI_RUNS["hand21"], "--impl", "jnp", "--particles", "1024",
+                       "--iterations", str(iterations)])[-1]
     launches = read_counts()
-    line = json.loads(out.getvalue().strip().splitlines()[-1])
     ok = (launches["fused_fitness"] == iterations + 1 and launches["fused_solve"] == 0
           and len(line["trace"]) == iterations + 1)
     rows["hand21_jnp"] = dict(launches=launches, effector_error=line["effector_error"],
@@ -2406,6 +2453,362 @@ def phase_cli(card):
     if not ok:
         raise AssertionError("cli solve --impl jnp bypassed kernel C")
     return launches
+
+
+# The reference's own protocol (harness/experiment.py) through the CLI's
+# `experiment`, as JAX's `parity` runs it (ikpso_tpu/harness/cli.py:410-427):
+# reference_arm from reference_reset_targets, P=16,384, the shipped PSO
+# variant (0.5/0.5/1.25, 15 randomized-inertia iterations), eps 0.025, 400
+# frames at most, 128 trials a batch, an independent stream; 256 trials each,
+# cut from JAX's 512 for time. The scan solver's fitness is kernel C.
+EXPERIMENT_TRIALS = 256
+EXPERIMENT_ARGS = ("--model", "reference_arm", "--particles", "16384", "--max-frames",
+                   "400", "--trial-batch", "128", "--trials", str(EXPERIMENT_TRIALS))
+EXPERIMENT_PROTOCOLS = {
+    "iter1": ("--init-mode", "uniform", "--angle-weight", "0"),
+    "iter2": ("--angle-weight", "0"),
+    "iter3": ("--angle-weight", "3"),
+}
+# JAX's parity_r02 (bench_records/parity_r02.jsonl: the same protocols on
+# 512 trials): mean and standard deviation of the frames to converge, all
+# 512 converged. The bar: each port mean within 4 combined standard errors,
+# sqrt(std^2 / 512 + std^2 / 256) with JAX's std: +-0.83, +-2.6, +-14.7.
+PARITY_R02 = {"iter1": (3.21484375, 2.6968007383033514),
+              "iter2": (5.859375, 8.505768159109243),
+              "iter3": (39.033203125, 47.91648057463368)}
+PARITY_R02_TRIALS = 512
+# The reference's published means (BASELINE.md:17-23), printed beside.
+PUBLISHED_FRAMES = {"iter1": 3.13, "iter2": 4.15, "iter3": 33.1}
+# The locality gate and the native diagnostics: iter3 with 4 LM steps a
+# frame on 32 trials, the four streams written by the port's native binding.
+EXPERIMENT_POLISH_ARGS = ("--model", "reference_arm", "--particles", "16384",
+                          "--max-frames", "400", "--trials", "32", "--trial-batch", "32",
+                          "--polish", "4")
+
+# Tracking (harness/trajectory.py) through the CLI's `track`: the recipe of
+# docs/PERFORMANCE.md:982-992 (bench record r5-track): arm_7dof's preset
+# (P=128, canonical inertia 0.5 -> 0.2, 4 LM steps), 8 iterations with a
+# re-kick every 4, angle_weight 0.3, 4,096 circular paths of radius 0.25
+# over 100 steps; kernel A at P=128.
+TRACK_ARGS = ("--model", "arm_7dof", "--preset", "--rekick-interval", "4",
+              "--angle-weight", "0.3", "--steps", "100")
+TRACK_PATHS = 4096
+# JAX's track at the same recipe on the CPU (the scan solver) on 256 paths,
+# `PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_trajectory.py`: each
+# path's settled (steps 25-99) p50 and p95 effector error in mm, one value per
+# path, since the paths are the independent units and a path's steps are not;
+# the median over paths of each, and the 99% distribution-free interval of
+# each median, read on the 256 per-path values at order-statistic ranks 107
+# and 150 of 256.
+TRACK_JAX = {"p50_settled_mm": 1.9017210006713867, "p95_settled_mm": 2.7379310131073,
+             "pooled_p50_settled_mm": 1.9386226776987314, "paths": 256}
+TRACK_P50_INTERVAL_MM = (1.7401007413864136, 2.1495296955108643)
+TRACK_P95_INTERVAL_MM = (2.5925939083099365, 3.0498554706573486)
+
+# The waypoint sweep (solve_waypoints) through the CLI's `sweep`: arm_7dof's
+# preset recipe (P=128, 8 iterations, 4 LM steps, 4 retry rounds) on the
+# position-only cost, 1,024 waypoints jittered 0.25 around the targets, 256
+# a batch, with a checkpoint.
+SWEEP_ARGS = ("--model", "arm_7dof", "--preset", "--angle-weight", "0",
+              "--waypoints", "1024", "--batch", "256")
+
+
+def _cli_lines(argv):
+    """``python -m ikpso_tpu_torch.harness.cli`` in process: its JSON lines."""
+    import io
+
+    from ikpso_tpu_torch.harness import cli
+
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        if cli.main(list(argv)) != 0:
+            raise AssertionError(f"cli {argv[0]} returned non-zero")
+    return [json.loads(line) for line in out.getvalue().splitlines() if line.strip()]
+
+
+def _flag(argv, name) -> int:
+    """The integer value of flag ``name`` in ``argv``."""
+    return int(argv[list(argv).index(name) + 1])
+
+
+def _cli_config(device, argv):
+    """The RunConfig and parsed arguments ``cli`` builds for ``argv``."""
+    from ikpso_tpu_torch.harness import cli
+
+    args = cli.build_parser().parse_args(list(argv))
+    return cli._load(args, device), args
+
+
+def phase_experiment(device, card):
+    """The three published protocols through ``cli experiment`` (the scan
+    solver on kernel C, P=16,384), launch counts read around the three; then
+    one frame of iter3's first batch alone and under the profiler."""
+    import math
+
+    import torch
+
+    from ikpso_tpu_torch.harness.trajectory import build_solver
+    from ikpso_tpu_torch.models.library import batched_problem, reference_reset_targets
+    from ikpso_tpu_torch.utils import seeds
+
+    rows = {}
+    reset_counts()
+    for name, extra in EXPERIMENT_PROTOCOLS.items():
+        before = read_counts()["fused_fitness"]
+        t0 = time.perf_counter()
+        s = _cli_lines(["experiment", *EXPERIMENT_ARGS, *extra])[-1]
+        mean_j, std_j = PARITY_R02[name]
+        bar = 4.0 * std_j * math.sqrt(1.0 / PARITY_R02_TRIALS + 1.0 / EXPERIMENT_TRIALS)
+        unconverged = s["trials"] - s["converged"]
+        rows[name] = dict(
+            frames_avg=s["frames_avg"], frames_min=s["frames_min"],
+            frames_max=s["frames_max"], frames_std=s["frames_std"],
+            unconverged=unconverged, solves_per_second=s["solves_per_second"],
+            wall_s=s["wall_time_s"], process_s=time.perf_counter() - t0,
+            fused_fitness_launches=read_counts()["fused_fitness"] - before,
+            angle_delta=s.get("angle_delta"), pos_delta=s.get("pos_delta"),
+            jax_parity_r02_mean=mean_j, bar=f"|mean - {mean_j:.4f}| <= {bar:.4f}",
+            published_mean=PUBLISHED_FRAMES[name],
+            ok=bool(unconverged == 0 and abs(s["frames_avg"] - mean_j) <= bar))
+    launches = read_counts()
+    # Stages: one frame (a scan solve through kernel C) of iter3's first
+    # trial batch at the reset, alone (median of 3 after 1) and profiled.
+    cfg, _ = _cli_config(device, ["experiment", *EXPERIMENT_ARGS])
+    batch = _flag(EXPERIMENT_ARGS, "--trial-batch")
+    reset = reference_reset_targets(device=device)
+    batched = batched_problem(cfg.problem, reset[None].expand(batch, *reset.shape))
+    solver = build_solver(cfg.spec, pso=cfg.pso, fit=cfg.fitness,
+                          num_particles=cfg.num_particles, impl="jnp", device=device)
+    gen = seeds.generator(0, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    stages = _stage_times(device, [("frame", solver, batched, 3)], solver, batched, gen)
+    stages["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    ok = (all(r["ok"] for r in rows.values()) and launches["fused_solve"] == 0
+          and all(r["fused_fitness_launches"] > 0
+                  and r["fused_fitness_launches"] % (cfg.pso.iterations + 1) == 0
+                  for r in rows.values()))
+    emit("experiment", protocols=rows, trials=EXPERIMENT_TRIALS,
+         particles=cfg.num_particles, trial_batch=batch,
+         max_frames=_flag(EXPERIMENT_ARGS, "--max-frames"), launches=launches, stages=stages,
+         reduced="256 trials a protocol, JAX's parity_r02 ran 512", card=card, ok=ok)
+    if not ok:
+        raise AssertionError("experiment missed its bar or bypassed kernel C")
+    return launches
+
+
+def phase_experiment_polish_diagnostics(card):
+    """iter3 with the locality-gated LM polish a frame, ``--outdir``
+    writing the four diagnostics streams through the port's native
+    binding; the streams must exist and parse."""
+    import tempfile
+
+    from ikpso_tpu_torch import native
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        s = _cli_lines(["experiment", *EXPERIMENT_POLISH_ARGS, "--outdir", tmp])[-1]
+        launches = read_counts()
+        out = Path(tmp)
+        streams = {name: (out / f"IK-diagnostics-{name}.txt").read_text().splitlines()
+                   for name in ("degrees", "positions", "distance", "frames")}
+    degrees = [[float(v) for v in line.split(";")[:-1]] for line in streams["degrees"]]
+    positions = [[float(v) for v in line.split(";")[:-1]] for line in streams["positions"]]
+    distance = [float(v) for v in streams["distance"]]
+    frames = [int(v) for v in streams["frames"]]
+    ok = (native.available() and s["converged"] >= 1 and len(frames) == 1
+          and len(degrees) == len(positions) == len(distance) == frames[0]
+          and all(len(r) == 21 for r in degrees) and all(len(r) == 21 for r in positions)
+          and distance[-1] <= 0.025 < (distance[0] if len(distance) > 1 else 1.0)
+          and launches["fused_fitness"] > 0 and launches["fused_solve"] == 0)
+    emit("experiment_polish_diagnostics", summary=s, trial0_frames=frames,
+         lines={k: len(v) for k, v in streams.items()}, distance_first_last=
+         [distance[0], distance[-1]] if distance else None, launches=launches,
+         native=native.available(), native_library=str(native.library_path()),
+         card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("experiment --polish --outdir: diagnostics missing or malformed")
+    return launches
+
+
+def phase_track(device, card):
+    """``cli track`` at the r5-track recipe (kernel A at P=128, the
+    locality-gated polish a frame), launch counts read around it; then one
+    frame's stages alone and profiled."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.harness import trajectory
+    from ikpso_tpu_torch.harness.trajectory import build_solver, circle_paths, frame_solver
+    from ikpso_tpu_torch.models.library import batched_problem
+    from ikpso_tpu_torch.utils import seeds
+
+    seen, real = [], trajectory.track_trajectories
+
+    def recording(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    trajectory.track_trajectories = recording
+    try:
+        reset_counts()
+        line = _cli_lines(["track", *TRACK_ARGS, "--paths", str(TRACK_PATHS), "--timeit"])[-1]
+        launches = read_counts()
+    finally:
+        trajectory.track_trajectories = real
+    # The medians over paths of each path's settled p50 / p95, as TRACK_JAX's.
+    settled = np.asarray(seen[-1].errors)[line["settle"]:] * 1e3
+    p50 = float(np.median(np.percentile(settled, 50, axis=0)))
+    p95 = float(np.median(np.percentile(settled, 95, axis=0)))
+    cfg, args = _cli_config(device, ["track", *TRACK_ARGS])
+    path = circle_paths(cfg.problem.targets, steps=2, num_paths=TRACK_PATHS, seed=1)
+    batched = batched_problem(cfg.problem, torch.as_tensor(path[1], device=device))
+    base = build_solver(cfg.spec, pso=cfg.pso, fit=cfg.fitness,
+                        num_particles=cfg.num_particles, impl="fused", device=device)
+    full = frame_solver(cfg.spec, pso=cfg.pso, fit=cfg.fitness,
+                        num_particles=cfg.num_particles, impl="fused", polish=args.polish,
+                        device=device)
+    stages = _stage_times(device, [("base", base, batched, 5), ("frame", full, batched, 5)],
+                          full, batched, seeds.generator(0, device))
+    steps = int(line["steps"])
+    ok = (TRACK_P50_INTERVAL_MM[0] <= p50 <= TRACK_P50_INTERVAL_MM[1]
+          and TRACK_P95_INTERVAL_MM[0] <= p95 <= TRACK_P95_INTERVAL_MM[1]
+          and launches["fused_solve"] == 2 * steps and launches["fused_fitness"] == 0
+          and bool(np.isfinite(line["err_max_settled"])))
+    emit("track", **line, p50_settled_mm=p50, p95_settled_mm=p95,
+         pooled_p50_settled_mm=line["err_p50_settled"] * 1e3,
+         pooled_p95_settled_mm=line["err_p95_settled"] * 1e3,
+         chained_solves_per_second=line["solves_per_second"], launches=launches,
+         stages=stages, jax=TRACK_JAX, p50_interval_mm=TRACK_P50_INTERVAL_MM,
+         p95_interval_mm=TRACK_P95_INTERVAL_MM, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("track missed JAX's intervals or bypassed kernel A")
+    return launches
+
+
+class _Cut(Exception):
+    """Stops a sweep after a checkpoint, as a killed process would."""
+
+
+def phase_sweep(device, card):
+    """``cli sweep`` with a checkpoint, launch counts read around it; then
+    the same sweep cut off after two batches and resumed from its
+    checkpoint, which must return the uninterrupted sweep's angles and
+    errors to the bit; then one batch's stages."""
+    import tempfile
+
+    import numpy as np
+
+    from ikpso_tpu_torch.harness import trajectory
+    from ikpso_tpu_torch.utils import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole_path, cut_path = f"{tmp}/whole.npz", f"{tmp}/cut.npz"
+        reset_counts()
+        t0 = time.perf_counter()
+        line = _cli_lines(["sweep", *SWEEP_ARGS, "--checkpoint", whole_path])[-1]
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        real_save, saves = ckpt.save, []
+
+        def save_then_cut(path, state):
+            real_save(path, state)
+            saves.append(state.cursor)
+            if len(saves) == 2:
+                raise _Cut
+
+        ckpt.save = save_then_cut
+        try:
+            _cli_lines(["sweep", *SWEEP_ARGS, "--checkpoint", cut_path])
+        except _Cut:
+            pass
+        finally:
+            ckpt.save = real_save
+        cut_cursor = ckpt.load(cut_path).cursor
+        _cli_lines(["sweep", *SWEEP_ARGS, "--checkpoint", cut_path])
+        whole, resumed = ckpt.load(whole_path), ckpt.load(cut_path)
+    equal = bool(np.array_equal(whole.angles, resumed.angles)
+                 and np.array_equal(whole.errors, resumed.errors))
+    err_mm = whole.errors.astype(np.float64) * 1e3
+    # Stages: one batch through solve_waypoints (kernel A, the polish and 4
+    # retry rounds), alone and profiled.
+    batch = _flag(SWEEP_ARGS, "--batch")
+    cfg, args = _cli_config(device, ["sweep", *SWEEP_ARGS])
+    rng = np.random.default_rng(0)
+    tgt = cfg.problem.targets.cpu().numpy()
+    wp = (tgt[None] + rng.normal(scale=0.25, size=(batch,) + tgt.shape)).astype(np.float32)
+
+    def one_batch(problem, generator):
+        del generator
+        return trajectory.solve_waypoints(
+            cfg.spec, problem, wp, 0, pso=cfg.pso, fit=cfg.fitness,
+            num_particles=cfg.num_particles, batch_size=batch, impl="fused",
+            retries=args.retries, polish=args.polish)
+
+    stages = _stage_times(device, [("batch", one_batch, cfg.problem, 3)], one_batch,
+                          cfg.problem, None)
+    ok = (equal and saves == [batch, 2 * batch] and cut_cursor == 2 * batch
+          and np.isfinite(err_mm).all() and launches["fused_solve"] >= 4
+          and launches["fused_fitness"] == 0)
+    emit("sweep", **line, wall_s=wall, frac_under_1mm=float((err_mm < 1.0).mean()),
+         failures_ge_1mm=int((err_mm >= 1.0).sum()), p50_err_mm=float(np.median(err_mm)),
+         resumed_equals_uninterrupted=equal, cut_after=saves, launches=launches,
+         stages=stages, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("sweep: resume differs, non-finite errors or kernel A bypassed")
+    return launches
+
+
+def phase_slice_timing(device):
+    """Kernel C at the experiment's shape (reference_arm, S=128, D=21,
+    P=16,384, angle_weight 3.0) and kernel A at the track's (arm_7dof,
+    S=4,096, P=128, 8 iterations, re-kick every 4): each against its plain
+    twin on the same inputs (C: equal masks, max abs error 0.0; A: bit for
+    bit), timed, with the counted work of the timed launch."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.ops.fitness_kernel import fused_fitness, fused_fitness_plain
+    from ikpso_tpu_torch.pso.fused import fused_solve, fused_solve_plain
+    from ikpso_tpu_torch.utils import flops
+
+    rng = np.random.default_rng(12)
+    times, counts, errs = {}, {}, {}
+    cfg, _ = _cli_config(device, ["experiment", *EXPERIMENT_ARGS])
+    s, p = _flag(EXPERIMENT_ARGS, "--trial-batch"), cfg.num_particles
+    spec, batched = _problem("reference_arm", s, rng, device)
+    meta, swarm = _packed(spec, batched, cfg.fitness)
+    lim = spec.limits().cpu().numpy()
+    x_dp = torch.as_tensor((lim[0][:, None] + rng.random((s, spec.dof, p))
+                            * (lim[1] - lim[0])[:, None]).astype("float32"), device=device)
+    times["fused_fitness_experiment_ms"], got = cuda_time(
+        lambda: fused_fitness(spec, x_dp, meta, swarm), reps=20)
+    times["fused_fitness_experiment_plain_ms"], want = cuda_time(
+        lambda: fused_fitness_plain(spec, x_dp, meta, swarm), reps=3)
+    errs["C experiment"] = check_fitness("fused_fitness experiment", got, want, exact=True)
+    counts["c_experiment"] = flops.fitness_kernel_count(spec, cfg.fitness, num_swarms=s,
+                                                        num_particles=p)
+    del x_dp, got, want
+    cfg, _ = _cli_config(device, ["track", *TRACK_ARGS])
+    spec, batched = _problem("arm_7dof", TRACK_PATHS, rng, device)
+    meta, swarm = _packed(spec, batched, cfg.fitness)
+    seeds = torch.as_tensor(
+        rng.integers(-2**31, 2**31, (TRACK_PATHS, 2), dtype=np.int64).astype(np.int32),
+        device=device)
+    args = (spec, cfg.pso, cfg.fitness, meta, swarm, spec.limits(), seeds, cfg.num_particles)
+    times["fused_solve_track_ms"], got = cuda_time(lambda: fused_solve(*args), reps=20)
+    times["fused_solve_track_plain_ms"], want = cuda_time(
+        lambda: fused_solve_plain(*args), reps=1)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("kernel A disagrees with fused_solve_plain at the track shape")
+    errs["A track"] = 0.0
+    kicks = flops.fused_solve_kicks(*args)
+    counts["a_track"] = flops.fused_solve_count(
+        spec, cfg.pso, cfg.fitness, num_particles=cfg.num_particles,
+        num_swarms=TRACK_PATHS, kicks=kicks)
+    emit("slice_timing", **times, kicks=kicks, max_abs_err=errs,
+         experiment_shape=[s, 21, p], track_shape=[TRACK_PATHS, cfg.num_particles, spec.dof],
+         bar={"C experiment": "equal masks, max abs error 0.0 on free particles",
+              "A track": "bit-identical gbest and gval"}, clocks=card_clocks(), ok=True)
+    return times, counts, errs
 
 
 def phase_on_demand_timing(device):
@@ -2566,6 +2969,10 @@ def run_phases(device, card, od_ptxas):
         paths[f"config_{name}"], config_out[name] = phase_config(device, name, card)
     phase_exact_vs_poly(device, config_out["arm7_exact"], card)
     paths["cli_hand21_jnp"] = phase_cli(card)
+    paths["experiment"] = phase_experiment(device, card)
+    paths["experiment_polish_diagnostics"] = phase_experiment_polish_diagnostics(card)
+    paths["track"] = phase_track(device, card)
+    paths["sweep"] = phase_sweep(device, card)
     paths["roofline"], roof_timed, roof_counts, d_err, sol = phase_roofline(device, card)
     t, counts, t_err = phase_timing(device, TIMING_SWARMS, HEADLINE_SWARMS)
     tt, tree_counts, tt_err = phase_tree_timing(device)
@@ -2574,6 +2981,9 @@ def run_phases(device, card, od_ptxas):
     od_t, od_counts = phase_on_demand_timing(device)
     t.update(od_t)
     counts.update(od_counts)
+    st, st_counts, st_err = phase_slice_timing(device)
+    t.update(st)
+    counts.update(st_counts)
     bounds = phase_bounds(t, counts, roof_timed, roof_counts, card)
 
     def by_path(name):
@@ -2668,7 +3078,12 @@ def run_phases(device, card, od_ptxas):
          "ms_at_headline_swarms": t["fused_solve_big_ms"],
          "bound_at_headline_swarms": bound_keys("A headline, no scene"),
          "box_ms_at_headline_swarms": t["fused_solve_box_big_ms"],
-         "headline_sol_frac": sol["sol_frac"]},
+         "headline_sol_frac": sol["sol_frac"],
+         "track_shape": {"ms": t["fused_solve_track_ms"],
+                         "plain_ms": t["fused_solve_track_plain_ms"],
+                         **bound_keys("A track"), "max_abs_err": st_err["A track"],
+                         "timed": f"arm_7dof, S={TRACK_PATHS}, P=128, 8 iterations, "
+                                  "re-kick every 4 above 1e-6 (the track path's frame)"}},
         # Kernel B's device function runs inside every fused_solve and
         # fused_fitness launch; its standalone launcher is for checking and
         # timing only.
@@ -2714,6 +3129,7 @@ def run_phases(device, card, od_ptxas):
          "launches": paths["scan"]["fused_fitness"],
          "launches_by_path": by_path("fused_fitness"),
          "max_abs_err": max(*c_err.values(), scan_err, t_err["fused_fitness"],
+                            st_err["C experiment"],
                             *(v for (k, _), v in {**tree_err, **tt_err, **od_err}.items()
                               if k == "C")),
          "models": model_variants("C"),
@@ -2722,7 +3138,13 @@ def run_phases(device, card, od_ptxas):
          "on_demand": on_demand("C"),
          "ms": t["fused_fitness_ms"], "plain_ms": t["fused_fitness_plain_ms"],
          **bound_keys("C scan path"), "library_ms": None,
-         "timed": f"S={SCAN_SWARMS}, D=9, P=1024, no scene"},
+         "timed": f"S={SCAN_SWARMS}, D=9, P=1024, no scene",
+         "experiment_shape": {"ms": t["fused_fitness_experiment_ms"],
+                              "plain_ms": t["fused_fitness_experiment_plain_ms"],
+                              **bound_keys("C experiment"),
+                              "max_abs_err": st_err["C experiment"],
+                              "timed": "reference_arm, S=128, D=21, P=16,384, angle_weight "
+                                       "3.0 (one trial batch of the experiment path)"}},
         {"name": "roofline_body", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/roofline.cu",
          "replaces": "ikpso_tpu/utils/roofline.py:74",

@@ -392,9 +392,13 @@ def fk_walk_tile(spec: ChainSpec, get_x, meta, sw, *, num_obstacles: int = 0,
                     dr = rk[i] - sw(lay.OFF_TROT + 9 * e + i)
                     fro = fro + dr * dr
                 cost = cost + ow * w * fro
-    total = cost + (aw / num_joints) * rot_diff
+    # Divide by a tensor: on the card torch divides by a Python number as a
+    # multiply by its reciprocal, which can round one ulp off the kernels'
+    # quotient (0.3 / 3 does) and fork a solve's trajectory.
+    joints = aw.new_tensor(float(num_joints))
+    total = cost + (aw / joints) * rot_diff
     if use_distance_term:
-        total = total + (meta(1) / num_joints) * pos_diff
+        total = total + (meta(1) / joints) * pos_diff
     return rots, poss, total
 
 

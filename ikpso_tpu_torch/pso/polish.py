@@ -4,9 +4,9 @@ Port of ``ikpso_tpu/pso/polish.py``: ``soa_traceable``, ``polish_angles``
 (the SoA core of ``pso/polish_soa.py`` where ``soa_traceable`` holds, the
 tensor-shaped path otherwise: the 45-DOF humanoid), ``residual_cost`` and
 ``wrap_with_polish`` (accept-if-better per swarm, gated on the true
-effector error and, with a scene, on the polished pose being
-collision-free). Not ported yet: the Tikhonov-locality accept gate
-(ROADMAP A4).
+effector error, or with ``locality_weight`` on the residual cost the
+polish minimizes, and, with a scene, on the polished pose being
+collision-free).
 
 The tensor path keeps JAX's arithmetic: the analytic Jacobian
 (``ops.jacobian.fk_with_jacobian``), the gradient-projection active set,
@@ -231,29 +231,31 @@ def wrap_with_polish(
     """Wrap a ``(problem, generator) -> SolveResult`` solver with LM polish.
 
     The polished angles replace the PSO answer per swarm only where the
-    true effector error does not get worse and, with ``obstacles``, where
-    the polished pose is collision-free under the plain chain collider
-    (the LM objective knows nothing of the scene); ``fitness`` and
-    ``trace`` keep the PSO values.
+    gate metric does not get worse and, with ``obstacles``, where the
+    polished pose is collision-free under the plain chain collider (the LM
+    objective knows nothing of the scene); ``fitness`` and ``trace`` keep
+    the PSO values. The gate metric is the true effector error, or with
+    ``locality_weight`` the residual cost the polish minimizes
+    (``ikpso_tpu/pso/polish.py:442-449``): position error may then trade
+    against motion locality, as in the fitness.
     """
     collides = None
     if obstacles is not None:
         collides = get_chain_collider(collision_backend, collision_shape)
-    if locality_weight:
-        raise NotImplementedError(
-            "the locality-cost accept gate is not ported yet "
-            "(ROADMAP A4, the locality polish gate)"
-        )
+    cost_kw = dict(use_orientation=use_orientation, orientation_weight=orientation_weight,
+                   locality_weight=locality_weight)
 
     def _solve(problem: IKProblem, generator: torch.Generator):
         base = solver(problem, generator)
-        x = polish_angles(
-            spec, problem, base.angles, steps=steps, init_damping=init_damping,
-            use_orientation=use_orientation, orientation_weight=orientation_weight,
-        )
+        x = polish_angles(spec, problem, base.angles, steps=steps,
+                          init_damping=init_damping, **cost_kw)
         pose = fk_ops.angles_to_pose(spec, problem.pose[..., 0, :], x)
         err = true_effector_error_rows(spec, problem, x)
-        take = err <= base.effector_error
+        if locality_weight:
+            take = (residual_cost(spec, problem, x, **cost_kw)
+                    <= residual_cost(spec, problem, base.angles, **cost_kw))
+        else:
+            take = err <= base.effector_error
         if collides is not None:
             pos, rot = fk_ops.fk(spec, pose, problem.origin)
             take = take & ~collides(

@@ -379,9 +379,9 @@ def test_cpu_wrapper_dispatches_to_plain():
 
 
 @pytest.mark.parametrize("kw", [
-    # The distance term and exact trig (with orientation) now run, under
-    # retries too; the GJK collider (refused by JAX's kernel too) and the
-    # polish's locality-cost accept gate (ROADMAP A4) still raise.
+    # The distance term, exact trig (with orientation) and the polish's
+    # locality-cost accept gate now run, under retries too; the GJK
+    # collider (refused by JAX's kernel too) still raises.
     dict(fit=dict(distance_weight=0.5)),
     dict(fit=dict(trig_impl="exact", orientation_weight=1.0)),
     dict(fit=dict(collision_backend="gjk"), obstacles=True),
@@ -409,7 +409,7 @@ def test_unported_branches_raise(kw):
         return wrap_with_topk_retries(build, pso, rounds=1, bucket=8, spec=spec,
                                       retry_walk_steps=kw.get("retry_walk_steps", 0))
 
-    if "locality_weight" in kw or kw.get("obstacles"):
+    if kw.get("obstacles"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             retried()
         return

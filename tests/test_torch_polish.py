@@ -180,10 +180,10 @@ def test_soa_gate_and_refusals():
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
         wrap_with_polish(lambda p, g: None, spec, obstacles=Obstacles.empty(),
                          collision_backend="gjk")
-    # The orientation rows are ported (tests/test_torch_orientation.py); the
-    # locality-cost accept gate is not.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        wrap_with_polish(lambda p, g: None, spec, locality_weight=0.5)
+    # The orientation rows (tests/test_torch_orientation.py) and the
+    # locality-cost accept gate (tests/test_torch_experiment.py) are ported:
+    # wrapping with a locality weight no longer refuses.
+    assert callable(wrap_with_polish(lambda p, g: None, spec, locality_weight=0.5))
 
 
 def _oriented_case(name, s, seed, noise):
