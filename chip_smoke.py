@@ -24,8 +24,15 @@ published protocols, frames to converge on reference_arm at P=16,384
 through kernel C, against JAX's ``parity_r02``; with ``--polish`` and
 ``--outdir``, the locality gate and the native diagnostics streams;
 ``track``: 4,096 circular paths x 100 chained frames through kernel A;
-``sweep``: 1,024 waypoints with a checkpoint, cut off and resumed) and the
-roofline (``utils.roofline``: kernels D and E, the kernel C and kernel A
+``sweep``: 1,024 waypoints with a checkpoint, cut off and resumed), this
+slice's paths (``gjk``: the GJK colliders against SAT on 524,288 poses and
+the GJK document's solve with ``--impl jnp``; ``retries_host``: the
+headline batch through the host-gather retries, and one top-k round from
+the best pose; ``sharded``: two ranks on the card over gloo, the headline
+across the swarm axis on kernel A and the scan cell across the particle
+axis on kernel C, each shard held bit for bit against its single-process
+solve; ``sweep_multihost``: ``cli sweep --multihost`` as two processes;
+``viz``) and the roofline (``utils.roofline``: kernels D and E, the kernel C and kernel A
 rates, the headline's ``sol_frac``) -- with the launch counts read around
 each, times kernel/plain pairs and holds every kernel's time against its
 bound (``bounds``). Every phase prints one JSON line; any failure raises
@@ -2416,6 +2423,9 @@ CLI_RUNS = {
     "reference_arm": (),
     "arm_7dof_preset": ("--model", "arm_7dof", "--preset"),
 }
+# The fitness each of them runs (solve's ``fitness_impl``).
+CLI_FITNESS = {"hand21": "kernel-A", "reference_arm": "kernel-C",
+               "arm_7dof_preset": "kernel-A"}
 
 
 def phase_cli(card):
@@ -2432,9 +2442,12 @@ def phase_cli(card):
         if proc.returncode:
             raise AssertionError(f"cli solve {tag} failed:\n{proc.stderr[-3000:]}")
         out = json.loads(proc.stdout.strip().splitlines()[-1])
-        if set(out) != {"angles", "fitness", "effector_error", "trace"}:
-            raise AssertionError(f"cli solve {tag} printed {sorted(out)}")
+        if (set(out) != {"angles", "fitness", "effector_error", "trace", "fitness_impl"}
+                or out["fitness_impl"] != CLI_FITNESS[tag]):
+            raise AssertionError(f"cli solve {tag} printed {sorted(out)}, fitness "
+                                 f"{out.get('fitness_impl')}")
         rows[tag] = dict(seconds=time.perf_counter() - t0, dof=len(out["angles"]),
+                         fitness_impl=out["fitness_impl"],
                          fitness=out["fitness"], effector_error=out["effector_error"],
                          trace_len=len(out["trace"]))
     # In process, with the launch counts read around it: the same solve on
@@ -2931,6 +2944,607 @@ def phase_sass_sincos():
     return total
 
 
+# This slice's paths: GJK on the card (agreement with SAT, and the GJK
+# document's solve through harness.configs with --impl jnp), host-gather
+# and from-best retries on the headline batch, the sharded solves of two
+# ranks on one card, the two-process sweep through the CLI, and viz.
+GJK_SWARMS, GJK_PARTICLES = 4096, 128  # 4,096 x 128 random poses: 6.3 M GJK lanes a collider
+GJK_AGREEMENT_BAR = 0.995  # JAX's GJK-vs-SAT bar (bench.py:449-485)
+# Poses held against the CPU port's GJK: a cut of the 524,288 (the CPU
+# runs ~10^6 lane-rounds a second).
+GJK_CPU_POSES = 2048
+GJK_CONFIG, GJK_CONFIG_SWARMS, GJK_CONFIG_POLISH = "arm7_box_gjk", 4096, 4
+# JAX's bars for the GJK document: `JAX_PLATFORMS=cpu python
+# tests/test_torch_configs.py arm7_box_gjk` (ikpso_tpu.utils.configio,
+# the scan solver, wrap_with_polish with the document's scene and GJK
+# collider, 4 steps; taken on a CPU): compiled on 1,024 targets, op by op
+# on 256 (the op-by-op GJK is ~50x slower). The port's p50 and p90 (mm)
+# must lie inside the hull of the two evaluations' 99% intervals.
+JAX_GJK_CONFIG = {
+    "p50_bar_mm": (0.00012013700256829907, 0.0001365714012990793),
+    "p90_bar_mm": (0.0002980232238769531, 0.12442386650945991),
+    "p50_jit": (0.00012383438274810032, (0.00012013700256829907, 0.00013328003944934608)),
+    "p50_op_by_op": (0.00013328003944934608, (0.00012287812012345967, 0.0001365714012990793)),
+    "p90_jit": (0.001955755033122845, (0.00032098083124765253, 0.010953732271445915)),
+    "p90_op_by_op": (0.0023324050289375035, (0.0002980232238769531, 0.12442386650945991)),
+    "failures_ge_1mm": 37,
+    "failures_ge_1mm_op_by_op": 11,
+    "swarms": 1024,
+    "swarms_op_by_op": 256,
+    "frac_targets_feasible": 0.9423828125,
+    "colliding_solutions": 0,
+}
+RETRY_THRESHOLD, RETRY_ROUNDS, RETRY_BUCKET = 1e-3, 4, 1024
+SHARDED_RANKS = 2
+SHARDED_SCAN_SWARMS, SHARDED_SCAN_PARTICLES = 4096, 1024
+MULTIHOST_TIMEOUT_S = 600
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(argvs, timeout=MULTIHOST_TIMEOUT_S):
+    """One process per argv, all at once, from the repository root; their
+    stdouts. A process that fails or outlives ``timeout`` fails the
+    phase; every process is killed on the way out."""
+    root = Path(__file__).resolve().parent
+    procs = [subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            raise AssertionError(f"process {i} exited {p.returncode}:\n{err[-3000:]}")
+    return [o for o, _ in outs]
+
+
+def _sum_counts(counts):
+    """The launch counts of several processes, added."""
+    out = {name: sum(c.get(name, 0) for c in counts) for name in _wrappers()}
+    variants = {}
+    for c in counts:
+        for k, v in c.get("fused_solve_variants", {}).items():
+            variants[k] = variants.get(k, 0) + v
+    out["fused_solve_variants"] = variants
+    return out
+
+
+def phase_gjk(device, card):
+    """(a) GJK's chain-collider masks on the card against SAT's on 4,096 x
+    128 random in-limit arm_7dof poses in the 4-box scene (agreement above
+    JAX's 0.995), and against the CPU port's GJK on the first
+    ``GJK_CPU_POSES`` poses; the peak memory of the GJK call. (b) The GJK
+    document's solve through harness.configs with --impl jnp (the scan
+    solver on the plain fitness: no kernel fuses GJK), launch counts read
+    around it: no colliding solution under SAT or GJK past 1e-4 S, p50
+    under 1 mm, p50 and p90 inside JAX's intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ikpso_tpu_torch.harness.configs import run_config
+    from ikpso_tpu_torch.harness.headline import reachable_pose
+    from ikpso_tpu_torch.harness.obstacles import obstacle_scene
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.ops import fk as fk_ops
+    from ikpso_tpu_torch.ops.collision import chain_collides
+    from ikpso_tpu_torch.ops.gjk import GJK_ITERATIONS, chain_collides_gjk
+
+    t_phase = time.perf_counter()
+    spec, problem = library.arm_7dof(device=device)
+    n = GJK_SWARMS * GJK_PARTICLES
+    pose = reachable_pose(spec, problem, n, torch.Generator(device=device).manual_seed(0))
+    pos, rot = fk_ops.fk(spec, pose, problem.origin)
+    par = list(spec.parent[1:])
+
+    def args(pos, rot, length, obs):
+        return (pos[:, 1:], rot[:, 1:], pos[:, par], length, obs.center, obs.half_extent,
+                obs.rot)
+
+    obs = obstacle_scene(spec, 4, device=device)
+    card_args = args(pos, rot, spec.length[1:], obs)
+    lanes = n * len(par) * obs.count
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gjk = chain_collides_gjk(*card_args)
+        torch.cuda.synchronize()
+        gjk_ms = (time.perf_counter() - t0) * 1e3
+    gjk_busy_ms = _device_ms(prof, {})[0]
+    peak = torch.cuda.max_memory_allocated(device) - before
+    t0 = time.perf_counter()
+    sat = chain_collides(*card_args)
+    torch.cuda.synchronize()
+    sat_ms = (time.perf_counter() - t0) * 1e3
+    agree = float((gjk == sat).double().mean())
+    k = GJK_CPU_POSES
+    spec_cpu = library.arm_7dof()[0]
+    cpu = chain_collides_gjk(*args(pos[:k].cpu(), rot[:k].cpu(), spec_cpu.length[1:],
+                                   obstacle_scene(spec_cpu, 4)))
+    cpu_disagree = int((cpu != gjk[:k].cpu()).sum())
+    del pose, pos, rot, card_args, gjk, sat
+
+    swarms = GJK_CONFIG_SWARMS
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_config(CONFIG_DIR / f"{GJK_CONFIG}.json", swarms, GJK_CONFIG_POLISH, device,
+                     seed=0, warmup=0, iters=1, impl="jnp")
+    solve_s = time.perf_counter() - t0
+    launches = read_counts()
+    solve_peak = torch.cuda.max_memory_allocated(device)
+    jax = JAX_GJK_CONFIG
+    lo50, hi50 = jax["p50_bar_mm"]
+    lo90, hi90 = jax["p90_bar_mm"]
+    most = MAX_COLLIDING_PER_SWARM * swarms
+    ok = (agree > GJK_AGREEMENT_BAR and out["finite"] and out["fitness_impl"] == "plain-gjk"
+          and out["colliding_solutions"] <= most and out["colliding_solutions_gjk"] <= most
+          and out["p50_err_mm"] < 1.0 and lo50 <= out["p50_err_mm"] <= hi50
+          and lo90 <= out["p90_err_mm"] <= hi90
+          and launches["fused_solve"] == launches["fused_fitness"] == 0)
+    emit("gjk", agreement=agree, agreement_bar=GJK_AGREEMENT_BAR, poses=n,
+         gjk_lanes_per_collider=lanes, gjk_rounds_budget=GJK_ITERATIONS,
+         gjk_call_ms=gjk_ms, gjk_call_device_busy_ms=gjk_busy_ms,
+         gjk_call_device_idle_share=1.0 - gjk_busy_ms / gjk_ms if gjk_busy_ms else None,
+         sat_call_ms=sat_ms, gjk_peak_bytes=peak, solve_peak_bytes=solve_peak,
+         gjk_simplex_buffer_bytes=lanes * 4 * 3 * 4,
+         cpu_poses=k, card_vs_cpu_disagreements=cpu_disagree,
+         solve=out, solve_seconds=solve_s, fitness_that_ran=out["fitness_impl"],
+         launches=launches, jax={**jax, "record": "CPU, scan solver, tests/test_torch_configs.py"},
+         bars={"p50_err_mm": jax["p50_bar_mm"], "p90_err_mm": jax["p90_bar_mm"],
+               "colliding_solutions": most, "p50_under_mm": 1.0},
+         seconds=time.perf_counter() - t_phase, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("gjk: SAT agreement, a bar of the GJK document, or its route "
+                             "missed")
+    return launches
+
+
+def phase_retries_host(device, card):
+    """The headline batch (arm_7dof, S=1,048,576, kernel A and the polish)
+    through make_retry_solver (host-gathered failures, 4 rounds, buckets of
+    1,024), launch counts read around it: the rows that converged in the
+    base solve are bit-identical after it, failures do not grow, and
+    frac_under_1mm >= 0.999. Beside it the top-k path's failures (the
+    headline recipe) and one top-k round from the best pose against one
+    from the problem's."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ikpso_tpu_torch.harness.headline import (build_headline_solver, headline_bucket,
+                                                  headline_configs, reachable_targets)
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.pso.fused import make_fused_solver
+    from ikpso_tpu_torch.pso.polish import wrap_with_polish
+    from ikpso_tpu_torch.pso.restarts import make_retry_solver, make_topk_retry_solver
+
+    t_phase = time.perf_counter()
+    swarms = HEADLINE_SWARMS
+    spec, problem = library.arm_7dof(device=device)
+    batched = library.batched_problem(problem, reachable_targets(
+        spec, problem, swarms, torch.Generator(device=device).manual_seed(0)))
+    pre, pso, fit = headline_configs()
+    base = wrap_with_polish(make_fused_solver(spec, pso=pso, fit=fit,
+                                              num_particles=pre.particles, device=device),
+                            spec, steps=pre.polish)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(1)
+
+    def failures(res):
+        return int((res.effector_error.double() * 1e3 >= 1.0).sum())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = base(batched, gen())
+    torch.cuda.synchronize()
+    base_wall = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    res = make_retry_solver(base, err_threshold=RETRY_THRESHOLD, max_rounds=RETRY_ROUNDS,
+                            bucket=RETRY_BUCKET)(batched, gen())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    converged = first.effector_error <= RETRY_THRESHOLD
+    stable = bool(torch.equal(res.angles[converged], first.angles[converged])
+                  and torch.equal(res.effector_error[converged],
+                                  first.effector_error[converged]))
+    err_mm = res.effector_error.double().cpu().numpy() * 1e3
+    frac = float((err_mm < 1.0).mean())
+    retried = make_retry_solver(base, err_threshold=RETRY_THRESHOLD, max_rounds=RETRY_ROUNDS,
+                                bucket=RETRY_BUCKET)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        retried(batched, gen())
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) * 1e3
+    busy, ms = _device_ms(prof, {"a": ("fused_solve_kernel",)})
+    topk = build_headline_solver(spec, swarms, device)(batched, gen())
+    bucket = headline_bucket(swarms, pre.retry_bucket_decay)
+    one_round = {start: failures(make_topk_retry_solver(
+        base, bucket=bucket, rounds=1, err_threshold=RETRY_THRESHOLD,
+        retry_start=start)(batched, gen())) for start in ("problem", "best")}
+    ok = (stable and failures(res) <= failures(first) and frac >= 0.999
+          and launches["fused_solve_variants"].get("arm_7dof/warm/none", 0) >= 2)
+    emit("retries_host", swarms=swarms, rounds=RETRY_ROUNDS, bucket=RETRY_BUCKET,
+         err_threshold=RETRY_THRESHOLD, base_wall_s=base_wall, wall_s=wall,
+         profiled_wall_ms=profiled_ms, device_busy_ms=busy, kernel_a_device_ms=ms["a"],
+         device_idle_share=1.0 - busy / profiled_ms if busy else None,
+         base_failures_ge_1mm=failures(first),
+         failures_ge_1mm=failures(res), frac_under_1mm=frac,
+         p50_err_mm=float(np.median(err_mm)),
+         converged_rows_bit_stable=stable, topk_path_failures_ge_1mm=failures(topk),
+         jax_reference_failures=JAX_REFERENCE_FAILURES,
+         one_topk_round_failures_ge_1mm=one_round, one_topk_round_bucket=bucket,
+         launches=launches, seconds=time.perf_counter() - t_phase, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("retries_host: converged rows moved, failures grew, or the "
+                             "accuracy bar missed")
+    return launches
+
+
+# One rank of the sharded phase: a process of a two-rank gloo group on
+# cuda:0 (argv: repository root, rank, port, output directory).
+SHARDED_RANK = r'''
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+
+repo, rank, port, out = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[4]
+from ikpso_tpu_torch.parallel import distributed
+
+device = distributed.rank_device(%(device)r, 0)
+distributed.initialize(f"127.0.0.1:{port}", %(ranks)d, rank, device=device)
+try:
+    import torch.distributed as dist
+
+    from ikpso_tpu_torch.harness.headline import (headline_bucket, headline_configs,
+                                                  reachable_targets)
+    from ikpso_tpu_torch.harness.scan import scan_configs
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness, fused_fitness
+    from ikpso_tpu_torch.parallel import mesh as M
+    from ikpso_tpu_torch.parallel.sharded import draw_seed, make_sharded_solver, shard_seed
+    from ikpso_tpu_torch.pso.fused import fused_solve
+    from ikpso_tpu_torch.pso.polish import wrap_with_polish
+    from ikpso_tpu_torch.pso.restarts import wrap_with_topk_retries
+
+    def counts():
+        return dict(fused_solve=fused_solve.launches, fk_fitness=fk_fitness.launches,
+                    fused_fitness=fused_fitness.launches,
+                    fused_solve_variants=dict(fused_solve.variant_launches))
+
+    def reset():
+        for fn in (fused_solve, fk_fitness, fused_fitness):
+            fn.launches = 0
+        fused_solve.variant_launches = {}
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    rec = dict(rank=rank, backend=dist.get_backend(), device=str(device))
+    swarms = %(headline)d
+    spec, problem = library.arm_7dof(device=device)
+    batched = library.batched_problem(problem, reachable_targets(spec, problem, swarms, gen(0)))
+    pre, pso, fit = headline_configs()
+    mesh = M.swarm_mesh()
+    # (a) Kernel A across the swarm axis: this rank's shard of the base solve.
+    kw = dict(pso=pso, fit=fit, num_particles=pre.particles, impl="fused")
+    res = make_sharded_solver(spec, mesh, **kw)(batched, gen(1))
+    block = swarms // mesh.size
+    rows = slice(rank * block, (rank + 1) * block)
+    np.savez(f"{out}/a{rank}.npz", angles=res.angles[rows].cpu().numpy(),
+             fitness=res.fitness[rows].cpu().numpy())
+    rec["swarm_seed"] = shard_seed(draw_seed(gen(1)), mesh)
+    del res
+    # The headline recipe around the sharded solver: polish and top-k retries.
+    def build(cfg):
+        return wrap_with_polish(make_sharded_solver(spec, mesh, **dict(kw, pso=cfg)), spec,
+                                steps=pre.polish)
+
+    full = wrap_with_topk_retries(
+        build, pso, rounds=pre.retries, bucket=headline_bucket(swarms, pre.retry_bucket_decay),
+        retry_init_mode=pre.retry_init_mode, retry_iterations=pre.retry_iterations,
+        bucket_decay=pre.retry_bucket_decay)
+    def profiled(run):
+        """``run()`` under the profiler where there is a card: its result, its
+        wall, and the device's busy ms and idle share."""
+        if device.type != "cuda":
+            t0 = time.perf_counter()
+            return run(), time.perf_counter() - t0, None, None
+        from torch.profiler import ProfilerActivity, profile
+
+        from chip_smoke import _device_ms
+
+        sync()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = run()
+            sync()
+            wall = time.perf_counter() - t0
+        busy = _device_ms(prof, {})[0]
+        return out, wall, busy, 1.0 - busy / (wall * 1e3)
+
+    reset()
+    res, rec["swarm_wall_s"], rec["swarm_busy_ms"], rec["swarm_idle_share"] = profiled(
+        lambda: full(batched, gen(1)))
+    err_mm = res.effector_error.double().cpu().numpy() * 1e3
+    rec["swarm_launches"] = counts()
+    rec.update(swarm_frac_under_1mm=float((err_mm < 1.0).mean()),
+               swarm_failures_ge_1mm=int((err_mm >= 1.0).sum()),
+               swarm_p50_err_mm=float(np.median(err_mm)))
+    # (b) The scan solver on kernel C across the particle axis.
+    s = %(scan_swarms)d
+    batched = library.batched_problem(problem, reachable_targets(spec, problem, s, gen(0)))
+    scan_pso, scan_fit = scan_configs()
+    pmesh = M.make_mesh((%(ranks)d,), (M.PARTICLE_AXIS,))
+    solver = make_sharded_solver(spec, pmesh, pso=scan_pso, fit=scan_fit,
+                                 num_particles=%(scan_particles)d, impl="jnp")
+    reset()
+    res, rec["particle_wall_s"], rec["particle_busy_ms"], rec["particle_idle_share"] = (
+        profiled(lambda: solver(batched, gen(1))))
+    err_mm = res.effector_error.double().cpu().numpy() * 1e3
+    rec["particle_launches"] = counts()
+    rec.update(particle_frac_under_1mm=float((err_mm < 1.0).mean()),
+               particle_failures_ge_1mm=int((err_mm >= 1.0).sum()),
+               particle_errors_sum=float(err_mm.sum()),
+               peak_bytes=torch.cuda.max_memory_allocated(device)
+               if device.type == "cuda" else None)
+    json.dump(rec, open(f"{out}/rank{rank}.json", "w"))
+finally:
+    distributed.shutdown()
+'''
+
+
+def phase_sharded(device, card):
+    """Two ranks on cuda:0 over gloo (one process each). (a) The headline
+    batch across the swarm axis on kernel A: each rank's shard is
+    bit-identical to a single-process kernel A solve of it under the
+    rank's derived seed, a 1-rank mesh equals the unsharded solve bit for
+    bit, and the headline recipe (polish, top-k retries) around the
+    sharded solver is scored. (b) The scan cell across the particle axis
+    (kernel C, gbest reduced every iteration): frac_under_1mm within 4
+    standard errors of the unsharded scan solve at the same S and P; both
+    ranks' kernel C launches read."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.harness.headline import headline_configs, reachable_targets
+    from ikpso_tpu_torch.harness.scan import scan_configs
+    from ikpso_tpu_torch.harness.trajectory import build_solver
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.parallel.mesh import make_mesh
+    from ikpso_tpu_torch.parallel.sharded import draw_seed, shard_seed, solve_sharded
+    from ikpso_tpu_torch.pso.fused import make_fused_solver
+    from ikpso_tpu_torch.utils import seeds
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp) / "rank.py"
+        script.write_text(SHARDED_RANK % dict(
+            ranks=SHARDED_RANKS, headline=HEADLINE_SWARMS, scan_swarms=SHARDED_SCAN_SWARMS,
+            scan_particles=SHARDED_SCAN_PARTICLES, device=device.type))
+        port = _free_port()
+        root = str(Path(__file__).resolve().parent)
+        t0 = time.perf_counter()
+        _spawn([[sys.executable, str(script), root, str(r), str(port), tmp]
+                for r in range(SHARDED_RANKS)])
+        ranks_s = time.perf_counter() - t0
+        recs = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                for r in range(SHARDED_RANKS)]
+        shards = [dict(np.load(Path(tmp) / f"a{r}.npz")) for r in range(SHARDED_RANKS)]
+
+    def gen(seed):
+        return torch.Generator(device=device).manual_seed(seed)
+
+    swarms = HEADLINE_SWARMS
+    spec, problem = library.arm_7dof(device=device)
+    batched = library.batched_problem(problem, reachable_targets(spec, problem, swarms, gen(0)))
+    pre, pso, fit = headline_configs()
+    kernel_a = make_fused_solver(spec, pso=pso, fit=fit, num_particles=pre.particles,
+                                 device=device)
+    block = swarms // SHARDED_RANKS
+    shard_equal = []
+    for r, (rec, shard) in enumerate(zip(recs, shards)):
+        rows = torch.arange(r * block, (r + 1) * block, device=device)
+        want = kernel_a(batched.take(rows), seeds.generator(rec["swarm_seed"], device))
+        shard_equal.append(bool(np.array_equal(shard["angles"], want.angles.cpu().numpy())
+                                and np.array_equal(shard["fitness"],
+                                                   want.fitness.cpu().numpy())))
+    one = make_mesh()
+    got = solve_sharded(spec, batched, gen(1), one, pso=pso, fit=fit,
+                        num_particles=pre.particles, impl="fused")
+    want = kernel_a(batched, seeds.generator(shard_seed(draw_seed(gen(1)), one), device))
+    one_rank_equal = bool(torch.equal(got.angles, want.angles)
+                          and torch.equal(got.fitness, want.fitness))
+    del got, want
+    s, p = SHARDED_SCAN_SWARMS, SHARDED_SCAN_PARTICLES
+    scan_pso, scan_fit = scan_configs()
+    scan_batched = library.batched_problem(problem, reachable_targets(spec, problem, s, gen(0)))
+    whole = build_solver(spec, pso=scan_pso, fit=scan_fit, num_particles=p, impl="jnp",
+                         device=device)(scan_batched, gen(1))
+    whole_mm = whole.effector_error.double().cpu().numpy() * 1e3
+    whole_frac = float((whole_mm < 1.0).mean())
+    share = min(max(whole_frac, 1.0 / s), 1.0 - 1.0 / s)
+    four_se = 4.0 * (share * (1.0 - share) * 2.0 / s) ** 0.5
+    frac = recs[0]["particle_frac_under_1mm"]
+    same = all(r[k] == recs[0][k] for r in recs for k in (
+        "swarm_frac_under_1mm", "swarm_failures_ge_1mm", "particle_frac_under_1mm",
+        "particle_errors_sum"))
+    iterations = scan_pso.iterations
+    ok = (all(shard_equal) and one_rank_equal and same
+          and recs[0]["swarm_seed"] != recs[1]["swarm_seed"]
+          and all(r["backend"] == "gloo" for r in recs)
+          and abs(frac - whole_frac) <= four_se
+          and all(r["particle_launches"]["fused_fitness"] == iterations + 1 for r in recs)
+          and all(r["swarm_launches"]["fused_solve"] >= 1 for r in recs))
+    launches = _sum_counts([r["swarm_launches"] for r in recs]
+                           + [r["particle_launches"] for r in recs])
+    emit("sharded", ranks=SHARDED_RANKS, backend=recs[0]["backend"], swarms=swarms,
+         swarms_per_rank=block, shard_bit_identical=shard_equal,
+         one_rank_mesh_bit_identical=one_rank_equal,
+         swarm_frac_under_1mm=recs[0]["swarm_frac_under_1mm"],
+         swarm_failures_ge_1mm=recs[0]["swarm_failures_ge_1mm"],
+         swarm_p50_err_mm=recs[0]["swarm_p50_err_mm"],
+         jax_reference_failures=JAX_REFERENCE_FAILURES,
+         scan_swarms=s, scan_particles=p, particles_per_rank=p // SHARDED_RANKS,
+         particle_frac_under_1mm=frac, unsharded_frac_under_1mm=whole_frac,
+         four_standard_errors=four_se,
+         ranks_profiled={f"rank{r['rank']}": {
+             k: r[k] for k in ("swarm_wall_s", "swarm_busy_ms", "swarm_idle_share",
+                               "particle_wall_s", "particle_busy_ms", "particle_idle_share")}
+             for r in recs},
+         rank_peak_bytes=[r["peak_bytes"] for r in recs], ranks_seconds=ranks_s,
+         kernel_c_launches_by_rank=[r["particle_launches"]["fused_fitness"] for r in recs],
+         kernel_a_launches_by_rank=[r["swarm_launches"]["fused_solve"] for r in recs],
+         launches=launches, seconds=time.perf_counter() - t_phase, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("sharded: a shard differs from its single-process solve, the "
+                             "ranks disagree, or the particle-sharded quality missed")
+    return launches
+
+
+# A process of the two-process sweep: the CLI, with the launch counts and
+# each solve_waypoints rate written to a file (argv: repository root, the
+# file, the CLI's arguments).
+COUNTED_CLI = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from ikpso_tpu_torch.harness import cli, trajectory
+from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness, fused_fitness
+from ikpso_tpu_torch.pso.fused import fused_solve
+
+rates, real = [], trajectory.solve_waypoints
+
+
+def recorded(*args, **kw):
+    res = real(*args, **kw)
+    rates.append(res.solves_per_second)
+    return res
+
+
+trajectory.solve_waypoints = recorded
+rc = cli.main(sys.argv[3:])
+json.dump(dict(fused_solve=fused_solve.launches, fk_fitness=fk_fitness.launches,
+               fused_fitness=fused_fitness.launches,
+               fused_solve_variants=dict(fused_solve.variant_launches), rates=rates),
+          open(sys.argv[2], "w"))
+sys.exit(rc)
+'''
+
+
+def phase_sweep_multihost(device, card):
+    """``cli sweep --multihost`` as two processes on the card (gloo), 1,024
+    waypoints in batches of 256 on kernel A with the preset: both print the
+    same merged line; each process's block (its checkpoint) equals a
+    single-process solve_waypoints of the block under fold_in(seed,
+    process), bit for bit; the merged rate is the sum of the two."""
+    import tempfile
+
+    import numpy as np
+
+    from ikpso_tpu_torch.harness import trajectory
+    from ikpso_tpu_torch.utils import checkpoint as ckpt
+    from ikpso_tpu_torch.utils import seeds
+
+    t_phase = time.perf_counter()
+    impl = "fused" if device.type == "cuda" else "jnp"
+    argv = ["sweep", *SWEEP_ARGS, "--impl", impl, "--multihost", "--num-processes", "2",
+            *(["--cpu"] if device.type == "cpu" else [])]
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp) / "cli_counted.py"
+        script.write_text(COUNTED_CLI)
+        root = str(Path(__file__).resolve().parent)
+        coordinator = f"127.0.0.1:{_free_port()}"
+        t0 = time.perf_counter()
+        outs = _spawn([[sys.executable, str(script), root, f"{tmp}/counts{i}.json", *argv,
+                        "--coordinator", coordinator, "--process-id", str(i),
+                        "--checkpoint", f"{tmp}/sweep.npz"] for i in range(2)])
+        wall = time.perf_counter() - t0
+        lines = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        counts = [json.loads(Path(f"{tmp}/counts{i}.json").read_text()) for i in range(2)]
+        blocks = [ckpt.load(f"{tmp}/sweep.npz.p{i}") for i in range(2)]
+    slices = [ln.pop("local_slice") for ln in lines]
+    processes = [ln.pop("process") for ln in lines]
+    cfg, args = _cli_config(device, ["sweep", *SWEEP_ARGS])
+    rng = np.random.default_rng(args.seed)
+    base = cfg.problem.targets.cpu().numpy()
+    waypoints = base[None] + rng.normal(
+        scale=args.jitter, size=(args.waypoints,) + base.shape).astype(np.float32)
+    equal = []
+    for i, (lo, hi) in enumerate(slices):
+        want = trajectory.solve_waypoints(
+            cfg.spec, cfg.problem, waypoints[lo:hi], seeds.fold_in(args.seed, i),
+            pso=cfg.pso, fit=cfg.fitness, obstacles=cfg.obstacles,
+            num_particles=cfg.num_particles, batch_size=min(args.batch, hi - lo),
+            impl=impl, retries=args.retries, retry_init_mode=args.retry_init_mode,
+            retry_iterations=args.retry_iterations, polish=args.polish)
+        equal.append(bool(np.array_equal(blocks[i].angles, want.angles)
+                          and np.array_equal(blocks[i].errors, want.errors)))
+    rates = [c["rates"][0] for c in counts]
+    launches = _sum_counts(counts)
+    ok = (all(equal) and lines[0] == lines[1] and processes == [0, 1]
+          and slices == [[0, 512], [512, 1024]] and lines[0]["waypoints"] == 1024
+          and abs(lines[0]["solves_per_second"] - sum(rates)) <= 1e-9 * sum(rates)
+          and all(c["fused_solve"] >= 2 for c in counts)
+          and all(c["fused_fitness"] == 0 for c in counts))
+    emit("sweep_multihost", **lines[0], local_slices=slices, blocks_bit_identical=equal,
+         process_rates=rates, processes_wall_s=wall, launches=launches,
+         launches_by_process=[{k: c[k] for k in ("fused_solve", "fused_fitness")}
+                              for c in counts],
+         seconds=time.perf_counter() - t_phase, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("sweep_multihost: the processes disagree, a block differs from "
+                             "its single-process sweep, or kernel A was bypassed")
+    return launches
+
+
+def phase_viz(device, card):
+    """``cli viz --model arm_7dof --out out/scene.html``: the page embeds
+    scene_dict's payload of the same model."""
+    from ikpso_tpu_torch.viz.render import scene_dict
+
+    t_phase = time.perf_counter()
+    out = "out/scene.html"
+    argv = ["viz", "--model", "arm_7dof", *(["--cpu"] if device.type == "cpu" else [])]
+    reset_counts()
+    line = _cli_lines([*argv, "--out", out])[-1]
+    launches = read_counts()
+    html = (Path(__file__).resolve().parent / out).read_text()
+    start = html.index("const SCENE = ") + len("const SCENE = ")
+    embedded = json.loads(html[start:html.index(";\n", start)])
+    cfg, _ = _cli_config(device, argv)
+    want = json.loads(json.dumps(scene_dict(cfg.spec, cfg.problem, cfg.obstacles)))
+    ok = line == {"written": out} and embedded == want
+    emit("viz", written=out, bytes=len(html), nodes=len(embedded["nodes"]),
+         payload_equals_scene_dict=embedded == want, launches=launches,
+         seconds=time.perf_counter() - t_phase, card=card, ok=bool(ok))
+    if not ok:
+        raise AssertionError("viz: the page's payload is not scene_dict's")
+    return launches
+
+
 def run_phases(device, card, od_ptxas):
     """Every phase after the build, in order; returns the ``kernels``
     list of the next-to-last line."""
@@ -2973,6 +3587,11 @@ def run_phases(device, card, od_ptxas):
     paths["experiment_polish_diagnostics"] = phase_experiment_polish_diagnostics(card)
     paths["track"] = phase_track(device, card)
     paths["sweep"] = phase_sweep(device, card)
+    paths["gjk"] = phase_gjk(device, card)
+    paths["retries_host"] = phase_retries_host(device, card)
+    paths["sharded"] = phase_sharded(device, card)
+    paths["sweep_multihost"] = phase_sweep_multihost(device, card)
+    paths["viz"] = phase_viz(device, card)
     paths["roofline"], roof_timed, roof_counts, d_err, sol = phase_roofline(device, card)
     t, counts, t_err = phase_timing(device, TIMING_SWARMS, HEADLINE_SWARMS)
     tt, tree_counts, tt_err = phase_tree_timing(device)

@@ -1,22 +1,30 @@
-"""Command-line driver: solve / experiment / parity / sweep / track.
+"""Command-line interface: solve / experiment / parity / sweep / track / viz.
 
 Port of ``ikpso_tpu/harness/cli.py`` with the same flags, defaults and
 JSON lines (``_add_common``, ``_load`` with ``--preset``, ``cmd_solve``,
-``cmd_experiment``, ``cmd_parity``, ``cmd_sweep``, ``cmd_track`` with
-``_follow_updates``). Every subcommand runs on the card unless ``--cpu``
-is given, with no fallback:
+``cmd_experiment``, ``cmd_parity``, ``cmd_sweep`` with ``--multihost``,
+``cmd_track`` with ``_follow_updates``, ``cmd_viz``). Every subcommand
+runs on the card unless ``--cpu`` is given, with no fallback:
 
   * ``--impl fused``: kernel A (``pso/fused.py``); it needs the card;
   * ``--impl jnp``: the scan solver (``pso/solver.py``), its fitness
-    kernel C on the card and the plain fitness on the CPU;
+    kernel C on the card and the plain fitness on the CPU, or with a GJK
+    scene (``collision_backend: "gjk"``: no kernel fuses GJK, in JAX or
+    here); ``solve``'s JSON line names the fitness that ran
+    (``fitness_impl``);
   * ``--impl auto`` (the default): kernel A on the card where the
     particle count fits its thread-block bound
-    (``utils.kernels.max_particles``), else the scan solver.
+    (``utils.kernels.max_particles``), else the scan solver. As in JAX it
+    does not look at the collider: kernel A refuses a GJK scene, naming
+    ``--impl jnp``.
 
 ``parity`` runs the scan solver, as JAX's does. ``--swarms-per-tile``
-packs swarms into a TPU tile and has no counterpart here; ``sweep
---multihost`` raises (ROADMAP A10), and ``viz`` raises naming the ROADMAP
-item that ports it.
+packs swarms into a TPU tile and has no counterpart here. ``sweep
+--multihost --coordinator HOST:PORT --num-processes N --process-id I``
+is one of N processes of a ``torch.distributed`` group
+(``parallel/distributed.py``): each solves its block of the waypoints on
+its device (checkpointing it to ``CHECKPOINT.p<process>`` with
+``--checkpoint``) and prints the merged sweep.
 
 Run: ``python -m ikpso_tpu_torch.harness.cli <cmd> [--cpu] ...``, e.g.
 ``solve [--config FILE | --preset] [--model NAME] [--particles P]
@@ -32,12 +40,6 @@ import sys
 
 import numpy as np
 import torch
-
-# The JAX CLI's subcommands this port does not have yet, with the ROADMAP
-# item that ports each.
-UNPORTED = {
-    "viz": "A7 (viz/render.py)",
-}
 
 
 def _add_common(p):
@@ -75,11 +77,16 @@ def _add_common(p):
 
 def device_of(args) -> torch.device:
     """The card unless ``--cpu``; raises when the card is asked for and
-    none is visible."""
+    none is visible. A process of a multi-process group drives the card
+    of its rank (``parallel.distributed.rank_device``)."""
     if args.cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise SystemExit("error: no CUDA device is visible; pass --cpu to run on the CPU")
+    if getattr(args, "multihost", False):
+        from ikpso_tpu_torch.parallel.distributed import rank_device
+
+        return rank_device("cuda", args.process_id or 0)
     return torch.device("cuda")
 
 
@@ -180,9 +187,12 @@ def build_solver(cfg, impl: str, polish: int, device):
 
 
 def cmd_solve(args) -> int:
+    from ikpso_tpu_torch.harness.trajectory import fitness_impl
+
     device = device_of(args)
     cfg = _load(args, device)
-    solver = build_solver(cfg, pick_impl(args.impl, cfg, device), args.polish, device)
+    impl = pick_impl(args.impl, cfg, device)
+    solver = build_solver(cfg, impl, args.polish, device)
     prob = cfg.problem
     batched = dataclasses.replace(
         prob, pose=prob.pose[None], origin=prob.origin[None], targets=prob.targets[None],
@@ -199,6 +209,7 @@ def cmd_solve(args) -> int:
         fitness=float(strip(res.fitness)),
         effector_error=float(strip(res.effector_error)),
         trace=strip(res.trace).tolist(),
+        fitness_impl=fitness_impl(cfg.fitness, cfg.obstacles, impl, device),
     )), flush=True)
     return 0
 
@@ -295,29 +306,50 @@ def cmd_parity(args) -> int:
 
 def cmd_sweep(args) -> int:
     from ikpso_tpu_torch.harness.trajectory import solve_waypoints
+    from ikpso_tpu_torch.parallel import distributed
 
-    if args.multihost:
-        raise NotImplementedError("sweep --multihost is not ported yet: ROADMAP A10 "
-                                  "(parallel/ on torch.distributed)")
     device = device_of(args)
-    cfg = _load(args, device)
-    # Reachable waypoints around the configured targets.
-    rng = np.random.default_rng(args.seed)
-    base = cfg.problem.targets.cpu().numpy()
-    waypoints = base[None] + rng.normal(
-        scale=args.jitter, size=(args.waypoints,) + base.shape).astype(np.float32)
-    result = solve_waypoints(
-        cfg.spec, cfg.problem, waypoints, args.seed, pso=cfg.pso, fit=cfg.fitness,
-        obstacles=cfg.obstacles, num_particles=cfg.num_particles, batch_size=args.batch,
-        checkpoint_path=args.checkpoint, impl=pick_impl(args.impl, cfg, device),
-        retries=args.retries, retry_init_mode=args.retry_init_mode,
-        retry_iterations=args.retry_iterations, polish=args.polish)
+    if args.multihost:
+        distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                               device=device)
+    try:
+        cfg = _load(args, device)
+        # Reachable waypoints around the configured targets; every process
+        # draws the same global set and the multi-process sweep slices it.
+        rng = np.random.default_rng(args.seed)
+        base = cfg.problem.targets.cpu().numpy()
+        waypoints = base[None] + rng.normal(
+            scale=args.jitter, size=(args.waypoints,) + base.shape).astype(np.float32)
+        kw = dict(pso=cfg.pso, fit=cfg.fitness, obstacles=cfg.obstacles,
+                  num_particles=cfg.num_particles, impl=pick_impl(args.impl, cfg, device),
+                  retries=args.retries, retry_init_mode=args.retry_init_mode,
+                  retry_iterations=args.retry_iterations, polish=args.polish)
+        extra = {}
+        if args.multihost:
+            from ikpso_tpu_torch.parallel.mesh import world
+
+            rank, size = world()
+            # Each process checkpoints its own block.
+            ck = f"{args.checkpoint}.p{rank}" if args.checkpoint else None
+            result, sl = distributed.sweep_waypoints_multihost(
+                cfg.spec, cfg.problem, waypoints, args.seed, batch_size=args.batch,
+                checkpoint_path=ck, **kw)
+            extra = dict(process=rank, num_processes=size,
+                         local_slice=[int(sl.start), int(sl.stop)])
+        else:
+            result = solve_waypoints(cfg.spec, cfg.problem, waypoints, args.seed,
+                                     batch_size=args.batch, checkpoint_path=args.checkpoint,
+                                     **kw)
+    finally:
+        if args.multihost:
+            distributed.shutdown()
     print(json.dumps(dict(
         waypoints=int(result.errors.size),
         err_mean=float(result.errors.mean()),
         err_p50=float(np.percentile(result.errors, 50)),
         err_p95=float(np.percentile(result.errors, 95)),
         solves_per_second=result.solves_per_second,
+        **extra,
     )), flush=True)
     return 0
 
@@ -463,11 +495,20 @@ def track_summary(result, steps: int, settle=None) -> dict:
     )
 
 
-def _unported(name):
-    def cmd(args) -> int:
-        raise NotImplementedError(f"the {name} subcommand is not ported yet: ROADMAP "
-                                  f"{UNPORTED[name]}")
-    return cmd
+def cmd_viz(args) -> int:
+    """Render the configured scene: standalone HTML for ``--out *.html``
+    (the default ``out/scene.html``), else a matplotlib image."""
+    from ikpso_tpu_torch.viz.render import export_html, plot_scene
+
+    cfg = _load(args, device_of(args))
+    out = args.out or "out/scene.html"
+    if out.endswith(".html"):
+        export_html(cfg.spec, cfg.problem, out, obstacles=cfg.obstacles)
+    elif plot_scene(cfg.spec, cfg.problem, obstacles=cfg.obstacles, path=out) is None:
+        raise SystemExit(f"error: {out} needs matplotlib, which is not installed; "
+                         "write .html instead")
+    print(json.dumps(dict(written=out)), flush=True)
+    return 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -530,7 +571,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--retry-iterations", type=int, default=None,
                    help="PSO iterations for the retry rounds only")
     p.add_argument("--multihost", action="store_true",
-                   help="shard the sweep across processes (not ported: ROADMAP A10)")
+                   help="shard the sweep across torch.distributed processes: each "
+                   "solves its contiguous waypoint block on its device, and the "
+                   "results are all-gathered")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's rendezvous address (without it, one process)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("track", help="track moving targets: chained per-frame re-solves")
@@ -551,18 +598,15 @@ def build_parser() -> argparse.ArgumentParser:
                    "per step. Line format: JSON [[x,y,z],...] or 3*E floats")
     p.set_defaults(fn=cmd_track)
 
-    for name in UNPORTED:
-        p = sub.add_parser(name, help=f"not ported yet (ROADMAP {UNPORTED[name]})")
-        p.set_defaults(fn=_unported(name))
+    p = sub.add_parser("viz", help="render scene to html/png")
+    _add_common(p)
+    p.add_argument("--out", default=None)
+    p.set_defaults(fn=cmd_viz)
     return parser
 
 
 def main(argv=None) -> int:
-    parser = build_parser()
-    # An unported subcommand takes (and ignores) the JAX CLI's arguments.
-    args, extra = parser.parse_known_args(argv)
-    if extra and args.cmd not in UNPORTED:
-        parser.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

@@ -66,11 +66,12 @@ def obstacle_scene(spec, n: int, device="cpu") -> Obstacles:
 
 
 def pose_collides(spec, pose, origin, obstacles: Obstacles,
-                  collision_shape: str = "box", gizmo_size: float = 0.2):
-    """``(S,)`` bool: does each pose's chain hit the scene (plain
-    closed-form collider)?"""
+                  collision_shape: str = "box", gizmo_size: float = 0.2,
+                  collision_backend: str = "sat"):
+    """``(S,)`` bool: does each pose's chain hit the scene (plain collider
+    of ``collision_backend``, the closed form by default)?"""
     pos, rot = fk_ops.fk(spec, pose, origin)
-    collides = get_chain_collider("sat", collision_shape)
+    collides = get_chain_collider(collision_backend, collision_shape)
     return collides(pos[..., 1:, :], rot[..., 1:, :, :],
                     pos[..., list(spec.parent[1:]), :], spec.length[1:],
                     obstacles.center, obstacles.half_extent, obstacles.rot,

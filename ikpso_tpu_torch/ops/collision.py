@@ -5,8 +5,8 @@ Port of ``ikpso_tpu/ops/collision.py``: the 15-axis separating-axis test
 chain colliders (``chain_collides``), and the closed-form point/segment
 OBB distances (``point_obb_dist2``, ``segment_obb_dist2``) behind the
 rounded sphere + capsule colliders (``chain_collides_capsule``).
-``get_chain_collider`` picks one by (backend, shape). The GJK backend
-(``ikpso_tpu/ops/gjk.py``) is not ported.
+``get_chain_collider`` picks one by (backend, shape): these closed-form
+colliders for ``"sat"``, their GJK twins (``ops/gjk.py``) for ``"gjk"``.
 
 Every function broadcasts over leading batch dimensions, so one call
 tests (swarms x nodes x obstacles) pairs. These tensor versions serve
@@ -162,14 +162,14 @@ def chain_collides_capsule(positions, rotations, parent_positions, lengths,
 def get_chain_collider(backend: str, shape: str):
     """The chain collider for ``(collision_backend, collision_shape)``:
     ``("sat", "box")`` -> :func:`chain_collides`, ``("sat", "capsule")``
-    -> :func:`chain_collides_capsule`. ``"gjk"`` raises."""
+    -> :func:`chain_collides_capsule`, ``("gjk", shape)`` -> the GJK twins
+    ``ops.gjk.chain_collides_gjk`` / ``chain_collides_capsule_gjk``."""
     if backend not in ("sat", "gjk"):
         raise ValueError(f"unknown collision_backend {backend!r}; expected 'sat' or 'gjk'")
     if shape not in ("box", "capsule"):
         raise ValueError(f"unknown collision_shape {shape!r}; expected 'box' or 'capsule'")
     if backend == "gjk":
-        raise NotImplementedError(
-            "collision_backend='gjk' is not ported (ROADMAP queue A item 9, "
-            "ops/gjk.py); the closed-form 'sat' backend is exact for both shapes"
-        )
+        from ikpso_tpu_torch.ops.gjk import chain_collides_capsule_gjk, chain_collides_gjk
+
+        return chain_collides_gjk if shape == "box" else chain_collides_capsule_gjk
     return chain_collides if shape == "box" else chain_collides_capsule

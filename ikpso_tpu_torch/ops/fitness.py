@@ -33,9 +33,10 @@ COLLISION_PENALTY = np.float32(3.4028235e38)
 class FitnessConfig:
     """Cost weights; same fields and defaults as the JAX ``FitnessConfig``.
 
-    ``trig_impl`` selects the kernel trig ("poly" minimax polynomials,
-    the only one the port's kernels implement, or "exact"); the plain
-    ``fitness`` always uses stock trig and is the accuracy oracle.
+    ``trig_impl`` selects the kernel trig ("poly" minimax polynomials or
+    "exact"); the plain ``fitness`` always uses stock trig and is the
+    accuracy oracle. ``fk_impl`` is ``"unrolled"`` (``ops.fk.fk``) or
+    ``"scan"`` (``ops.fk.fk_serial_scan``, serial chains only).
     """
 
     angle_weight: float = 3.0
@@ -60,11 +61,6 @@ def fitness(
 ) -> torch.Tensor:
     """PSO cost of ``(..., D)`` candidate angles (``(S, P, D)`` for an
     ``(S,)``-batched problem); smaller is better."""
-    if config.fk_impl != "unrolled":
-        raise NotImplementedError(
-            f"fk_impl={config.fk_impl!r}: fk_serial_scan is not ported "
-            "(ROADMAP queue A item 9)"
-        )
     num_joints = spec.num_nodes - 1
     batched_particles = angles.dim() > problem.pose.dim() - 1
 
@@ -86,7 +82,12 @@ def fitness(
             target_rot = target_rot[..., None, :, :]
 
     pose = fk_ops.angles_to_pose(spec, root_rot, angles)
-    positions, rotations = fk_ops.fk(spec, pose, origin)
+    if config.fk_impl == "scan":
+        positions, rotations = fk_ops.fk_serial_scan(spec, pose, origin)
+    elif config.fk_impl == "unrolled":
+        positions, rotations = fk_ops.fk(spec, pose, origin)
+    else:
+        raise ValueError(f"unknown fk_impl {config.fk_impl!r}; expected 'unrolled' or 'scan'")
 
     d_angles = angles - anchor_angles
     rotation_difference = torch.sum(d_angles * d_angles, dim=-1)

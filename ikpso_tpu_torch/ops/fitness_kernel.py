@@ -612,10 +612,9 @@ def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
     num_obstacles = 0 if obstacles is None else obstacles.count
     if num_obstacles and fit.collision_backend == "gjk":
         raise NotImplementedError(
-            "collision_backend='gjk' is plain-torch only: the kernels fuse only "
-            "the closed-form backend ('sat'; exact for both collision shapes). "
-            "Use the plain fitness for GJK (ROADMAP queue A item 9), or "
-            "collision_backend='sat' here."
+            "collision_backend='gjk': kernel C fuses only the closed-form 'sat' "
+            "colliders, as JAX's kernel does; the scan solver runs GJK scenes on the "
+            "plain fitness (--impl jnp, harness.trajectory.build_solver)"
         )
     use_distance = float(fit.distance_weight) != 0.0
     use_orientation = (problem.target_rot is not None

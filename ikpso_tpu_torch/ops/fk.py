@@ -10,7 +10,8 @@ carried as rotation ``R`` plus translation ``p`` with
 ``p_k = p_parent + L_k * R_k[:, 0]``. The 3x3 composes are elementwise
 products summed in float32, in a fixed order, so no TF32 setting of a
 caller can reach them: the counterpart of the JAX ``precision="highest"``.
-``fk_serial_scan`` waits (ROADMAP queue A item 9).
+``fk_serial_scan`` computes the same placements of a serial chain as a
+log-depth prefix product of affine transforms.
 """
 
 from __future__ import annotations
@@ -44,6 +45,40 @@ def fk(
         poss.append(poss[p] + spec.length[k] * rk[..., :, 0])
         rots.append(rk)
     return torch.stack(poss, dim=-2), torch.stack(rots, dim=-3)
+
+
+def _affine_compose(a, b):
+    """``(Ra, ta) . (Rb, tb) = (Ra Rb, ta + Ra tb)``, associative."""
+    ra, ta = a
+    rb, tb = b
+    ra_tb = ((ra[..., :, 0] * tb[..., 0:1] + ra[..., :, 1] * tb[..., 1:2])
+             + ra[..., :, 2] * tb[..., 2:3])
+    return _compose(ra, rb), ta + ra_tb
+
+
+def fk_serial_scan(
+    spec: ChainSpec, pose: torch.Tensor, origin: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fk` of a serial chain (``parent[k] == k - 1``) as an
+    inclusive prefix scan of the nodes' local affines ``(R_k, L_k R_k e_x)``
+    (the root's offset zero): ceil(log2 N) rounds, round r composing each
+    node with the partial product ``2^r`` nodes before it (Hillis-Steele).
+    The counterpart of JAX's ``lax.associative_scan``; it groups the
+    products differently, so the two agree to rounding, not bit for bit."""
+    if any(spec.parent[k] != k - 1 for k in range(1, spec.num_nodes)):
+        raise ValueError("fk_serial_scan requires a serial chain")
+    rot = euler_xyz_to_matrix(pose)
+    trans = spec.length.to(rot.device)[:, None] * rot[..., :, :, 0]
+    trans = torch.cat([torch.zeros_like(trans[..., :1, :]), trans[..., 1:, :]], dim=-2)
+    n = spec.num_nodes
+    step = 1
+    while step < n:
+        r, t = _affine_compose((rot[..., :n - step, :, :], trans[..., :n - step, :]),
+                               (rot[..., step:, :, :], trans[..., step:, :]))
+        rot = torch.cat([rot[..., :step, :, :], r], dim=-3)
+        trans = torch.cat([trans[..., :step, :], t], dim=-2)
+        step *= 2
+    return trans + origin[..., None, :], rot
 
 
 def fk_points(spec: ChainSpec, pose: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:

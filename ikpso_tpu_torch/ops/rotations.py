@@ -2,10 +2,12 @@
 
 Port of ``ikpso_tpu/ops/rotations.py``: ``euler_xyz_to_matrix``
 (``R = Rx(a_x) @ Ry(a_y) @ Rz(a_z)`` in closed form),
-``quaternion_to_matrix`` (scene boxes), and ``matrix_to_quaternion`` /
+``quaternion_to_matrix`` (scene boxes), ``matrix_to_quaternion`` /
 ``quaternion_to_euler_xyz``, through which the orientation harness
-builds its Euler target rotations as ``bench.py:112-120`` does.
-Quaternions are ``(x, y, z, w)``.
+builds its Euler target rotations as ``bench.py:112-120`` does, and the
+quaternion algebra ``euler_xyz_to_quaternion``, ``quaternion_multiply``,
+``quaternion_invert`` and ``quaternion_rotate_vector``. Quaternions are
+``(x, y, z, w)``.
 
 The sines and cosines are taken in float64 and rounded to the input's
 dtype: a float32 ``sin`` differs by an ulp between the CPU and the GPU,
@@ -114,3 +116,53 @@ def quaternion_to_euler_xyz(quat: torch.Tensor) -> torch.Tensor:
     x = torch.atan2(-rot[..., 1, 2], rot[..., 2, 2])
     z = torch.atan2(-rot[..., 0, 1], rot[..., 0, 0])
     return torch.stack([x, y, z], dim=-1)
+
+
+def euler_xyz_to_quaternion(angles: torch.Tensor) -> torch.Tensor:
+    """Euler XYZ ``(..., 3)`` -> quaternion ``(..., 4)`` (x, y, z, w),
+    ``q = qx * qy * qz``, the rotation of :func:`euler_xyz_to_matrix`."""
+    half = angles * 0.5
+    cx, sx = cos_sin(half[..., 0])
+    cy, sy = cos_sin(half[..., 1])
+    cz, sz = cos_sin(half[..., 2])
+    qx = sx * cy * cz + cx * sy * sz
+    qy = cx * sy * cz - sx * cy * sz
+    qz = cx * cy * sz + sx * sy * cz
+    qw = cx * cy * cz - sx * sy * sz
+    return torch.stack([qx, qy, qz, qw], dim=-1)
+
+
+def quaternion_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of ``(x, y, z, w)`` quaternions."""
+    ax, ay, az, aw = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bx, by, bz, bw = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz,
+    ], dim=-1)
+
+
+def quaternion_invert(quat: torch.Tensor) -> torch.Tensor:
+    """Inverse of a (not necessarily unit) quaternion: the conjugate over
+    ``|q|^2`` (floored at 1e-30), the reference's ``quatInvert2``."""
+    norm_sq = (quat[..., 0:1] * quat[..., 0:1] + quat[..., 1:2] * quat[..., 1:2]
+               + quat[..., 2:3] * quat[..., 2:3] + quat[..., 3:4] * quat[..., 3:4])
+    sign = torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=quat.dtype, device=quat.device)
+    return quat * sign / torch.clamp_min(norm_sq, 1e-30)
+
+
+def _cross(a, b):
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-1)
+
+
+def quaternion_rotate_vector(quat: torch.Tensor, vec: torch.Tensor) -> torch.Tensor:
+    """Rotate ``vec`` ``(..., 3)`` by the unit quaternion ``quat`` ``(..., 4)``:
+    ``v + w t + q_v x t`` with ``t = 2 q_v x v``."""
+    qv = quat[..., :3]
+    qw = quat[..., 3:4]
+    t = 2.0 * _cross(qv, vec)
+    return vec + qw * t + _cross(qv, t)

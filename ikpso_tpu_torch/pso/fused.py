@@ -73,9 +73,9 @@ def check_supported(pso: PSOConfig, fit: FitnessConfig, num_obstacles: int = 0) 
     (``ikpso_tpu/pso/fused.py:733-741``)."""
     if num_obstacles and fit.collision_backend != "sat":
         raise NotImplementedError(
-            f"collision_backend={fit.collision_backend!r}: the kernels fuse only "
-            "the closed-form 'sat' colliders; GJK is ROADMAP queue A item 9 "
-            "(ops/gjk.py)"
+            f"collision_backend={fit.collision_backend!r}: kernel A fuses only the "
+            "closed-form 'sat' colliders, as JAX's kernel does; solve GJK scenes on "
+            "the scan solver (--impl jnp, impl='jnp'), whose fitness is the plain one"
         )
 
 

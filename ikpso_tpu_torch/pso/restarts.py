@@ -1,17 +1,26 @@
-"""Top-k retries of the worst swarms.
+"""Retries of failed swarms: host-gather buckets and top-k rounds.
 
-Port of ``ikpso_tpu/pso/restarts.py``: ``wrap_with_topk_retries`` and
-``make_topk_retry_solver``. Each round re-solves the ``bucket`` swarms
-with the largest effector error from the ORIGINAL problem pose
-(``retry_start="problem"``) and keeps a retry row only where it is
-better and the previous row had not converged, so converged swarms stay
-bit-stable: ``better = (retry < prev) & (prev > threshold)``.
+Port of ``ikpso_tpu/pso/restarts.py``:
+
+  * ``solve_with_retries`` / ``make_retry_solver``: the exact failure set
+    (effector error above the threshold) is read on the host after each
+    round and re-solved in fixed-size buckets, the last one padded by
+    repeating its first failed index; a retry row replaces the base row
+    where it is better, under a first-occurrence mask so the padding
+    cannot write twice;
+  * ``wrap_with_topk_retries`` / ``make_topk_retry_solver``: each round
+    re-solves the ``bucket`` swarms with the largest effector error, from
+    the problem's pose (``retry_start="problem"``) or from the current
+    best (``"best"``, which loses rescues: ``ikpso_tpu/pso/restarts.py:343-356``),
+    and keeps a retry row only where it is better and the previous row
+    had not converged, so converged swarms stay bit-stable:
+    ``better = (retry < prev) & (prev > threshold)``.
 
 The port has no tiles, so the bucket alignment is the identity; bucket
 decay is kept. Retry streams continue the caller's generator (the base
-solve draws first). ``wrap_solver_with_target_walk`` makes a retry round
-a W-step warm target walk (``retry_walk_steps``). The host-gather
-``solve_with_retries`` is not ported yet (ROADMAP A8).
+solve draws first, then each retry call in turn) where JAX splits its key.
+``wrap_solver_with_target_walk`` makes a retry round a W-step warm target
+walk (``retry_walk_steps``).
 """
 
 from __future__ import annotations
@@ -28,6 +37,84 @@ from ikpso_tpu_torch.ops.fk import fk_points
 from ikpso_tpu_torch.pso.solver import SolveResult
 
 Solver = Callable[[IKProblem, torch.Generator], SolveResult]
+
+
+def _gather_problem(problem: IKProblem, idx: np.ndarray) -> IKProblem:
+    return problem.take(torch.as_tensor(idx, device=problem.pose.device))
+
+
+def _scatter_better(base: SolveResult, retry: SolveResult, idx: np.ndarray,
+                    take: np.ndarray) -> SolveResult:
+    """``base`` with row ``idx[i]`` replaced by retry row ``i`` wherever
+    ``take[i]``; the caller makes ``idx[take]`` duplicate-free."""
+    if not take.any():
+        return base
+    dev = base.angles.device
+    rows = torch.as_tensor(idx[take], device=dev)
+    src = torch.as_tensor(np.flatnonzero(take), device=dev)
+
+    def merge(b, r):
+        b = b.clone()
+        b[rows] = r[src]
+        return b
+
+    return SolveResult(
+        angles=merge(base.angles, retry.angles),
+        fitness=merge(base.fitness, retry.fitness),
+        pose=merge(base.pose, retry.pose),
+        effector_error=merge(base.effector_error, retry.effector_error),
+        trace=base.trace,
+    )
+
+
+def solve_with_retries(
+    solver: Solver,
+    problem: IKProblem,
+    generator: torch.Generator,
+    *,
+    err_threshold: float = 1e-3,
+    max_rounds: int = 1,
+    bucket: int = 1024,
+    retry_solver: Optional[Solver] = None,
+) -> SolveResult:
+    """Base solve plus up to ``max_rounds`` rounds over the failed swarms.
+
+    Each round reads the effector errors on the host, gathers the swarms
+    above ``err_threshold`` into ``ceil(n / bucket)`` buckets of exactly
+    ``bucket`` rows (the last padded with its first failed index) and
+    re-solves each with ``retry_solver`` (default ``solver``); every call
+    continues ``generator``. A retry row is kept where its error is below
+    the current one, at the first occurrence of its index in the bucket.
+    """
+    res = solver(problem, generator)
+    retry_solver = retry_solver or solver
+    bucket = max(1, min(bucket, int(problem.batch_shape()[0])))
+    for _ in range(max_rounds):
+        err = res.effector_error.cpu().numpy()
+        failed = np.flatnonzero(err > err_threshold)
+        if failed.size == 0:
+            break
+        for start in range(0, failed.size, bucket):
+            chunk = failed[start:start + bucket]
+            idx = np.full((bucket,), chunk[0], dtype=np.int64)
+            idx[:chunk.size] = chunk
+            retry = retry_solver(_gather_problem(problem, idx), generator)
+            take = retry.effector_error.cpu().numpy() < err[idx]
+            first = np.zeros((bucket,), bool)
+            first[np.unique(idx, return_index=True)[1]] = True
+            take &= first
+            res = _scatter_better(res, retry, idx, take)
+            err = res.effector_error.cpu().numpy()
+    return res
+
+
+def make_retry_solver(solver: Solver, **retry_kwargs) -> Solver:
+    """``solver`` wrapped with :func:`solve_with_retries`."""
+
+    def _solve(problem: IKProblem, generator: torch.Generator) -> SolveResult:
+        return solve_with_retries(solver, problem, generator, **retry_kwargs)
+
+    return _solve
 
 
 def bucket_schedule(bucket: int, rounds: int, bucket_decay: int = 1) -> List[int]:
@@ -137,12 +224,10 @@ def make_topk_retry_solver(
     retry_start: str = "problem",
 ) -> Solver:
     """Base solve plus ``rounds`` re-solves of the worst ``bucket`` swarms,
-    merged on device."""
-    if retry_start != "problem":
-        raise NotImplementedError(
-            f"retry_start={retry_start!r}: only 'problem' is ported (retries "
-            "from the current best lose rescues: ikpso_tpu/pso/restarts.py:343-356)"
-        )
+    merged on device. ``retry_start="best"`` starts each re-solve from the
+    swarm's current best pose instead of the problem's."""
+    if retry_start not in ("problem", "best"):
+        raise ValueError(f"unknown retry_start {retry_start!r}; expected 'problem' or 'best'")
     retry_solver_ = retry_solver or solver
     buckets = (
         [int(bucket)] * rounds
@@ -160,7 +245,10 @@ def make_topk_retry_solver(
                ("angles", "fitness", "pose", "effector_error")}
         for rnd in range(rounds):
             worst = worst_indices(out["effector_error"], min(buckets[rnd], s))
-            retry = retry_solver_(problem.take(worst), generator)
+            sub_problem = problem.take(worst)
+            if retry_start == "best":
+                sub_problem = sub_problem.replace(pose=out["pose"][worst])
+            retry = retry_solver_(sub_problem, generator)
             prev_err = out["effector_error"][worst]
             better = (retry.effector_error < prev_err) & (prev_err > err_threshold)
             rows = worst[better]

@@ -6,8 +6,10 @@ Port of ``ikpso_tpu/pso/solver.py`` (``SolveResult``, ``_swarm_argmin``,
 of plain torch ops; the fitness is the plain ``ops.fitness.fitness``
 unless the caller passes a ``fitness_fn`` -- kernel C's
 ``ops.fitness_kernel.make_kernel_fitness`` is the ``impl="pallas"``
-path of ``bench.py``. The cross-device ``gbest_reduce`` and
-``vary_axes`` wait for ``parallel/`` (ROADMAP A10).
+path of ``bench.py``. ``gbest_reduce`` reduces each swarm's gbest
+candidate across the ranks that hold its other particles
+(``parallel.sharded.distributed_argmin``), after init and after every
+iteration, as JAX's hook does.
 
 Random draws: U[0, 1) float32 from ``torch.rand`` on the caller's
 ``torch.Generator``, in the JAX package's order -- the init position
@@ -35,6 +37,9 @@ from ikpso_tpu_torch.ops.fitness_kernel import TWO_PI
 from ikpso_tpu_torch.pso.config import PSOConfig
 
 FitnessFn = Callable[[torch.Tensor], torch.Tensor]  # (S, P, D) -> (S, P)
+# Cross-rank reduction of the per-rank gbest candidate:
+# ((S,), (S, D)) -> ((S,), (S, D)).
+GbestReduce = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +109,8 @@ def _swarm_argmin(values: torch.Tensor, coords: torch.Tensor
 
 
 def pso_iteration(x, v, lbest, lbest_val, gbest, gbest_val, u: torch.Tensor,
-                  fitness_fn: FitnessFn, lo, hi, pso: PSOConfig, iteration: int = 0):
+                  fitness_fn: FitnessFn, lo, hi, pso: PSOConfig, iteration: int = 0,
+                  gbest_reduce: Optional[GbestReduce] = None):
     """One PSO step over the full (S, P, D) state; ``u`` is the
     iteration's ``(n, S, P, D)`` block of U[0, 1) draws."""
     randomized = pso.inertia_mode == "randomized"
@@ -131,6 +137,8 @@ def pso_iteration(x, v, lbest, lbest_val, gbest, gbest_val, u: torch.Tensor,
     lbest = torch.where(improved[..., None], x, lbest)
 
     cand_val, cand = _swarm_argmin(lbest_val, lbest)
+    if gbest_reduce is not None:
+        cand_val, cand = gbest_reduce(cand_val, cand)
     better = cand_val < gbest_val
     gbest_val = torch.where(better, cand_val, gbest_val)
     gbest = torch.where(better[:, None], cand, gbest)
@@ -140,7 +148,8 @@ def pso_iteration(x, v, lbest, lbest_val, gbest, gbest_val, u: torch.Tensor,
 def init_swarm(generator: Optional[torch.Generator], anchor_angles: torch.Tensor,
                num_particles: int, fitness_fn: FitnessFn, pso: PSOConfig,
                limits: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-               uniforms: Optional[Tuple[Optional[torch.Tensor], torch.Tensor]] = None):
+               uniforms: Optional[Tuple[Optional[torch.Tensor], torch.Tensor]] = None,
+               gbest_reduce: Optional[GbestReduce] = None):
     """Swarm init: ``"warm"`` starts every particle at the anchor pose,
     ``"uniform"`` over the joint range (``limits``, cut to +-2 pi),
     ``"hybrid"`` uniform with particle 0 warm; velocities are uniform in
@@ -169,6 +178,8 @@ def init_swarm(generator: Optional[torch.Generator], anchor_angles: torch.Tensor
     lbest = x
     lbest_val = fitness_fn(x)
     gbest_val, gbest = _swarm_argmin(lbest_val, lbest)
+    if gbest_reduce is not None:
+        gbest_val, gbest = gbest_reduce(gbest_val, gbest)
     return x, v, lbest, lbest_val, gbest, gbest_val
 
 
@@ -176,12 +187,19 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
           pso: PSOConfig = PSOConfig(), fit: FitnessConfig = FitnessConfig(),
           obstacles: Optional[Obstacles] = None, num_particles: int = 1024,
           fitness_fn: Optional[FitnessFn] = None,
-          uniforms: Optional[ScanDraws] = None) -> SolveResult:
+          uniforms: Optional[ScanDraws] = None,
+          gbest_reduce: Optional[GbestReduce] = None,
+          vary_axes: Tuple[str, ...] = ()) -> SolveResult:
     """Solve a batch of IK problems (one leading swarm axis) with PSO.
 
     ``fitness_fn`` overrides the plain fitness (e.g. kernel C's
-    ``make_kernel_fitness``); ``uniforms`` replaces the generator.
+    ``make_kernel_fitness``); ``uniforms`` replaces the generator;
+    ``gbest_reduce`` reduces the gbest candidates across ranks.
+    ``vary_axes`` is accepted for JAX's signature: it marks the carry as
+    rank-varying for ``shard_map``'s types, and a rank's torch tensors
+    need no such mark.
     """
+    del vary_axes
     anchor_angles = fk_ops.pose_to_angles(spec, problem.pose)
     if anchor_angles.dim() != 2:
         raise ValueError(
@@ -202,13 +220,15 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
     state = init_swarm(generator, anchor_angles, num_particles, fitness_fn, pso,
                        limits=(lo, hi),
                        uniforms=None if uniforms is None
-                       else (uniforms.position, uniforms.velocity))
+                       else (uniforms.position, uniforms.velocity),
+                       gbest_reduce=gbest_reduce)
     trace = [state[5]]
     n = draws_per_iteration(pso)
     for it in range(pso.iterations):
         u = (uniforms.steps[it] if uniforms is not None
              else _uniform(generator, (n,) + tuple(state[0].shape), anchor_angles.device))
-        state = pso_iteration(*state, u, fitness_fn, lo, hi, pso, iteration=it)
+        state = pso_iteration(*state, u, fitness_fn, lo, hi, pso, iteration=it,
+                              gbest_reduce=gbest_reduce)
         trace.append(state[5])
     gbest, gbest_val = state[4], state[5]
     solved_pose = fk_ops.angles_to_pose(spec, problem.pose[..., 0, :], gbest)
@@ -237,11 +257,13 @@ def solve_single(spec: ChainSpec, problem: IKProblem,
 def make_solver(spec: ChainSpec, pso: PSOConfig = PSOConfig(),
                 fit: FitnessConfig = FitnessConfig(),
                 obstacles: Optional[Obstacles] = None, num_particles: int = 1024,
-                fitness_fn: Optional[FitnessFn] = None):
+                fitness_fn: Optional[FitnessFn] = None,
+                gbest_reduce: Optional[GbestReduce] = None):
     """A ``(problem, generator) -> SolveResult`` closure over :func:`solve`."""
 
     def _solve(problem: IKProblem, generator: torch.Generator) -> SolveResult:
         return solve(spec, problem, generator, pso=pso, fit=fit, obstacles=obstacles,
-                     num_particles=num_particles, fitness_fn=fitness_fn)
+                     num_particles=num_particles, fitness_fn=fitness_fn,
+                     gbest_reduce=gbest_reduce)
 
     return _solve

@@ -139,8 +139,29 @@ def test_obstacles_from_boxes_matches_jax():
 
 
 def test_gjk_backend_refused_and_unknown_names_rejected():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
-        collision.get_chain_collider("gjk", "box")
+    # The GJK backend is ported: it resolves to JAX's colliders' twins and
+    # they return JAX's masks (tests/test_torch_gjk.py holds them on
+    # random poses); unknown names still raise.
+    from ikpso_tpu.ops import gjk as jgjk
+    from ikpso_tpu_torch.ops import gjk
+
+    assert collision.get_chain_collider("gjk", "box") is gjk.chain_collides_gjk
+    assert collision.get_chain_collider("gjk", "capsule") is gjk.chain_collides_capsule_gjk
+    spec_j, problem_j = jlib.arm_7dof()
+    boxes = dict(centers=np.array([[1.0, 0.2, 0.0], [0.0, 3.0, 0.0]], np.float32),
+                 full_dims=np.array([[0.5, 0.5, 0.5], [0.4, 0.4, 0.4]], np.float32))
+    obs_j, obs = JObstacles.from_boxes(**boxes), Obstacles.from_boxes(**boxes)
+    pos_j, rot_j = jfk.fk(spec_j, problem_j.pose, problem_j.origin)
+    par = np.asarray(spec_j.parent[1:])
+    for shape, j_fn in (("box", jgjk.chain_collides_gjk),
+                        ("capsule", jgjk.chain_collides_capsule_gjk)):
+        want = bool(j_fn(pos_j[1:], rot_j[1:], pos_j[par], spec_j.length[1:],
+                         obs_j.center, obs_j.half_extent, obs_j.rot))
+        pos, rot = torch.as_tensor(np.asarray(pos_j)), torch.as_tensor(np.asarray(rot_j))
+        got = bool(collision.get_chain_collider("gjk", shape)(
+            pos[1:], rot[1:], pos[list(par)], torch.as_tensor(np.asarray(spec_j.length[1:])),
+            obs.center, obs.half_extent, obs.rot))
+        assert got is want is True  # the box at (1, 0.2, 0) sits on the first link
     with pytest.raises(ValueError):
         collision.get_chain_collider("sat", "sphere")
     with pytest.raises(ValueError):

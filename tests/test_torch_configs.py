@@ -1,22 +1,24 @@
 """The JSON-config ``solve`` entry point of the port against the JAX package.
 
-(a) ``utils/configio.py``: the four documents of ``ikpso_tpu_torch/configs``,
+(a) ``utils/configio.py``: the five documents of ``ikpso_tpu_torch/configs``,
     a zoo name, ``snake:7`` and a custom tree with target rotations load
     through both loaders to equal specs, problems (atol 0: the same
     float32 values), PSO and fitness configs and scenes; ``dump_config``
     round-trips; unknown keys raise.
 (b) ``harness/cli.py``: ``solve`` on the CPU for ``hand21`` at small P and
-    iterations prints the JAX CLI's keys, with an effector error inside
-    the spread of JAX's at the same setting; ``--preset`` with
-    ``--config`` raises; ``--impl fused`` without the card raises; the
-    unported subcommands name their ROADMAP items.
-(c) ``harness/configs.py`` on the CPU at tiny S.
+    iterations prints the JAX CLI's keys and the fitness that ran, with an
+    effector error inside the spread of JAX's at the same setting; ``--preset`` with
+    ``--config`` raises; ``--impl fused`` without the card raises.
+(c) ``harness/configs.py`` on the CPU at tiny S, the GJK document
+    (``arm7_box_gjk``) among them; ``viz``'s page and ``scene_dict``
+    against JAX's.
 
 Run as a script (``JAX_PLATFORMS=cpu python tests/test_torch_configs.py``),
-this file prints the bars ``chip_smoke.py`` holds the four configurations
-to (its ``JAX_CONFIGS``): JAX's scan solver and polish on 1,024 reachable
-targets of each document, compiled and op by op, p50 and p90 effector
-error with their 99% distribution-free intervals (:func:`config_bar`).
+this file prints the bars ``chip_smoke.py`` holds the configurations to
+(its ``JAX_CONFIGS`` and ``JAX_GJK_CONFIG``): JAX's scan solver and polish
+on 1,024 reachable targets of each document, compiled and op by op (256
+for the GJK document op by op), p50 and p90 effector error with their 99%
+distribution-free intervals (:func:`config_bar`).
 """
 
 import dataclasses
@@ -42,10 +44,11 @@ from test_torch_fused import torch_single_thread  # noqa: F401 (a fixture)
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIG_DIR = ROOT / "ikpso_tpu_torch" / "configs"
-DOCUMENTS = ("arm7_locality", "arm7_exact", "dual_arm_box", "hand21")
+DOCUMENTS = ("arm7_locality", "arm7_exact", "dual_arm_box", "hand21", "arm7_box_gjk")
 # The polish steps each configuration runs with (``solve --polish K``):
 # the presets' of arm_7dof, dual_arm_14dof and humanoid_45dof.
-POLISH = {"arm7_locality": 4, "arm7_exact": 4, "dual_arm_box": 4, "hand21": 6}
+POLISH = {"arm7_locality": 4, "arm7_exact": 4, "dual_arm_box": 4, "hand21": 6,
+          "arm7_box_gjk": 4}
 CUSTOM_TREE = {
     "model": {
         "parent": [-1, 0, 1, 1], "length": [0.0, 1.0, 0.5, 0.5],
@@ -179,7 +182,9 @@ def test_cli_solve_hand21_on_the_cpu():
     ref = _cli("ikpso_tpu.harness.cli", *args, "--impl", "jnp")
     assert ref.returncode == 0, ref.stderr
     want = json.loads(ref.stdout.strip().splitlines()[-1])
-    assert set(got) == set(want) == {"angles", "fitness", "effector_error", "trace"}
+    # JAX's keys, and the fitness that ran (the port's line names it).
+    assert set(want) == {"angles", "fitness", "effector_error", "trace"}
+    assert set(got) == set(want) | {"fitness_impl"} and got["fitness_impl"] == "plain"
     assert len(got["angles"]) == len(want["angles"]) == 60
     assert len(got["trace"]) == len(want["trace"]) == 5  # init + 4 iterations
     assert np.all(np.diff(got["trace"]) <= 0.0)
@@ -203,15 +208,64 @@ def test_cli_solve_hand21_on_the_cpu():
                                                               errs.min(), errs.max())
 
 
-def test_cli_refusals():
+def _embedded_scene(path):
+    """The scene JSON an exported page embeds."""
+    html = Path(path).read_text()
+    start = html.index("const SCENE = ") + len("const SCENE = ")
+    return json.loads(html[start:html.index(";\n", start)])
+
+
+@pytest.mark.parametrize("source", ["arm7_box_gjk", "hand21", "reference_arm"])
+def test_scene_dict_matches_jax(source, tmp_path):
+    from ikpso_tpu.viz.render import chain_segments as j_segments
+    from ikpso_tpu.viz.render import scene_dict as j_scene
+    from ikpso_tpu_torch.viz import render
+
+    src = str(CONFIG_DIR / f"{source}.json") if source != "reference_arm" else {
+        "model": source}
+    cfg, jcfg = configio.load_config(src), jconfigio.load_config(src)
+    swarm = np.random.default_rng(0).normal(size=(16, 3)).astype(np.float32)
+    got = render.scene_dict(cfg.spec, cfg.problem, cfg.obstacles, swarm_positions=swarm)
+    want = j_scene(jcfg.spec, jcfg.problem, jcfg.obstacles, swarm_positions=swarm)
+    assert set(got) == set(want)
+    assert (got["parents"], got["effectors"]) == (want["parents"], want["effectors"])
+    arrays = {k: v for k, v in {**got, **got.get("obstacles", {})}.items()
+              if k not in ("parents", "effectors", "obstacles")}
+    for key, value in arrays.items():
+        np.testing.assert_allclose(value, want.get(key, want.get("obstacles", {}).get(key)),
+                                   atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(
+        render.chain_segments(cfg.spec, cfg.problem.pose, cfg.problem.origin),
+        j_segments(jcfg.spec, jcfg.problem.pose, jcfg.problem.origin), atol=1e-6)
+    page = render.export_html(cfg.spec, cfg.problem, str(tmp_path / "s.html"),
+                              obstacles=cfg.obstacles)
+    assert _embedded_scene(page) == json.loads(json.dumps(
+        render.scene_dict(cfg.spec, cfg.problem, cfg.obstacles)))
+    pytest.importorskip("matplotlib")
+    assert render.plot_scene(cfg.spec, cfg.problem, cfg.obstacles,
+                             path=str(tmp_path / "s.png")) is not None
+    assert (tmp_path / "s.png").stat().st_size > 0
+
+
+def test_cli_refusals(tmp_path):
     with pytest.raises(SystemExit, match="mutually exclusive"):
         cli.main(["solve", "--cpu", "--preset", "--config",
                   str(CONFIG_DIR / "hand21.json")])
     with pytest.raises(SystemExit, match="needs the card"):
         cli.main(["solve", "--cpu", "--impl", "fused"])
-    for name, item in (("viz", "A7"),):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            cli.main([name, "--cpu", "--model", "arm_7dof"])
+    # viz is ported: the page it writes embeds JAX's scene_dict of the
+    # same document (tests/test_torch_configs.py::test_scene_dict_matches_jax).
+    from ikpso_tpu.viz.render import scene_dict as j_scene
+
+    out = tmp_path / "scene.html"
+    cli.main(["viz", "--cpu", "--config", str(CONFIG_DIR / "dual_arm_box.json"),
+              "--out", str(out)])
+    jcfg = jconfigio.load_config(str(CONFIG_DIR / "dual_arm_box.json"))
+    got = _embedded_scene(out)
+    want = j_scene(jcfg.spec, jcfg.problem, obstacles=jcfg.obstacles)
+    assert set(got) == set(want) and got["parents"] == want["parents"]
+    np.testing.assert_allclose(got["nodes"], want["nodes"], atol=1e-6)
+    np.testing.assert_allclose(got["obstacles"]["centers"], want["obstacles"]["centers"])
 
 
 def test_cli_picks_kernel_a_where_it_fits(monkeypatch):
@@ -245,6 +299,11 @@ def test_run_config_on_the_cpu(name, torch_single_thread):
     assert out["finite"] and out["impl"] == "jnp" and out["swarms"] == 8
     if name == "dual_arm_box":
         assert out["colliding_solutions"] == 0 and 0.0 < out["frac_targets_feasible"] <= 1.0
+    if name == "arm7_box_gjk":
+        # The GJK scene runs the plain fitness; the anchor pose misses the
+        # boxes, so no solution may hit one under either collider.
+        assert out["fitness_impl"] == "plain-gjk"
+        assert out["colliding_solutions"] == out["colliding_solutions_gjk"] == 0
 
 
 # The bars of chip_smoke.py's configuration phases.
@@ -319,6 +378,11 @@ def jax_config_bar(name: str, swarms: int = 1024, seed: int = 0, conf: float = 0
     return out
 
 
+# The op-by-op evaluation's batch, where 1,024 targets take too long: JAX's
+# GJK runs ~50x slower op by op than compiled on a CPU (~13 min at 256).
+OP_BY_OP_SWARMS = {"arm7_box_gjk": 256}
+
+
 def config_bar(name: str) -> dict:
     """A configuration's bar: JAX compiled and op by op on the same
     targets and key; the port's p50 and p90 must lie in the hull of the
@@ -326,7 +390,8 @@ def config_bar(name: str) -> dict:
     and 0.214 um) fall outside each other's intervals: at the float32
     noise floor the quantile measures rounding, and the reference's
     rounding is not one thing."""
-    runs = {"jit": jax_config_bar(name), "op_by_op": jax_config_bar(name, jit=False)}
+    runs = {"jit": jax_config_bar(name),
+            "op_by_op": jax_config_bar(name, OP_BY_OP_SWARMS.get(name, 1024), jit=False)}
     out = {"config": name, **{k: v for k, v in runs["jit"].items()
                               if k not in ("config", "p50_err_mm", "p90_err_mm",
                                            "p50_interval_mm", "p90_interval_mm")}}
@@ -336,13 +401,14 @@ def config_bar(name: str) -> dict:
         for tag, r in runs.items():
             out[f"{q}_{tag}"] = (r[f"{q}_err_mm"], r[f"{q}_interval_mm"])
     out["failures_ge_1mm_op_by_op"] = runs["op_by_op"]["failures_ge_1mm"]
+    out["swarms_op_by_op"] = runs["op_by_op"]["swarms"]
     return out
 
 
 def main() -> None:
     """``JAX_PLATFORMS=cpu python tests/test_torch_configs.py [name ...]``:
     print each configuration's bar (:func:`config_bar`) as one JSON line
-    (~10 min for the four)."""
+    (~10 min for the first four; arm7_box_gjk ~20 min on its own)."""
     for name in sys.argv[1:] or DOCUMENTS:
         print(json.dumps(config_bar(name)), flush=True)
 
@@ -359,6 +425,9 @@ def test_new_modules_import_without_jax():
             "    sys.modules[name] = None\n"
             "import ikpso_tpu_torch.utils.configio, ikpso_tpu_torch.harness.cli\n"
             "import ikpso_tpu_torch.harness.configs, ikpso_tpu_torch.utils.kernels\n"
+            "import ikpso_tpu_torch.ops.gjk, ikpso_tpu_torch.viz.render\n"
+            "import ikpso_tpu_torch.parallel.mesh, ikpso_tpu_torch.parallel.sharded\n"
+            "import ikpso_tpu_torch.parallel.distributed, ikpso_tpu_torch.utils.profiling\n"
             "import chip_smoke\n"
             "from ikpso_tpu_torch.harness import cli\n"
             "sys.exit(cli.main(['solve', '--cpu', '--config', sys.argv[1], '--particles', "
@@ -366,5 +435,7 @@ def test_new_modules_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code, str(CONFIG_DIR / "arm7_exact.json")],
                           capture_output=True, text=True, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert set(json.loads(proc.stdout.strip().splitlines()[-1])) == {
-        "angles", "fitness", "effector_error", "trace"}
+    # JAX's keys, and the fitness that ran (a CPU run: the plain one).
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert set(line) == {"angles", "fitness", "effector_error", "trace", "fitness_impl"}
+    assert line["fitness_impl"] == "plain"

@@ -184,14 +184,25 @@ def test_unported_tile_branches_raise(kw):
 
 
 def test_fitness_refuses_obstacles():
-    # Scenes are ported for the closed-form colliders; the GJK backend
-    # still raises, naming its ROADMAP item.
-    spec_j, problem_j = jlib.arm_7dof()
+    # Scenes run with every collider, the GJK backend included: the plain
+    # fitness with collision_backend="gjk" returns JAX's values on the
+    # tests/test_pallas.py scene (tests/test_torch_gjk.py holds it on a
+    # denser scene and counts tangencies).
+    rng = np.random.default_rng(41)
+    spec_j, batched_j = _batched_case("arm_7dof", 2, rng)
     spec = convert.chain_spec_from(spec_j)
-    obs = convert.obstacles_from(JObstacles.from_boxes(**PALLAS_SCENE))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
-        fitness(spec, torch.zeros(spec.dof), convert.problem_from(problem_j),
-                FitnessConfig(collision_backend="gjk"), obstacles=obs)
+    obs_j = JObstacles.from_boxes(**PALLAS_SCENE)
+    fit_j = JFit(angle_weight=0.5, collision_backend="gjk")
+    x = _angles(spec_j, (2, 64), rng)
+    want = np.asarray(j_fitness(spec_j, jnp.asarray(x), batched_j, config=fit_j,
+                                obstacles=obs_j))
+    got = fitness(spec, torch.as_tensor(x), convert.problem_from(batched_j),
+                  convert.fitness_config_from(fit_j),
+                  obstacles=convert.obstacles_from(obs_j)).numpy()
+    hit = want >= COLLISION_PENALTY
+    assert hit.any() and not hit.all()
+    np.testing.assert_array_equal(got >= COLLISION_PENALTY, hit)
+    np.testing.assert_allclose(got[~hit], want[~hit], rtol=1e-5)
 
 
 def _scene_case(name, rng, p):
@@ -414,3 +425,18 @@ def test_fused_fitness_checks_its_layout():
     with pytest.raises(ValueError, match="swarm rows must hold 42"):
         kernel_c(spec, torch.zeros(2, 9, 8), torch.zeros(1, 7), torch.zeros(2, 33),
                  use_orientation=True)
+
+
+def test_fitness_with_serial_scan_fk_matches_jax():
+    # FitnessConfig(fk_impl="scan"): the serial-scan FK in the fitness.
+    rng = np.random.default_rng(43)
+    spec_j, batched_j = _batched_case("arm_7dof", 3, rng)
+    x = _angles(spec_j, (3, 32), rng)
+    fit_j = JFit(angle_weight=1.0, distance_weight=0.5, fk_impl="scan")
+    want = np.asarray(j_fitness(spec_j, jnp.asarray(x), batched_j, config=fit_j))
+    got = fitness(convert.chain_spec_from(spec_j), torch.as_tensor(x),
+                  convert.problem_from(batched_j), convert.fitness_config_from(fit_j)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="fk_impl"):
+        fitness(convert.chain_spec_from(spec_j), torch.as_tensor(x),
+                convert.problem_from(batched_j), FitnessConfig(fk_impl="tree"))

@@ -124,3 +124,47 @@ def test_tf32_is_off():
     # FK composes in full float32: TF32 would put mm-scale error into FK.
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+@pytest.mark.parametrize("name", ["arm_7dof", "planar_3dof", "snake_30dof"])
+def test_fk_serial_scan_matches_jax(name):
+    # The log-depth scan groups the products as JAX's associative_scan
+    # does not, and the two trigs differ by an ulp: rtol 1e-6, with an
+    # atol of 1e-6 for the entries that cancel to near zero.
+    spec_j, problem_j = getattr(jlib, name)()
+    spec = convert.chain_spec_from(spec_j)
+    rng = np.random.default_rng(7)
+    pose = rng.uniform(-3, 3, (32, spec.num_nodes, 3)).astype(np.float32)
+    origin = np.asarray(problem_j.origin)
+    want = jfk.fk_serial_scan(spec_j, jnp.asarray(pose), jnp.asarray(origin))
+    got = fk_ops.fk_serial_scan(spec, torch.as_tensor(pose), torch.as_tensor(origin))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-6)
+    unrolled = fk_ops.fk(spec, torch.as_tensor(pose), torch.as_tensor(origin))
+    for g, u in zip(got, unrolled):
+        np.testing.assert_allclose(g.numpy(), u.numpy(), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="serial"):
+        fk_ops.fk_serial_scan(library.dual_arm_14dof()[0], torch.zeros(7, 3), torch.zeros(3))
+
+
+@pytest.mark.parametrize("fn", ["euler_xyz_to_quaternion", "quaternion_multiply",
+                                "quaternion_invert", "quaternion_rotate_vector"])
+def test_quaternion_helpers_match_jax(fn):
+    # Against JAX op by op: XLA's compiled CPU code contracts a*b + c into
+    # fused multiply-adds, which a chain of single torch ops does not.
+    import jax
+
+    from ikpso_tpu.ops import rotations as jrot
+    from ikpso_tpu_torch.ops import rotations
+
+    rng = np.random.default_rng(8)
+    q = rng.normal(size=(256, 4)).astype(np.float32)
+    args = {"euler_xyz_to_quaternion": (rng.uniform(-3, 3, (256, 3)).astype(np.float32),),
+            "quaternion_multiply": (q, rng.normal(size=(256, 4)).astype(np.float32)),
+            "quaternion_invert": (q,),
+            "quaternion_rotate_vector": (q / np.linalg.norm(q, axis=-1, keepdims=True),
+                                         rng.normal(size=(256, 3)).astype(np.float32))}[fn]
+    with jax.disable_jit():
+        want = np.asarray(getattr(jrot, fn)(*map(jnp.asarray, args)))
+    got = getattr(rotations, fn)(*map(torch.as_tensor, args)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)

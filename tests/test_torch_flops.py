@@ -380,3 +380,37 @@ def test_measure_hands_each_call_its_own_inputs():
                               iters=3, vary=lambda i, args: (args[0] + i,))
     assert seen == [3, 4, 0, 1, 2]  # warm-ups take the indices above the timed range
     assert result == 2 and seconds >= 0.0
+
+
+def test_profiling_solve_flops_matches_jax():
+    # utils/profiling.py's solve_flops goes through the op model: JAX's
+    # value less its gbest broadcasts equals the port's less kernel A's
+    # argmins and init (test_fused_solve_count_shares_jax_fitness_and_update).
+    from ikpso_tpu.utils.profiling import solve_flops as j_solve_flops
+    from ikpso_tpu_torch.utils.profiling import solve_flops
+
+    s, p = 2048, 1024
+    pso_j = JPSO(iterations=8)
+    pso = convert.pso_config_from(pso_j)
+    want = j_solve_flops(SPEC_J, p, s, pso_j)
+    got = solve_flops(SPEC, p, s, pso)
+    it, d = pso.iterations, SPEC.dof
+    gbest_j = jflops.gbest_broadcast_count(d, p // 128, 1).flops * (it + 2)
+    port_only = (it + 1) * flops.argmin_count(p).flops + 6.0 * d
+    assert got / (s * p) - port_only == pytest.approx(want / (s * p) - gbest_j, rel=1e-9)
+
+
+def test_profiling_timer_and_trace_on_the_cpu(tmp_path):
+    import json
+
+    from ikpso_tpu_torch.utils.profiling import Timer, trace
+
+    with trace(str(tmp_path / "prof")):
+        with Timer() as t:
+            x = t.sync_on(torch.ones(64, 64) @ torch.ones(64, 64))
+    assert t.elapsed_s > 0 and float(x[0, 0]) == 64.0
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    assert any("mm" in e.get("name", "") for e in events)
+    with trace(None):  # a no-op
+        pass
+    assert not (tmp_path / "None").exists()

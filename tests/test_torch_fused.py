@@ -410,7 +410,7 @@ def test_unported_branches_raise(kw):
                                       retry_walk_steps=kw.get("retry_walk_steps", 0))
 
     if kw.get("obstacles"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="--impl jnp"):
             retried()
         return
     problem = library.batched_problem(library.arm_7dof()[1], torch.tensor(
@@ -444,7 +444,7 @@ def test_obstacle_refusals_name_their_roadmap_items():
     spec, _ = library.arm_7dof()
     obs = Obstacles.from_boxes(**REPLAY_SCENE)
     pso = PSOConfig(iterations=2, inertia_mode="canonical", init_mode="uniform")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
+    with pytest.raises(NotImplementedError, match="--impl jnp"):
         make_fused_solver(spec, pso=pso, fit=FitnessConfig(collision_backend="gjk"),
                           num_particles=128, obstacles=obs, device="cpu")
     # The prebuilt collider variants exist for the serial 4-node topology,

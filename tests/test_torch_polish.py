@@ -132,6 +132,12 @@ def test_polish_gate_rejects_colliding_refinement_like_jax(shape):
     # tests/test_polish.py:235-280: a box sits on the planar arm's
     # target. Ungated polish chases the target into it; the gate keeps the
     # feasible PSO answer, in both packages.
+    _gate_case(shape, "sat")
+
+
+def _gate_case(shape, backend):
+    """The polish gate of ``test_polish_gate_rejects_colliding_refinement_like_jax``
+    with the ``backend`` collider, in both packages."""
     spec_j, problem_j = jlib.planar_3dof(target=(2.5, 0.0, 0.0))
     boxes = dict(centers=np.array([[2.5, 0.0, 0.0]], np.float32),
                  full_dims=np.array([[0.8, 0.8, 0.8]], np.float32))
@@ -161,11 +167,12 @@ def test_polish_gate_rejects_colliding_refinement_like_jax(shape):
         return SolveResult(angles=fk_ops.pose_to_angles(spec, prob.pose), fitness=err,
                            pose=prob.pose, effector_error=err, trace=err[None])
 
-    want = j_wrap(j_stub, spec_j, steps=5, obstacles=obs_j, collision_shape=shape)(
-        batched_j, jax.random.key(0))
+    want = j_wrap(j_stub, spec_j, steps=5, obstacles=obs_j, collision_shape=shape,
+                  collision_backend=backend)(batched_j, jax.random.key(0))
     free = wrap_with_polish(stub, spec, steps=5)(batched, torch.Generator())
     gated = wrap_with_polish(stub, spec, steps=5, obstacles=Obstacles.from_boxes(**boxes),
-                             collision_shape=shape)(batched, torch.Generator())
+                             collision_shape=shape,
+                             collision_backend=backend)(batched, torch.Generator())
     base_err = true_effector_error(spec, batched.pose, batched).numpy()
     assert (free.effector_error.numpy() < base_err - 0.05).all()
     np.testing.assert_array_equal(gated.angles.numpy(), start)
@@ -177,9 +184,9 @@ def test_polish_gate_rejects_colliding_refinement_like_jax(shape):
 def test_soa_gate_and_refusals():
     spec = convert.chain_spec_from(jlib.arm_7dof()[0])
     assert soa_traceable(spec, spec.dof, False)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 9"):
-        wrap_with_polish(lambda p, g: None, spec, obstacles=Obstacles.empty(),
-                         collision_backend="gjk")
+    # The GJK collider gates the polish too, as in JAX (no longer refused).
+    for shape in ("box", "capsule"):
+        _gate_case(shape, "gjk")
     # The orientation rows (tests/test_torch_orientation.py) and the
     # locality-cost accept gate (tests/test_torch_experiment.py) are ported:
     # wrapping with a locality weight no longer refuses.

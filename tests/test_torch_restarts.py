@@ -26,12 +26,16 @@ from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.pso.config import PSOConfig
 from ikpso_tpu_torch.pso.restarts import (
     bucket_schedule,
+    make_retry_solver,
     make_topk_retry_solver,
+    solve_with_retries,
     worst_indices,
     wrap_solver_with_target_walk,
     wrap_with_topk_retries,
 )
 from ikpso_tpu_torch.pso.solver import SolveResult
+
+from test_torch_fused import torch_single_thread  # noqa: F401,E402 (a fixture)
 
 THRESHOLD = 1e-3
 
@@ -269,3 +273,123 @@ def test_target_walk_waypoints_and_jitter_endpoints(jitter):
     assert torch.equal(calls[-1][1], problem.targets)
     again = [torch.equal(a, c[1]) for a, c in zip(first, calls[:3])]
     assert not any(again) if jitter else all(again)
+
+
+# Host-gather retries (solve_with_retries / make_retry_solver), the cases of
+# tests/test_restarts.py:25-123 with the deterministic stubs: the gathered
+# failure set, the bucket padding (bucket > failures), the chunking
+# (bucket < failures) and the first-occurrence merge equal JAX's bit for bit.
+
+
+def _assert_same(got, want):
+    for field in ("angles", "fitness", "pose", "effector_error", "trace"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(want, field)), err_msg=field)
+
+
+@pytest.mark.parametrize("bucket,rounds", [(3, 1), (8, 2), (64, 1), (1024, 1)])
+def test_host_gather_retries_match_jax(bucket, rounds):
+    from ikpso_tpu.pso.restarts import solve_with_retries as j_retries
+
+    spec_j, batched_j = _tied_problem(s=48, seed=31)
+    spec = convert.chain_spec_from(spec_j)
+    batched = convert.problem_from(batched_j)
+    want = j_retries(_j_stub(spec_j, 0, 0.02), batched_j, jax.random.key(0),
+                     err_threshold=THRESHOLD, max_rounds=rounds, bucket=bucket,
+                     retry_solver=_j_stub(spec_j, 1, 0.03))
+    got = solve_with_retries(_stub(spec, 0, 0.02), batched, torch.Generator(),
+                             err_threshold=THRESHOLD, max_rounds=rounds, bucket=bucket,
+                             retry_solver=_stub(spec, 1, 0.03))
+    _assert_same(got, want)
+    base = _stub(spec, 0, 0.02)(batched, None)
+    failed = int((base.effector_error > THRESHOLD).sum())
+    assert failed > bucket or bucket >= 64  # chunked, or one padded bucket
+    assert bool((got.effector_error < base.effector_error).any())
+    assert bool((got.effector_error <= base.effector_error).all())
+    converged = (base.effector_error <= THRESHOLD).numpy()
+    np.testing.assert_array_equal(got.angles.numpy()[converged],
+                                  base.angles.numpy()[converged])
+
+
+def test_retry_solver_is_a_noop_when_all_converged_like_jax():
+    from ikpso_tpu.pso.restarts import make_retry_solver as j_make
+
+    spec_j, batched_j = _tied_problem(s=16, seed=33)
+    spec = convert.chain_spec_from(spec_j)
+    want = j_make(_j_stub(spec_j, 0, 0.02), err_threshold=1e9)(batched_j, jax.random.key(1))
+    calls = []
+
+    def counted(problem, generator):
+        calls.append(problem.pose.shape[0])
+        return _stub(spec, 0, 0.02)(problem, generator)
+
+    got = make_retry_solver(counted, err_threshold=1e9)(convert.problem_from(batched_j),
+                                                        torch.Generator())
+    _assert_same(got, want)
+    assert calls == [16]  # the base solve only
+
+
+def test_host_gather_padding_repeats_the_first_failed_index():
+    # Two failures in a bucket of 5: the retry solver sees rows
+    # [f0, f1, f0, f0, f0]; each is written once.
+    spec_j, problem_j = jlib.arm_7dof()
+    targets = np.full((6, 1, 3), 0.01, np.float32)
+    targets[[1, 4], 0, 0] = 0.2  # err 0.004 > THRESHOLD
+    batched = convert.problem_from(jlib.batched_problem(problem_j, jnp.asarray(targets)))
+    spec = convert.chain_spec_from(spec_j)
+    seen = []
+
+    def retry(problem, generator):
+        seen.append(problem.targets[:, 0, 0].tolist())
+        return _stub(spec, 1, 0.03)(problem, generator)
+
+    got = solve_with_retries(_stub(spec, 0, 0.02), batched, torch.Generator(),
+                             err_threshold=THRESHOLD, bucket=5, retry_solver=retry)
+    assert seen == [[np.float32(0.2)] * 5]
+    np.testing.assert_allclose(got.effector_error.numpy()[[1, 4]], 0.01 * 0.03)
+
+
+def test_topk_retry_from_best_matches_jax_replay(torch_single_thread):
+    # retry_start="best": the re-solve starts at the swarm's current best
+    # pose. Real scan solves on both sides with JAX's draws injected (the
+    # base solve's key and the retry round's split of fold_in(key, 0x7e7)),
+    # held to the replay bar of tests/test_fused.py:257-258.
+    from ikpso_tpu.pso import solver as jsolver
+    from ikpso_tpu.pso.config import PSOConfig as JPSO
+    from ikpso_tpu_torch.pso import solver
+
+    from test_torch_solver import _assert_replay, _case, _jax_draws
+
+    s, p, bucket = 8, 32, 4
+    spec_j, batched_j, _, _ = _case(s, np.random.default_rng(44))
+    base_j, strong_j = JPSO(iterations=2), JPSO(iterations=6)
+    key = jax.random.key(45)
+
+    def j_solver(pso):
+        return lambda problem, k: jsolver.solve(spec_j, problem, k, pso=pso,
+                                                num_particles=p)
+
+    want = {start: j_topk(j_solver(base_j), bucket=bucket, rounds=1,
+                          err_threshold=THRESHOLD, retry_solver=j_solver(strong_j),
+                          retry_start=start)(batched_j, key)
+            for start in ("best", "problem")}
+    _, ks = jax.random.split(jax.random.fold_in(key, 0x7e7))
+    spec = convert.chain_spec_from(spec_j)
+
+    def replayed(pso_j, k, n):
+        draws = _jax_draws(k, pso_j, n, p, spec.dof)
+        return lambda problem, gen: solver.solve(
+            spec, problem, None, convert.pso_config_from(pso_j), num_particles=p,
+            uniforms=draws)
+
+    for start in ("best", "problem"):
+        got = make_topk_retry_solver(replayed(base_j, key, s), bucket=bucket, rounds=1,
+                                     err_threshold=THRESHOLD,
+                                     retry_solver=replayed(strong_j, ks, bucket),
+                                     retry_start=start)(convert.problem_from(batched_j),
+                                                        torch.Generator())
+        _assert_replay(got, want[start])
+    assert not np.array_equal(np.asarray(want["best"].angles),
+                              np.asarray(want["problem"].angles))
+    with pytest.raises(ValueError, match="retry_start"):
+        make_topk_retry_solver(replayed(base_j, key, s), retry_start="worst")

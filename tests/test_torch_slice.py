@@ -194,6 +194,10 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 15
+    # The modules ported last are among those checked.
+    assert {"ops/gjk.py", "parallel/mesh.py", "parallel/sharded.py",
+            "parallel/distributed.py", "viz/render.py"} <= {
+        p.relative_to(PORT).as_posix() for p in files}
     for path in files + [PORT.parent / "chip_smoke.py"]:
         for name in _imports(path):
             root = name.split(".")[0]

@@ -273,8 +273,12 @@ def test_cli_sweep_on_cpu(torch_single_thread, tmp_path):
     # A finished checkpoint: the rerun solves nothing and returns its errors.
     again, = _cli(argv)
     assert again["err_mean"] == line["err_mean"] and again["solves_per_second"] == 0.0
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        cli.main(["sweep", "--cpu", "--multihost"])
+    # --multihost in one process sweeps the whole set as process 0 of 1;
+    # the two-process run is tests/test_torch_multihost.py.
+    one, = _cli(argv[:-2] + ["--multihost", "--num-processes", "1", "--seed", "3"])
+    assert (one.pop("process"), one.pop("num_processes"), one.pop("local_slice")) == (
+        0, 1, [0, 20])
+    assert one["waypoints"] == 20 and np.isfinite(one["err_mean"])
 
 
 # The card's track recipe (docs/PERFORMANCE.md:982-992, bench record
