@@ -3,9 +3,12 @@
 
 Builds the port's CUDA kernels from ``ikpso_tpu_torch/csrc``, checks each
 against its plain torch version on the card (kernel B with and without a
-scene, with the orientation term, on the two trees, on snake_30dof and on
-the serial-chain variant; kernel A in replay with every init mode,
-collider, inertia mode, re-kick and gbest interval, with orientation, on
+scene -- its box and capsule branches bit for bit on three scenes, with
+the share of pairs its slab reject decides, and the capsule bisection's
+SASS free of int-to-float conversions --, with the orientation term, on
+the two trees, on snake_30dof and on the serial-chain variant; kernel A
+in replay with every init mode, collider, inertia mode, re-kick and gbest
+interval, with orientation, on
 the trees, on snake_30dof, the serial-chain variant and reference_arm;
 kernel C likewise, and the scan solve through it in replay; the
 tensor-path LM polish on the card against the CPU), drives the main paths
@@ -28,7 +31,10 @@ through kernel C, against JAX's ``parity_r02``; with ``--polish`` and
 slice's paths (``gjk``: the GJK colliders against SAT on 524,288 poses and
 the GJK document's solve with ``--impl jnp``; ``retries_host``: the
 headline batch through the host-gather retries, and one top-k round from
-the best pose; ``sharded``: two ranks on the card over gloo, the headline
+the best pose; ``retries_best``: the headline recipe with every retry
+from the best pose, beside JAX's 127 failures, and
+``utils.profiling.Timer`` on a solve's result against CUDA events;
+``sharded``: two ranks on the card over gloo, the headline
 across the swarm axis on kernel A and the scan cell across the particle
 axis on kernel C, each shard held bit for bit against its single-process
 solve; ``sweep_multihost``: ``cli sweep --multihost`` as two processes;
@@ -481,8 +487,8 @@ def phase_against(other_root, device, pairs=10):
     """Build another checkout's kernels (``<other_root>/ikpso_tpu_torch/csrc``)
     with this checkout's flags and hold their ptxas lines against this
     build's: every kernel whose registers or spill bytes differ, and those
-    in one build only. Then time kernel A through this checkout's wrapper
-    on each case, in ``pairs`` rounds that turn the order of the contenders
+    in one build only. Then time kernel A (and kernel B's two collider
+    branches) through this checkout's wrappers on each case, in ``pairs`` rounds that turn the order of the contenders
     each round, and check that every contender returns the same bits:
     the 7-DOF cases (this build against the other); the trees at the
     timing phases' shapes (the serial-chain variant in both lbest
@@ -497,6 +503,7 @@ def phase_against(other_root, device, pairs=10):
     import numpy as np
     import torch
 
+    from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness
     from ikpso_tpu_torch.pso.fused import fused_solve, kernel_a_layout
     from ikpso_tpu_torch.utils import kernels
 
@@ -516,11 +523,11 @@ def phase_against(other_root, device, pairs=10):
          changed=changed, only_this=sorted(mine.keys() - theirs.keys()),
          only_other=sorted(theirs.keys() - mine.keys()))
 
-    # On-demand contenders: this build's key, the other build's (its sources
-    # ignore IKPSO_OD_SHARED, so it runs the placement of before: v and
-    # lbest in registers, or lbest in global scratch at a 1,024-thread
-    # bound), and this build's key in the other placements (in the scratch
-    # layout, at either bound).
+    # On-demand contenders: this build's key, the other build's same key
+    # (the same placement and thread bound, where its sources read them;
+    # sources that predate IKPSO_OD_SHARED run their own placement), and
+    # this build's key in the other placements (in the scratch layout, at
+    # either bound).
     od_contenders, keys = {}, od_keys()
     for tag, _, _ in AGAINST_ON_DEMAND:
         key = keys[tag]
@@ -533,8 +540,7 @@ def phase_against(other_root, device, pairs=10):
                     key._replace(shared=not key.shared)}
         od_contenders[tag] = {
             "this": key,
-            "other": key._replace(shared=False,
-                                  threads=1024 if key.scratch else key.threads),
+            "other": key,
             **{name: alt for name, alt in alts.items() if alt != key}}
     t0 = time.perf_counter()
     od_libs, od_ptxas = {}, {}
@@ -617,6 +623,18 @@ def phase_against(other_root, device, pairs=10):
         cases[f"arm_7dof {shape} S={TIMING_SWARMS}"] = (
             lambda args=args: fused_solve(*args, num_obstacles=obs.count), 10, two,
             (spec, fit_s, swarm, 128, obs.count), ptxas_of(f"{arm}, {c}, 0"))
+    # Kernel B's collider branches on their own (the timing phase's shape).
+    lim = spec.limits().cpu().numpy()
+    x_b = torch.as_tensor((lim[0] + rng.random((TIMING_SWARMS, 128, spec.dof))
+                           * (lim[1] - lim[0])).astype("float32"), device=device)
+    for c, shape in enumerate(("box", "capsule"), 1):
+        fit_s = dataclasses.replace(fit, collision_shape=shape)
+        meta_s, _ = _packed(spec, batched, fit_s, obs)
+        cases[f"B arm_7dof {shape} S={TIMING_SWARMS}"] = (
+            lambda meta_s=meta_s, shape=shape: fk_fitness(
+                spec, x_b, meta_s, swarm, num_obstacles=obs.count, collision_shape=shape),
+            20, two, None,
+            ptxas_of(f"fk_fitness_kernel<Topology<4, 8448, 8>, {c}, 0"))
     pso_o, fit_o = _orientation_configs()
     spec_o, batched_o = _problem("arm_6dof", TIMING_SWARMS, rng, device, orientation=True)
     meta_o, swarm_o = _packed(spec_o, batched_o, fit_o, use_orientation=True)
@@ -668,12 +686,13 @@ def phase_against(other_root, device, pairs=10):
         med = {k: statistics.median(v) for k, v in ms.items()}
         row = {}
         for who in order:
-            layout = under(contenders[who], lambda: kernel_a_layout(*layout_args))
-            row[who] = {"placement": layout.placement, "smem_bytes": layout.smem_bytes,
-                        "scratch_planes": layout.scratch_planes,
-                        "ptxas": ptxas[who if who in ptxas else who.split("/")[0]],
+            row[who] = {"ptxas": ptxas[who if who in ptxas else who.split("/")[0]],
                         "ms": ms[who], "median_ms": med[who],
                         "spread_ms": max(ms[who]) - min(ms[who])}
+            if layout_args is not None:
+                layout = under(contenders[who], lambda: kernel_a_layout(*layout_args))
+                row[who].update(placement=layout.placement, smem_bytes=layout.smem_bytes,
+                                scratch_planes=layout.scratch_planes)
         rows[name] = {"contenders": row, "this_over_other": med["this"] / med["other"],
                       "this_faster_pairs": sum(t < o for t, o in zip(ms["this"],
                                                                      ms["other"])),
@@ -1016,43 +1035,71 @@ def _scene(spec, device):
     return obstacle_scene(spec, 4, device)
 
 
+def _rotated_scene(spec, device, rng, n=4):
+    """n boxes of random orientation (unit quaternions) and size, 0.03-0.2
+    of the chain's reach on a side, around its workspace."""
+    import numpy as np
+
+    from ikpso_tpu_torch.models.chain import Obstacles
+
+    reach = float(np.abs(spec.length.cpu().numpy()).sum())
+    quats = rng.normal(size=(n, 4))
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    return Obstacles.from_boxes(
+        rng.normal(0.0, 0.45 * reach, (n, 3)).astype("float32"),
+        (rng.uniform(0.2, 1.5, (n, 3)) * 0.15 * reach).astype("float32"),
+        quats.astype("float32"), device=device)
+
+
 def phase_fk_fitness_obstacles(device, swarms=4096, particles=128):
     """Kernel B's box and capsule branches against fk_fitness_plain on
-    random in-limit angles and the slice's 4-box scene."""
+    random in-limit angles, bit for bit on the hit mask and the free lanes,
+    in three scenes: the slice's 4-box ring, the near ring
+    (``_near_scene``) and rotated boxes; with the share of (node, obstacle)
+    pairs the slab reject decides (``utils.flops.collider_work``'s mirror
+    of it), which must lie strictly between 0 and 1 in each."""
     import numpy as np
     import torch
 
     from ikpso_tpu_torch.ops.fitness import FitnessConfig
     from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness, fk_fitness_plain
+    from ikpso_tpu_torch.utils import flops
 
     errs = {}
     for shape in ("box", "capsule"):
         rng = np.random.default_rng(5)
         spec, batched = _problem("arm_7dof", swarms, rng, device)
-        obs = _scene(spec, device)
-        fit = FitnessConfig(angle_weight=3.0, collision_shape=shape)
-        meta, swarm = _packed(spec, batched, fit, obs)
+        scenes = {"ring": _scene(spec, device), "near": _near_scene(spec, device),
+                  "rotated": _rotated_scene(spec, device, rng)}
         lim = spec.limits().cpu().numpy()
         x = lim[0] + rng.random((swarms, particles, spec.dof)) * (lim[1] - lim[0])
         x = torch.as_tensor(x.astype("float32"), device=device)
-        kw = dict(num_obstacles=obs.count, collision_shape=shape)
-        got = fk_fitness(spec, x, meta, swarm, **kw)
-        want = fk_fitness_plain(spec, x, meta, swarm, **kw)
-        torch.cuda.synchronize()
-        hit_k, hit_p = got >= FLT_MAX, want >= FLT_MAX
-        free = ~hit_p
-        err = float((got[free] - want[free]).abs().max())
-        errs[shape] = err
-        ok = bool(torch.equal(hit_k, hit_p) and torch.isfinite(got).all()
-                  and torch.allclose(got[free], want[free], rtol=FK_RTOL, atol=FK_ATOL)
-                  and 0.01 < float(hit_p.float().mean()) < 0.99)
-        emit("fk_fitness_obstacles", collision_shape=shape, swarms=swarms,
-             particles=particles, obstacles=obs.count,
-             hit_share=float(hit_p.float().mean()),
-             mask_mismatches=int((hit_k != hit_p).sum()), max_abs_err_free=err,
-             rtol=FK_RTOL, atol=FK_ATOL, ok=ok)
-        if not ok:
-            raise AssertionError(f"kernel B ({shape}) disagrees with fk_fitness_plain")
+        fit = FitnessConfig(angle_weight=3.0, collision_shape=shape)
+        for tag, obs in scenes.items():
+            meta, swarm = _packed(spec, batched, fit, obs)
+            kw = dict(num_obstacles=obs.count, collision_shape=shape)
+            got = fk_fitness(spec, x, meta, swarm, **kw)
+            want = fk_fitness_plain(spec, x, meta, swarm, **kw)
+            torch.cuda.synchronize()
+            hit_k, hit_p = got >= FLT_MAX, want >= FLT_MAX
+            free = ~hit_p
+            err = float((got[free] - want[free]).abs().max()) if bool(free.any()) else 0.0
+            stats = {}
+            flops.collider_work(spec, x, meta, swarm, stats=stats, chunk=1 << 19, **kw)
+            share = stats["rejected"] / stats["pairs"]
+            hit_share = float(hit_p.float().mean())
+            errs[shape if tag == "ring" else f"{shape} {tag}"] = err
+            ok = bool(torch.equal(hit_k, hit_p) and torch.isfinite(got).all() and err == 0.0
+                      and 0.0 < hit_share < 1.0 and 0.0 < share < 1.0)
+            emit("fk_fitness_obstacles", collision_shape=shape, scene=tag, swarms=swarms,
+                 particles=particles, obstacles=obs.count, hit_share=hit_share,
+                 reject_share=share, reject_pairs=stats["pairs"],
+                 mask_mismatches=int((hit_k != hit_p).sum()), max_abs_err_free=err,
+                 bar="equal masks, max abs error 0.0 on free lanes", ok=ok)
+            if not ok:
+                raise AssertionError(f"kernel B ({shape}, {tag} scene) disagrees with "
+                                     "fk_fitness_plain, or the scene does not both hit and "
+                                     "miss, or the reject decides all or no pairs")
     return errs
 
 
@@ -2887,7 +2934,8 @@ def phase_on_demand_timing(device):
                 lambda: pfn(spec, x, meta_k, swarm_k, **fkw), reps=3)
             check_fitness(f"{kernel} {tag} timed", got, want, exact=True)
             work = (flops.collider_work(spec, x_spd, meta_k, swarm_k, num_obstacles=n_obs,
-                                        collision_shape=fit.collision_shape)
+                                        collision_shape=fit.collision_shape,
+                                        trig_impl=fit.trig_impl)
                     if n_obs else 0.0)
             counts[f"{kernel}_{tag}"] = flops.fitness_kernel_count(
                 spec, fit, num_swarms=s_k, num_particles=p_k, num_obstacles=n_obs,
@@ -3194,6 +3242,118 @@ def phase_retries_host(device, card):
         raise AssertionError("retries_host: converged rows moved, failures grew, or the "
                              "accuracy bar missed")
     return launches
+
+
+JAX_FROM_BEST_FAILURES = "127/1048576"  # docs/PERFORMANCE.md: the recipe from the best pose
+
+
+def phase_retries_best(device, card):
+    """The headline recipe (kernel A, 4 LM steps, 4 top-k rounds over
+    [32768, 4096, 1024, 1024]) with every retry from the swarm's best pose
+    (``make_topk_retry_solver(retry_start="best")``), its failures beside
+    JAX's 127 and the recipe's own from the problem's pose; launch counts
+    read around it. Then ``utils.profiling.Timer`` on one base solve's
+    ``SolveResult`` against CUDA events around the same call: the timer
+    must wait for the card (at least the events' time), where a clock that
+    stops at the enqueue reads far less."""
+    import torch
+
+    from ikpso_tpu_torch.harness.headline import (build_headline_solver, headline_bucket,
+                                                  headline_configs, reachable_targets)
+    from ikpso_tpu_torch.models import library
+    from ikpso_tpu_torch.pso.fused import make_fused_solver
+    from ikpso_tpu_torch.pso.polish import wrap_with_polish
+    from ikpso_tpu_torch.pso.restarts import bucket_schedule, make_topk_retry_solver
+    from ikpso_tpu_torch.utils.profiling import Timer
+
+    t_phase = time.perf_counter()
+    swarms = HEADLINE_SWARMS
+    spec, problem = library.arm_7dof(device=device)
+    batched = library.batched_problem(problem, reachable_targets(
+        spec, problem, swarms, torch.Generator(device=device).manual_seed(0)))
+    pre, pso, fit = headline_configs()
+    kernel_a = make_fused_solver(spec, pso, fit, None, pre.particles, device=device)
+    base = wrap_with_polish(kernel_a, spec, steps=pre.polish)
+    buckets = bucket_schedule(headline_bucket(swarms, pre.retry_bucket_decay), pre.retries,
+                              pre.retry_bucket_decay)
+    from_best = make_topk_retry_solver(base, bucket=buckets, rounds=pre.retries,
+                                       err_threshold=RETRY_THRESHOLD, retry_start="best")
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(1)
+
+    def failures(res):
+        return int((res.effector_error.double() * 1e3 >= 1.0).sum())
+
+    reset_counts()
+    best = failures(from_best(batched, gen()))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    problem_start = failures(build_headline_solver(spec, swarms, device)(batched, gen()))
+    timer_s, events_ms, enqueue_s = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with Timer() as t:
+            start.record()
+            t.sync_on(kernel_a(batched, gen()))
+            end.record()
+            enqueue = time.perf_counter() - t._start
+        torch.cuda.synchronize()
+        timer_s.append(t.elapsed_s)
+        events_ms.append(start.elapsed_time(end))
+        enqueue_s.append(enqueue)
+    waits = all(ts * 1e3 >= ev for ts, ev in zip(timer_s, events_ms))
+    ok = (waits and launches["fused_solve"] == 1 + pre.retries
+          and best <= 0.01 * swarms)
+    emit("retries_best", swarms=swarms, buckets=buckets, polish=pre.polish,
+         failures_ge_1mm_from_best=best, failures_ge_1mm_from_problem=problem_start,
+         jax_from_best_failures=JAX_FROM_BEST_FAILURES,
+         jax_from_problem_failures=JAX_REFERENCE_FAILURES, launches=launches,
+         timer_s=timer_s, cuda_events_ms=events_ms, enqueue_s=enqueue_s,
+         timer_waits_for_the_card=waits, seconds=time.perf_counter() - t_phase, card=card,
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError("retries_best: the timer stopped before the card, the recipe "
+                             "launched kernel A a wrong number of times, or from-best "
+                             "retries left more than 1% failing")
+    return launches
+
+
+def phase_sass_bisection():
+    """The SASS of the capsule bisection (``seg_obb_dist2`` in a probe
+    kernel built with the port's flags): the opcode counts of its body.
+    Its per-axis term (``signed_excess``) must compile to a compare, a
+    select and a sign copy, with no int-to-float conversion (the product
+    of ``jnp.sign``'s two compares and the clamp issued one I2FP a term)."""
+    import collections
+    import tempfile
+
+    from ikpso_tpu_torch.utils import kernels
+
+    src = ('#include "fk_fitness.cuh"\n'
+           'extern "C" __global__ void k_seg(const float* q, float* y) {\n'
+           '  const float* p = q + 6 * threadIdx.x;\n'
+           '  const float q0[3] = {p[0], p[1], p[2]}, q1[3] = {p[3], p[4], p[5]};\n'
+           '  y[threadIdx.x] = ikpso::seg_obb_dist2(q0, q1, q + 1024);\n'
+           '}\n')
+    with tempfile.TemporaryDirectory() as tmp:
+        cu, cubin = Path(tmp) / "seg.cu", Path(tmp) / "seg.cubin"
+        cu.write_text(src)
+        run([kernels._nvcc(), "-cubin", *kernels.NVCC_FLAGS[:2], "-std=c++17", "-O3",
+             "-fmad=false", "-I", str(kernels.CSRC), "-o", str(cubin), str(cu)])
+        sass = run([str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(cubin)])
+    body = sass.split("Function : k_seg")[1]
+    ops = collections.Counter(
+        re.sub(r"^@!?P\d ", "", t).split()[0]
+        for t in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]+);", body))
+    conversions = sum(n for op, n in ops.items() if op.startswith(("I2F", "F2I", "F2F")))
+    ok = conversions == 0
+    emit("sass_bisection", opcodes=dict(ops.most_common()), conversions=conversions,
+         instructions=sum(ops.values()), ok=ok)
+    if not ok:
+        raise AssertionError("the capsule bisection's SASS converts ints to floats")
+    return conversions
 
 
 # One rank of the sharded phase: a process of a two-rank gloo group on
@@ -3569,6 +3729,7 @@ def run_phases(device, card, od_ptxas):
     od_err = phase_on_demand_checks(device)
     phase_fused_tie(device, particles=512, model="hand21")
     phase_sass_sincos()
+    phase_sass_bisection()
     phase_tensor_polish(device)
     paths = {
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
@@ -3589,6 +3750,7 @@ def run_phases(device, card, od_ptxas):
     paths["sweep"] = phase_sweep(device, card)
     paths["gjk"] = phase_gjk(device, card)
     paths["retries_host"] = phase_retries_host(device, card)
+    paths["retries_best"] = phase_retries_best(device, card)
     paths["sharded"] = phase_sharded(device, card)
     paths["sweep_multihost"] = phase_sweep_multihost(device, card)
     paths["viz"] = phase_viz(device, card)

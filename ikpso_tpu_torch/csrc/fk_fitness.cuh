@@ -57,12 +57,18 @@
 // returns FLT_MAX (COLLISION_PENALTY), applied last. The collider bodies
 // keep the Pallas op order (and -fmad=false), so a hit flips at exactly
 // the inputs where the plain version's does; they stop at the first
-// separating axis or the first hit, which leaves the result unchanged.
+// separating axis or the first hit, and an exact slab reject on the scene
+// box's axes skips the SATs or the bisection of a pair that cannot hit
+// (node_hits), which leaves the result unchanged. Bound, with a scene:
+// the pairs the reject does not decide, lane by lane, and those a warp
+// decides only in part, whose narrow phase the warp runs for its
+// undecided lanes.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <cmath>
 #include <cstdint>
 
 namespace ikpso {
@@ -253,13 +259,12 @@ __device__ __forceinline__ void mat_mul(const float (&a)[9], const float (&b)[9]
   }
 }
 
-// Box SAT (pallas_fitness.py:_sat_obb): does the particle box (center p,
-// axes = columns of rot, half extents a) overlap the scene box
-// ob = [center3, half3, rot9]? C = Ra^T Rb and T = Ra^T (ob - p).
-__device__ __forceinline__ bool sat_obb(float px, float py, float pz,
-                                        const float (&rot)[9], float a0, float a1,
-                                        float a2, const float* __restrict__ ob) {
-  float c[9], ac[9];
+// The SAT's setup, shared by the gizmo cube's and the link box's tests:
+// both boxes are oriented by the node's world rotation rot, so C = Ra^T Rb
+// and |C| + 1e-6 are the same for the two (pallas_fitness.py:_sat_obb
+// computes them in each call, with the same arithmetic).
+__device__ __forceinline__ void sat_frame(const float (&rot)[9], const float* __restrict__ ob,
+                                          float (&c)[9], float (&ac)[9]) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
 #pragma unroll
@@ -267,12 +272,22 @@ __device__ __forceinline__ bool sat_obb(float px, float py, float pz,
       c[3 * i + j] = rot[i] * ob[6 + j] + rot[3 + i] * ob[9 + j] + rot[6 + i] * ob[12 + j];
     }
   }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) ac[k] = fabsf(c[k]) + 1e-6f;
+}
+
+// Box SAT (pallas_fitness.py:_sat_obb): does the particle box (center p,
+// axes = columns of rot, half extents a) overlap the scene box
+// ob = [center3, half3, rot9]? c and ac from sat_frame; T = Ra^T (ob - p).
+// The 15 axes in the Pallas order, stopping at the first that separates.
+__device__ __forceinline__ bool sat_obb(float px, float py, float pz,
+                                        const float (&rot)[9], const float (&c)[9],
+                                        const float (&ac)[9], float a0, float a1, float a2,
+                                        const float* __restrict__ ob) {
   const float dx = ob[0] - px, dy = ob[1] - py, dz = ob[2] - pz;
   const float t[3] = {rot[0] * dx + rot[3] * dy + rot[6] * dz,
                       rot[1] * dx + rot[4] * dy + rot[7] * dz,
                       rot[2] * dx + rot[5] * dy + rot[8] * dz};
-#pragma unroll
-  for (int k = 0; k < 9; ++k) ac[k] = fabsf(c[k]) + 1e-6f;
   const float a[3] = {a0, a1, a2};
   const float b[3] = {ob[3], ob[4], ob[5]};
 #pragma unroll
@@ -301,14 +316,14 @@ __device__ __forceinline__ bool sat_obb(float px, float py, float pz,
   return true;
 }
 
-// Coordinates of point p in scene box ob's frame (q_i = column i of R . (p - c)).
-__device__ __forceinline__ void box_frame(const float (&p)[3], const float* __restrict__ ob,
-                                          float (&q)[3]) {
+// Coordinates of point p in scene box ob's frame (q_i = column i of R . (p - c));
+// returns |p - c|_1, the scale of the rounding in q.
+__device__ __forceinline__ float box_frame(const float (&p)[3], const float* __restrict__ ob,
+                                           float (&q)[3]) {
+  const float d0 = p[0] - ob[0], d1 = p[1] - ob[1], d2 = p[2] - ob[2];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    q[i] = ob[6 + i] * (p[0] - ob[0]) + ob[9 + i] * (p[1] - ob[1]) +
-           ob[12 + i] * (p[2] - ob[2]);
-  }
+  for (int i = 0; i < 3; ++i) q[i] = ob[6 + i] * d0 + ob[9 + i] * d1 + ob[12 + i] * d2;
+  return (fabsf(d0) + fabsf(d1)) + fabsf(d2);
 }
 
 // sum_i max(|q_i| - h_i, 0)^2: squared distance of a box-frame point to the box.
@@ -319,19 +334,23 @@ __device__ __forceinline__ float excess2(const float (&q)[3], const float* __res
   return d0 * d0 + d1 * d1 + d2 * d2;
 }
 
-// jnp.sign: 0 at 0 (copysignf would give +-1 and flip the bisection where a
-// box-frame coordinate is exactly 0).
-__device__ __forceinline__ float sign_of(float q) {
-  return static_cast<float>((q > 0.0f) - (q < 0.0f));
+// jnp.sign(q) * max(|q| - h, 0), the bisection's per-axis term: 0 at q = +-0
+// (for any h, a negative half extent too), else max(|q| - h, 0) with q's
+// sign. It equals the product of jnp.sign and the clamp up to the sign of
+// a zero (NaN's sign, 0 times the clamp, comes out +-0 as well), and a
+// signed zero moves g only where every term is zero, which g > 0 reads
+// alike. The select and the sign copy replace the product's two compares,
+// integer subtract and int-to-float conversion (I2FP in the SASS).
+__device__ __forceinline__ float signed_excess(float q, float h) {
+  return q == 0.0f ? 0.0f : copysignf(fmaxf(fabsf(q) - h, 0.0f), q);
 }
 
-// Squared segment p0 -> p1 to scene box distance (pallas_fitness.py:
-// _seg_obb_dist2): 24 bisection rounds on the monotone derivative g(t).
-__device__ __forceinline__ float seg_obb_dist2(const float (&p0)[3], const float (&p1)[3],
+// Squared distance of the segment with box-frame end points q0 -> q1 to
+// the scene box (pallas_fitness.py:_seg_obb_dist2): 24 bisection rounds on
+// the monotone derivative g(t).
+__device__ __forceinline__ float seg_obb_dist2(const float (&q0)[3], const float (&q1)[3],
                                                const float* __restrict__ ob) {
-  float q0[3], q1[3], b[3];
-  box_frame(p0, ob, q0);
-  box_frame(p1, ob, q1);
+  float b[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) b[i] = q1[i] - q0[i];
   float lo = 0.0f, hi = 1.0f;
@@ -342,7 +361,7 @@ __device__ __forceinline__ float seg_obb_dist2(const float (&p0)[3], const float
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const float qi = q0[i] + tm * b[i];
-      const float si = sign_of(qi) * fmaxf(fabsf(qi) - ob[3 + i], 0.0f);
+      const float si = signed_excess(qi, ob[3 + i]);
       g = i ? g + si * b[i] : si * b[i];
     }
     const bool pred = g > 0.0f;
@@ -356,26 +375,185 @@ __device__ __forceinline__ float seg_obb_dist2(const float (&p0)[3], const float
   return excess2(q, ob);
 }
 
+// The exact slab reject (broad phase), ahead of the narrow phase above.
+//
+// A (node, scene box) pair costs the Pallas tile two full SATs (box) or a
+// 24-round bisection (capsule), though almost every pair is far from every
+// box. The reject decides "no hit" from the box-frame coordinates q1 of the
+// node pk and q0 of its parent pp: a part of the particle body is
+// separated on scene axis j when every point of it lies beyond the slab
+// |q_j| <= b_j by more than its radius. It never decides "hit", and it
+// decides "no hit" only where the narrow phase says so, so the result
+// (FLT_MAX or the cost) is bit for bit the narrow phase's; only the work
+// changes. ob's half extents b_j are used as given (a negative one moves
+// both sides alike).
+//
+// Capsule (sphere radius sqrt(node_r2) at pk, capsule radius
+// r = sqrt(link_r2) about pp -> pk). The sphere keeps its test. The capsule
+// is separated when, for some j, q0_j and q1_j lie beyond
+// b_j + r (1 + kCapsuleSlack) + kCapsuleSlack (|q0|_1 + |q1|_1) + kRejectAbs
+// on one side. Proof: seg_obb_dist2 returns excess2 at q0 + t (q1 - q0) for
+// some t in [0, 1], the same q0, q1 the reject reads; in exact arithmetic
+// its coordinate j lies on that side at least as far as the nearer end
+// point, and the float rounding of q1 - q0, t (q1 - q0) and the sum is
+// below 5 x 2^-24 (|q0_j| + |q1_j|). So max(|q_j| - b_j, 0) > r (1 + 1e-4),
+// its square > link_r2 after rounding, and excess2, a sum of non-negative
+// rounded squares, is at least that: the bisection's test
+// excess2 <= link_r2 fails. No rotation enters, so no precondition.
+//
+// Box (gizmo cube of half a = node_half at pk; link box of half extents
+// (len / 2, w, w), w = link_half, centered at (pk + pp) / 2: the segment
+// pp -> pk, which runs along rot's x axis, swept by a square). Cube
+// separated on j: |q1_j| - b_j > sqrt(3) |a| (1 + eps) + M. Link box
+// separated on j: q0_j and q1_j both beyond b_j + sqrt(2) |w| (1 + eps) + M
+// on one side. M = eps (|pk|_1 + |pp|_1 + |pk - c|_1 + |pp - c|_1) +
+// kRejectAbs. Then the SAT's scene-face-axis test j (sat_obb's second
+// loop) fires, so sat_obb returns false. Proof, with u = column j of the
+// scene rotation and R = rot: proj = t . C_j = d^T R R^T u, d = c - p, is
+// -q_j up to |d| |u| ||R R^T - I|| and rounding of order 2^-24 |d|; ra =
+// sum_i |a_i| (|R_i . u| + 1e-6) <= sqrt(3) |a| sigma_max(R) |u| + 3e-6 |a|
+// (cube; for the link box sum_i (R_i . u)^2 <= sigma_max(R)^2 |u|^2 bounds
+// w (|R_1 . u| + |R_2 . u|) by sqrt(2) w sigma_max(R) |u|, and len / 2 |R_0 . u|
+// is what (q0_j + q1_j) / 2 exceeds the nearer end point by, since
+// pk - pp = len R_0 up to the rounding of pk; a negative len or half only
+// lowers ra). The center (pk + pp) / 2 and pk round at 2^-24 |pk|_1 + |pp|_1.
+// eps covers ||R R^T - I||, sigma_max(R) - 1, |u| - 1 and the 1e-6 pad;
+// M's terms the rounding. The bounds hold when
+//  * the root rotation is orthonormal to kRejectTau (Gershgorin on R0^T R0:
+//    each row of R0^T R0 - I sums to <= kRejectTau in absolute value),
+//  * every scene axis has |u|^2 within kRejectTau of 1, and
+//  * with polynomial trig every angle of the walk so far is within
+//    kRejectMaxAngle (4 pi, where sincos_poly's sin^2 + cos^2 is within 4e-6
+//    of 1; tests/test_torch_broad_phase.py holds the poly to it), so each
+//    node's local rotation and compose move sigma(R) by < 1e-5; stock trig
+//    stays within a few ulps at any angle.
+// Then sigma(R)^2 lies within (1 + kRejectTau)(1 + 1e-5)^(2N) - 1 of 1 down
+// any chain of N nodes, and eps = 4e-3 + 5e-5 N covers that with |u| - 1.
+// box_reject_slack checks the first two once per swarm row (box_row_slack),
+// the walk the third; where one fails, eps is +inf and the reject decides
+// nothing.
+// Non-finite inputs make M infinite or NaN, so a comparison with them is
+// false and the reject decides nothing either.
+constexpr float kRejectTau = 2e-3f;
+constexpr float kRejectMaxAngle = 12.5f;
+constexpr float kRejectAbs = 1e-15f;  // keeps the thresholds off the subnormals
+constexpr float kCapsuleSlack = 1e-4f;
+constexpr float kSqrt2 = 1.41421356f;
+constexpr float kSqrt3 = 1.73205081f;
+
+// eps of the box reject for a topology of N nodes (rounded from double, as
+// ops/fitness_kernel.py::box_reject_eps rounds it).
+template <class T>
+__host__ __device__ constexpr float box_reject_eps() {
+  return static_cast<float>(4e-3 + 5e-5 * T::N);
+}
+
+// The box reject's eps, or +inf where the root rotation (row-major at root)
+// or a scene axis is too far from orthonormal for its proof.
+template <class T>
+__device__ __forceinline__ float box_reject_slack(const float* __restrict__ root,
+                                                  const float* __restrict__ obs,
+                                                  int count) {
+  bool ok = true;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float row = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float g = root[i] * root[j] + root[3 + i] * root[3 + j] + root[6 + i] * root[6 + j];
+      row = row + fabsf(i == j ? g - 1.0f : g);
+    }
+    ok = ok & (row <= kRejectTau);
+  }
+  for (int o = 0; o < count; ++o) {
+    const float* ob = obs + 15 * o;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float n2 = ob[6 + j] * ob[6 + j] + ob[9 + j] * ob[9 + j] + ob[12 + j] * ob[12 + j];
+      ok = ok & (fabsf(n2 - 1.0f) <= kRejectTau);
+    }
+  }
+  return ok ? box_reject_eps<T>() : INFINITY;
+}
+
+// The box reject's eps for swarm row sw (box_reject_slack: its root
+// rotation and meta's scene boxes), the row_slack argument of
+// fk_fitness_eval*. It is the same for every particle and iteration of the
+// row, so a kernel computes it once a row, not once an evaluation; +inf
+// (the reject decides nothing) without a box scene.
+template <class T, int C>
+__device__ __forceinline__ float box_row_slack(const float* __restrict__ meta,
+                                               const float* __restrict__ sw, Scene scene) {
+  if constexpr (C == kBoxCollider) {
+    return box_reject_slack<T>(sw + kSwRoot, meta + kMetaLen + (T::N - 1) + T::E,
+                               scene.count);
+  }
+  return INFINITY;
+}
+
+// For some axis j, do q0_j and q1_j both lie beyond ob's half extent b_j
+// plus thr on one side?
+__device__ __forceinline__ bool slab_reject(const float (&q0)[3], const float (&q1)[3],
+                                            const float* __restrict__ ob, float thr) {
+  bool out = false;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const float lo = fminf(q0[j], q1[j]), hi = fmaxf(q0[j], q1[j]);
+    out = out | (fmaxf(lo, -hi) - ob[3 + j] > thr);
+  }
+  return out;
+}
+
 // Does node k (position pk, world rotation rk, parent position pp, link
-// length len) hit any scene box?
+// length len) hit any scene box? slack is the box reject's eps (or +inf).
 template <int C>
 __device__ __forceinline__ bool node_hits(const float (&pk)[3], const float (&rk)[9],
                                           const float (&pp)[3], float len,
                                           const float* __restrict__ obs,
-                                          Scene scene) {
-  for (int o = 0; o < scene.count; ++o) {
-    const float* ob = obs + 15 * o;
-    if constexpr (C == kBoxCollider) {
-      if (sat_obb(pk[0], pk[1], pk[2], rk, scene.node_half, scene.node_half,
-                  scene.node_half, ob) ||
-          sat_obb((pk[0] + pp[0]) * 0.5f, (pk[1] + pp[1]) * 0.5f, (pk[2] + pp[2]) * 0.5f,
-                  rk, len * 0.5f, scene.link_half, scene.link_half, ob)) {
+                                          Scene scene, float slack) {
+  if constexpr (C == kBoxCollider) {
+    const float pmag = ((fabsf(pk[0]) + fabsf(pk[1])) + fabsf(pk[2])) +
+                       ((fabsf(pp[0]) + fabsf(pp[1])) + fabsf(pp[2]));
+    const float grow = 1.0f + slack;
+    const float r_cube = (kSqrt3 * fabsf(scene.node_half)) * grow;
+    const float r_link = (kSqrt2 * fabsf(scene.link_half)) * grow;
+    for (int o = 0; o < scene.count; ++o) {
+      const float* ob = obs + 15 * o;
+      float q0[3], q1[3];
+      const float m1 = box_frame(pk, ob, q1);
+      const float m0 = box_frame(pp, ob, q0);
+      const float margin = slack * ((pmag + m1) + m0) + kRejectAbs;
+      bool cube_sep = false;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        cube_sep = cube_sep | (fabsf(q1[j]) - ob[3 + j] > r_cube + margin);
+      }
+      const bool link_sep = slab_reject(q0, q1, ob, r_link + margin);
+      if (cube_sep && link_sep) continue;
+      float c[9], ac[9];
+      sat_frame(rk, ob, c, ac);
+      if (!cube_sep && sat_obb(pk[0], pk[1], pk[2], rk, c, ac, scene.node_half,
+                               scene.node_half, scene.node_half, ob)) {
         return true;
       }
-    } else {
-      float q[3];
-      box_frame(pk, ob, q);
-      if (excess2(q, ob) <= scene.node_r2 || seg_obb_dist2(pp, pk, ob) <= scene.link_r2) {
+      if (!link_sep &&
+          sat_obb((pk[0] + pp[0]) * 0.5f, (pk[1] + pp[1]) * 0.5f, (pk[2] + pp[2]) * 0.5f, rk,
+                  c, ac, len * 0.5f, scene.link_half, scene.link_half, ob)) {
+        return true;
+      }
+    }
+  } else {
+    const float r_cap = sqrtf(scene.link_r2) * (1.0f + kCapsuleSlack);
+    for (int o = 0; o < scene.count; ++o) {
+      const float* ob = obs + 15 * o;
+      float q0[3], q1[3];
+      box_frame(pk, ob, q1);
+      if (excess2(q1, ob) <= scene.node_r2) return true;
+      box_frame(pp, ob, q0);
+      const float qmag = ((fabsf(q0[0]) + fabsf(q0[1])) + fabsf(q0[2])) +
+                         ((fabsf(q1[0]) + fabsf(q1[1])) + fabsf(q1[2]));
+      if (!slab_reject(q0, q1, ob, r_cap + (kCapsuleSlack * qmag + kRejectAbs)) &&
+          seg_obb_dist2(q0, q1, ob) <= scene.link_r2) {
         return true;
       }
     }
@@ -385,12 +563,13 @@ __device__ __forceinline__ bool node_hits(const float (&pk)[3], const float (&rk
 
 // Fitness of one particle: x(d) returns its angle d; meta / sw point at
 // the packed per-chain / per-swarm constants (MetaLayout); scene is read
-// only when C != kNoCollider; O adds the orientation term; T::kDistance the
-// distance term, T::kExact stock trig.
+// only when C != kNoCollider, row_slack (box_row_slack of sw) only when C
+// is kBoxCollider; O adds the orientation term; T::kDistance the distance
+// term, T::kExact stock trig.
 template <class T, int C, bool O, class X>
 __device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict__ meta,
                                                     const float* __restrict__ sw,
-                                                    Scene scene) {
+                                                    Scene scene, float row_slack) {
   constexpr int N = T::N;
   constexpr int D = T::D;
   constexpr int kMetaEw = kMetaLen + (N - 1);
@@ -408,6 +587,7 @@ __device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict
   float pos_diff = 0.0f;
   float cost = 0.0f;
   bool hit = false;
+  [[maybe_unused]] float slack = row_slack;
 #pragma unroll
   for (int k = 1; k < N; ++k) {
     const int d0 = 3 * (k - 1);
@@ -433,8 +613,16 @@ __device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict
       pos_diff = pos_diff + (ox * ox + oy * oy + oz * oz);
     }
 
+    if constexpr (C == kBoxCollider && !T::kExact) {
+      if (!(fabsf(ax) <= kRejectMaxAngle && fabsf(ay) <= kRejectMaxAngle &&
+            fabsf(az) <= kRejectMaxAngle)) {
+        slack = INFINITY;
+      }
+    }
     if constexpr (C != kNoCollider) {
-      if (!hit) hit = node_hits<C>(pos[k], rot[k], pos[p], len, meta + kMetaObs, scene);
+      if (!hit) {
+        hit = node_hits<C>(pos[k], rot[k], pos[p], len, meta + kMetaObs, scene, slack);
+      }
     }
 
     if (T::is_effector(k)) {
@@ -470,8 +658,9 @@ template <class T, int C = kNoCollider, bool O = false>
 __device__ __forceinline__ float fk_fitness_eval(const float (&x)[T::D],
                                                  const float* __restrict__ meta,
                                                  const float* __restrict__ sw,
-                                                 Scene scene) {
-  return fk_fitness_eval_at<T, C, O>([&](int d) { return x[d]; }, meta, sw, scene);
+                                                 Scene scene, float row_slack) {
+  return fk_fitness_eval_at<T, C, O>([&](int d) { return x[d]; }, meta, sw, scene,
+                                     row_slack);
 }
 
 // fk_fitness_eval_at on angles at x[d * stride]: the lane-major (S, D, P)
@@ -481,9 +670,9 @@ template <class T, int C = kNoCollider, bool O = false>
 __device__ __forceinline__ float fk_fitness_eval_strided(const float* x, long long stride,
                                                          const float* __restrict__ meta,
                                                          const float* __restrict__ sw,
-                                                         Scene scene) {
+                                                         Scene scene, float row_slack) {
   return fk_fitness_eval_at<T, C, O>([=](int d) { return x[d * stride]; }, meta, sw,
-                                     scene);
+                                     scene, row_slack);
 }
 
 // Fitness of one particle of a serial chain of n nodes (n >= 2), without a
@@ -544,7 +733,8 @@ __global__ void fk_fitness_kernel(const float* __restrict__ x,
   float xr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) xr[d] = x[t * D + d];
-  out[t] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
+  out[t] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene,
+                                    box_row_slack<T, C>(meta, swarm + s * K, scene));
 }
 
 constexpr int kFkFitnessThreads = 256;

@@ -23,7 +23,8 @@ __global__ void __launch_bounds__(kFitnessThreads) fused_fitness_kernel(
   float xr[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) xr[d] = __ldg(xs + static_cast<long long>(d) * P);
-  out[s * P + p] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene);
+  out[s * P + p] = fk_fitness_eval<T, C, O>(xr, meta, swarm + s * K, scene,
+                                            box_row_slack<T, C>(meta, swarm + s * K, scene));
 }
 
 template <class T, int C, bool O = false>

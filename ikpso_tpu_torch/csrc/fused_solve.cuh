@@ -370,7 +370,8 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
       st.best(d) = x[d];
     }
   }
-  float lval = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
+  const float row_slack = box_row_slack<T, C>(s_meta, s_sw, scene);
+  float lval = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene, row_slack);
 
   const int dpi = (up.randomized ? 3 : 2) + (up.rekick_interval > 0 ? 1 : 0);
   // Countdowns to the next gbest refresh and the next kick block start
@@ -447,7 +448,7 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
         x[d] = fminf(fmaxf(x[d] + vd, s_lo[d]), s_hi[d]);
       }
     }
-    const float f = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene);
+    const float f = fk_fitness_eval<T, C, O>(x, s_meta, s_sw, scene, row_slack);
     if (f < lval) {
       lval = f;
 #pragma unroll
@@ -542,6 +543,7 @@ constexpr int kSerialThreads = 1024;
 struct SerialWalk {
   int n;
   __device__ int dof() const { return 3 * (n - 1); }
+  __device__ SerialWalk armed(const float*, const float*) const { return *this; }
   __device__ float operator()(const float* x, long long stride, const float* meta,
                               const float* sw) const {
     return fk_fitness_eval_serial(x, stride, n, meta, sw);
@@ -552,9 +554,14 @@ template <class T, int C, bool O>
 struct TreeWalk {
   Scene scene;
   __device__ static constexpr int dof() { return T::D; }
+  float row_slack = INFINITY;
+  // This walk for swarm row sw: its box reject's eps (box_row_slack).
+  __device__ TreeWalk armed(const float* meta, const float* sw) const {
+    return {scene, box_row_slack<T, C>(meta, sw, scene)};
+  }
   __device__ float operator()(const float* x, long long stride, const float* meta,
                               const float* sw) const {
-    return fk_fitness_eval_strided<T, C, O>(x, stride, meta, sw, scene);
+    return fk_fitness_eval_strided<T, C, O>(x, stride, meta, sw, scene, row_slack);
   }
 };
 
@@ -606,6 +613,7 @@ __device__ __forceinline__ void scratch_solve(
     __syncthreads();
     for (int i = p; i < K; i += P) s_sw[i] = swarm[static_cast<long long>(s) * K + i];
     __syncthreads();
+    const W row_walk = walk.armed(s_meta, s_sw);
     const uint2 key = make_uint2(static_cast<unsigned>(seeds[2 * s]),
                                  static_cast<unsigned>(seeds[2 * s + 1]));
     const float* u_swarm =
@@ -632,7 +640,7 @@ __device__ __forceinline__ void scratch_solve(
         }
       }
     }
-    float lval = walk(xg, P, s_meta, s_sw);
+    float lval = row_walk(xg, P, s_meta, s_sw);
 
     int refresh_in = 0;
     int kick_in = up.rekick_interval;
@@ -683,7 +691,7 @@ __device__ __forceinline__ void scratch_solve(
           }
         }
       }
-      const float f = walk(xg, P, s_meta, s_sw);
+      const float f = row_walk(xg, P, s_meta, s_sw);
       if (f < lval) {
         lval = f;
         for (int d = 0; d < D; ++d) lg[d * P] = xg[d * P];

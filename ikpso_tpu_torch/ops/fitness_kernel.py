@@ -117,20 +117,30 @@ def mat_mul(a, b):
     )
 
 
-def sat_separations(px, py, pz, rot, half, oc, oh, orot):
+def sat_frame(rot, orot):
+    """The SAT's setup from the particle box's rotation ``rot`` (9-tuple)
+    and the scene box's rows ``orot``: ``C = Ra^T Rb`` and ``|C| + eps``
+    (``_sat_obb``'s ``c`` and ``ac``). The kernels compute it once per
+    (node, obstacle) pair for both of the node's boxes, which share
+    ``rot``."""
+    c = [rot[i] * orot[0][j] + rot[3 + i] * orot[1][j] + rot[6 + i] * orot[2][j]
+         for i in range(3) for j in range(3)]
+    return c, [torch.abs(v) + SAT_EPS for v in c]
+
+
+def sat_separations(px, py, pz, rot, half, oc, oh, orot, frame=None):
     """The 15 separating-axis tests of a particle box (center p,
     rotation ``rot`` 9-tuple, half extents ``half``) against one scene
     box (center ``oc``, half ``oh``, rotation rows ``orot``), yielded one
-    by one in the Pallas tile's op order (``_sat_obb``): the setup runs
-    before the first. The kernels stop at the first true one
-    (``utils/flops.py`` counts the work that way)."""
-    c = [rot[i] * orot[0][j] + rot[3 + i] * orot[1][j] + rot[6 + i] * orot[2][j]
-         for i in range(3) for j in range(3)]
+    by one in the Pallas tile's op order (``_sat_obb``): the setup
+    (:func:`sat_frame`, unless ``frame`` hands it in) and ``T`` run before
+    the first. The kernels stop at the first true one (``utils/flops.py``
+    counts the work that way)."""
+    c, ac = sat_frame(rot, orot) if frame is None else frame
     dx, dy, dz = oc[0] - px, oc[1] - py, oc[2] - pz
     t = (rot[0] * dx + rot[3] * dy + rot[6] * dz,
          rot[1] * dx + rot[4] * dy + rot[7] * dz,
          rot[2] * dx + rot[5] * dy + rot[8] * dz)
-    ac = [torch.abs(v) + SAT_EPS for v in c]
     a, b = half, oh
     for i in range(3):
         rb = b[0] * ac[i * 3] + b[1] * ac[i * 3 + 1] + b[2] * ac[i * 3 + 2]
@@ -178,12 +188,12 @@ def point_obb_dist2_tile(p, oc, oh, orot):
     return _excess2(_box_frame(p, oc, orot), oh)
 
 
-def seg_obb_dist2_tile(p0, p1, oc, oh, orot, iterations=SEGMENT_OBB_ITERATIONS):
-    """Squared segment -> scene-box distance by bisection on the
-    monotone derivative (``_seg_obb_dist2``). ``torch.sign(0) == 0``,
-    as ``jnp.sign``: a box-frame coordinate of exactly 0 adds nothing."""
-    q0 = _box_frame(p0, oc, orot)
-    q1 = _box_frame(p1, oc, orot)
+def seg_obb_dist2_frame(q0, q1, oh, iterations=SEGMENT_OBB_ITERATIONS):
+    """Squared distance to the scene box of the segment whose end points
+    have box-frame coordinates ``q0``, ``q1``: bisection on the monotone
+    derivative (``_seg_obb_dist2`` after its two frame transforms).
+    ``torch.sign(0) == 0``, as ``jnp.sign``: a box-frame coordinate of
+    exactly 0 adds nothing."""
     b = [q1[i] - q0[i] for i in range(3)]
 
     def g(t):
@@ -203,6 +213,116 @@ def seg_obb_dist2_tile(p0, p1, oc, oh, orot, iterations=SEGMENT_OBB_ITERATIONS):
         lo = torch.where(pred, lo, tm)
     t = 0.5 * (lo + hi)
     return _excess2([q0[i] + t * b[i] for i in range(3)], oh)
+
+
+def seg_obb_dist2_tile(p0, p1, oc, oh, orot, iterations=SEGMENT_OBB_ITERATIONS):
+    """Squared segment -> scene-box distance (``_seg_obb_dist2``)."""
+    return seg_obb_dist2_frame(_box_frame(p0, oc, orot), _box_frame(p1, oc, orot), oh,
+                               iterations)
+
+
+# The exact slab reject of the kernels' collider branches (csrc/fk_fitness.cuh,
+# node_hits; the proof is there), mirrored op for op: it decides "no hit" for
+# a (node, obstacle) pair ahead of the narrow phase, and only where the
+# narrow phase says so. The plain twins (fk_fitness_plain and those built on
+# it) evaluate the narrow phase alone; ``utils/flops.py::collider_work``
+# follows the kernels' exits with these functions.
+REJECT_TAU = _f32(2e-3)
+REJECT_MAX_ANGLE = 12.5
+REJECT_ABS = _f32(1e-15)
+CAPSULE_SLACK = _f32(1e-4)
+SQRT2 = _f32(1.41421356)
+SQRT3 = _f32(1.73205081)
+
+
+def box_reject_eps(num_nodes: int) -> float:
+    """The box reject's relative slack for a chain of ``num_nodes``
+    nodes, ``4e-3 + 5e-5 N`` rounded from double to float32."""
+    return _f32(4e-3 + 5e-5 * num_nodes)
+
+
+def box_frame_offset(p, oc, orot):
+    """Box-frame coordinates of ``p`` as the kernels compute them
+    (``box_frame``: ``d = p - c`` once, then ``q_i = column i of R . d``;
+    the values of :func:`_box_frame`); returns ``(q, d)``."""
+    d = [p[i] - oc[i] for i in range(3)]
+    return [orot[0][i] * d[0] + orot[1][i] * d[1] + orot[2][i] * d[2] for i in range(3)], d
+
+
+def l1_norm(v):
+    """``(|v_0| + |v_1|) + |v_2|``: the scale of the rounding in ``v``."""
+    return (torch.abs(v[0]) + torch.abs(v[1])) + torch.abs(v[2])
+
+
+def slab_reject(q0, q1, oh, thr):
+    """For some axis j, do the box-frame points ``q0_j`` and ``q1_j`` both
+    lie beyond ``oh_j + thr`` on one side? (A point: ``q0 = q1``.)"""
+    out = None
+    for j in range(3):
+        lo, hi = torch.minimum(q0[j], q1[j]), torch.maximum(q0[j], q1[j])
+        sep = torch.maximum(lo, -hi) - oh[j] > thr
+        out = sep if out is None else out | sep
+    return out
+
+
+def box_reject_slack(num_nodes: int, root, obs_rots):
+    """The box reject's slack (:func:`box_reject_eps`), or +inf where the
+    root rotation (9-tuple, row-major) is not orthonormal to
+    ``REJECT_TAU`` or an axis of a scene box (``obs_rots``: each box's
+    rotation rows) is not of unit length to it."""
+    ok = None
+    for i in range(3):
+        row = 0.0
+        for j in range(3):
+            g = root[i] * root[j] + root[3 + i] * root[3 + j] + root[6 + i] * root[6 + j]
+            row = row + torch.abs(g - 1.0 if i == j else g)
+        ok = row <= REJECT_TAU if ok is None else ok & (row <= REJECT_TAU)
+    for orot in obs_rots:
+        for j in range(3):
+            n2 = orot[0][j] * orot[0][j] + orot[1][j] * orot[1][j] + orot[2][j] * orot[2][j]
+            ok = ok & (torch.abs(n2 - 1.0) <= REJECT_TAU)
+    return torch.where(ok, box_reject_eps(num_nodes), float("inf"))
+
+
+def reject_angles_in_range(ax, ay, az):
+    """Are a node's three angles where the polynomial trig keeps the
+    walk's rotations orthonormal enough for the box reject?"""
+    return ((torch.abs(ax) <= REJECT_MAX_ANGLE) & (torch.abs(ay) <= REJECT_MAX_ANGLE)
+            & (torch.abs(az) <= REJECT_MAX_ANGLE))
+
+
+def box_reject_radii(pk, pp, slack, node_half, link_half):
+    """A node's share of the box reject: ``|pk|_1 + |pp|_1`` and the cube's
+    and the link box's radii, ``sqrt(3) |a| (1 + eps)``, ``sqrt(2) |w| (1 + eps)``."""
+    pmag = l1_norm(pk) + l1_norm(pp)
+    grow = 1.0 + slack
+    return pmag, _f32(SQRT3 * abs(node_half)) * grow, _f32(SQRT2 * abs(link_half)) * grow
+
+
+def box_pair_reject(pk, pp, oc, oh, orot, pmag, r_cube, r_link, slack):
+    """Is the gizmo cube, and is the link box, separated from one scene
+    box on one of its axes? ``(cube_sep, link_sep)``."""
+    q1, d1 = box_frame_offset(pk, oc, orot)
+    q0, d0 = box_frame_offset(pp, oc, orot)
+    margin = slack * ((pmag + l1_norm(d1)) + l1_norm(d0)) + REJECT_ABS
+    t_cube = r_cube + margin
+    cube = None
+    for j in range(3):
+        sep = torch.abs(q1[j]) - oh[j] > t_cube
+        cube = sep if cube is None else cube | sep
+    return cube, slab_reject(q0, q1, oh, r_link + margin)
+
+
+def capsule_reject_radius(link_r2: float) -> float:
+    """The capsule reject's radius, ``sqrt(link_r2) (1 + 1e-4)``, in float32."""
+    return _f32(np.sqrt(np.float32(link_r2)) * _f32(1.0 + CAPSULE_SLACK))
+
+
+def capsule_pair_reject(q0, q1, oh, r_cap):
+    """Is the link capsule separated from one scene box on one of its
+    axes (box-frame end points ``q0``, ``q1``)?"""
+    return slab_reject(q0, q1, oh,
+                       r_cap + (CAPSULE_SLACK * (l1_norm(q0) + l1_norm(q1)) + REJECT_ABS))
 
 
 def scene_constants(gizmo_size: float):

@@ -409,14 +409,17 @@ def make_fused_solver(
     spec: ChainSpec,
     pso: PSOConfig = PSOConfig(),
     fit: FitnessConfig = FitnessConfig(),
-    num_particles: int = 1024,
-    device="cuda",
     obstacles: Optional[Obstacles] = None,
+    num_particles: int = 1024,
+    *,
+    device="cuda",
 ):
     """A ``(problem, generator) -> SolveResult`` running kernel A.
 
-    Runs on the card unless ``device`` says otherwise (``"cpu"`` runs the
-    plain solve); raises when the card is asked for and none is visible.
+    The positional order is JAX's (``spec, pso, fit, obstacles,
+    num_particles``); ``device`` is keyword-only. Runs on the card unless
+    ``device`` says otherwise (``"cpu"`` runs the plain solve); raises
+    when the card is asked for and none is visible.
     Packs the constants (scene boxes included) as
     ``ikpso_tpu/pso/fused.py:742-764`` does -- with the orientation term
     when the weight is non-zero and the problem carries target rotations

@@ -16,19 +16,43 @@ work whose inputs must change from call to call.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import statistics
 import time
-from typing import Optional
+from typing import Optional, Set
 
 import torch
 
 
+def cuda_devices(value) -> Set[torch.device]:
+    """The CUDA devices of every tensor in ``value``: a tensor, or a
+    dataclass (``SolveResult``), tuple (a NamedTuple too), list or dict
+    of them, nested to any depth, as ``jax.block_until_ready`` walks a
+    pytree. Anything else holds none."""
+    found: Set[torch.device] = set()
+    todo = [value]
+    while todo:
+        v = todo.pop()
+        if isinstance(v, torch.Tensor):
+            if v.device.type == "cuda":
+                found.add(v.device)
+        elif dataclasses.is_dataclass(v) and not isinstance(v, type):
+            todo.extend(getattr(v, f.name) for f in dataclasses.fields(v))
+        elif isinstance(v, dict):
+            todo.extend(v.values())
+        elif isinstance(v, (tuple, list)):
+            todo.extend(v)
+    return found
+
+
 class Timer:
     """Wall-clock timer: ``with Timer() as t: ...`` sets ``t.elapsed_s``.
-    With a tensor to wait on (``Timer(sync=x)`` or ``t.sync_on(x)``), the
-    clock stops only after ``torch.cuda.synchronize`` on that tensor's
-    card, so queued kernels are inside the time."""
+    With a value to wait on (``Timer(sync=x)`` or ``t.sync_on(x)``: a
+    tensor, or a ``SolveResult``, tuple, list or dict of them), the clock
+    stops only after ``torch.cuda.synchronize`` on each card that holds
+    one of its tensors (:func:`cuda_devices`), so queued kernels are
+    inside the time."""
 
     def __init__(self, sync=None):
         self._sync = sync
@@ -39,12 +63,12 @@ class Timer:
         return self
 
     def __exit__(self, *exc):
-        if isinstance(self._sync, torch.Tensor) and self._sync.device.type == "cuda":
-            torch.cuda.synchronize(self._sync.device)
+        for device in sorted(cuda_devices(self._sync), key=lambda d: d.index or 0):
+            torch.cuda.synchronize(device)
         self.elapsed_s = time.perf_counter() - self._start
 
     def sync_on(self, value):
-        """Register a tensor to wait on before stopping the clock."""
+        """Register a value to wait on before stopping the clock."""
         self._sync = value
         return value
 

@@ -190,84 +190,177 @@ def test_bound_takes_the_larger_term():
 
 def _kernel_order_work(x, meta, swarm, shape, n_obs):
     """Collider ops of each particle, one at a time, in the device
-    function's order (csrc/fk_fitness.cuh: node_hits, sat_obb)."""
+    function's order (csrc/fk_fitness.cuh: fk_fitness_eval_at, node_hits,
+    the slab reject, sat_frame, sat_obb, seg_obb_dist2)."""
     from ikpso_tpu_torch.ops.fitness_kernel import (
+        _excess2,
+        box_frame_offset,
+        box_pair_reject,
+        box_reject_radii,
+        box_reject_slack,
+        capsule_pair_reject,
+        capsule_reject_radius,
         fk_walk_tile,
-        point_obb_dist2_tile,
+        reject_angles_in_range,
+        sat_frame,
         scene_constants,
-        seg_obb_dist2_tile,
+        seg_obb_dist2_frame,
     )
 
     node_half, link_half, node_r2, link_r2 = scene_constants(0.2)
     prefix = flops._sat_prefix_costs()
-    point_cost, seg_cost = flops._capsule_costs()
+    cost = flops.reject_costs(shape)
     lay = MetaLayout(SPEC)
     m = meta.reshape(-1)
+    scene = []
+    for o in range(n_obs):
+        ob = m[lay.OFF_OBS + 15 * o:lay.OFF_OBS + 15 * (o + 1)]
+        scene.append((tuple(ob[:3]), tuple(ob[3:6]),
+                      tuple(tuple(ob[6 + 3 * r + c] for c in range(3)) for r in range(3))))
+
+    def sat(center, half, rk, oc, oh, orot, frame):
+        """(ops, hit) of one SAT stopping at its first separating axis."""
+        for axis, sep in enumerate(sat_separations(*center, rk, half, oc, oh, orot, frame)):
+            if bool(sep):
+                return prefix[axis], False
+        return prefix[-1], True
+
     total = 0.0
     for i in range(x.shape[1]):
         xi = x[:, i:i + 1]
         rots, poss, _ = fk_walk_tile(SPEC, lambda d: xi[..., d], lambda j: m[j],
                                      lambda j: swarm[:, j:j + 1])
         hit = False
+        if shape == "box":
+            total += cost["eval"] + n_obs * cost["obstacle"]
+            slack = box_reject_slack(SPEC.num_nodes, tuple(swarm[:, j:j + 1] for j in range(9)),
+                                     [orot for _, _, orot in scene])
         for k in range(1, SPEC.num_nodes):
-            if hit:
-                break
             pk, rk, pp = poss[k], rots[k], poss[SPEC.parent[k]]
             length = m[lay.OFF_LEN + k - 1]
-            for o in range(n_obs):
-                ob = m[lay.OFF_OBS + 15 * o:lay.OFF_OBS + 15 * (o + 1)]
-                oc, oh = tuple(ob[:3]), tuple(ob[3:6])
-                orot = tuple(tuple(ob[6 + 3 * r + c] for c in range(3)) for r in range(3))
+            if shape == "box":
+                d0 = 3 * (k - 1)
+                if not bool(reject_angles_in_range(xi[..., d0], xi[..., d0 + 1],
+                                                   xi[..., d0 + 2])):
+                    slack = torch.full_like(slack, float("inf"))
+                total += cost["angles"]
+            if hit:
+                continue
+            total += cost["node"]
+            for oc, oh, orot in scene:
                 if shape == "capsule":
-                    total += point_cost
-                    if bool(point_obb_dist2_tile(pk, oc, oh, orot) <= node_r2):
+                    total += cost["point"]
+                    q1 = box_frame_offset(pk, oc, orot)[0]
+                    if bool(_excess2(q1, oh) <= node_r2):
                         hit = True
                         break
-                    total += seg_cost
-                    if bool(seg_obb_dist2_tile(pp, pk, oc, oh, orot) <= link_r2):
+                    total += cost["pair"]
+                    q0 = box_frame_offset(pp, oc, orot)[0]
+                    if bool(capsule_pair_reject(q0, q1, oh, capsule_reject_radius(link_r2))):
+                        continue
+                    total += cost["bisection"]
+                    if bool(seg_obb_dist2_frame(q0, q1, oh) <= link_r2):
                         hit = True
                         break
                     continue
-                boxes = ((pk, (node_half,) * 3),
-                         (tuple((pk[j] + pp[j]) * 0.5 for j in range(3)),
-                          (length * 0.5, link_half, link_half)))
-                for n, (center, half) in enumerate(boxes):
-                    total += flops.LINK_BOX_SETUP if n else 0.0
-                    for axis, sep in enumerate(sat_separations(*center, rk, half, oc, oh,
-                                                               orot)):
-                        if bool(sep):
-                            total += prefix[axis]
-                            break
-                    else:
-                        total += prefix[-1]
-                        hit = True
-                        break
+                total += cost["pair"]
+                pmag, r_cube, r_link = box_reject_radii(pk, pp, slack, node_half, link_half)
+                cube, link = (bool(v) for v in box_pair_reject(pk, pp, oc, oh, orot, pmag,
+                                                               r_cube, r_link, slack))
+                if cube and link:
+                    continue
+                total += cost["frame"]
+                frame = sat_frame(rk, orot)
+                if not cube:
+                    ops, hit = sat(pk, (node_half,) * 3, rk, oc, oh, orot, frame)
+                    total += ops
+                if not hit and not link:
+                    mid = tuple((pk[j] + pp[j]) * 0.5 for j in range(3))
+                    ops, hit = sat(mid, (length * 0.5, link_half, link_half), rk, oc, oh,
+                                   orot, frame)
+                    total += flops.LINK_BOX_SETUP + ops
                 if hit:
                     break
     return total
 
 
-@pytest.mark.parametrize("shape", ["box", "capsule"])
-def test_collider_work_counts_what_the_kernel_evaluates(shape):
-    rng = np.random.default_rng(40)
+def _collider_case(shape, centers, dims, quats, particles=48, seed=40, scale_axis=None):
+    rng = np.random.default_rng(seed)
     spec_j, problem_j = jlib.arm_7dof()
-    obs = convert.obstacles_from(JObstacles.from_boxes(
-        [(1.0, 0.5, 0.0), (-0.6, -0.6, 0.3)], [(1.2, 1.2, 1.2), (0.8, 0.8, 0.8)],
-        [(0.0, 0.0, 0.0, 1.0), (0.0, 0.0, 0.383, 0.924)]))
+    obs = convert.obstacles_from(JObstacles.from_boxes(centers, dims, quats))
+    if scale_axis is not None:  # a scene axis 1% long: the box reject's precondition fails
+        obs = dataclasses.replace(obs, rot=obs.rot * torch.tensor([1.0, 1.0, 1.01]))
     problem = convert.problem_from(jlib.batched_problem(problem_j, problem_j.targets[None]))
     fit = dataclasses.replace(convert.fitness_config_from(JFit()), collision_shape=shape)
     meta = pack_meta(SPEC, fit, obs)
     swarm = pack_swarm(SPEC, problem, fk_ops.pose_to_angles(SPEC, problem.pose),
                        fk_ops.fk_points(SPEC, problem.pose, problem.origin))
     lim = SPEC.limits().numpy()
-    x = torch.as_tensor((lim[0] + rng.random((1, 48, SPEC.dof)) * (lim[1] - lim[0]))
+    x = torch.as_tensor((lim[0] + rng.random((1, particles, SPEC.dof)) * (lim[1] - lim[0]))
                         .astype(np.float32))
+    return fit, obs, meta, swarm, x
+
+
+@pytest.mark.parametrize("shape", ["box", "capsule"])
+def test_collider_work_counts_what_the_kernel_evaluates(shape):
+    fit, obs, meta, swarm, x = _collider_case(
+        shape, [(1.0, 0.5, 0.0), (-0.6, -0.6, 0.3)], [(1.2, 1.2, 1.2), (0.8, 0.8, 0.8)],
+        [(0.0, 0.0, 0.0, 1.0), (0.0, 0.0, 0.383, 0.924)])
     got = flops.collider_work(SPEC, x, meta, swarm, num_obstacles=obs.count,
                               collision_shape=shape, chunk=16)
     assert got == _kernel_order_work(x, meta, swarm, shape, obs.count)
     full = (flops.fitness_tile_count(SPEC, fit, num_obstacles=obs.count).flops
             - flops.fitness_tile_count(SPEC, fit).flops) * x.shape[1]
     assert 0 < got < full
+
+
+@pytest.mark.parametrize("shape", ["box", "capsule"])
+def test_collider_work_where_the_reject_decides_every_pair(shape):
+    # Two small boxes far from the arm: every pair is rejected, so the work
+    # is the reject's alone, in closed form.
+    fit, obs, meta, swarm, x = _collider_case(
+        shape, [(30.0, 0.0, 0.0), (0.0, -30.0, 5.0)], [(1.0, 1.0, 1.0), (0.5, 0.5, 0.5)],
+        [(0.0, 0.0, 0.0, 1.0), (0.0, 0.0, 0.383, 0.924)])
+    got = flops.collider_work(SPEC, x, meta, swarm, num_obstacles=2, collision_shape=shape)
+    assert got == _kernel_order_work(x, meta, swarm, shape, 2)
+    cost = flops.reject_costs(shape)
+    nodes, p = SPEC.num_nodes - 1, x.shape[1]
+    if shape == "box":
+        per = (cost["eval"] + 2 * cost["obstacle"]
+               + nodes * (cost["angles"] + cost["node"] + 2 * cost["pair"]))
+    else:
+        per = nodes * (cost["node"] + 2 * (cost["point"] + cost["pair"]))
+    assert got == p * per
+
+
+@pytest.mark.parametrize("shape", ["box", "capsule"])
+def test_collider_work_where_the_reject_decides_no_pair(shape):
+    # Box: a scene axis 1% long disarms the reject, so every pair pays the
+    # reject and the narrow phase. Capsule: a box around the root, which
+    # every first link leaves from: the reject cannot decide node 1's
+    # pair, and the bisection finds the hit.
+    if shape == "box":
+        fit, obs, meta, swarm, x = _collider_case(
+            shape, [(1.0, 0.5, 0.0), (-0.6, -0.6, 0.3)], [(1.2, 1.2, 1.2), (0.8, 0.8, 0.8)],
+            [(0.0, 0.0, 0.0, 1.0), (0.0, 0.0, 0.383, 0.924)], scale_axis=2)
+    else:
+        fit, obs, meta, swarm, x = _collider_case(
+            shape, [(0.0, 0.0, 0.0)], [(0.2, 0.2, 0.2)], None)
+    got = flops.collider_work(SPEC, x, meta, swarm, num_obstacles=obs.count,
+                              collision_shape=shape)
+    assert got == _kernel_order_work(x, meta, swarm, shape, obs.count)
+    cost = flops.reject_costs(shape)
+    p = x.shape[1]
+    if shape == "box":
+        # More than the reject alone on every pair: the narrow phase ran.
+        nodes = SPEC.num_nodes - 1
+        floor = p * (cost["eval"] + obs.count * cost["obstacle"] + nodes * (
+            cost["angles"] + cost["node"] + obs.count * (cost["pair"] + cost["frame"])))
+        assert got > floor
+        assert flops.collider_work(SPEC, x, meta, swarm, num_obstacles=obs.count,
+                                   collision_shape=shape) == got
+    else:
+        assert got == p * (cost["node"] + cost["point"] + cost["pair"] + cost["bisection"])
 
 
 def test_fused_solve_collider_work_follows_the_plain_trajectory():
@@ -284,11 +377,26 @@ def test_fused_solve_collider_work_follows_the_plain_trajectory():
     swarm = pack_swarm(SPEC, problem, fk_ops.pose_to_angles(SPEC, problem.pose),
                        fk_ops.fk_points(SPEC, problem.pose, problem.origin))
     seeds = torch.as_tensor(rng.integers(-2**31, 2**31, (2, 2)).astype(np.int32))
+    seen = []
     work = flops.fused_solve_collider_work(SPEC, pso, fit, meta, swarm, SPEC.limits(),
                                            seeds, 32, num_obstacles=1)
+    from ikpso_tpu_torch.pso.fused import fused_solve_plain
+
+    fused_solve_plain(SPEC, pso, fit, meta, swarm, SPEC.limits(), seeds, 32,
+                      num_obstacles=1, observe=lambda x: seen.append(x.clone()))
+    # 3 evaluations of 2 x 32 particles, each charged as the kernel runs it,
+    # the reject's slack once a swarm row (the first evaluation's).
+    assert len(seen) == 3
+    assert work == sum(flops.collider_work(SPEC, x, meta, swarm, num_obstacles=1,
+                                           collision_shape="box", row_ops=i == 0)
+                       for i, x in enumerate(seen))
+    cost = flops.reject_costs("box")
+    assert (sum(flops.collider_work(SPEC, x, meta, swarm, num_obstacles=1,
+                                    collision_shape="box") for x in seen) - work
+            == 2 * 2 * 32 * (cost["eval"] + cost["obstacle"]))
     per_eval = (flops.fitness_tile_count(SPEC, fit, num_obstacles=1).flops
                 - flops.fitness_tile_count(SPEC, fit).flops)
-    assert 0 < work < 3 * 2 * 32 * per_eval  # 3 evaluations of 2 x 32 particles
+    assert 0 < work < 3 * 2 * 32 * per_eval
 
 
 def _np_fma(a, b, c):
@@ -398,6 +506,53 @@ def test_profiling_solve_flops_matches_jax():
     gbest_j = jflops.gbest_broadcast_count(d, p // 128, 1).flops * (it + 2)
     port_only = (it + 1) * flops.argmin_count(p).flops + 6.0 * d
     assert got / (s * p) - port_only == pytest.approx(want / (s * p) - gbest_j, rel=1e-9)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, for the timer's walk."""
+
+    @staticmethod
+    def __new__(cls, index):
+        t = torch.Tensor._make_subclass(cls, torch.zeros(1))
+        t.card = index
+        return t
+
+    @property
+    def device(self):
+        return torch.device("cuda", self.card)
+
+
+def test_timer_waits_on_every_card_a_result_holds(monkeypatch):
+    # JAX's Timer blocks on any pytree (jax.block_until_ready); the port's
+    # walks a SolveResult, tuples (NamedTuples too), lists and dicts and
+    # synchronizes each card found once before the clock stops.
+    from typing import NamedTuple
+
+    from ikpso_tpu_torch.pso.solver import SolveResult
+    from ikpso_tpu_torch.utils.profiling import Timer, cuda_devices
+
+    class Pair(NamedTuple):
+        a: torch.Tensor
+        b: torch.Tensor
+
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: calls.append(device))
+    c0, c1, cpu = _OnCard(0), _OnCard(1), torch.zeros(2)
+    result = SolveResult(angles=c0, fitness=c0, pose=c1, effector_error=cpu, trace=c0)
+    for value in (result, (c0, [c1, c0], Pair(cpu, c1)), {"x": c0, "y": {"z": c1}}):
+        calls.clear()
+        with Timer() as t:
+            assert t.sync_on(value) is value
+        assert sorted(map(str, calls)) == ["cuda:0", "cuda:1"]
+        assert t.elapsed_s > 0
+    calls.clear()
+    with Timer(sync={"only": c1}):
+        pass
+    assert calls == [torch.device("cuda", 1)]
+    calls.clear()
+    with Timer(sync=(cpu, None, "text", 3)):
+        pass
+    assert calls == [] and cuda_devices(None) == set()
 
 
 def test_profiling_timer_and_trace_on_the_cpu(tmp_path):

@@ -507,6 +507,34 @@ def test_make_fused_solver_defaults_to_the_card(monkeypatch):
     make_fused_solver(spec, pso=pso, num_particles=32, device="cpu")
 
 
+def test_make_fused_solver_binds_jax_positional_order():
+    # JAX's make_fused_solver(spec, pso, fit, obstacles, num_particles, ...):
+    # the port binds the same positions, device keyword-only, and the
+    # obstacles so passed reach the solve (a box 100 on a side swallows
+    # every pose, so every swarm's best is the collision penalty).
+    import inspect
+
+    from ikpso_tpu.pso.fused import make_fused_solver as j_make_fused_solver
+
+    names = list(inspect.signature(make_fused_solver).parameters)
+    assert names[:5] == list(inspect.signature(j_make_fused_solver).parameters)[:5]
+    assert (inspect.signature(make_fused_solver).parameters["device"].kind
+            is inspect.Parameter.KEYWORD_ONLY)
+    spec, problem = library.arm_7dof()
+    batched = library.batched_problem(problem, problem.targets[None].expand(2, 1, 3))
+    pso = PSOConfig(iterations=2, inertia_mode="canonical", init_mode="uniform")
+    fit = FitnessConfig(angle_weight=0.0)
+    obs = Obstacles.from_boxes([(0.0, 0.0, 0.0)], [(100.0, 100.0, 100.0)])
+    res = make_fused_solver(spec, pso, fit, obs, 64, device="cpu")(
+        batched, torch.Generator().manual_seed(0))
+    assert torch.all(res.fitness == COLLISION_PENALTY)
+    free = make_fused_solver(spec, pso, fit, None, 64, device="cpu")(
+        batched, torch.Generator().manual_seed(0))
+    assert torch.all(free.fitness < COLLISION_PENALTY)
+    with pytest.raises(TypeError):
+        make_fused_solver(spec, pso, fit, obs, 64, "cpu")
+
+
 def test_topology_codes_and_refusal():
     spec7, _ = library.arm_7dof()
     spec_ref, _ = library.reference_arm()
