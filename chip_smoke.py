@@ -27,7 +27,10 @@ published protocols, frames to converge on reference_arm at P=16,384
 through kernel C, against JAX's ``parity_r02``; with ``--polish`` and
 ``--outdir``, the locality gate and the native diagnostics streams;
 ``track``: 4,096 circular paths x 100 chained frames through kernel A;
-``sweep``: 1,024 waypoints with a checkpoint, cut off and resumed), this
+``sweep``: 1,024 waypoints with a checkpoint, cut off and resumed), the
+benchmark entry (``python -m ikpso_tpu_torch.bench``: the headline record
+at S=1,048,576 with its ``sol_frac``, ``--latency`` and ``--impl pallas``,
+three processes at once, their launch counts read from their stderr), this
 slice's paths (``gjk``: the GJK colliders against SAT on 524,288 poses and
 the GJK document's solve with ``--impl jnp``; ``retries_host``: the
 headline batch through the host-gather retries, and one top-k round from
@@ -39,7 +42,9 @@ across the swarm axis on kernel A and the scan cell across the particle
 axis on kernel C, each shard held bit for bit against its single-process
 solve; ``sweep_multihost``: ``cli sweep --multihost`` as two processes;
 ``viz``) and the roofline (``utils.roofline``: kernels D and E, the kernel C and kernel A
-rates, the headline's ``sol_frac``) -- with the launch counts read around
+rates, the headline's ``sol_frac``; kernel E against its integer issue
+ceiling, its instructions a Philox call read from the SASS) -- with the
+launch counts read around
 each, times kernel/plain pairs and holds every kernel's time against its
 bound (``bounds``). Every phase prints one JSON line; any failure raises
 and the script exits non-zero. The last line is ``{"ok": true, "device":
@@ -258,6 +263,11 @@ D_STEPS = 4  # a step count at which every recurrence stays finite
 # The timed launches of kernels D (elements, steps) and E (threads, steps).
 D_TIMED = (1 << 22, 512)
 E_TIMED = (1 << 20, 256)
+# Kernel E's integer issue ceiling: 32-bit integer instructions issue on
+# 64 lanes a clock per SM on Hopper; the SM clock is read while E runs, a
+# queue of this many launches (~0.3 s) keeping the card busy.
+INT_LANES_PER_SM_CLOCK = 64
+E_CLOCK_LAUNCHES = 500
 
 
 T0 = time.perf_counter()
@@ -1380,7 +1390,7 @@ def phase_scan(device, card, swarms=SCAN_SWARMS):
     return launches
 
 
-def phase_roofline(device, card):
+def phase_roofline(device, card, e_per_call):
     """Path 2, the roofline: kernel D's three ceilings, kernel E's draw
     rate, kernel C's and kernel A's loop rates and the headline's
     sol_frac, launch counts read around them; then D and E against
@@ -1441,6 +1451,18 @@ def phase_roofline(device, card):
         lambda: rl.philox_xor_plain((7, 11), n_e, e_steps, device), reps=1)
     if not torch.equal(e_got, e_want):
         raise AssertionError("kernel E disagrees with philox_xor_plain")
+    # E against its integer issue ceiling, the SM clock read under load.
+    for _ in range(E_CLOCK_LAUNCHES):
+        rl.philox_xor((7, 11), n_e, e_steps, device)
+    clocks = card_clocks()
+    torch.cuda.synchronize()
+    sm_hz = float(clocks.split(",")[0].split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    issue_ms = (n_e * e_steps * e_per_call
+                / (INT_LANES_PER_SM_CLOCK * sms * sm_hz) * 1e3)
+    timed["e_issue"] = {"int_instructions_per_call": e_per_call, "sms": sms,
+                        "clocks_under_load": clocks, "issue_bound_ms": issue_ms,
+                        "issue_share": issue_ms / timed["e_ms"]}
     counts = {"d_fma": rl.roofline_body_count("fma", elems, d_steps),
               "e": rl.philox_xor_count(n_e, e_steps)}
     emit("roofline", **rates, published_peaks=rl.PUBLISHED_PEAKS, share_of_published=share,
@@ -2515,6 +2537,69 @@ def phase_cli(card):
     return launches
 
 
+# The benchmark entry (python -m ikpso_tpu_torch.bench) as a user runs it:
+# the default headline at its full batch (kernel A, with --sol), --latency
+# (S=1,280, the 64x slope and a chain of 64 runs) and the scan solver on
+# kernel C at a cut batch.
+BENCH_RUNS = {
+    "headline": (),
+    "latency": ("--latency",),
+    "pallas": ("--impl", "pallas", "--swarms", "4096", "--iterations", "20"),
+}
+
+
+def phase_bench(card):
+    """``python -m ikpso_tpu_torch.bench`` as a user runs it, one process
+    each (``BENCH_RUNS``): the headline record on the card through kernel A
+    at S=1,048,576 with its failures and kernel A's ``sol_frac`` (in (0,
+    1]: its bound is the published peaks); ``--latency``'s record with the
+    host synchronizations one run makes; ``--impl pallas`` through kernel C
+    and not A. The three run at once (they share the card, so their times
+    are no measurement); each process's launch counts, ``--sol``'s keys and
+    peak memory are read from its stderr."""
+    t0 = time.perf_counter()
+    outs = _spawn([[sys.executable, "-m", "ikpso_tpu_torch.bench", *args]
+                   for args in BENCH_RUNS.values()])
+    seconds = time.perf_counter() - t0
+    rows, counts = {}, []
+    for tag, (out, err) in zip(BENCH_RUNS, outs):
+        extras = {}
+        for line in err.splitlines():
+            if line.startswith("{"):
+                extras.update(json.loads(line))
+        counts.append(extras["kernel_launches"])
+        rows[tag] = dict(record=json.loads(out.strip().splitlines()[-1]),
+                         sol_frac=extras.get("sol_frac"),
+                         kernel_wall_ms=extras.get("kernel_wall_ms"),
+                         peak_memory_bytes=extras["peak_memory_bytes"],
+                         launches=extras["kernel_launches"],
+                         host_syncs=[ln for ln in err.splitlines() if "synchronizations" in ln])
+    head, lat, scan = (rows[t]["record"] for t in ("headline", "latency", "pallas"))
+    sol = rows["headline"]["sol_frac"]
+    checks = {
+        "headline": (head["platform"] == "gpu" and head["impl"] == "fused"
+                     and head["frac_under_1mm"] >= 0.999 and head["p50_err_mm"] < 1.0
+                     and isinstance(head.get("failures_ge_1mm"), int)
+                     and sol is not None and 0.0 < sol <= 1.0
+                     and rows["headline"]["launches"]["fused_solve"] > 0),
+        "latency": (lat["metric"] == "arm_7dof_latency_ms_per_1280solve_run"
+                    and lat["impl"] == "fused" and lat["chained_runs"] == 64
+                    and lat["chained_ms"] > 0 and lat["p50_err_mm"] < 1.0
+                    and len(rows["latency"]["host_syncs"]) == 1
+                    and rows["latency"]["launches"]["fused_solve"] > 0),
+        "pallas": (scan["impl"] == "pallas" and scan["platform"] == "gpu"
+                   and rows["pallas"]["launches"]["fused_fitness"] > 0
+                   and rows["pallas"]["launches"]["fused_solve"] == 0),
+    }
+    launches = _sum_counts(counts)
+    ok = all(checks.values())
+    emit("bench", runs=rows, checks=checks, launches=launches, seconds=seconds, card=card,
+         ok=bool(ok))
+    if not ok:
+        raise AssertionError(f"bench: a run missed its check ({checks})")
+    return launches
+
+
 # The reference's own protocol (harness/experiment.py) through the CLI's
 # `experiment`, as JAX's `parity` runs it (ikpso_tpu/harness/cli.py:410-427):
 # reference_arm from reference_reset_targets, P=16,384, the shipped PSO
@@ -2992,6 +3077,50 @@ def phase_sass_sincos():
     return total
 
 
+def phase_sass_philox():
+    """The integer instructions of one Philox call in kernel E's loop, from
+    the SASS of ``roofline.cu`` built with the port's flags (cuobjdump
+    -sass): the loop is the longest span closed by a backward branch in
+    ``philox_xor_kernel``; its calls a trip are its wide multiplies over
+    those of the lone call the compiler peels after it (the remainder of
+    an odd step count); every instruction of the loop but the closing
+    branch is integer work."""
+    import tempfile
+    from collections import Counter
+
+    from ikpso_tpu_torch.utils import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = Path(tmp) / "roofline.cubin"
+        run([kernels._nvcc(), "-cubin", *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC),
+             "-o", str(cubin), str(kernels.CSRC / "roofline.cu")])
+        sass = run([str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(cubin)])
+    body = sass.split("philox_xor_kernel")[1].split("Function : ")[0]
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4})\*/\s+([^;]+);", body)]
+    loops = [(int(t.split("0x")[1], 16), a) for a, t in ins
+             if re.match(r"(@!?P\d )?BRA 0x", t) and int(t.split("0x")[1], 16) < a]
+    start, end = max(loops, key=lambda span: span[1] - span[0])
+    store = next(a for a, t in ins if t.startswith("STG"))
+    loop = [t for a, t in ins if start <= a < end]
+    peeled = [t for a, t in ins if end < a < store]
+
+    def wide(block):
+        return sum(t.startswith("IMAD.WIDE.U32") for t in block)
+
+    calls = wide(loop) // wide(peeled) if wide(peeled) else 1
+    per_call = len(loop) / calls
+    opcodes = Counter(t.split()[0] for t in loop)
+    ok = calls >= 1 and wide(loop) == calls * wide(peeled or loop) and all(
+        not op.startswith(("BRA", "F", "H", "D", "LD", "ST")) for op in opcodes)
+    emit("sass_philox", loop_instructions=len(loop), calls_per_trip=calls,
+         int_instructions_per_call=per_call, opcodes=dict(opcodes), ok=bool(ok))
+    if not ok:
+        raise AssertionError("kernel E's loop is not all integer work, or its calls a "
+                             "trip cannot be read")
+    return per_call
+
+
 # This slice's paths: GJK on the card (agreement with SAT, and the GJK
 # document's solve through harness.configs with --impl jnp), host-gather
 # and from-best retries on the headline batch, the sharded solves of two
@@ -3038,8 +3167,8 @@ def _free_port() -> int:
 
 def _spawn(argvs, timeout=MULTIHOST_TIMEOUT_S):
     """One process per argv, all at once, from the repository root; their
-    stdouts. A process that fails or outlives ``timeout`` fails the
-    phase; every process is killed on the way out."""
+    ``(stdout, stderr)``. A process that fails or outlives ``timeout``
+    fails the phase; every process is killed on the way out."""
     root = Path(__file__).resolve().parent
     procs = [subprocess.Popen(argv, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True) for argv in argvs]
@@ -3053,7 +3182,7 @@ def _spawn(argvs, timeout=MULTIHOST_TIMEOUT_S):
     for i, (p, (_, err)) in enumerate(zip(procs, outs)):
         if p.returncode:
             raise AssertionError(f"process {i} exited {p.returncode}:\n{err[-3000:]}")
-    return [o for o, _ in outs]
+    return outs
 
 
 def _sum_counts(counts):
@@ -3642,7 +3771,7 @@ def phase_sweep_multihost(device, card):
                         "--coordinator", coordinator, "--process-id", str(i),
                         "--checkpoint", f"{tmp}/sweep.npz"] for i in range(2)])
         wall = time.perf_counter() - t0
-        lines = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+        lines = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
         counts = [json.loads(Path(f"{tmp}/counts{i}.json").read_text()) for i in range(2)]
         blocks = [ckpt.load(f"{tmp}/sweep.npz.p{i}") for i in range(2)]
     slices = [ln.pop("local_slice") for ln in lines]
@@ -3730,6 +3859,7 @@ def run_phases(device, card, od_ptxas):
     phase_fused_tie(device, particles=512, model="hand21")
     phase_sass_sincos()
     phase_sass_bisection()
+    e_per_call = phase_sass_philox()
     phase_tensor_polish(device)
     paths = {
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
@@ -3744,6 +3874,7 @@ def run_phases(device, card, od_ptxas):
         paths[f"config_{name}"], config_out[name] = phase_config(device, name, card)
     phase_exact_vs_poly(device, config_out["arm7_exact"], card)
     paths["cli_hand21_jnp"] = phase_cli(card)
+    paths["bench"] = phase_bench(card)
     paths["experiment"] = phase_experiment(device, card)
     paths["experiment_polish_diagnostics"] = phase_experiment_polish_diagnostics(card)
     paths["track"] = phase_track(device, card)
@@ -3754,7 +3885,8 @@ def run_phases(device, card, od_ptxas):
     paths["sharded"] = phase_sharded(device, card)
     paths["sweep_multihost"] = phase_sweep_multihost(device, card)
     paths["viz"] = phase_viz(device, card)
-    paths["roofline"], roof_timed, roof_counts, d_err, sol = phase_roofline(device, card)
+    paths["roofline"], roof_timed, roof_counts, d_err, sol = phase_roofline(device, card,
+                                                                             e_per_call)
     t, counts, t_err = phase_timing(device, TIMING_SWARMS, HEADLINE_SWARMS)
     tt, tree_counts, tt_err = phase_tree_timing(device)
     t.update(tt)
@@ -3944,6 +4076,7 @@ def run_phases(device, card, od_ptxas):
          "ms": roof_timed["e_ms"], "plain_ms": roof_timed["e_plain_ms"],
          **bound_keys("E"), "library_ms": roof_timed["e_library_ms"],
          "library_call": "torch.rand of the same number of 32-bit draws",
+         "integer_issue": roof_timed["e_issue"],
          "timed": f"{E_TIMED[0]} threads, {E_TIMED[1]} Philox calls each"},
     ]
     return kernels

@@ -4,7 +4,8 @@ The JAX package ``ikpso_tpu`` is the reference; this package holds the
 same package (batched Euler-XYZ tree FK, the fitness with its box and
 GJK colliders, the scan solver and the fused PSO megakernel, the
 Levenberg-Marquardt polish, retries, sharded and multi-process solves on
-``torch.distributed``, the harness and the offline viewer) in plain
+``torch.distributed``, the harness, the benchmark entry ``bench`` and the
+offline viewer) in plain
 PyTorch plus hand-written CUDA kernels for Hopper (``csrc/``). It imports
 neither ``jax`` nor ``ikpso_tpu``. The public names of ``ikpso_tpu`` are
 exported here too, imported on first use.

@@ -341,12 +341,17 @@ def measure_fitness_kernel_rate(swarms: int = 16_384, particles: int = 1024,
     return one.ops * k / dt, k * swarms * particles / dt, one.bytes * k / dt
 
 
-def megakernel_slope(spec, batched, pso, fit, *, particles: int, device, seed: int = 0):
+def megakernel_slope(spec, batched, pso, fit, *, particles: int, device, seed: int = 0,
+                     obstacles=None):
     """Kernel A at ``pso.iterations`` and 3x as many iterations (no
-    polish, no retries): returns ``(seconds, FlopCount)`` of exactly
-    ``pso.iterations`` loop iterations -- half the difference of the
-    two walls, and half the difference of the two counts (init, the
-    constants' bytes and the launch cancel)."""
+    polish, no retries), with the scene ``obstacles`` and, where ``fit``
+    weighs it and ``batched`` has target rotations, the orientation term:
+    returns ``(seconds, FlopCount)`` of exactly ``pso.iterations`` loop
+    iterations -- half the difference of the two walls, and half the
+    difference of the two counts (init, the constants' bytes and the
+    launch cancel). The counts are ``fused_solve_count``'s with the
+    scene's boxes and no collider work, so the bound stays below the
+    kernel's."""
     from ikpso_tpu_torch.ops import fk as fk_ops
     from ikpso_tpu_torch.ops.fitness_kernel import pack_meta, pack_swarm
     from ikpso_tpu_torch.pso.fused import fused_solve
@@ -355,9 +360,11 @@ def megakernel_slope(spec, batched, pso, fit, *, particles: int, device, seed: i
 
     dev = _require_cuda(device)
     s = batched.pose.shape[0]
-    meta = pack_meta(spec, fit).to(dev)
+    num_obstacles = 0 if obstacles is None else obstacles.count
+    orient = float(fit.orientation_weight) != 0.0 and batched.target_rot is not None
+    meta = pack_meta(spec, fit, obstacles, orient).to(dev)
     swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
-                       anchor_positions_flat(spec, batched))
+                       anchor_positions_flat(spec, batched), orient)
     limits = spec.limits().to(dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
     seeds = torch.randint(-2**31, 2**31, (s, 2), generator=gen, device=dev,
@@ -366,12 +373,15 @@ def megakernel_slope(spec, batched, pso, fit, *, particles: int, device, seed: i
     for mult in (1, 3):
         cfg = dataclasses.replace(pso, iterations=pso.iterations * mult)
         _, w = measure(
-            lambda sd, c=cfg: fused_solve(spec, c, fit, meta, swarm, limits, sd, particles),
+            lambda sd, c=cfg: fused_solve(spec, c, fit, meta, swarm, limits, sd, particles,
+                                          num_obstacles=num_obstacles,
+                                          use_orientation=orient),
             seeds, device=dev, warmup=1, iters=5,
             vary=lambda i, a: (a[0] + (i + 1),))
         walls.append(w)
         counts.append(fused_solve_count(spec, cfg, fit, num_particles=particles,
-                                        num_swarms=s))
+                                        num_swarms=s, num_obstacles=num_obstacles,
+                                        use_orientation=orient))
     d = counts[1] + counts[0] * -1.0
     return max((walls[1] - walls[0]) / 2.0, 1e-9), d * 0.5
 

@@ -196,7 +196,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 15
     # The modules ported last are among those checked.
     assert {"ops/gjk.py", "parallel/mesh.py", "parallel/sharded.py",
-            "parallel/distributed.py", "viz/render.py"} <= {
+            "parallel/distributed.py", "viz/render.py", "bench.py"} <= {
         p.relative_to(PORT).as_posix() for p in files}
     for path in files + [PORT.parent / "chip_smoke.py"]:
         for name in _imports(path):
