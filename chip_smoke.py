@@ -359,11 +359,12 @@ def phase_environment():
 def _wrappers():
     from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness, fused_fitness
     from ikpso_tpu_torch.pso.fused import fused_solve
+    from ikpso_tpu_torch.pso.solver import scan_step
     from ikpso_tpu_torch.utils.roofline import philox_xor, roofline_body
 
     return {"fused_solve": fused_solve, "fk_fitness": fk_fitness,
-            "fused_fitness": fused_fitness, "roofline_body": roofline_body,
-            "philox_xor": philox_xor}
+            "fused_fitness": fused_fitness, "scan_step": scan_step,
+            "roofline_body": roofline_body, "philox_xor": philox_xor}
 
 
 def reset_counts():
@@ -1224,59 +1225,183 @@ def phase_fused_fitness(device, swarms=64, particles=1024):
     return errs
 
 
-def phase_scan_replay(device, swarms=SCAN_REPLAY_SWARMS, particles=1024, iterations=60):
-    """The scan solve through kernel C against the same solve through
-    kernel C's plain twin, on the same injected draws."""
+# The scan step (csrc/scan_step.cu(h)) against pso_iteration on kernel C's
+# plain twin, whole solves on the same draws: case -> (model, swarms,
+# particles, PSOConfig overrides of scan_configs, angle weight, scene,
+# injected draws). "scan" is the scan path's own shape (its draws from one
+# seeded generator on both sides: injected, its 60 blocks would not fit);
+# "reference_arm" the experiment's P (64 blocks a swarm); "hook" records
+# each step's candidate through a gbest_reduce hook on both sides;
+# "on_demand_box" is the on-demand entry (dual_arm_box's library).
+SCAN_REPLAY_CASES = {
+    "scan": ("arm_7dof", SCAN_SWARMS, 1024, {}, 0.0, False, False),
+    "reference_arm": ("reference_arm", 8, 16_384, {"iterations": 15}, 3.0, False, True),
+    "box": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024, {"iterations": 20, "init_mode": "uniform"},
+            0.3, True, True),
+    "canonical": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024,
+                  {"iterations": 20, "inertia_mode": "canonical", "inertia_end": 0.2}, 0.3,
+                  False, True),
+    "rekick": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024,
+               {"iterations": 20, "rekick_interval": 4, "rekick_threshold": 1e-4}, 0.3,
+               False, True),
+    "ragged": ("arm_7dof", SCAN_REPLAY_SWARMS, 1000, {"iterations": 20}, 0.3, False, True),
+    "hook": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024, {"iterations": 20}, 0.3, False, True),
+    "on_demand_box": ("dual_arm_14dof", 64, 1024, {"iterations": 10}, 0.3, True, True),
+}
+
+
+def _states_equal(a, b):
+    """Tuples of tensors equal element for element (NaN where NaN)."""
+    import torch
+
+    return all(x.shape == y.shape and torch.equal(x.isnan(), y.isnan())
+               and torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)) for x, y in zip(a, b))
+
+
+def _scan_replay_case(device, name):
+    """One ``SCAN_REPLAY_CASES`` solve through the step and through
+    ``pso_iteration`` on kernel C's plain twin."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.harness.scan import scan_configs
+    from ikpso_tpu_torch.ops.fitness import FitnessConfig
+    from ikpso_tpu_torch.ops.fitness_kernel import make_kernel_fitness
+    from ikpso_tpu_torch.pso.solver import ScanDraws, draws_per_iteration, scan_step, solve
+
+    model, swarms, particles, over, aw, scene, injected = SCAN_REPLAY_CASES[name]
+    pso = dataclasses.replace(scan_configs()[0], **over)
+    fit = FitnessConfig(angle_weight=aw, distance_weight=0.0, orientation_weight=0.0)
+    rng = np.random.default_rng(8)
+    spec, batched = _problem(model, swarms, rng, device)
+    obstacles = _scene(spec, device) if scene else None
+    fitness = make_kernel_fitness(spec, batched, fit, obstacles)
+    draws = None
+    if injected:
+        gen = torch.Generator(device=device).manual_seed(8)
+        shape = (swarms, particles, spec.dof)
+        draws = ScanDraws(
+            torch.rand(shape, generator=gen, device=device) if pso.init_mode != "warm"
+            else None, torch.rand(shape, generator=gen, device=device),
+            torch.rand((pso.iterations, draws_per_iteration(pso)) + shape, generator=gen,
+                       device=device))
+    res, cands, steps = {}, {False: [], True: []}, {}
+    for plain, fn in ((False, fitness), (True, fitness.plain)):
+        before = scan_step.launches
+        res[plain] = solve(spec, batched, None if injected
+                           else torch.Generator(device=device).manual_seed(8),
+                           pso, fit, obstacles=obstacles, num_particles=particles,
+                           fitness_fn=fn, uniforms=draws,
+                           gbest_reduce=_recording_hook(cands[plain]) if name == "hook"
+                           else None)
+        steps[plain] = scan_step.launches - before
+    torch.cuda.synchronize()
+    k, p = res[False], res[True]
+    equal = _states_equal((k.angles, k.fitness, k.trace), (p.angles, p.fitness, p.trace))
+    cands_equal = len(cands[False]) == len(cands[True]) and all(
+        _states_equal(a, b) for a, b in zip(cands[False], cands[True]))
+    hits = None
+    if scene:
+        hits = float((fitness.plain(k.angles[:, None, :]) >= FLT_MAX).float().mean())
+    ok = (equal and cands_equal and steps == {False: pso.iterations, True: 0}
+          and bool(torch.isfinite(k.fitness).all()))
+    emit("scan_replay", case=name, model=model, swarms=swarms, particles=particles,
+         iterations=pso.iterations, inertia_mode=pso.inertia_mode,
+         rekick=[pso.rekick_interval, pso.rekick_threshold], scene=bool(scene),
+         injected_draws=injected, hook_candidates=len(cands[False]),
+         step_launches=steps[False], plain_step_launches=steps[True],
+         gbest_max_abs_err=float((k.angles - p.angles).abs().max()),
+         gval_max_abs_err=float((k.fitness - p.fitness).abs().max()),
+         colliding_solutions=hits, bitwise_equal=equal, candidates_equal=cands_equal,
+         bar="torch.equal on angles, fitness and trace", ok=ok)
+    if not ok:
+        raise AssertionError(f"scan_replay {name}: the scan step disagrees with "
+                             "pso_iteration on kernel C's plain twin")
+
+
+def _recording_hook(rec):
+    """A gbest_reduce hook that records each candidate and passes it on."""
+    def hook(val, coords):
+        rec.append((val.clone(), coords.clone()))
+        return val, coords
+    return hook
+
+
+def _scan_replay_tie(device, swarms=64, particles=1024):
+    """Two steps on a state whose lbest values are forced: step 0 ties the
+    minimum at particles 255, 256 and 700 (a block edge and a later block:
+    the first must win, and gbest take its row); step 1 puts a NaN at
+    particle 900 (a NaN is the minimum), read through a recording hook."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     from ikpso_tpu_torch.harness.scan import scan_configs
     from ikpso_tpu_torch.ops import fk as fk_ops
-    from ikpso_tpu_torch.ops.fitness_kernel import (
-        fused_fitness_plain,
-        make_kernel_fitness,
-        pack_meta,
-        pack_swarm,
-    )
-    from ikpso_tpu_torch.pso.solver import ScanDraws, draws_per_iteration, solve
+    from ikpso_tpu_torch.ops.fitness import FitnessConfig
+    from ikpso_tpu_torch.ops.fitness_kernel import make_kernel_fitness
+    from ikpso_tpu_torch.pso.solver import (draws_per_iteration, init_swarm, pso_iteration,
+                                            scan_step, step_buffers, step_work)
 
-    pso, fit = scan_configs(iterations)
-    rng = np.random.default_rng(8)
+    pso = dataclasses.replace(scan_configs()[0], init_mode="uniform")
+    fit = FitnessConfig(angle_weight=0.3, distance_weight=0.0, orientation_weight=0.0)
+    rng = np.random.default_rng(10)
     spec, batched = _problem("arm_7dof", swarms, rng, device)
-    gen = torch.Generator(device=device).manual_seed(8)
+    fitness = make_kernel_fitness(spec, batched, fit)
+    gen = torch.Generator(device=device).manual_seed(10)
+    lo, hi = spec.limits().to(device)
+    limits = torch.stack((lo, hi)).contiguous()
     shape = (swarms, particles, spec.dof)
-    draws = ScanDraws(None, torch.rand(shape, generator=gen, device=device),
-                      torch.rand((iterations, draws_per_iteration(pso)) + shape,
-                                 generator=gen, device=device))
-    # The plain twin of make_kernel_fitness's closure: the same packing.
-    meta = pack_meta(spec, fit).to(device)
-    swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
-                       fk_ops.fk_points(spec, batched.pose, batched.origin))
-
-    def plain_fitness(x):
-        return fused_fitness_plain(spec, x.transpose(-1, -2).contiguous(), meta, swarm)
-
-    res = {}
-    for plain, fitness_fn in ((False, make_kernel_fitness(spec, batched, fit)),
-                              (True, plain_fitness)):
-        res[plain] = solve(spec, batched, None, pso, fit, num_particles=particles,
-                           fitness_fn=fitness_fn, uniforms=draws)
-    torch.cuda.synchronize()
-    k, p = res[False], res[True]
-    g_err = float((k.angles - p.angles).abs().max())
-    v_err = float((k.fitness - p.fitness).abs().max())
-    equal = bool(torch.equal(k.angles, p.angles) and torch.equal(k.fitness, p.fitness)
-                 and torch.equal(k.trace, p.trace))
-    ok = bool(torch.isfinite(k.angles).all() and torch.isfinite(k.fitness).all()
-              and g_err <= REPLAY_ATOL
-              and bool(((k.fitness - p.fitness).abs()
-                        <= REPLAY_VAL_ATOL + REPLAY_RTOL * p.fitness.abs()).all()))
-    emit("scan_replay", swarms=swarms, particles=particles, iterations=iterations,
-         inertia_mode=pso.inertia_mode, gbest_max_abs_err=g_err, gval_max_abs_err=v_err,
-         bitwise_equal=equal, bar=f"atol {REPLAY_ATOL}, rtol {REPLAY_RTOL}", ok=ok)
+    state = init_swarm(None, fk_ops.pose_to_angles(spec, batched.pose), particles, fitness,
+                       pso, limits=(lo, hi),
+                       uniforms=(torch.rand(shape, generator=gen, device=device),
+                                 torch.rand(shape, generator=gen, device=device)))
+    mine = step_buffers(state)
+    plain = tuple(t.clone() for t in mine)
+    work = step_work(swarms, particles, device)
+    cands = {False: [], True: []}
+    equal = []
+    for it in range(2):
+        for st in (mine, plain):
+            if it == 0:
+                st[3].fill_(1.0)
+                st[3][:, [255, 256, 700]] = 0.0
+            else:
+                st[3][:, 900] = float("nan")
+        u = torch.rand((draws_per_iteration(pso),) + shape, generator=gen, device=device)
+        mine = scan_step(fitness, *mine, u, limits, pso, iteration=it, work=work,
+                         gbest_reduce=_recording_hook(cands[False]) if it else None)
+        plain = pso_iteration(*plain, u, fitness.plain, lo, hi, pso, iteration=it,
+                              gbest_reduce=_recording_hook(cands[True]) if it else None)
+        torch.cuda.synchronize()
+        equal.append(_states_equal(mine, plain))
+        if it == 0:
+            first = torch.equal(mine[4], mine[2][:, 255]) and bool((mine[5] == 0.0).all())
+    nan_first = (bool(cands[False][0][0].isnan().all())
+                 and torch.equal(cands[False][0][1], mine[2][:, 900]))
+    ok = bool(all(equal) and first and nan_first
+              and _states_equal(cands[False][0], cands[True][0])
+              and int(work.arrivals.abs().sum()) == 0)
+    emit("scan_replay", case="tie", model="arm_7dof", swarms=swarms, particles=particles,
+         tie_at=[255, 256, 700], first_minimum_won=first, nan_at=900,
+         nan_candidate_won=nan_first, bitwise_equal=equal,
+         bar="torch.equal on the state after each step; particle 255, then the NaN", ok=ok)
     if not ok:
-        raise AssertionError("scan solve through kernel C disagrees with the plain replay")
-    return g_err
+        raise AssertionError("scan_replay tie: the step broke a tie or a NaN unlike "
+                             "pso_iteration")
+
+
+def phase_scan_replay(device):
+    """The scan step against ``pso_iteration`` on kernel C's plain twin, bit
+    for bit (``SCAN_REPLAY_CASES`` and a forced tie); returns the largest
+    error (0.0: a difference raises)."""
+    for name in SCAN_REPLAY_CASES:
+        _scan_replay_case(device, name)
+    _scan_replay_tie(device)
+    return 0.0
 
 
 def _device_events(prof):
@@ -1337,18 +1462,25 @@ def _device_ms_readings(prof, kernel):
             "events": len(events)}
 
 
-def _device_busy(prof):
-    """Device ms in a profile: every kernel, kernel C, and torch's random
-    draws (``torch.rand``); None each when the profiler recorded no
-    device time."""
-    busy, ms = _device_ms(prof, {"c": ("fused_fitness_kernel",),
-                                 "rng": ("distribution",)})
-    return (busy, ms["c"], ms["rng"]) if busy > 0 else (None, None, None)
+# The scan solver's device time by kernel: the step, kernel C (init), torch's
+# random draws (torch.rand), and the rest ("other": every other op).
+SCAN_SPLIT = {"scan_step": ("scan_step_kernel",), "kernel_c": ("fused_fitness_kernel",),
+              "torch_rand": ("distribution",)}
+
+
+def _device_split(prof):
+    """Device ms in a profile: busy, and its split by ``SCAN_SPLIT`` with
+    the rest as ``other``; None when the profiler recorded no device time."""
+    busy, ms = _device_ms(prof, SCAN_SPLIT)
+    if busy <= 0:
+        return None
+    return {"busy": busy, **ms, "other": busy - sum(ms.values())}
 
 
 def phase_scan(device, card, swarms=SCAN_SWARMS):
-    """The scan solver on kernel C at full size through run_scan, launch
-    counts read around it; then one more solve under the profiler."""
+    """The scan solver at full size through run_scan (kernel C at init, the
+    scan step each iteration), launch counts read around it; then one more
+    solve under the profiler, its device time split by kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1373,20 +1505,21 @@ def phase_scan(device, card, swarms=SCAN_SWARMS):
         solver(batched, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, kernel_c_ms, rng_ms = _device_busy(prof)
-    readings = _device_ms_readings(prof, "fused_fitness_kernel")
-    per_solve = ITERATIONS + 1
-    ok = (launches["fused_fitness"] == per_solve * (warmup + iters) and out["finite"]
-          and out["p50_err_mm"] < 1.0 and out["frac_under_1mm"] >= SCAN_FRAC_BAR)
+    split = _device_split(prof)
+    readings = _device_ms_readings(prof, "scan_step_kernel")
+    solves = warmup + iters
+    ok = (launches["fused_fitness"] == solves and launches["scan_step"] == ITERATIONS * solves
+          and out["finite"] and out["p50_err_mm"] < 1.0
+          and out["frac_under_1mm"] >= SCAN_FRAC_BAR)
     emit("scan", **out, wall_ms=out["wall_s"] * 1e3, launches=launches,
-         max_memory_allocated=peak, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-         kernel_c_device_ms=kernel_c_ms, torch_rand_device_ms=rng_ms,
-         device_idle_share=None if busy_ms is None else 1.0 - busy_ms / wall_ms,
+         max_memory_allocated=peak, profiled_wall_ms=wall_ms, device_ms=split,
+         scan_step_ms_per_launch=None if split is None else split["scan_step"] / ITERATIONS,
+         device_idle_share=None if split is None else 1.0 - split["busy"] / wall_ms,
          device_ms_readings=readings,
          jax_frac_under_1mm=SCAN_JAX_FRAC_UNDER_1MM, frac_bar=SCAN_FRAC_BAR, card=card,
          ok=bool(ok))
     if not ok:
-        raise AssertionError("scan path missed its bar or bypassed kernel C")
+        raise AssertionError("scan path missed its bar or bypassed the scan step")
     return launches
 
 
@@ -1501,8 +1634,9 @@ def phase_obstacles(device, swarms, card, shape):
 def _stage_times(device, stages, full, problem, gen):
     """Stage walls (``utils.profiling.measure``, median of ``iters`` after 1
     warm-up) of ``stages``, ``(key, solver, problem, iters)`` tuples; then
-    device busy, kernel A's and kernel C's shares of it and the idle share
-    over one more solve of ``full`` under the profiler."""
+    device busy, kernel A's, kernel C's, the scan step's and torch.rand's
+    shares of it and the idle share over one more solve of ``full`` under
+    the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1522,12 +1656,13 @@ def _stage_times(device, stages, full, problem, gen):
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy, ms = _device_ms(prof, {
         "a": ("fused_solve_kernel", "fused_solve_serial_kernel",
-              "fused_solve_tree_scratch_kernel"),
-        "c": ("fused_fitness_kernel",)})
+              "fused_solve_tree_scratch_kernel"), **SCAN_SPLIT})
     out.update(profiled_wall_ms=wall_ms,
                device_busy_ms=busy if busy else None,
                kernel_a_device_ms=ms["a"] if busy else None,
-               kernel_c_device_ms=ms["c"] if busy else None,
+               kernel_c_device_ms=ms["kernel_c"] if busy else None,
+               scan_step_device_ms=ms["scan_step"] if busy else None,
+               torch_rand_device_ms=ms["torch_rand"] if busy else None,
                device_idle_share=1.0 - busy / wall_ms if busy else None)
     return out
 
@@ -2208,6 +2343,10 @@ BOUND_ROWS += tuple(
      "kernel C, reference_arm, S=128, D=21, P=16,384, angle_weight 3.0"),
     ("A track", "a_track", "fused_solve_track_ms",
      "kernel A, arm_7dof, S=4,096, P=128, 8 iterations, re-kick every 4 above 1e-6"),
+    ("step scan path", "step_scan", "scan_step_ms",
+     f"scan step, arm_7dof, S={SCAN_SWARMS}, D=9, P=1024, step 31 of 60"),
+    ("step experiment", "step_experiment", "scan_step_experiment_ms",
+     "scan step, reference_arm, S=128, D=21, P=16,384, angle_weight 3.0, step 8 of 15"),
 )
 
 
@@ -2521,19 +2660,19 @@ def phase_cli(card):
                          trace_len=len(out["trace"]))
     # In process, with the launch counts read around it: the same solve on
     # the scan solver (--impl jnp), whose fitness is kernel C built on
-    # demand for hand21, one launch per evaluation.
+    # demand for hand21, once at init, and whose iterations are the step's.
     iterations = 8
     reset_counts()
     line = _cli_lines(["solve", *CLI_RUNS["hand21"], "--impl", "jnp", "--particles", "1024",
                        "--iterations", str(iterations)])[-1]
     launches = read_counts()
-    ok = (launches["fused_fitness"] == iterations + 1 and launches["fused_solve"] == 0
-          and len(line["trace"]) == iterations + 1)
+    ok = (launches["fused_fitness"] == 1 and launches["scan_step"] == iterations
+          and launches["fused_solve"] == 0 and len(line["trace"]) == iterations + 1)
     rows["hand21_jnp"] = dict(launches=launches, effector_error=line["effector_error"],
                               trace_len=len(line["trace"]))
     emit("cli", runs=rows, card=card, ok=bool(ok))
     if not ok:
-        raise AssertionError("cli solve --impl jnp bypassed kernel C")
+        raise AssertionError("cli solve --impl jnp bypassed kernel C or the scan step")
     return launches
 
 
@@ -2554,9 +2693,9 @@ def phase_bench(card):
     at S=1,048,576 with its failures and kernel A's ``sol_frac`` (in (0,
     1]: its bound is the published peaks); ``--latency``'s record with the
     host synchronizations one run makes; ``--impl pallas`` through kernel C
-    and not A. The three run at once (they share the card, so their times
-    are no measurement); each process's launch counts, ``--sol``'s keys and
-    peak memory are read from its stderr."""
+    and the scan step, and not A. The three run at once (they share the
+    card, so their times are no measurement); each process's launch counts,
+    ``--sol``'s keys and peak memory are read from its stderr."""
     t0 = time.perf_counter()
     outs = _spawn([[sys.executable, "-m", "ikpso_tpu_torch.bench", *args]
                    for args in BENCH_RUNS.values()])
@@ -2589,6 +2728,7 @@ def phase_bench(card):
                     and rows["latency"]["launches"]["fused_solve"] > 0),
         "pallas": (scan["impl"] == "pallas" and scan["platform"] == "gpu"
                    and rows["pallas"]["launches"]["fused_fitness"] > 0
+                   and rows["pallas"]["launches"]["scan_step"] > 0
                    and rows["pallas"]["launches"]["fused_solve"] == 0),
     }
     launches = _sum_counts(counts)
@@ -2685,8 +2825,9 @@ def _cli_config(device, argv):
 
 def phase_experiment(device, card):
     """The three published protocols through ``cli experiment`` (the scan
-    solver on kernel C, P=16,384), launch counts read around the three; then
-    one frame of iter3's first batch alone and under the profiler."""
+    solver: kernel C at init, the scan step each iteration; P=16,384),
+    launch counts read around the three; then one frame of iter3's first
+    batch alone and under the profiler, its device time split by kernel."""
     import math
 
     import torch
@@ -2698,7 +2839,7 @@ def phase_experiment(device, card):
     rows = {}
     reset_counts()
     for name, extra in EXPERIMENT_PROTOCOLS.items():
-        before = read_counts()["fused_fitness"]
+        before = read_counts()
         t0 = time.perf_counter()
         s = _cli_lines(["experiment", *EXPERIMENT_ARGS, *extra])[-1]
         mean_j, std_j = PARITY_R02[name]
@@ -2709,14 +2850,15 @@ def phase_experiment(device, card):
             frames_max=s["frames_max"], frames_std=s["frames_std"],
             unconverged=unconverged, solves_per_second=s["solves_per_second"],
             wall_s=s["wall_time_s"], process_s=time.perf_counter() - t0,
-            fused_fitness_launches=read_counts()["fused_fitness"] - before,
+            fused_fitness_launches=read_counts()["fused_fitness"] - before["fused_fitness"],
+            scan_step_launches=read_counts()["scan_step"] - before["scan_step"],
             angle_delta=s.get("angle_delta"), pos_delta=s.get("pos_delta"),
             jax_parity_r02_mean=mean_j, bar=f"|mean - {mean_j:.4f}| <= {bar:.4f}",
             published_mean=PUBLISHED_FRAMES[name],
             ok=bool(unconverged == 0 and abs(s["frames_avg"] - mean_j) <= bar))
     launches = read_counts()
-    # Stages: one frame (a scan solve through kernel C) of iter3's first
-    # trial batch at the reset, alone (median of 3 after 1) and profiled.
+    # Stages: one frame (a scan solve: kernel C, then the step) of iter3's
+    # first trial batch at the reset, alone (median of 3 after 1) and profiled.
     cfg, _ = _cli_config(device, ["experiment", *EXPERIMENT_ARGS])
     batch = _flag(EXPERIMENT_ARGS, "--trial-batch")
     reset = reference_reset_targets(device=device)
@@ -2729,14 +2871,14 @@ def phase_experiment(device, card):
     stages["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
     ok = (all(r["ok"] for r in rows.values()) and launches["fused_solve"] == 0
           and all(r["fused_fitness_launches"] > 0
-                  and r["fused_fitness_launches"] % (cfg.pso.iterations + 1) == 0
-                  for r in rows.values()))
+                  and r["scan_step_launches"] == cfg.pso.iterations
+                  * r["fused_fitness_launches"] for r in rows.values()))
     emit("experiment", protocols=rows, trials=EXPERIMENT_TRIALS,
          particles=cfg.num_particles, trial_batch=batch,
          max_frames=_flag(EXPERIMENT_ARGS, "--max-frames"), launches=launches, stages=stages,
          reduced="256 trials a protocol, JAX's parity_r02 ran 512", card=card, ok=ok)
     if not ok:
-        raise AssertionError("experiment missed its bar or bypassed kernel C")
+        raise AssertionError("experiment missed its bar or bypassed the scan step")
     return launches
 
 
@@ -2763,7 +2905,8 @@ def phase_experiment_polish_diagnostics(card):
           and len(degrees) == len(positions) == len(distance) == frames[0]
           and all(len(r) == 21 for r in degrees) and all(len(r) == 21 for r in positions)
           and distance[-1] <= 0.025 < (distance[0] if len(distance) > 1 else 1.0)
-          and launches["fused_fitness"] > 0 and launches["fused_solve"] == 0)
+          and launches["fused_fitness"] > 0 and launches["scan_step"] > 0
+          and launches["fused_solve"] == 0)
     emit("experiment_polish_diagnostics", summary=s, trial0_frames=frames,
          lines={k: len(v) for k, v in streams.items()}, distance_first_last=
          [distance[0], distance[-1]] if distance else None, launches=launches,
@@ -2954,6 +3097,101 @@ def phase_slice_timing(device):
          bar={"C experiment": "equal masks, max abs error 0.0 on free particles",
               "A track": "bit-identical gbest and gval"}, clocks=card_clocks(), ok=True)
     return times, counts, errs
+
+
+# The scan step's timed launches: (key, model, swarms, particles, steps run
+# before the timed one, the CLI arguments whose recipe it takes).
+STEP_TIMED = (
+    ("scan", "arm_7dof", SCAN_SWARMS, 1024, 30, None),
+    ("experiment", "reference_arm", 128, 16_384, 7,
+     ["experiment", *EXPERIMENT_ARGS, *EXPERIMENT_PROTOCOLS["iter3"]]),
+)
+
+
+def _step_timing(device, model, swarms, particles, warm_steps, argv, reps=10):
+    """One scan-step launch on a state ``warm_steps`` steps into a solve,
+    timed by CUDA events around the launch alone (the state restored before
+    each of ``reps`` launches after one more: each moves the same bytes, and
+    the restore evicts L2; a spin kernel ahead of the start event keeps the
+    host's enqueue out of the window), against ``pso_iteration`` on kernel C's plain twin
+    from the same state (bit for bit); returns ``(ms, plain ms, count,
+    improved)``."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.harness.scan import scan_configs
+    from ikpso_tpu_torch.ops import fk as fk_ops
+    from ikpso_tpu_torch.ops.fitness_kernel import make_kernel_fitness
+    from ikpso_tpu_torch.pso.solver import (draws_per_iteration, init_swarm, pso_iteration,
+                                            scan_step, step_buffers, step_work)
+    from ikpso_tpu_torch.utils import flops
+
+    if argv is None:
+        pso, fit = scan_configs()
+    else:
+        cfg = _cli_config(device, argv)[0]
+        pso, fit = cfg.pso, cfg.fitness
+    spec, batched = _problem(model, swarms, np.random.default_rng(13), device)
+    fitness = make_kernel_fitness(spec, batched, fit)
+    gen = torch.Generator(device=device).manual_seed(13)
+    lo, hi = spec.limits().to(device)
+    limits = torch.stack((lo, hi)).contiguous()
+    state = step_buffers(init_swarm(gen, fk_ops.pose_to_angles(spec, batched.pose),
+                                    particles, fitness, pso, limits=(lo, hi)))
+    work = step_work(swarms, particles, device)
+    shape = (draws_per_iteration(pso), swarms, particles, spec.dof)
+    for it in range(warm_steps):
+        state = scan_step(fitness, *state, torch.rand(shape, generator=gen, device=device),
+                          limits, pso, iteration=it, work=work)
+    snap = tuple(t.clone() for t in state)
+    u = torch.rand(shape, generator=gen, device=device)
+
+    def timed(run, n):
+        ms = []
+        for _ in range(n + 1):
+            for a, b in zip(state, snap):
+                a.copy_(b)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            torch.cuda._sleep(2_000_000)  # the card busy while the host enqueues the launch
+            start.record()
+            out = run()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        return float(np.mean(ms[1:])), out
+
+    # pso_iteration leaves its inputs as they are; the step updates them.
+    ms, got = timed(lambda: scan_step(fitness, *state, u, limits, pso,
+                                      iteration=warm_steps, work=work), reps)
+    got = tuple(t.clone() for t in got)
+    plain_ms, want = timed(lambda: pso_iteration(*state, u, fitness.plain, lo, hi, pso,
+                                                 iteration=warm_steps), 1)
+    if not _states_equal(got, want):
+        raise AssertionError(f"scan step disagrees with pso_iteration at {model} S={swarms}")
+    improved = int((got[3] < snap[3]).sum())
+    kick = (pso.rekick_interval > 0 and warm_steps > 0
+            and warm_steps % pso.rekick_interval == 0)
+    count = flops.scan_step_count(spec, pso, fit, num_swarms=swarms, num_particles=particles,
+                                  improved=improved, kick=kick)
+    return ms, plain_ms, count, improved
+
+
+def phase_step_timing(device):
+    """The scan step at the scan path's shape and the experiment's (each a
+    state some steps into its solve): time, plain time, counted work and the
+    improved particles of the timed launch."""
+    times, counts, improved = {}, {}, {}
+    for key, model, swarms, particles, warm, argv in STEP_TIMED:
+        ms, plain_ms, count, imp = _step_timing(device, model, swarms, particles, warm, argv)
+        suffix = "" if key == "scan" else f"_{key}"
+        times[f"scan_step{suffix}_ms"], times[f"scan_step{suffix}_plain_ms"] = ms, plain_ms
+        counts[f"step_{key}"] = count
+        improved[key] = imp
+    emit("step_timing", **times, improved=improved,
+         shapes={k: [m, s, p] for k, m, s, p, _, _ in STEP_TIMED},
+         bar="bit-identical to pso_iteration on kernel C's plain twin", clocks=card_clocks(),
+         ok=True)
+    return times, counts
 
 
 def phase_on_demand_timing(device):
@@ -3269,7 +3507,8 @@ def phase_gjk(device, card):
           and out["colliding_solutions"] <= most and out["colliding_solutions_gjk"] <= most
           and out["p50_err_mm"] < 1.0 and lo50 <= out["p50_err_mm"] <= hi50
           and lo90 <= out["p90_err_mm"] <= hi90
-          and launches["fused_solve"] == launches["fused_fitness"] == 0)
+          and launches["fused_solve"] == launches["fused_fitness"] == 0
+          and launches["scan_step"] == 0)
     emit("gjk", agreement=agree, agreement_bar=GJK_AGREEMENT_BAR, poses=n,
          gjk_lanes_per_collider=lanes, gjk_rounds_budget=GJK_ITERATIONS,
          gjk_call_ms=gjk_ms, gjk_call_device_busy_ms=gjk_busy_ms,
@@ -3511,14 +3750,15 @@ try:
     from ikpso_tpu_torch.pso.fused import fused_solve
     from ikpso_tpu_torch.pso.polish import wrap_with_polish
     from ikpso_tpu_torch.pso.restarts import wrap_with_topk_retries
+    from ikpso_tpu_torch.pso.solver import scan_step
 
     def counts():
         return dict(fused_solve=fused_solve.launches, fk_fitness=fk_fitness.launches,
-                    fused_fitness=fused_fitness.launches,
+                    fused_fitness=fused_fitness.launches, scan_step=scan_step.launches,
                     fused_solve_variants=dict(fused_solve.variant_launches))
 
     def reset():
-        for fn in (fused_solve, fk_fitness, fused_fitness):
+        for fn in (fused_solve, fk_fitness, fused_fitness, scan_step):
             fn.launches = 0
         fused_solve.variant_launches = {}
 
@@ -3580,7 +3820,8 @@ try:
     rec.update(swarm_frac_under_1mm=float((err_mm < 1.0).mean()),
                swarm_failures_ge_1mm=int((err_mm >= 1.0).sum()),
                swarm_p50_err_mm=float(np.median(err_mm)))
-    # (b) The scan solver on kernel C across the particle axis.
+    # (b) The scan solver (kernel C at init, the scan step each iteration)
+    # across the particle axis.
     s = %(scan_swarms)d
     batched = library.batched_problem(problem, reachable_targets(spec, problem, s, gen(0)))
     scan_pso, scan_fit = scan_configs()
@@ -3610,9 +3851,10 @@ def phase_sharded(device, card):
     rank's derived seed, a 1-rank mesh equals the unsharded solve bit for
     bit, and the headline recipe (polish, top-k retries) around the
     sharded solver is scored. (b) The scan cell across the particle axis
-    (kernel C, gbest reduced every iteration): frac_under_1mm within 4
-    standard errors of the unsharded scan solve at the same S and P; both
-    ranks' kernel C launches read."""
+    (kernel C at init, then the scan step, its gbest candidate reduced
+    across the ranks every iteration): frac_under_1mm within 4 standard
+    errors of the unsharded scan solve at the same S and P; both ranks'
+    kernel C and step launches read."""
     import tempfile
 
     import numpy as np
@@ -3686,7 +3928,8 @@ def phase_sharded(device, card):
           and recs[0]["swarm_seed"] != recs[1]["swarm_seed"]
           and all(r["backend"] == "gloo" for r in recs)
           and abs(frac - whole_frac) <= four_se
-          and all(r["particle_launches"]["fused_fitness"] == iterations + 1 for r in recs)
+          and all(r["particle_launches"]["fused_fitness"] == 1
+                  and r["particle_launches"]["scan_step"] == iterations for r in recs)
           and all(r["swarm_launches"]["fused_solve"] >= 1 for r in recs))
     launches = _sum_counts([r["swarm_launches"] for r in recs]
                            + [r["particle_launches"] for r in recs])
@@ -3706,6 +3949,7 @@ def phase_sharded(device, card):
              for r in recs},
          rank_peak_bytes=[r["peak_bytes"] for r in recs], ranks_seconds=ranks_s,
          kernel_c_launches_by_rank=[r["particle_launches"]["fused_fitness"] for r in recs],
+         scan_step_launches_by_rank=[r["particle_launches"]["scan_step"] for r in recs],
          kernel_a_launches_by_rank=[r["swarm_launches"]["fused_solve"] for r in recs],
          launches=launches, seconds=time.perf_counter() - t_phase, card=card, ok=bool(ok))
     if not ok:
@@ -3723,6 +3967,7 @@ sys.path.insert(0, sys.argv[1])
 from ikpso_tpu_torch.harness import cli, trajectory
 from ikpso_tpu_torch.ops.fitness_kernel import fk_fitness, fused_fitness
 from ikpso_tpu_torch.pso.fused import fused_solve
+from ikpso_tpu_torch.pso.solver import scan_step
 
 rates, real = [], trajectory.solve_waypoints
 
@@ -3736,7 +3981,7 @@ def recorded(*args, **kw):
 trajectory.solve_waypoints = recorded
 rc = cli.main(sys.argv[3:])
 json.dump(dict(fused_solve=fused_solve.launches, fk_fitness=fk_fitness.launches,
-               fused_fitness=fused_fitness.launches,
+               fused_fitness=fused_fitness.launches, scan_step=scan_step.launches,
                fused_solve_variants=dict(fused_solve.variant_launches), rates=rates),
           open(sys.argv[2], "w"))
 sys.exit(rc)
@@ -3797,7 +4042,7 @@ def phase_sweep_multihost(device, card):
           and slices == [[0, 512], [512, 1024]] and lines[0]["waypoints"] == 1024
           and abs(lines[0]["solves_per_second"] - sum(rates)) <= 1e-9 * sum(rates)
           and all(c["fused_solve"] >= 2 for c in counts)
-          and all(c["fused_fitness"] == 0 for c in counts))
+          and all(c["fused_fitness"] == c["scan_step"] == 0 for c in counts))
     emit("sweep_multihost", **lines[0], local_slices=slices, blocks_bit_identical=equal,
          process_rates=rates, processes_wall_s=wall, launches=launches,
          launches_by_process=[{k: c[k] for k in ("fused_solve", "fused_fitness")}
@@ -3897,6 +4142,9 @@ def run_phases(device, card, od_ptxas):
     st, st_counts, st_err = phase_slice_timing(device)
     t.update(st)
     counts.update(st_counts)
+    step_t, step_counts = phase_step_timing(device)
+    t.update(step_t)
+    counts.update(step_counts)
     bounds = phase_bounds(t, counts, roof_timed, roof_counts, card)
 
     def by_path(name):
@@ -4052,12 +4300,30 @@ def run_phases(device, card, od_ptxas):
          "ms": t["fused_fitness_ms"], "plain_ms": t["fused_fitness_plain_ms"],
          **bound_keys("C scan path"), "library_ms": None,
          "timed": f"S={SCAN_SWARMS}, D=9, P=1024, no scene",
+         "redesigned_as": "scan_step (on the card every kernel-C iteration is a step; "
+                          "kernel C evaluates the init)",
          "experiment_shape": {"ms": t["fused_fitness_experiment_ms"],
                               "plain_ms": t["fused_fitness_experiment_plain_ms"],
                               **bound_keys("C experiment"),
                               "max_abs_err": st_err["C experiment"],
                               "timed": "reference_arm, S=128, D=21, P=16,384, angle_weight "
                                        "3.0 (one trial batch of the experiment path)"}},
+        {"name": "scan_step", "route": "cuda",
+         "source": "ikpso_tpu_torch/csrc/scan_step.cu",
+         "replaces": "ikpso_tpu/ops/pallas_fitness.py:482",
+         "launches": paths["scan"]["scan_step"],
+         "launches_by_path": by_path("scan_step"),
+         "max_abs_err": scan_err, "bar": "torch.equal against pso_iteration on kernel C's "
+                                         "plain twin (phase scan_replay, step_timing)",
+         "ms": t["scan_step_ms"], "plain_ms": t["scan_step_plain_ms"],
+         **bound_keys("step scan path"), "library_ms": None,
+         "timed": f"S={SCAN_SWARMS}, D=9, P=1024, step 31 of 60 (scan_configs)",
+         "experiment_shape": {"ms": t["scan_step_experiment_ms"],
+                              "plain_ms": t["scan_step_experiment_plain_ms"],
+                              **bound_keys("step experiment"),
+                              "timed": "reference_arm, S=128, D=21, P=16,384, angle_weight "
+                                       "3.0, step 8 of 15 (one trial batch of iter3)"},
+         "on_demand_source": "ikpso_tpu_torch/csrc/on_demand.cuh"},
         {"name": "roofline_body", "route": "cuda",
          "source": "ikpso_tpu_torch/csrc/roofline.cu",
          "replaces": "ikpso_tpu/utils/roofline.py:74",

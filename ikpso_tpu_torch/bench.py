@@ -66,7 +66,7 @@ from ikpso_tpu_torch.pso.fused import fused_solve, make_fused_solver
 from ikpso_tpu_torch.pso.polish import wrap_with_polish
 from ikpso_tpu_torch.pso.presets import FUSED_PRESETS
 from ikpso_tpu_torch.pso.restarts import wrap_solver_with_target_walk, wrap_with_topk_retries
-from ikpso_tpu_torch.pso.solver import SolveResult, make_solver
+from ikpso_tpu_torch.pso.solver import SolveResult, make_solver, scan_step
 from ikpso_tpu_torch.utils import roofline, seeds
 from ikpso_tpu_torch.utils.flops import fused_solve_count
 from ikpso_tpu_torch.utils.profiling import measure, trace
@@ -512,9 +512,10 @@ def build_record(args, recipe: dict, stats: dict, platform: str) -> dict:
 
 
 def _launch_counts(since: Optional[dict] = None) -> dict:
-    """Kernel A's and C's launches (and kernel A's per variant) since the
-    counts ``since``."""
+    """Kernel A's and C's and the scan step's launches (and kernel A's per
+    variant) since the counts ``since``."""
     now = {"fused_solve": fused_solve.launches, "fused_fitness": fused_fitness.launches,
+           "scan_step": scan_step.launches,
            "fused_solve_variants": dict(fused_solve.variant_launches)}
     if since is None:
         return now
@@ -522,6 +523,7 @@ def _launch_counts(since: Optional[dict] = None) -> dict:
                 for k, n in now["fused_solve_variants"].items()}
     return {"fused_solve": now["fused_solve"] - since["fused_solve"],
             "fused_fitness": now["fused_fitness"] - since["fused_fitness"],
+            "scan_step": now["scan_step"] - since["scan_step"],
             "fused_solve_variants": {k: n for k, n in variants.items() if n}}
 
 

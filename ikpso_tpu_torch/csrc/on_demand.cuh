@@ -1,13 +1,16 @@
-// Kernels A, B and C for one topology and term combination built on demand.
+// Kernels A, B and C and the scan step for one topology and term combination
+// built on demand.
 //
-// The prebuilt library (fused_solve.cu, fk_fitness.cu, fused_fitness.cu)
+// The prebuilt library (fused_solve.cu, fk_fitness.cu, fused_fitness.cu,
+// scan_step.cu)
 // holds the instantiations the ported paths were written for. Any other
 // tree, and any other (topology, collider, orientation, distance, trig)
 // combination -- a JSON config can name any of them -- is compiled when it
 // is first asked for: ikpso_tpu_torch/utils/kernels.py writes a small .cu
 // that defines the IKPSO_OD_* macros below and includes this header, and
 // compiles it into a library of its own. The kernels are the prebuilt
-// ones' templates (fused_solve.cuh, fk_fitness.cuh, fused_fitness.cuh)
+// ones' templates (fused_solve.cuh, fk_fitness.cuh, fused_fitness.cuh,
+// scan_step.cuh)
 // instantiated for OnDemandTopology<...>; nothing here computes anything
 // they do not.
 //
@@ -26,14 +29,16 @@
 // (kernel A; the scratch layout takes a scratch of grid x planes x D x P
 // floats, planes 2 with IKPSO_OD_SHARED and 3 without, grid <=
 // ikpso_od_fused_solve_blocks), ikpso_od_fk_fitness (kernel B's
-// standalone launcher) and ikpso_od_fused_fitness (kernel C). Each returns
-// a CUDA error code, as the prebuilt ones do.
+// standalone launcher), ikpso_od_fused_fitness (kernel C) and
+// ikpso_od_scan_step (the scan solver's step). Each returns a CUDA error
+// code, as the prebuilt ones do.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "fused_fitness.cuh"
 #include "fused_solve.cuh"
+#include "scan_step.cuh"
 
 namespace ikpso {
 
@@ -193,5 +198,20 @@ extern "C" int ikpso_od_fused_fitness(int n_obs, float node_half, float link_hal
   launch_fused_fitness<OdTopology, kOdCollider, kOdOrientation>(
       x, meta, swarm, K, Scene{n_obs, node_half, link_half, node_r2, link_r2}, out, S, P,
       static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ikpso_od_scan_step(int n_obs, float node_half, float link_half,
+                                  float node_r2, float link_r2, IKPSO_STEP_PARAMS) {
+  using namespace ikpso;
+  if (n_obs < 0 || (kOdCollider == kNoCollider && n_obs)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t rc = launch_scan_step(
+      StepTreeWalk<OdTopology, kOdCollider, kOdOrientation>{
+          Scene{n_obs, node_half, link_half, node_r2, link_r2}},
+      OdTopology::D, meta, swarm, K, IKPSO_STEP_STATE(OdTopology::D), IKPSO_STEP_UPDATE, S,
+      P, static_cast<cudaStream_t>(stream));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""The scan solver on kernel C, end to end.
+"""The scan solver on kernel C and the scan step, end to end.
 
 Torch twin of ``python bench.py --impl pallas`` on ``arm_7dof``: with
 ``impl != "fused"`` bench's defaults resolve (``bench.py:1004,
@@ -12,7 +12,9 @@ Torch twin of ``python bench.py --impl pallas`` on ``arm_7dof``: with
   3. no re-kick, no polish, no retries;
 
 and kernel C (``make_kernel_fitness``, ``bench.py:184-196``) evaluates
-the fitness: iterations + 1 launches per solve.
+the fitness: on the card once at init, then each iteration is one launch
+of the scan step (``csrc/scan_step.cu(h)``), which inlines the same
+evaluation -- 1 kernel C and ``iterations`` step launches per solve.
 
 Run: ``python -m ikpso_tpu_torch.harness.scan [--swarms S]
 [--iterations I] [--device cuda] [--seed N]`` prints the result dict as
@@ -32,7 +34,7 @@ from ikpso_tpu_torch.models import library
 from ikpso_tpu_torch.ops.fitness import FitnessConfig
 from ikpso_tpu_torch.ops.fitness_kernel import fused_fitness, make_kernel_fitness
 from ikpso_tpu_torch.pso.config import PSOConfig
-from ikpso_tpu_torch.pso.solver import make_solver
+from ikpso_tpu_torch.pso.solver import make_solver, scan_step
 from ikpso_tpu_torch.utils.profiling import measure
 
 MODEL = "arm_7dof"
@@ -71,10 +73,12 @@ def run_scan(swarms: int = SWARMS, particles: int = PARTICLES,
     batched = library.batched_problem(
         problem, reachable_targets(spec, problem, swarms, gen_targets))
     solver = build_scan_solver(spec, batched, particles, iterations)
-    before = fused_fitness.launches
+    before = fused_fitness.launches, scan_step.launches
     res, wall = measure(solver, batched, gen_solve, device=device,
                         warmup=warmup, iters=iters)
-    launches = fused_fitness.launches - before
+    launches = fused_fitness.launches - before[0]
+    steps = scan_step.launches - before[1]
+    calls = max(warmup, 0) + max(iters, 1)
     err_mm = res.effector_error.double().cpu().numpy() * 1000.0
     return dict(
         model=MODEL,
@@ -92,7 +96,9 @@ def run_scan(swarms: int = SWARMS, particles: int = PARTICLES,
         failures_ge_1mm=int((err_mm >= 1.0).sum()),
         finite=bool(np.isfinite(err_mm).all()),
         fused_fitness_launches=launches,
-        fused_fitness_launches_per_solve=launches / (max(warmup, 0) + max(iters, 1)),
+        fused_fitness_launches_per_solve=launches / calls,
+        scan_step_launches=steps,
+        scan_step_launches_per_solve=steps / calls,
     )
 
 

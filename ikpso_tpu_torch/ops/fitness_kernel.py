@@ -16,7 +16,9 @@ the packed-constant layout (``MetaLayout``, ``pack_meta``,
     ``fused_fitness_plain`` and ``fused_fitness`` — kernel C
     (``csrc/fused_fitness.cu``, inlining kernel B's device function),
     with ``make_kernel_fitness``, the scan solver's ``fitness_fn``
-    (``make_pallas_fitness``).
+    (``make_pallas_fitness``): a :class:`KernelFitness`, which also
+    launches the scan solver's step (``csrc/scan_step.cu(h)``, one PSO
+    iteration with kernel C's evaluation inlined; ``pso.solver.scan_step``).
 
 Each kernel wrapper runs its plain version on CPU tensors and launches
 the kernel (or raises) on CUDA tensors.
@@ -722,13 +724,74 @@ def fused_fitness(spec: ChainSpec, x_dp: torch.Tensor, meta: torch.Tensor,
 fused_fitness.launches = 0
 
 
+class KernelFitness:
+    """Kernel C as the scan solver's ``fitness_fn``, with its packing.
+
+    Called on ``(S, P, D)`` angles it transposes them to the lane-major
+    ``(S, D, P)`` and calls :func:`fused_fitness`, as ``make_pallas_fitness``'s
+    closure does. It carries what it packed -- ``spec``, ``meta``,
+    ``swarm`` and the branch flags (``branches``: the keyword arguments of
+    :func:`fused_fitness`) -- so that ``pso.solver.solve`` can run a whole
+    iteration through the scan step (:meth:`launch_step`) on the card.
+    """
+
+    def __init__(self, spec: ChainSpec, meta: torch.Tensor, swarm: torch.Tensor,
+                 branches: dict):
+        self.spec, self.meta, self.swarm = spec, meta, swarm
+        self.branches = dict(branches)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_fitness(self.spec, x.transpose(-1, -2).contiguous(), self.meta,
+                             self.swarm, **self.branches)
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """Kernel C's plain twin on the same packing (``(S, P, D)`` angles)."""
+        return fused_fitness_plain(self.spec, x.transpose(-1, -2).contiguous(), self.meta,
+                                   self.swarm, **self.branches)
+
+    def configuration(self) -> str:
+        """The topology and branches, as a refusal names them."""
+        b = self.branches
+        terms = [f"{b['num_obstacles']} {b['collision_shape']} obstacles"
+                 if b["num_obstacles"] else "no scene"]
+        terms += [t for t, on in (("orientation", b["use_orientation"]),
+                                  ("distance term", b["use_distance_term"]),
+                                  (f"{b['trig_impl']} trig", True)) if on]
+        return f"{kernels.topology_name(self.spec)} ({', '.join(terms)})"
+
+    def launch_step(self, x, v, lbest, lbest_val, u, limits, gbest, gbest_val, reduced,
+                    update, work) -> None:
+        """Launch the scan step over the CUDA state (``pso.solver.scan_step``,
+        which owns the launch count): ``update`` is ``(w, c1, c2, randomized,
+        kick, kick_scale, kick_threshold)``, ``reduced`` the hook's
+        ``(value, coordinates)`` outputs or None, ``work`` the
+        ``(candidate values, candidate ids, arrivals)`` scratch."""
+        name = f"scan_step for {self.configuration()}"
+        s, p, _ = x.shape
+        cand_val, cand_id, arrivals = work
+        kernels.require_cuda_contiguous(name, x, v, lbest, lbest_val, u, limits, gbest,
+                                        gbest_val, *work, *(reduced or ()))
+        red = (None, None) if reduced is None else tuple(t.data_ptr() for t in reduced)
+        meta = self.meta.reshape(-1)
+        tail = (meta.data_ptr(), self.swarm.data_ptr(), self.swarm.shape[1],
+                limits.data_ptr(), x.data_ptr(), v.data_ptr(), lbest.data_ptr(),
+                lbest_val.data_ptr(), u.data_ptr(), u.shape[0], gbest.data_ptr(),
+                gbest_val.data_ptr(), *red, *update, cand_val.data_ptr(),
+                cand_id.data_ptr(), cand_val.shape[1], arrivals.data_ptr(), s, p,
+                kernels.stream_ptr(x.device))
+        _launch(name, self.spec, x, meta, self.swarm, **self.branches,
+                prebuilt=lambda lib, topo, collider, orient, scene: lib.ikpso_scan_step(
+                    topo, collider, orient, *scene, *tail),
+                serial=lambda lib: lib.ikpso_scan_step_serial(self.spec.num_nodes, *tail),
+                on_demand=lambda lib, scene: lib.ikpso_od_scan_step(*scene, *tail))
+
+
 def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
                         fit: FitnessConfig = FitnessConfig(),
-                        obstacles: Obstacles = None):
+                        obstacles: Obstacles = None) -> KernelFitness:
     """A scan-solver ``fitness_fn`` backed by kernel C
-    (``make_pallas_fitness``): takes ``(S, P, D)``, transposes to the
-    lane-major ``(S, D, P)`` and calls :func:`fused_fitness`. The
-    per-chain and per-swarm constants are packed once, here."""
+    (``make_pallas_fitness``): a :class:`KernelFitness`, whose per-chain
+    and per-swarm constants are packed once, here."""
     num_obstacles = 0 if obstacles is None else obstacles.count
     if num_obstacles and fit.collision_backend == "gjk":
         raise NotImplementedError(
@@ -744,12 +807,7 @@ def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
     swarm = pack_swarm(spec, problem, fk_ops.pose_to_angles(spec, problem.pose),
                        fk_ops.fk_points(spec, problem.pose, problem.origin),
                        use_orientation)
-
-    def fitness_fn(x: torch.Tensor) -> torch.Tensor:
-        return fused_fitness(spec, x.transpose(-1, -2).contiguous(), meta, swarm,
-                             num_obstacles=num_obstacles,
-                             collision_shape=fit.collision_shape,
-                             gizmo_size=fit.gizmo_size, use_orientation=use_orientation,
-                             use_distance_term=use_distance, trig_impl=fit.trig_impl)
-
-    return fitness_fn
+    return KernelFitness(spec, meta, swarm, dict(
+        num_obstacles=num_obstacles, collision_shape=fit.collision_shape,
+        gizmo_size=fit.gizmo_size, use_orientation=use_orientation,
+        use_distance_term=use_distance, trig_impl=fit.trig_impl))

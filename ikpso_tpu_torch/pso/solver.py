@@ -33,7 +33,7 @@ import torch
 from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, Obstacles
 from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.ops.fitness import FitnessConfig, fitness, true_effector_error
-from ikpso_tpu_torch.ops.fitness_kernel import TWO_PI
+from ikpso_tpu_torch.ops.fitness_kernel import TWO_PI, KernelFitness
 from ikpso_tpu_torch.pso.config import PSOConfig
 
 FitnessFn = Callable[[torch.Tensor], torch.Tensor]  # (S, P, D) -> (S, P)
@@ -145,6 +145,119 @@ def pso_iteration(x, v, lbest, lbest_val, gbest, gbest_val, u: torch.Tensor,
     return x, v, lbest, lbest_val, gbest, gbest_val
 
 
+def _kick(pso: PSOConfig, iteration: int) -> int:
+    """Which swarms iteration ``iteration`` re-kicks, as :func:`pso_iteration`
+    decides it: 0 none, 1 every swarm, 2 those whose gbest is above the
+    threshold (``StepKick`` in ``csrc/scan_step.cuh``)."""
+    if pso.rekick_interval > 0 and iteration > 0 and iteration % pso.rekick_interval == 0:
+        return 2 if pso.rekick_threshold >= 0.0 else 1
+    return 0
+
+
+class StepWork(NamedTuple):
+    """The scan step's scratch for S swarms: each block's first-minimum
+    candidate ``(S, blocks)`` (value, particle id; room for the most blocks
+    a swarm can take, of 32 threads, as the step takes for the widest
+    chains) and each swarm's arrival counter ``(S,)``, zero between launches
+    (the last block resets it)."""
+
+    cand_val: torch.Tensor
+    cand_id: torch.Tensor
+    arrivals: torch.Tensor
+
+
+def step_work(num_swarms: int, num_particles: int, device) -> StepWork:
+    """:class:`StepWork` for S swarms of P particles."""
+    blocks = -(-num_particles // 32)
+    return StepWork(torch.empty((num_swarms, blocks), dtype=torch.float32, device=device),
+                    torch.empty((num_swarms, blocks), dtype=torch.int32, device=device),
+                    torch.zeros(num_swarms, dtype=torch.int32, device=device))
+
+
+def block_first_min(values: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step's block candidates, plain: per block of ``block``
+    particles of ``values`` ``(S, P)``, the first minimum and its particle
+    id, ``(S, blocks)`` each (a NaN counts as the minimum, as
+    ``torch.argmin`` takes it; the ragged last block is padded with +inf,
+    which loses every tie to a real particle)."""
+    s, p = values.shape
+    blocks = -(-p // block)
+    pad = values.new_full((s, blocks * block - p), float("inf"))
+    tiles = torch.cat([values, pad], dim=1).reshape(s, blocks, block)
+    idx = torch.argmin(tiles, dim=-1)
+    first = torch.arange(blocks, device=values.device) * block
+    return torch.take_along_dim(tiles, idx[..., None], dim=-1)[..., 0], idx + first
+
+
+def first_min_of_blocks(cand_val: torch.Tensor, cand_id: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The step's second pass, plain: the first minimum over the block
+    candidates in block order -> ``(S,)`` value and particle id."""
+    k = torch.argmin(cand_val, dim=-1, keepdim=True)
+    return (torch.take_along_dim(cand_val, k, dim=-1)[:, 0],
+            torch.take_along_dim(cand_id, k, dim=-1)[:, 0])
+
+
+def scan_step(fitness: KernelFitness, x, v, lbest, lbest_val, gbest, gbest_val,
+              u: torch.Tensor, limits: torch.Tensor, pso: PSOConfig, iteration: int = 0,
+              gbest_reduce: Optional[GbestReduce] = None, work: Optional[StepWork] = None):
+    """One PSO step through the scan-step kernel: :func:`pso_iteration`
+    with kernel C's evaluation, in one launch. ``limits`` is the ``(2, D)``
+    stack of the joint limits, ``work`` the step's scratch
+    (:func:`step_work`).
+
+    CPU tensors run :func:`pso_iteration` (with ``fitness``, whose CPU
+    call is kernel C's plain twin). CUDA tensors launch the kernel or
+    raise: x, v, lbest and lbest_val are updated in place, and gbest and
+    gbest_val too without ``gbest_reduce``; with it the kernel returns
+    each swarm's candidate and the hook and the two ``torch.where`` run as
+    in :func:`pso_iteration`. x, v and lbest must be separate buffers."""
+    if x.device.type == "cpu":
+        return pso_iteration(x, v, lbest, lbest_val, gbest, gbest_val, u, fitness,
+                             limits[0], limits[1], pso, iteration=iteration,
+                             gbest_reduce=gbest_reduce)
+    randomized = pso.inertia_mode == "randomized"
+    w = pso.inertia if randomized else inertia_at(pso, iteration)
+    update = (w, pso.cognitive, pso.social, int(randomized), _kick(pso, iteration),
+              pso.rekick_scale, pso.rekick_threshold)
+    if work is None:
+        work = step_work(x.shape[0], x.shape[1], x.device)
+    reduced = None
+    if gbest_reduce is not None:
+        reduced = (torch.empty_like(gbest_val), torch.empty_like(gbest))
+    fitness.launch_step(x, v, lbest, lbest_val, u, limits, gbest, gbest_val, reduced,
+                        update, work)
+    scan_step.launches += 1
+    if reduced is not None:
+        cand_val, cand = gbest_reduce(*reduced)
+        better = cand_val < gbest_val
+        gbest_val = torch.where(better, cand_val, gbest_val)
+        gbest = torch.where(better[:, None], cand, gbest)
+    return x, v, lbest, lbest_val, gbest, gbest_val
+
+
+scan_step.launches = 0
+
+
+def step_route(fitness_fn, device) -> bool:
+    """Whether :func:`solve` runs its iterations through :func:`scan_step`:
+    kernel C's fitness on the card."""
+    return isinstance(fitness_fn, KernelFitness) and torch.device(device).type == "cuda"
+
+
+def step_buffers(state):
+    """The init state as the scan step updates it in place: x, v and lbest
+    separate contiguous buffers (warm init's x is an ``expand`` view and
+    lbest is x), gbest and gbest_val copies (the trace keeps init's)."""
+    x, v, lbest, lbest_val, gbest, gbest_val = state
+
+    def own(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    return (x.contiguous(), v.contiguous(), own(lbest), lbest_val.contiguous(), own(gbest),
+            own(gbest_val))
+
+
 def init_swarm(generator: Optional[torch.Generator], anchor_angles: torch.Tensor,
                num_particles: int, fitness_fn: FitnessFn, pso: PSOConfig,
                limits: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -193,8 +306,9 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
     """Solve a batch of IK problems (one leading swarm axis) with PSO.
 
     ``fitness_fn`` overrides the plain fitness (e.g. kernel C's
-    ``make_kernel_fitness``); ``uniforms`` replaces the generator;
-    ``gbest_reduce`` reduces the gbest candidates across ranks.
+    ``make_kernel_fitness``, whose iterations on the card are scan-step
+    launches); ``uniforms`` replaces the generator; ``gbest_reduce``
+    reduces the gbest candidates across ranks.
     ``vary_axes`` is accepted for JAX's signature: it marks the carry as
     rank-varying for ``shard_map``'s types, and a rank's torch tensors
     need no such mark.
@@ -223,13 +337,23 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
                        else (uniforms.position, uniforms.velocity),
                        gbest_reduce=gbest_reduce)
     trace = [state[5]]
+    on_card = step_route(fitness_fn, anchor_angles.device)
+    if on_card:
+        state = step_buffers(state)
+        limits = torch.stack((lo, hi)).contiguous()
+        work = step_work(state[0].shape[0], num_particles, anchor_angles.device)
     n = draws_per_iteration(pso)
     for it in range(pso.iterations):
         u = (uniforms.steps[it] if uniforms is not None
              else _uniform(generator, (n,) + tuple(state[0].shape), anchor_angles.device))
-        state = pso_iteration(*state, u, fitness_fn, lo, hi, pso, iteration=it,
-                              gbest_reduce=gbest_reduce)
-        trace.append(state[5])
+        if on_card:
+            state = scan_step(fitness_fn, *state, u.contiguous(), limits, pso, iteration=it,
+                              gbest_reduce=gbest_reduce, work=work)
+            trace.append(state[5].clone())
+        else:
+            state = pso_iteration(*state, u, fitness_fn, lo, hi, pso, iteration=it,
+                                  gbest_reduce=gbest_reduce)
+            trace.append(state[5])
     gbest, gbest_val = state[4], state[5]
     solved_pose = fk_ops.angles_to_pose(spec, problem.pose[..., 0, :], gbest)
     return SolveResult(

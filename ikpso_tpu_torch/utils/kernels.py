@@ -57,7 +57,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
-SOURCES = ("fused_solve.cu", "fk_fitness.cu", "fused_fitness.cu", "roofline.cu")
+SOURCES = ("fused_solve.cu", "fk_fitness.cu", "fused_fitness.cu", "scan_step.cu",
+           "roofline.cu")
 
 # (num_nodes, packed parents, effector bit mask) -> id; must match the
 # instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm, Arm6Dof,
@@ -124,8 +125,9 @@ SMEM_RESERVE = 16 * 1024
 COLLIDERS = {"box": 1, "capsule": 2}
 
 # The (topology id, collider id, orientation) combinations that the
-# prebuilt launchers of kernels A, B and C instantiate (without the
-# distance term, with polynomial trig): the ones the earlier paths run.
+# prebuilt launchers of kernels A, B and C and the scan step instantiate
+# (without the distance term, with polynomial trig): the ones the earlier
+# paths run.
 # Any other combination is built on demand.
 INSTANTIATED = {
     (0, 0, False), (0, 1, False), (0, 2, False),  # arm_7dof, planar_3dof; scenes
@@ -410,6 +412,19 @@ def build() -> Path:
 
 
 _SCENE = [_I, _F, _F, _F, _F]  # obstacle count, collider sizes
+# The scan step's arguments after the topology's (IKPSO_STEP_PARAMS in
+# csrc/scan_step.cuh).
+_STEP = [
+    _VP, _VP, _I, _VP,  # meta, swarm, K, limits (2, D)
+    _VP, _VP, _VP, _VP,  # x, v, lbest, lbest values
+    _VP, _I,  # the iteration's uniforms, n_draws
+    _VP, _VP,  # gbest, gbest values
+    _VP, _VP,  # the hook's candidate value and coordinates (null: none)
+    _F, _F, _F, _I,  # w, c1, c2, randomized inertia flag
+    _I, _F, _F,  # kick (0 none, 1 every swarm, 2 above the threshold), scale, threshold
+    _VP, _VP, _I, _VP,  # candidate values, ids, their row stride, arrival counters
+    _I, _I, _VP,  # S, P, stream
+]
 _UPDATE = [
     _VP, _VP, _VP, _I,  # limits, seeds, inertia, iterations
     _F, _F, _F,  # c1, c2, init velocity scale
@@ -456,6 +471,11 @@ SIGNATURES = {
         _I,  # nodes, then ikpso_fused_fitness's arguments after the scene
         _VP, _VP, _VP, _I, _VP, _I, _I, _VP,
     ],
+    "ikpso_scan_step": [
+        _I, _I, _I, *_SCENE,  # topology id, collider id, orientation flag, scene
+        *_STEP,
+    ],
+    "ikpso_scan_step_serial": [_I, *_STEP],  # nodes
     "ikpso_roofline_body": [
         _I, _VP, _VP, ctypes.c_longlong, _I, _I, _I, _VP,  # body, x, out, n, steps, grid
     ],
@@ -478,6 +498,7 @@ OD_SIGNATURES = {
     "ikpso_od_fused_solve_blocks": [_I, _I, _I, _I],  # replay, P, M, K
     "ikpso_od_fk_fitness": [*_SCENE, _VP, _VP, _VP, _I, _VP, ctypes.c_longlong, _I, _VP],
     "ikpso_od_fused_fitness": [*_SCENE, _VP, _VP, _VP, _I, _VP, _I, _I, _VP],
+    "ikpso_od_scan_step": [*_SCENE, *_STEP],
 }
 
 
@@ -492,8 +513,8 @@ def on_demand_source(key: OnDemandKey) -> str:
         "COLLIDER": key.collider, "ORIENTATION": int(key.orientation),
         "DISTANCE": int(key.distance), "EXACT": int(key.exact),
     }
-    lines = [f"// Kernels A, B and C on demand for {key.name()}: generated by",
-             "// ikpso_tpu_torch/utils/kernels.py (on_demand_source); see",
+    lines = [f"// Kernels A, B and C and the scan step on demand for {key.name()}:",
+             "// generated by ikpso_tpu_torch/utils/kernels.py (on_demand_source); see",
              "// ikpso_tpu_torch/csrc/on_demand.cuh."]
     lines += [f"#define IKPSO_OD_{k} {v}" for k, v in macros.items()]
     lines.append('#include "on_demand.cuh"')

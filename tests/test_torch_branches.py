@@ -430,6 +430,15 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
 template <class T> T __ldg(const T* p) { return *p; }
+template <class T> T __ldcg(const T* p) { return *p; }
+inline void __threadfence() {}
+inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+#include <algorithm>
+#include <climits>
+using std::isnan;
+using std::min;
 """
 
 

@@ -179,6 +179,34 @@ def test_bytes_count_each_input_once_and_each_output_once():
                            + s * (d + 1))
 
 
+@pytest.mark.parametrize("mode,kick,planes", [("randomized", False, 3),
+                                               ("randomized", True, 4),
+                                               ("canonical", False, 2),
+                                               ("canonical", True, 3)])
+def test_scan_step_count_moves_each_byte_once(mode, kick, planes):
+    s, p, d = 16, 300, SPEC.dof
+    fit = convert.fitness_config_from(JFit())
+    pso = convert.pso_config_from(JPSO(iterations=5, inertia_mode=mode))
+    lay = MetaLayout(SPEC)
+    c = flops.scan_step_count(SPEC, pso, fit, num_swarms=s, num_particles=p, improved=70,
+                              kick=kick)
+    # In: x, v, lbest, the lbest value and the uniform planes; out: x, v, and
+    # the lbest row and value of each improved particle; gbest in and out.
+    assert c.bytes == 4 * (s * p * (3 * d + 1 + planes * d + 2 * d) + 70 * (d + 1)
+                           + 2 * s * (d + 1) + lay.meta_size + s * lay.swarm_size + 2 * d)
+    # The scan shape, every particle improved: 83 floats a particle (332 B).
+    if mode == "randomized" and not kick:
+        full = flops.scan_step_count(SPEC, pso, fit, num_swarms=1, num_particles=1,
+                                     improved=1)
+        assert full.bytes - 4 * (2 * (d + 1) + lay.meta_size + lay.swarm_size + 2 * d) \
+            == 4 * 83
+    tile = flops.fitness_tile_count(SPEC, fit)
+    update = flops.pso_update_count(SPEC, pso)
+    per = (tile.flops + update.flops - 3 * update.rng_elems + (3 * d if kick else 0) + 2)
+    assert c.flops == pytest.approx(per * s * p)
+    assert c.rng_elems == 0.0
+
+
 def test_bound_takes_the_larger_term():
     peaks = roofline.PUBLISHED_PEAKS
     ops = flops.FlopCount(flops=67e12, int_ops=67e12, bytes=3.35e12)
