@@ -372,11 +372,15 @@ def reset_counts():
     for fn in _wrappers().values():
         fn.launches = 0
     _wrappers()["fused_solve"].variant_launches = {}
+    _wrappers()["scan_step"].replay_launches = 0
 
 
 def read_counts():
+    """Every wrapper's launches; ``scan_step_replay``: the scan step's
+    launches of its replay instantiation (the rest drew their uniforms)."""
     counts = {name: fn.launches for name, fn in _wrappers().items()}
     counts["fused_solve_variants"] = dict(_wrappers()["fused_solve"].variant_launches)
+    counts["scan_step_replay"] = _wrappers()["scan_step"].replay_launches
     return counts
 
 
@@ -425,8 +429,15 @@ def phase_build(on_demand=False):
         ptxas = od.result() if od else None
     log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
     m = re.search(r"build_seconds=([\d.]+)", log)
+    report = ptxas_report(log)
+    # The scan step's instantiations, drawing and replay (PERF.md keeps
+    # their spills at 0).
+    steps = [r for r in report if "scan_step_kernel" in r["kernel"]]
     emit("build", seconds=seconds, nvcc_seconds=float(m.group(1)) if m else None,
-         library=lib.name, kernels=ptxas_report(log),
+         library=lib.name, kernels=report,
+         scan_step_instantiations=len(steps),
+         scan_step_registers=sorted({r.get("registers") for r in steps if "registers" in r}),
+         scan_step_spill_store_bytes=max((r.get("spill_stores", 0) for r in steps), default=None),
          with_on_demand_seconds=time.perf_counter() - t0)
     return ptxas
 
@@ -1228,25 +1239,49 @@ def phase_fused_fitness(device, swarms=64, particles=1024):
 # The scan step (csrc/scan_step.cu(h)) against pso_iteration on kernel C's
 # plain twin, whole solves on the same draws: case -> (model, swarms,
 # particles, PSOConfig overrides of scan_configs, angle weight, scene,
-# injected draws). "scan" is the scan path's own shape (its draws from one
-# seeded generator on both sides: injected, its 60 blocks would not fit);
-# "reference_arm" the experiment's P (64 blocks a swarm); "hook" records
-# each step's candidate through a gbest_reduce hook on both sides;
-# "on_demand_box" is the on-demand entry (dual_arm_box's library).
+# draws). "replay": torch.rand blocks injected on both sides (ScanDraws; the
+# replay step). "drawing": the kernel side draws from a seeded generator
+# (the drawing step, the solver's route), the plain side is fed the same
+# generator's draws through drawing_route_draws (step_uniforms' blocks).
+# "scan" is the scan path's own shape; "reference_arm" the experiment's P
+# (64 blocks a swarm); "hook" records each step's candidate through a
+# gbest_reduce hook on both sides; "on_demand_box" is the on-demand entry
+# (dual_arm_box's library).
 SCAN_REPLAY_CASES = {
-    "scan": ("arm_7dof", SCAN_SWARMS, 1024, {}, 0.0, False, False),
-    "reference_arm": ("reference_arm", 8, 16_384, {"iterations": 15}, 3.0, False, True),
+    "scan": ("arm_7dof", SCAN_SWARMS, 1024, {}, 0.0, False, "drawing"),
+    "reference_arm": ("reference_arm", 8, 16_384, {"iterations": 15}, 3.0, False, "replay"),
     "box": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024, {"iterations": 20, "init_mode": "uniform"},
-            0.3, True, True),
+            0.3, True, "replay"),
     "canonical": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024,
                   {"iterations": 20, "inertia_mode": "canonical", "inertia_end": 0.2}, 0.3,
-                  False, True),
+                  False, "replay"),
     "rekick": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024,
                {"iterations": 20, "rekick_interval": 4, "rekick_threshold": 1e-4}, 0.3,
-               False, True),
-    "ragged": ("arm_7dof", SCAN_REPLAY_SWARMS, 1000, {"iterations": 20}, 0.3, False, True),
-    "hook": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024, {"iterations": 20}, 0.3, False, True),
-    "on_demand_box": ("dual_arm_14dof", 64, 1024, {"iterations": 10}, 0.3, True, True),
+               False, "replay"),
+    "ragged": ("arm_7dof", SCAN_REPLAY_SWARMS, 1000, {"iterations": 20}, 0.3, False,
+               "replay"),
+    "hook": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024, {"iterations": 20}, 0.3, False, "replay"),
+    "on_demand_box": ("dual_arm_14dof", 64, 1024, {"iterations": 10}, 0.3, True, "replay"),
+    "reference_arm_drawing": ("reference_arm", 8, 16_384, {"iterations": 15}, 3.0, False,
+                              "drawing"),
+    "box_drawing": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024,
+                    {"iterations": 20, "init_mode": "uniform"}, 0.3, True, "drawing"),
+    "canonical_drawing": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024,
+                          {"iterations": 20, "inertia_mode": "canonical", "inertia_end": 0.2},
+                          0.3, False, "drawing"),
+    "rekick_drawing": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024,
+                       {"iterations": 20, "rekick_interval": 4, "rekick_threshold": 1e-4},
+                       0.3, False, "drawing"),
+    "ragged_drawing": ("arm_7dof", SCAN_REPLAY_SWARMS, 1000, {"iterations": 20}, 0.3, False,
+                       "drawing"),
+    # P * D odd: every other swarm's slab starts off a 16-byte boundary, the
+    # step's 4-byte path.
+    "odd_drawing": ("arm_7dof", SCAN_REPLAY_SWARMS, 257, {"iterations": 20}, 0.3, False,
+                    "drawing"),
+    "hook_drawing": ("arm_7dof", SCAN_REPLAY_SWARMS, 1024, {"iterations": 20}, 0.3, False,
+                     "drawing"),
+    "on_demand_box_drawing": ("dual_arm_14dof", 64, 1024, {"iterations": 10}, 0.3, True,
+                              "drawing"),
 }
 
 
@@ -1269,34 +1304,38 @@ def _scan_replay_case(device, name):
     from ikpso_tpu_torch.harness.scan import scan_configs
     from ikpso_tpu_torch.ops.fitness import FitnessConfig
     from ikpso_tpu_torch.ops.fitness_kernel import make_kernel_fitness
-    from ikpso_tpu_torch.pso.solver import ScanDraws, draws_per_iteration, scan_step, solve
+    from ikpso_tpu_torch.pso.solver import (ScanDraws, draws_per_iteration,
+                                            drawing_route_draws, scan_step, solve)
 
-    model, swarms, particles, over, aw, scene, injected = SCAN_REPLAY_CASES[name]
+    model, swarms, particles, over, aw, scene, mode = SCAN_REPLAY_CASES[name]
     pso = dataclasses.replace(scan_configs()[0], **over)
     fit = FitnessConfig(angle_weight=aw, distance_weight=0.0, orientation_weight=0.0)
     rng = np.random.default_rng(8)
     spec, batched = _problem(model, swarms, rng, device)
     obstacles = _scene(spec, device) if scene else None
     fitness = make_kernel_fitness(spec, batched, fit, obstacles)
-    draws = None
-    if injected:
+    shape = (swarms, particles, spec.dof)
+    if mode == "replay":
         gen = torch.Generator(device=device).manual_seed(8)
-        shape = (swarms, particles, spec.dof)
         draws = ScanDraws(
             torch.rand(shape, generator=gen, device=device) if pso.init_mode != "warm"
             else None, torch.rand(shape, generator=gen, device=device),
             torch.rand((pso.iterations, draws_per_iteration(pso)) + shape, generator=gen,
                        device=device))
-    res, cands, steps = {}, {False: [], True: []}, {}
+        sides = {False: (None, draws), True: (None, draws)}
+    else:
+        sides = {False: (torch.Generator(device=device).manual_seed(8), None),
+                 True: (None, drawing_route_draws(torch.Generator(device=device).manual_seed(8),
+                                                  pso, *shape, device))}
+    res, cands, steps, replays = {}, {False: [], True: []}, {}, {}
     for plain, fn in ((False, fitness), (True, fitness.plain)):
-        before = scan_step.launches
-        res[plain] = solve(spec, batched, None if injected
-                           else torch.Generator(device=device).manual_seed(8),
-                           pso, fit, obstacles=obstacles, num_particles=particles,
-                           fitness_fn=fn, uniforms=draws,
-                           gbest_reduce=_recording_hook(cands[plain]) if name == "hook"
-                           else None)
+        before, replay_before = scan_step.launches, scan_step.replay_launches
+        res[plain] = solve(spec, batched, sides[plain][0], pso, fit, obstacles=obstacles,
+                           num_particles=particles, fitness_fn=fn, uniforms=sides[plain][1],
+                           gbest_reduce=_recording_hook(cands[plain])
+                           if name.startswith("hook") else None)
         steps[plain] = scan_step.launches - before
+        replays[plain] = scan_step.replay_launches - replay_before
     torch.cuda.synchronize()
     k, p = res[False], res[True]
     equal = _states_equal((k.angles, k.fitness, k.trace), (p.angles, p.fitness, p.trace))
@@ -1305,19 +1344,23 @@ def _scan_replay_case(device, name):
     hits = None
     if scene:
         hits = float((fitness.plain(k.angles[:, None, :]) >= FLT_MAX).float().mean())
+    want_replays = pso.iterations if mode == "replay" else 0
     ok = (equal and cands_equal and steps == {False: pso.iterations, True: 0}
+          and replays == {False: want_replays, True: 0}
           and bool(torch.isfinite(k.fitness).all()))
     emit("scan_replay", case=name, model=model, swarms=swarms, particles=particles,
          iterations=pso.iterations, inertia_mode=pso.inertia_mode,
          rekick=[pso.rekick_interval, pso.rekick_threshold], scene=bool(scene),
-         injected_draws=injected, hook_candidates=len(cands[False]),
-         step_launches=steps[False], plain_step_launches=steps[True],
+         draws=mode, hook_candidates=len(cands[False]),
+         step_launches=steps[False], replay_step_launches=replays[False],
+         plain_step_launches=steps[True],
          gbest_max_abs_err=float((k.angles - p.angles).abs().max()),
          gval_max_abs_err=float((k.fitness - p.fitness).abs().max()),
          colliding_solutions=hits, bitwise_equal=equal, candidates_equal=cands_equal,
-         bar="torch.equal on angles, fitness and trace", ok=ok)
+         bar="torch.equal on angles, fitness and trace; drawing: the plain side fed "
+             "step_uniforms' blocks", ok=ok)
     if not ok:
-        raise AssertionError(f"scan_replay {name}: the scan step disagrees with "
+        raise AssertionError(f"scan_replay {name}: the {mode} scan step disagrees with "
                              "pso_iteration on kernel C's plain twin")
 
 
@@ -1395,9 +1438,9 @@ def _scan_replay_tie(device, swarms=64, particles=1024):
 
 
 def phase_scan_replay(device):
-    """The scan step against ``pso_iteration`` on kernel C's plain twin, bit
-    for bit (``SCAN_REPLAY_CASES`` and a forced tie); returns the largest
-    error (0.0: a difference raises)."""
+    """The scan step, drawing and replay, against ``pso_iteration`` on kernel
+    C's plain twin, bit for bit (``SCAN_REPLAY_CASES`` and a forced tie);
+    returns the largest error (0.0: a difference raises)."""
     for name in SCAN_REPLAY_CASES:
         _scan_replay_case(device, name)
     _scan_replay_tie(device)
@@ -1468,6 +1511,14 @@ SCAN_SPLIT = {"scan_step": ("scan_step_kernel",), "kernel_c": ("fused_fitness_ke
               "torch_rand": ("distribution",)}
 
 
+def _rand_launches(prof):
+    """Kernels of torch's random draws (``SCAN_SPLIT["torch_rand"]``: the
+    init blocks' ``torch.rand``, the seed words' ``torch.randint``) in a
+    profile."""
+    return sum(any(k in name for k in SCAN_SPLIT["torch_rand"])
+               for name, _, _ in _device_events(prof))
+
+
 def _device_split(prof):
     """Device ms in a profile: busy, and its split by ``SCAN_SPLIT`` with
     the rest as ``other``; None when the profiler recorded no device time."""
@@ -1507,15 +1558,21 @@ def phase_scan(device, card, swarms=SCAN_SWARMS):
         wall_ms = (time.perf_counter() - t0) * 1e3
     split = _device_split(prof)
     readings = _device_ms_readings(prof, "scan_step_kernel")
+    # The drawing step draws every iteration's uniforms: the solve's only
+    # random kernels are its init velocity block and its seed words.
+    rand_launches = _rand_launches(prof) if split is not None else None
     solves = warmup + iters
     ok = (launches["fused_fitness"] == solves and launches["scan_step"] == ITERATIONS * solves
+          and launches["scan_step_replay"] == 0
+          and (rand_launches is None or rand_launches <= 2)
           and out["finite"] and out["p50_err_mm"] < 1.0
           and out["frac_under_1mm"] >= SCAN_FRAC_BAR)
     emit("scan", **out, wall_ms=out["wall_s"] * 1e3, launches=launches,
          max_memory_allocated=peak, profiled_wall_ms=wall_ms, device_ms=split,
          scan_step_ms_per_launch=None if split is None else split["scan_step"] / ITERATIONS,
          device_idle_share=None if split is None else 1.0 - split["busy"] / wall_ms,
-         device_ms_readings=readings,
+         device_ms_readings=readings, torch_rand_launches=rand_launches,
+         rand_launches_bar="<= 2 (init velocity block, seed words): none in the loop",
          jax_frac_under_1mm=SCAN_JAX_FRAC_UNDER_1MM, frac_bar=SCAN_FRAC_BAR, card=card,
          ok=bool(ok))
     if not ok:
@@ -1663,6 +1720,7 @@ def _stage_times(device, stages, full, problem, gen):
                kernel_c_device_ms=ms["kernel_c"] if busy else None,
                scan_step_device_ms=ms["scan_step"] if busy else None,
                torch_rand_device_ms=ms["torch_rand"] if busy else None,
+               torch_rand_launches=_rand_launches(prof) if busy else None,
                device_idle_share=1.0 - busy / wall_ms if busy else None)
     return out
 
@@ -2343,11 +2401,37 @@ BOUND_ROWS += tuple(
      "kernel C, reference_arm, S=128, D=21, P=16,384, angle_weight 3.0"),
     ("A track", "a_track", "fused_solve_track_ms",
      "kernel A, arm_7dof, S=4,096, P=128, 8 iterations, re-kick every 4 above 1e-6"),
-    ("step scan path", "step_scan", "scan_step_ms",
-     f"scan step, arm_7dof, S={SCAN_SWARMS}, D=9, P=1024, step 31 of 60"),
-    ("step experiment", "step_experiment", "scan_step_experiment_ms",
-     "scan step, reference_arm, S=128, D=21, P=16,384, angle_weight 3.0, step 8 of 15"),
 )
+# The scan step's timed steps (1-based) by shape (STEP_TIMED), and the one
+# of each that stands in the kernels line.
+STEP_STEPS = {"scan": (1, 31, 59), "experiment": (8,)}
+STEP_MAIN = {"scan": 31, "experiment": 8}
+
+
+def _step_keys(key, step, replay):
+    """A timed step's ``counts`` key and ``times`` key (``..._ms``; its plain
+    time is the drawing step's key with ``_plain_ms``): the shape (none for
+    the scan path), the replay step, then the step unless it is
+    ``STEP_MAIN``'s."""
+    shape = "" if key == "scan" else f"_{key}"
+    at = "" if step == STEP_MAIN[key] else f"_s{step}"
+    inst = "_replay" if replay else ""
+    return f"step_{key}{inst}{at}", f"scan_step{inst}{shape}{at}_ms"
+
+
+# The scan step's rows: "step scan path" / "step experiment" (the drawing
+# step at STEP_MAIN's step), "... replay" the replay step, "... step n" the
+# other timed steps.
+STEP_SHAPES = {"scan": ("scan path", f"arm_7dof, S={SCAN_SWARMS}, D=9, P=1024", 60),
+               "experiment": ("experiment", "reference_arm, S=128, D=21, P=16,384, "
+                              "angle_weight 3.0", 15)}
+BOUND_ROWS += tuple(
+    ("step " + STEP_SHAPES[key][0] + (" replay" if replay else "")
+     + ("" if step == STEP_MAIN[key] else f" step {step}"),
+     *_step_keys(key, step, replay),
+     f"scan step ({'replay' if replay else 'drawing'}), {STEP_SHAPES[key][1]}, step {step} "
+     f"of {STEP_SHAPES[key][2]}")
+    for key, steps in STEP_STEPS.items() for step in steps for replay in (False, True))
 
 
 def phase_bounds(times, counts, roof_timed, roof_counts, card):
@@ -2729,6 +2813,7 @@ def phase_bench(card):
         "pallas": (scan["impl"] == "pallas" and scan["platform"] == "gpu"
                    and rows["pallas"]["launches"]["fused_fitness"] > 0
                    and rows["pallas"]["launches"]["scan_step"] > 0
+                   and rows["pallas"]["launches"]["scan_step_replay"] == 0
                    and rows["pallas"]["launches"]["fused_solve"] == 0),
     }
     launches = _sum_counts(counts)
@@ -2870,6 +2955,7 @@ def phase_experiment(device, card):
     stages = _stage_times(device, [("frame", solver, batched, 3)], solver, batched, gen)
     stages["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
     ok = (all(r["ok"] for r in rows.values()) and launches["fused_solve"] == 0
+          and launches["scan_step_replay"] == 0
           and all(r["fused_fitness_launches"] > 0
                   and r["scan_step_launches"] == cfg.pso.iterations
                   * r["fused_fitness_launches"] for r in rows.values()))
@@ -3099,31 +3185,40 @@ def phase_slice_timing(device):
     return times, counts, errs
 
 
-# The scan step's timed launches: (key, model, swarms, particles, steps run
-# before the timed one, the CLI arguments whose recipe it takes).
+# The scan step's timed launches: (key, model, swarms, particles, the steps
+# timed (1-based, each on the state of the steps before it), the CLI
+# arguments whose recipe it takes). The scan path's step 31 and the
+# experiment's step 8 are the rows of the kernels line; steps 1 and 59 show
+# how a later state moves the step (fewer lbest rows improve).
 STEP_TIMED = (
-    ("scan", "arm_7dof", SCAN_SWARMS, 1024, 30, None),
-    ("experiment", "reference_arm", 128, 16_384, 7,
+    ("scan", "arm_7dof", SCAN_SWARMS, 1024, STEP_STEPS["scan"], None),
+    ("experiment", "reference_arm", 128, 16_384, STEP_STEPS["experiment"],
      ["experiment", *EXPERIMENT_ARGS, *EXPERIMENT_PROTOCOLS["iter3"]]),
 )
 
 
-def _step_timing(device, model, swarms, particles, warm_steps, argv, reps=10):
-    """One scan-step launch on a state ``warm_steps`` steps into a solve,
-    timed by CUDA events around the launch alone (the state restored before
-    each of ``reps`` launches after one more: each moves the same bytes, and
-    the restore evicts L2; a spin kernel ahead of the start event keeps the
-    host's enqueue out of the window), against ``pso_iteration`` on kernel C's plain twin
-    from the same state (bit for bit); returns ``(ms, plain ms, count,
-    improved)``."""
+def _step_timing(device, model, swarms, particles, timed_steps, argv, reps=10):
+    """Scan-step launches at ``timed_steps`` of a solve of the drawing step
+    (its seed words from a seeded generator), each timed by CUDA events
+    around the launch alone (the state restored before each of ``reps``
+    launches after one more: each moves the same bytes, and the restore
+    evicts L2; a spin kernel ahead of the start event keeps the host's
+    enqueue out of the window), the drawing step and the replay step in
+    turns (drawing, replay, replay, drawing) on the same uniforms (the
+    replay step reads ``step_uniforms``' block of that iteration), both held
+    bit for bit to ``pso_iteration`` on kernel C's plain twin fed that
+    block; returns ``{step: (drawing ms, replay ms, plain ms, drawing count,
+    replay count, improved, pairs)}``, each ms the median of its launches
+    and ``pairs`` the means of each turn."""
     import numpy as np
     import torch
 
     from ikpso_tpu_torch.harness.scan import scan_configs
     from ikpso_tpu_torch.ops import fk as fk_ops
     from ikpso_tpu_torch.ops.fitness_kernel import make_kernel_fitness
+    from ikpso_tpu_torch.ops.philox import step_uniforms
     from ikpso_tpu_torch.pso.solver import (draws_per_iteration, init_swarm, pso_iteration,
-                                            scan_step, step_buffers, step_work)
+                                            scan_step, step_buffers, step_seeds, step_work)
     from ikpso_tpu_torch.utils import flops
 
     if argv is None:
@@ -3138,17 +3233,13 @@ def _step_timing(device, model, swarms, particles, warm_steps, argv, reps=10):
     limits = torch.stack((lo, hi)).contiguous()
     state = step_buffers(init_swarm(gen, fk_ops.pose_to_angles(spec, batched.pose),
                                     particles, fitness, pso, limits=(lo, hi)))
+    seeds = step_seeds(gen, swarms, device)
     work = step_work(swarms, particles, device)
-    shape = (draws_per_iteration(pso), swarms, particles, spec.dof)
-    for it in range(warm_steps):
-        state = scan_step(fitness, *state, torch.rand(shape, generator=gen, device=device),
-                          limits, pso, iteration=it, work=work)
-    snap = tuple(t.clone() for t in state)
-    u = torch.rand(shape, generator=gen, device=device)
+    n = draws_per_iteration(pso)
 
-    def timed(run, n):
+    def timed(run, count):
         ms = []
-        for _ in range(n + 1):
+        for _ in range(count + 1):
             for a, b in zip(state, snap):
                 a.copy_(b)
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -3158,38 +3249,74 @@ def _step_timing(device, model, swarms, particles, warm_steps, argv, reps=10):
             end.record()
             torch.cuda.synchronize()
             ms.append(start.elapsed_time(end))
-        return float(np.mean(ms[1:])), out
+        return ms[1:], tuple(t.clone() for t in out)
 
-    # pso_iteration leaves its inputs as they are; the step updates them.
-    ms, got = timed(lambda: scan_step(fitness, *state, u, limits, pso,
-                                      iteration=warm_steps, work=work), reps)
-    got = tuple(t.clone() for t in got)
-    plain_ms, want = timed(lambda: pso_iteration(*state, u, fitness.plain, lo, hi, pso,
-                                                 iteration=warm_steps), 1)
-    if not _states_equal(got, want):
-        raise AssertionError(f"scan step disagrees with pso_iteration at {model} S={swarms}")
-    improved = int((got[3] < snap[3]).sum())
-    kick = (pso.rekick_interval > 0 and warm_steps > 0
-            and warm_steps % pso.rekick_interval == 0)
-    count = flops.scan_step_count(spec, pso, fit, num_swarms=swarms, num_particles=particles,
-                                  improved=improved, kick=kick)
-    return ms, plain_ms, count, improved
+    out, it = {}, 0
+    for step in timed_steps:
+        for it in range(it, step - 1):
+            state = scan_step(fitness, *state, None, limits, pso, iteration=it, work=work,
+                              seeds=seeds)
+        it = step - 1
+        snap = tuple(t.clone() for t in state)
+        u = step_uniforms(seeds, it, n, particles, spec.dof)
+
+        def drawing():
+            return scan_step(fitness, *state, None, limits, pso, iteration=it, work=work,
+                             seeds=seeds)
+
+        def replay():
+            return scan_step(fitness, *state, u, limits, pso, iteration=it, work=work)
+
+        pairs, runs = [], {drawing: [], replay: []}
+        for first, second in ((drawing, replay), (replay, drawing)):
+            a, got_a = timed(first, reps)
+            b, got_b = timed(second, reps)
+            runs[first] += a
+            runs[second] += b
+            pairs.append((np.mean(a), np.mean(b)) if first is drawing
+                         else (np.mean(b), np.mean(a)))
+            if not _states_equal(got_a, got_b):
+                raise AssertionError(f"drawing and replay steps disagree at {model} "
+                                     f"S={swarms}, step {step}")
+        # pso_iteration leaves its inputs as they are; the steps update them.
+        plain_ms, want = timed(lambda: pso_iteration(*state, u, fitness.plain, lo, hi, pso,
+                                                     iteration=it), 1)
+        if not _states_equal(got_a, want):
+            raise AssertionError(f"scan step disagrees with pso_iteration at {model} "
+                                 f"S={swarms}, step {step}")
+        improved = int((got_a[3] < snap[3]).sum())
+        kick = pso.rekick_interval > 0 and it > 0 and it % pso.rekick_interval == 0
+        counts = [flops.scan_step_count(spec, pso, fit, num_swarms=swarms,
+                                        num_particles=particles, improved=improved, kick=kick,
+                                        drawing=drawing_step) for drawing_step in (True, False)]
+        out[step] = (float(np.median(runs[drawing])), float(np.median(runs[replay])),
+                     float(plain_ms[0]), *counts, improved,
+                     [[float(a), float(b)] for a, b in pairs])
+        for a, b in zip(state, snap):  # on from the state before the timed step
+            a.copy_(b)
+    return out
 
 
 def phase_step_timing(device):
-    """The scan step at the scan path's shape and the experiment's (each a
-    state some steps into its solve): time, plain time, counted work and the
-    improved particles of the timed launch."""
-    times, counts, improved = {}, {}, {}
-    for key, model, swarms, particles, warm, argv in STEP_TIMED:
-        ms, plain_ms, count, imp = _step_timing(device, model, swarms, particles, warm, argv)
-        suffix = "" if key == "scan" else f"_{key}"
-        times[f"scan_step{suffix}_ms"], times[f"scan_step{suffix}_plain_ms"] = ms, plain_ms
-        counts[f"step_{key}"] = count
-        improved[key] = imp
-    emit("step_timing", **times, improved=improved,
-         shapes={k: [m, s, p] for k, m, s, p, _, _ in STEP_TIMED},
-         bar="bit-identical to pso_iteration on kernel C's plain twin", clocks=card_clocks(),
+    """The scan step at the scan path's shape (steps 1, 31 and 59) and the
+    experiment's (step 8): the drawing and the replay instantiation's
+    times, the plain time, their counted work and the improved particles of
+    the timed launch."""
+    times, counts, improved, pairs = {}, {}, {}, {}
+    for key, model, swarms, particles, steps, argv in STEP_TIMED:
+        for step, (ms, replay_ms, plain_ms, count, replay_count, imp, pr) in _step_timing(
+                device, model, swarms, particles, steps, argv).items():
+            (count_key, ms_key), (replay_count_key, replay_ms_key) = (
+                _step_keys(key, step, r) for r in (False, True))
+            times[ms_key], times[replay_ms_key] = ms, replay_ms
+            times[ms_key.replace("_ms", "_plain_ms")] = plain_ms
+            counts[count_key], counts[replay_count_key] = count, replay_count
+            improved[f"{key} step {step}"] = imp
+            pairs[f"{key} step {step}"] = pr
+    emit("step_timing", **times, improved=improved, drawing_replay_pairs_ms=pairs,
+         shapes={k: [m, s, p, list(st)] for k, m, s, p, st, _ in STEP_TIMED},
+         bar="drawing and replay steps bit-identical to each other and to pso_iteration "
+             "on kernel C's plain twin fed step_uniforms' block", clocks=card_clocks(),
          ok=True)
     return times, counts
 
@@ -3425,7 +3552,8 @@ def _spawn(argvs, timeout=MULTIHOST_TIMEOUT_S):
 
 def _sum_counts(counts):
     """The launch counts of several processes, added."""
-    out = {name: sum(c.get(name, 0) for c in counts) for name in _wrappers()}
+    out = {name: sum(c.get(name, 0) for c in counts)
+           for name in (*_wrappers(), "scan_step_replay")}
     variants = {}
     for c in counts:
         for k, v in c.get("fused_solve_variants", {}).items():
@@ -3755,12 +3883,14 @@ try:
     def counts():
         return dict(fused_solve=fused_solve.launches, fk_fitness=fk_fitness.launches,
                     fused_fitness=fused_fitness.launches, scan_step=scan_step.launches,
+                    scan_step_replay=scan_step.replay_launches,
                     fused_solve_variants=dict(fused_solve.variant_launches))
 
     def reset():
         for fn in (fused_solve, fk_fitness, fused_fitness, scan_step):
             fn.launches = 0
         fused_solve.variant_launches = {}
+        scan_step.replay_launches = 0
 
     def gen(seed):
         return torch.Generator(device=device).manual_seed(seed)
@@ -3982,6 +4112,7 @@ trajectory.solve_waypoints = recorded
 rc = cli.main(sys.argv[3:])
 json.dump(dict(fused_solve=fused_solve.launches, fk_fitness=fk_fitness.launches,
                fused_fitness=fused_fitness.launches, scan_step=scan_step.launches,
+               scan_step_replay=scan_step.replay_launches,
                fused_solve_variants=dict(fused_solve.variant_launches), rates=rates),
           open(sys.argv[2], "w"))
 sys.exit(rc)
@@ -4308,16 +4439,35 @@ def run_phases(device, card, od_ptxas):
                               "max_abs_err": st_err["C experiment"],
                               "timed": "reference_arm, S=128, D=21, P=16,384, angle_weight "
                                        "3.0 (one trial batch of the experiment path)"}},
-        {"name": "scan_step", "route": "cuda",
+        # The drawing step (Philox in registers) is the solver's route; the
+        # replay step (ScanDraws) runs in the checks only.
+        {"name": "scan_step", "route": "cuda", "instantiation": "drawing (REPLAY off)",
          "source": "ikpso_tpu_torch/csrc/scan_step.cu",
          "replaces": "ikpso_tpu/ops/pallas_fitness.py:482",
-         "launches": paths["scan"]["scan_step"],
-         "launches_by_path": by_path("scan_step"),
+         "launches": paths["scan"]["scan_step"] - paths["scan"]["scan_step_replay"],
+         "launches_by_path": {k: v["scan_step"] - v["scan_step_replay"]
+                              for k, v in paths.items()},
+         "replay_launches_by_path": by_path("scan_step_replay"),
          "max_abs_err": scan_err, "bar": "torch.equal against pso_iteration on kernel C's "
-                                         "plain twin (phase scan_replay, step_timing)",
+                                         "plain twin fed step_uniforms' block (phase "
+                                         "scan_replay, step_timing)",
+         "plain": "pso_iteration on fused_fitness_plain, fed ops/philox.py::step_uniforms",
          "ms": t["scan_step_ms"], "plain_ms": t["scan_step_plain_ms"],
          **bound_keys("step scan path"), "library_ms": None,
          "timed": f"S={SCAN_SWARMS}, D=9, P=1024, step 31 of 60 (scan_configs)",
+         "steps": {f"step {s}": {"ms": t[_step_keys("scan", s, False)[1]],
+                                 **bound_keys("step scan path"
+                                              + ("" if s == STEP_MAIN["scan"]
+                                                 else f" step {s}")),
+                                 "replay_ms": t[_step_keys("scan", s, True)[1]],
+                                 "replay_bound": bound_keys(
+                                     "step scan path replay"
+                                     + ("" if s == STEP_MAIN["scan"] else f" step {s}"))}
+                   for s in STEP_STEPS["scan"]},
+         "replay": {"ms": t["scan_step_replay_ms"], **bound_keys("step scan path replay"),
+                    "plain": "pso_iteration on fused_fitness_plain, fed the same block",
+                    "experiment_ms": t["scan_step_replay_experiment_ms"],
+                    "experiment_bound": bound_keys("step experiment replay")},
          "experiment_shape": {"ms": t["scan_step_experiment_ms"],
                               "plain_ms": t["scan_step_experiment_plain_ms"],
                               **bound_keys("step experiment"),

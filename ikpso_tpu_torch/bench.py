@@ -512,18 +512,17 @@ def build_record(args, recipe: dict, stats: dict, platform: str) -> dict:
 
 
 def _launch_counts(since: Optional[dict] = None) -> dict:
-    """Kernel A's and C's and the scan step's launches (and kernel A's per
-    variant) since the counts ``since``."""
+    """Kernel A's and C's and the scan step's launches (of which the replay
+    step's; and kernel A's per variant) since the counts ``since``."""
     now = {"fused_solve": fused_solve.launches, "fused_fitness": fused_fitness.launches,
-           "scan_step": scan_step.launches,
+           "scan_step": scan_step.launches, "scan_step_replay": scan_step.replay_launches,
            "fused_solve_variants": dict(fused_solve.variant_launches)}
     if since is None:
         return now
     variants = {k: n - since["fused_solve_variants"].get(k, 0)
                 for k, n in now["fused_solve_variants"].items()}
-    return {"fused_solve": now["fused_solve"] - since["fused_solve"],
-            "fused_fitness": now["fused_fitness"] - since["fused_fitness"],
-            "scan_step": now["scan_step"] - since["scan_step"],
+    return {**{k: now[k] - since[k] for k in ("fused_solve", "fused_fitness", "scan_step",
+                                              "scan_step_replay")},
             "fused_solve_variants": {k: n for k, n in variants.items() if n}}
 
 

@@ -30,8 +30,8 @@
 // floats, planes 2 with IKPSO_OD_SHARED and 3 without, grid <=
 // ikpso_od_fused_solve_blocks), ikpso_od_fk_fitness (kernel B's
 // standalone launcher), ikpso_od_fused_fitness (kernel C) and
-// ikpso_od_scan_step (the scan solver's step). Each returns a CUDA error
-// code, as the prebuilt ones do.
+// ikpso_od_scan_step (the scan solver's step, drawing or replay). Each
+// returns a CUDA error code, as the prebuilt ones do.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -210,8 +210,8 @@ extern "C" int ikpso_od_scan_step(int n_obs, float node_half, float link_half,
   const cudaError_t rc = launch_scan_step(
       StepTreeWalk<OdTopology, kOdCollider, kOdOrientation>{
           Scene{n_obs, node_half, link_half, node_r2, link_r2}},
-      OdTopology::D, meta, swarm, K, IKPSO_STEP_STATE(OdTopology::D), IKPSO_STEP_UPDATE, S,
-      P, static_cast<cudaStream_t>(stream));
+      OdTopology::D, meta, swarm, K, IKPSO_STEP_STATE(OdTopology::D), IKPSO_STEP_UPDATE,
+      replay != 0, S, P, static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 // The scan solver's step (scan_step.cuh) for the prebuilt topologies and the
 // serial-chain variant: every (topology, collider, orientation) kernel C's
 // launcher instantiates, so every configuration kernel C runs on the card
-// has a step; any other is built on demand (on_demand.cuh).
+// has a step; any other is built on demand (on_demand.cuh). Each in two
+// instantiations: the drawing step (replay = 0: Philox in registers from
+// the swarms' seed words) and the replay step (replay = 1: reads u).
 #include <cuda_runtime.h>
 
 #include "scan_step.cuh"
@@ -19,7 +21,8 @@ extern "C" int ikpso_scan_step(int topo, int collider, int orient, int n_obs,
   cudaError_t rc = cudaErrorInvalidValue;
 #define IKPSO_LAUNCH(TOPO, C, O)                                                         \
   rc = launch_scan_step(StepTreeWalk<TOPO, C, O>{scene}, TOPO::D, meta, swarm, K,       \
-                        IKPSO_STEP_STATE(TOPO::D), IKPSO_STEP_UPDATE, S, P, st)
+                        IKPSO_STEP_STATE(TOPO::D), IKPSO_STEP_UPDATE, replay != 0, S, P, \
+                        st)
   if (topo == 0 && collider == kNoCollider) {
     IKPSO_LAUNCH(Arm7Dof, kNoCollider, false);
   } else if (topo == 0 && collider == kBoxCollider) {
@@ -50,7 +53,8 @@ extern "C" int ikpso_scan_step_serial(int n_nodes, IKPSO_STEP_PARAMS) {
   const int D = 3 * (n_nodes - 1);
   const cudaError_t rc =
       launch_scan_step(StepSerialWalk{n_nodes}, D, meta, swarm, K, IKPSO_STEP_STATE(D),
-                       IKPSO_STEP_UPDATE, S, P, static_cast<cudaStream_t>(stream));
+                       IKPSO_STEP_UPDATE, replay != 0, S, P,
+                       static_cast<cudaStream_t>(stream));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }

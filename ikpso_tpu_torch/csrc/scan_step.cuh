@@ -8,20 +8,38 @@
 // (ikpso_tpu/ops/pallas_fitness.py:fused_fitness, which
 // ikpso_tpu/pso/solver.py:262-274 scans and XLA fuses with the update);
 // scan_step.cu instantiates the prebuilt topologies, on_demand.cuh one
-// generated topology.
+// generated topology, each twice:
 //
-// Bound on this card: bytes. Per particle a step reads x, v, lbest, its
-// lbest value and 2-4 uniform planes (the iteration's torch.rand block) and
-// writes x, v, the value and lbest where it improved: 83 floats at D = 9,
-// 332 bytes against ~600 counted FP32 ops, under the ~20 ops a byte the
-// card balances at. The design moves each of those bytes once:
+//  * REPLAY = false, the drawing step (the solver's route): each uniform
+//    the update uses is drawn in registers by Philox4x32-10
+//    (philox.cuh), keyed by the swarm's (S, 2) seed words, as kernel A
+//    draws. The draw of element e = p * D + d of a swarm in draw slot
+//    `slot` is word e % 4 of philox4x32_10(counter = (e / 4, slot, 0, 0),
+//    key = (s0, s1)), so one call yields the four draws of one float4 of
+//    the slab (a block's slab starts at a multiple of 4 elements: B is a
+//    multiple of 4); slot = iteration * n_draws + k, k in pso_iteration's
+//    block order (u_w with randomized inertia, u_c, u_s, then the kick's).
+//    ops/philox.py::step_uniforms is the same block in plain torch.
+//  * REPLAY = true: the iteration's (n_draws, S, P, D) block is read from
+//    device memory instead (ScanDraws: injected uniforms).
+//
+// Bound on this card: bytes. Per particle a step reads x, v, lbest and its
+// lbest value, and writes x, v, the value and lbest where it improved: 56
+// floats, 224 bytes at D = 9 in the drawing step; the replay step reads
+// 2-4 uniform planes besides (83 floats, 332 bytes, with randomized
+// inertia). Against ~600 counted FP32 ops, and ~6.75 Philox calls of 80-98
+// integer ops in the drawing step, under the ~20 ops a byte the card
+// balances at. The design moves each of those bytes once:
 //
 //  * Pass 1, one thread a particle, a swarm ceil(P / B) blocks of B
 //    threads. A block's particles are one contiguous B x D slab of each
 //    (S, P, D) array. The update is elementwise, so the block walks the
-//    slab's elements, not its rows: 16-byte loads and stores (4-byte ones
-//    where a slab is not 16-byte aligned), consecutive threads on
-//    consecutive addresses, v written straight back. Only the clamped x
+//    slab's elements, not its rows: 16-byte loads and stores, consecutive
+//    threads on consecutive addresses, v written straight back. Where a
+//    slab is not 16-byte aligned the replay step loads 4 bytes a thread on
+//    consecutive addresses, and the drawing step takes a thread's four
+//    consecutive elements a trip, so that one Philox call a slot still
+//    yields its four draws (the ragged end of a slab alike). Only the clamped x
 //    goes through shared memory, rows padded to an odd stride (D | 1) so
 //    that a thread reading its own row conflicts with no other on a bank;
 //    each thread evaluates its row there, updates its lbest value, and
@@ -51,15 +69,68 @@
 #include <cmath>
 
 #include "fk_fitness.cuh"
+#include "philox.cuh"
 
 namespace ikpso {
 
-constexpr int kStepMaxThreads = 256;
+// At most 128 threads a block: with more, smaller blocks an SM interleaves
+// the drawing step's phases (Philox and the update, the evaluation, the
+// write-back) better; 256-thread blocks were ~4% slower at the scan shape on
+// the H100, ~19% with a key schedule a Philox call (PERF.md,
+// tools/scan_step_variants.py); the replay step's time the same.
+constexpr int kStepMaxThreads = 128;
 // Static budget of a block's dynamic shared memory (no opt-in needed).
 constexpr size_t kStepSmemBudget = 48 * 1024;
 
 // Which swarms a step re-kicks (pso_iteration's rule, decided on the host).
 enum StepKick : int { kKickNone = 0, kKickAll = 1, kKickAbove = 2 };
+
+__device__ __forceinline__ float4 words_to_uniform(uint4 w) {
+  return make_float4(bits_to_uniform(w.x), bits_to_uniform(w.y), bits_to_uniform(w.z),
+                     bits_to_uniform(w.w));
+}
+
+// The drawing step's uniforms of elements 4 * call .. 4 * call + 3 of a
+// swarm, one Philox call a plane the update reads (the counter mapping in
+// the header): u_w with randomized inertia, u_c, u_s, and u_k with the kick;
+// the planes not read are 0. The calls run in lockstep under one key
+// schedule (philox4x32_10_n).
+__device__ __forceinline__ void step_draws(unsigned call, int slot_w, bool randomized,
+                                           bool kick, int n_draws, uint2 key, float4& uw,
+                                           float4& uc, float4& us, float4& uk) {
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  auto ctr = [&](int slot) { return make_uint4(call, static_cast<unsigned>(slot), 0u, 0u); };
+  const int slot_c = slot_w + (randomized ? 1 : 0);
+  const int slot_k = slot_w + n_draws - 1;
+  if (randomized && kick) {
+    uint4 c[4] = {ctr(slot_w), ctr(slot_c), ctr(slot_c + 1), ctr(slot_k)};
+    philox4x32_10_n(c, key);
+    uw = words_to_uniform(c[0]);
+    uc = words_to_uniform(c[1]);
+    us = words_to_uniform(c[2]);
+    uk = words_to_uniform(c[3]);
+  } else if (randomized) {
+    uint4 c[3] = {ctr(slot_w), ctr(slot_c), ctr(slot_c + 1)};
+    philox4x32_10_n(c, key);
+    uw = words_to_uniform(c[0]);
+    uc = words_to_uniform(c[1]);
+    us = words_to_uniform(c[2]);
+    uk = zero;
+  } else if (kick) {
+    uint4 c[3] = {ctr(slot_c), ctr(slot_c + 1), ctr(slot_k)};
+    philox4x32_10_n(c, key);
+    uw = zero;
+    uc = words_to_uniform(c[0]);
+    us = words_to_uniform(c[1]);
+    uk = words_to_uniform(c[2]);
+  } else {
+    uint4 c[2] = {ctr(slot_c), ctr(slot_c + 1)};
+    philox4x32_10_n(c, key);
+    uw = uk = zero;
+    uc = words_to_uniform(c[0]);
+    us = words_to_uniform(c[1]);
+  }
+}
 
 // The row stride of the clamped-x slab in shared memory: odd, so that the
 // 32 threads of a warp reading their own rows hit 32 banks.
@@ -72,14 +143,14 @@ __host__ __device__ constexpr size_t step_smem_bytes(int threads, int d) {
          (sizeof(float) + 2 * sizeof(int)) * threads;
 }
 
-// Threads a block of the step for D angles: the most of 256, 128, 64, 32
-// whose shared memory fits the budget; 0 where none does.
+// Threads a block of the step for D angles: the most of 128, 64, 32 whose
+// shared memory fits the budget; 0 where none does.
 __host__ __device__ constexpr int step_threads(int d) {
   int t = kStepMaxThreads;
   while (t >= 32 && step_smem_bytes(t, d) > kStepSmemBudget) t /= 2;
   return t >= 32 ? t : 0;
 }
-static_assert(step_threads(9) == 256 && step_threads(45) == 128 && step_threads(150) == 64,
+static_assert(step_threads(9) == 128 && step_threads(45) == 128 && step_threads(150) == 64,
               "arm_7dof, humanoid_45dof and snake:50 blocks");
 
 // What a step reads and writes (every array contiguous, float32 but the
@@ -89,7 +160,8 @@ struct StepState {
   float* v;      // (S, P, D), updated in place
   float* lbest;  // (S, P, D), improved rows rewritten
   float* lval;   // (S, P), improved entries rewritten
-  const float* u;   // (n_draws, S, P, D): this iteration's U[0, 1) block
+  const float* u;      // replay: (n_draws, S, P, D), this iteration's U[0, 1) block
+  const int* seeds;    // drawing: (S, 2) Philox key words
   long long plane;  // S * P * D
   const float* limits;  // (2, D): lo, hi
   float* gbest;  // (S, D), updated in place without a hook
@@ -108,7 +180,8 @@ struct StepUpdate {
   float c1, c2;
   int randomized;
   int n_draws;
-  int kick;  // StepKick
+  int iteration;  // the drawing step's slots: iteration * n_draws + k
+  int kick;       // StepKick
   float kick_scale, kick_threshold;
 };
 
@@ -160,7 +233,7 @@ struct StepSerialWalk {
   }
 };
 
-template <class W>
+template <class W, bool REPLAY>
 __global__ void __launch_bounds__(kStepMaxThreads) scan_step_kernel(
     W walk, const float* __restrict__ meta, const float* __restrict__ swarm, int K,
     StepState st, StepUpdate up, int P, int blocks_per_swarm) {
@@ -198,10 +271,21 @@ __global__ void __launch_bounds__(kStepMaxThreads) scan_step_kernel(
   float* x = st.x + g0;
   float* v = st.v + g0;
   const float* lb = st.lbest + g0;
+  // Replay: the iteration's planes at the slab.
   const float* u_c = st.u + g0 + (up.randomized ? st.plane : 0);
   const float* u_s = u_c + st.plane;
   const float* u_w = st.u + g0;
   const float* u_k = st.u + g0 + (up.n_draws - 1) * st.plane;
+  // Drawing: the iteration's first draw slot, and the slab's first Philox
+  // call (p0 * D is a multiple of 4, since B is).
+  const int slot_w = up.iteration * up.n_draws;
+  const unsigned call0 = static_cast<unsigned>(p0) * static_cast<unsigned>(D) / 4u;
+  uint2 key = make_uint2(0u, 0u);
+  if constexpr (!REPLAY) {
+    key = make_uint2(static_cast<unsigned>(st.seeds[2 * s]),
+                     static_cast<unsigned>(st.seeds[2 * s + 1]));
+  }
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
   // One element i of the slab: the new velocity, and the clamped x into
   // the slab's row.
@@ -222,12 +306,16 @@ __global__ void __launch_bounds__(kStepMaxThreads) scan_step_kernel(
     const float4 xo = reinterpret_cast<const float4*>(x)[j];
     const float4 vo = reinterpret_cast<const float4*>(v)[j];
     const float4 lb4 = reinterpret_cast<const float4*>(lb)[j];
-    const float4 uc = __ldg(reinterpret_cast<const float4*>(u_c) + j);
-    const float4 us = __ldg(reinterpret_cast<const float4*>(u_s) + j);
-    const float4 uw = up.randomized ? __ldg(reinterpret_cast<const float4*>(u_w) + j)
-                                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    const float4 uk = kick ? __ldg(reinterpret_cast<const float4*>(u_k) + j)
-                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float4 uc, us, uw, uk;
+    if constexpr (REPLAY) {
+      uc = __ldg(reinterpret_cast<const float4*>(u_c) + j);
+      us = __ldg(reinterpret_cast<const float4*>(u_s) + j);
+      uw = up.randomized ? __ldg(reinterpret_cast<const float4*>(u_w) + j) : zero4;
+      uk = kick ? __ldg(reinterpret_cast<const float4*>(u_k) + j) : zero4;
+    } else {
+      step_draws(call0 + static_cast<unsigned>(j), slot_w, up.randomized, kick, up.n_draws,
+                 key, uw, uc, us, uk);
+    }
     const int i = 4 * j;
     float4 vn;
     vn.x = update(i, xo.x, vo.x, lb4.x, uw.x, uc.x, us.x, uk.x);
@@ -236,9 +324,24 @@ __global__ void __launch_bounds__(kStepMaxThreads) scan_step_kernel(
     vn.w = update(i + 3, xo.w, vo.w, lb4.w, uw.w, uc.w, us.w, uk.w);
     reinterpret_cast<float4*>(v)[j] = vn;
   }
-  for (int i = 4 * n4 + t; i < n_el; i += B) {
-    v[i] = update(i, x[i], v[i], lb[i], up.randomized ? __ldg(u_w + i) : 0.0f,
-                  __ldg(u_c + i), __ldg(u_s + i), kick ? __ldg(u_k + i) : 0.0f);
+  if constexpr (REPLAY) {
+    for (int i = 4 * n4 + t; i < n_el; i += B) {
+      v[i] = update(i, x[i], v[i], lb[i], up.randomized ? __ldg(u_w + i) : 0.0f,
+                    __ldg(u_c + i), __ldg(u_s + i), kick ? __ldg(u_k + i) : 0.0f);
+    }
+  } else {
+    for (int j = n4 + t; 4 * j < n_el; j += B) {
+      float4 uw, uc, us, uk;
+      step_draws(call0 + static_cast<unsigned>(j), slot_w, up.randomized, kick, up.n_draws,
+                 key, uw, uc, us, uk);
+      const float w4[4] = {uw.x, uw.y, uw.z, uw.w}, c4[4] = {uc.x, uc.y, uc.z, uc.w},
+                  s4[4] = {us.x, us.y, us.z, us.w}, k4[4] = {uk.x, uk.y, uk.z, uk.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        if (i < n_el) v[i] = update(i, x[i], v[i], lb[i], w4[e], c4[e], s4[e], k4[e]);
+      }
+    }
   }
   __syncthreads();
 
@@ -338,14 +441,17 @@ __global__ void __launch_bounds__(kStepMaxThreads) scan_step_kernel(
   }
 }
 
-// Launch one step of S swarms of P particles; an error where the block's
-// shared memory, the grid or the candidate scratch cannot hold the shape.
+// Launch one step of S swarms of P particles, the replay step (reading
+// st.u) or the drawing one (keyed by st.seeds); an error where the block's
+// shared memory, the grid or the candidate scratch cannot hold the shape,
+// or the step's draws are missing.
 template <class W>
 static cudaError_t launch_scan_step(W walk, int D, const float* meta, const float* swarm,
-                                    int K, StepState st, StepUpdate up, int S, int P,
-                                    cudaStream_t stream) {
+                                    int K, StepState st, StepUpdate up, bool replay, int S,
+                                    int P, cudaStream_t stream) {
   const int threads = step_threads(D);
-  if (threads == 0 || S <= 0 || P <= 0 || up.n_draws < (up.randomized ? 3 : 2) ||
+  if (threads == 0 || S <= 0 || P <= 0 || (replay ? st.u == nullptr : st.seeds == nullptr) ||
+      up.iteration < 0 || up.n_draws < (up.randomized ? 3 : 2) ||
       (up.kick != kKickNone && up.n_draws < (up.randomized ? 4 : 3))) {
     return cudaErrorInvalidValue;
   }
@@ -356,31 +462,40 @@ static cudaError_t launch_scan_step(W walk, int D, const float* meta, const floa
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
   };
-  st.vec = aligned(st.x) && aligned(st.v) && aligned(st.lbest) && aligned(st.u) &&
-           (st.plane & 3) == 0;
+  st.vec = aligned(st.x) && aligned(st.v) && aligned(st.lbest) &&
+           (!replay || aligned(st.u)) && (st.plane & 3) == 0;
   const unsigned blocks = static_cast<unsigned>(static_cast<long long>(S) * per_swarm);
-  scan_step_kernel<W><<<blocks, threads, step_smem_bytes(threads, D), stream>>>(
-      walk, meta, swarm, K, st, up, P, per_swarm);
+  const size_t smem = step_smem_bytes(threads, D);
+  if (replay) {
+    scan_step_kernel<W, true><<<blocks, threads, smem, stream>>>(walk, meta, swarm, K, st,
+                                                                  up, P, per_swarm);
+  } else {
+    scan_step_kernel<W, false><<<blocks, threads, smem, stream>>>(walk, meta, swarm, K, st,
+                                                                   up, P, per_swarm);
+  }
   return cudaSuccess;
 }
 
 }  // namespace ikpso
 
 // The C entry points' shared arguments after the topology's (kernels.py's
-// _STEP): the constants, the state, the draws, gbest, the hook's outputs,
-// the update and the scratch.
+// _STEP): the constants, the state, the draws (replay: u; drawing: seeds),
+// gbest, the hook's outputs, the update and the scratch.
 #define IKPSO_STEP_PARAMS                                                                  \
   const float *meta, const float *swarm, int K, const float *limits, float *x, float *v,   \
-      float *lbest, float *lval, const float *u, int n_draws, float *gbest, float *gval,   \
-      float *red_val, float *red_coords, float w, float c1, float c2, int randomized,      \
-      int kick, float kick_scale, float kick_threshold, float *cand_val, int *cand_id,     \
-      int cand_stride, int *arrivals, int S, int P, void *stream
+      float *lbest, float *lval, int replay, const float *u, const int *seeds, int n_draws, \
+      int iteration, float *gbest, float *gval, float *red_val, float *red_coords, float w, \
+      float c1, float c2, int randomized, int kick, float kick_scale, float kick_threshold, \
+      float *cand_val, int *cand_id, int cand_stride, int *arrivals, int S, int P,          \
+      void *stream
 
 #define IKPSO_STEP_STATE(D)                                                                \
   ikpso::StepState {                                                                       \
-    x, v, lbest, lval, u, static_cast<long long>(S) * P * (D), limits, gbest, gval,        \
+    x, v, lbest, lval, u, seeds, static_cast<long long>(S) * P * (D), limits, gbest, gval, \
         red_val, red_coords, cand_val, cand_id, cand_stride, arrivals, 0                   \
   }
 
-#define IKPSO_STEP_UPDATE \
-  ikpso::StepUpdate { w, c1, c2, randomized, n_draws, kick, kick_scale, kick_threshold }
+#define IKPSO_STEP_UPDATE                                                                  \
+  ikpso::StepUpdate {                                                                      \
+    w, c1, c2, randomized, n_draws, iteration, kick, kick_scale, kick_threshold            \
+  }

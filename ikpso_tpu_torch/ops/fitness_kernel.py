@@ -759,23 +759,33 @@ class KernelFitness:
                                   (f"{b['trig_impl']} trig", True)) if on]
         return f"{kernels.topology_name(self.spec)} ({', '.join(terms)})"
 
-    def launch_step(self, x, v, lbest, lbest_val, u, limits, gbest, gbest_val, reduced,
-                    update, work) -> None:
+    def launch_step(self, x, v, lbest, lbest_val, draws, limits, gbest, gbest_val,
+                    reduced, update, work) -> None:
         """Launch the scan step over the CUDA state (``pso.solver.scan_step``,
-        which owns the launch count): ``update`` is ``(w, c1, c2, randomized,
+        which owns the launch count): ``draws`` is ``(u, seeds, n_draws,
+        iteration)``, u the iteration's ``(n_draws, S, P, D)`` block for the
+        replay step or None, seeds the ``(S, 2)`` int32 key words the drawing
+        step draws from or None; ``update`` is ``(w, c1, c2, randomized,
         kick, kick_scale, kick_threshold)``, ``reduced`` the hook's
         ``(value, coordinates)`` outputs or None, ``work`` the
         ``(candidate values, candidate ids, arrivals)`` scratch."""
-        name = f"scan_step for {self.configuration()}"
+        u, seeds, n_draws, iteration = draws
+        replay = u is not None
+        name = f"scan_step ({'replay' if replay else 'drawing'}) for {self.configuration()}"
         s, p, _ = x.shape
         cand_val, cand_id, arrivals = work
-        kernels.require_cuda_contiguous(name, x, v, lbest, lbest_val, u, limits, gbest,
+        source = u if replay else seeds
+        kernels.require_cuda_contiguous(name, x, v, lbest, lbest_val, source, limits, gbest,
                                         gbest_val, *work, *(reduced or ()))
+        if not replay and (seeds.dtype != torch.int32 or tuple(seeds.shape) != (s, 2)):
+            raise ValueError(f"{name}: seeds must be ({s}, 2) int32, got "
+                             f"{tuple(seeds.shape)} {seeds.dtype}")
         red = (None, None) if reduced is None else tuple(t.data_ptr() for t in reduced)
         meta = self.meta.reshape(-1)
         tail = (meta.data_ptr(), self.swarm.data_ptr(), self.swarm.shape[1],
                 limits.data_ptr(), x.data_ptr(), v.data_ptr(), lbest.data_ptr(),
-                lbest_val.data_ptr(), u.data_ptr(), u.shape[0], gbest.data_ptr(),
+                lbest_val.data_ptr(), int(replay), u.data_ptr() if replay else None,
+                None if replay else seeds.data_ptr(), n_draws, iteration, gbest.data_ptr(),
                 gbest_val.data_ptr(), *red, *update, cand_val.data_ptr(),
                 cand_id.data_ptr(), cand_val.shape[1], arrivals.data_ptr(), s, p,
                 kernels.stream_ptr(x.device))

@@ -27,6 +27,18 @@ initial-position draw at slot 0 and the velocity draw at slot 1 — then
 for iteration ``i`` slot ``n_init + 2i`` is u_cognitive and
 ``n_init + 2i + 1`` u_social (``pso/fused.py::num_draws``).
 
+The scan solver's drawing step (``csrc/scan_step.cuh``, REPLAY off) keys
+its draws by the element's flat index within its swarm instead, so that
+one call yields the four draws of one float4 of its slab: the draw of
+element ``e = p * D + d`` in slot ``t`` is output word ``e % 4`` of
+
+    philox4x32_10(counter=(e // 4, t, 0, 0), key=(s0, s1))
+
+with ``t = iteration * n + k``, ``n`` the iteration's blocks
+(``pso/solver.py::draws_per_iteration``) and ``k`` their order in
+``pso_iteration``'s ``u`` (u_w with randomized inertia, u_c, u_s, then
+the re-kick's): :func:`step_uniforms`.
+
 Bits -> U[0, 1): ``(bits >> 8) * 2**-24`` with a LOGICAL shift on
 unsigned bits. An arithmetic shift of int32 bits maps the top half of
 the range to [-0.5, 0) (``ikpso_tpu/pso/fused.py:87-96``).
@@ -100,3 +112,25 @@ def philox_uniform(seeds: torch.Tensor, slot: int, num_particles: int,
     words = [w.expand(s, num_particles, groups) for w in words]
     bits = torch.stack(words, dim=-1).reshape(s, num_particles, groups * 4)
     return bits_to_uniform(bits[..., :dof])
+
+
+def step_uniforms(seeds: torch.Tensor, iteration: int, n: int, num_particles: int,
+                  dof: int) -> torch.Tensor:
+    """The ``(n, S, P, D)`` U[0, 1) block the scan solver's drawing step
+    computes in registers for iteration ``iteration`` of swarms with
+    ``(S, 2)`` int32 seed words, by the flat counter mapping in the module
+    docstring: ``pso_iteration`` fed this block is the step's plain twin,
+    bit for bit."""
+    dev = seeds.device
+    s = seeds.shape[0]
+    elems = num_particles * dof
+    key = seeds.to(torch.int64) & MASK32
+    k0 = key[:, 0].view(1, s, 1)
+    k1 = key[:, 1].view(1, s, 1)
+    calls = torch.arange((elems + 3) // 4, device=dev, dtype=torch.int64).view(1, 1, -1)
+    slots = (iteration * n + torch.arange(n, device=dev, dtype=torch.int64)).view(-1, 1, 1)
+    zero = torch.zeros((), device=dev, dtype=torch.int64)
+    words = philox4x32_10((calls, slots, zero, zero), (k0, k1))
+    words = [w.expand(n, s, calls.shape[-1]) for w in words]
+    bits = torch.stack(words, dim=-1).reshape(n, s, -1)[..., :elems]
+    return bits_to_uniform(bits).reshape(n, s, num_particles, dof)

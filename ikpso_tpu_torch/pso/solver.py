@@ -11,15 +11,24 @@ candidate across the ranks that hold its other particles
 (``parallel.sharded.distributed_argmin``), after init and after every
 iteration, as JAX's hook does.
 
-Random draws: U[0, 1) float32 from ``torch.rand`` on the caller's
-``torch.Generator``, in the JAX package's order -- the init position
-block (uniform / hybrid init only), the init velocity block, then one
-``(n, S, P, D)`` block per iteration: ``(u_w, u_c, u_s)`` with
-randomized inertia, ``(u_c, u_s)`` with canonical inertia, plus one
-re-kick block when ``rekick_interval > 0``. ``ScanDraws`` injects those
-blocks instead (the test hook, as kernel A's ``uniforms`` replay input);
-every draw maps to its range exactly as ``jax.random.uniform`` maps its
-U[0, 1) floats (``u * (max - min) + min``, floored at ``min``).
+Random draws: U[0, 1) float32 on the caller's ``torch.Generator``, in
+the JAX package's order -- the init position block (uniform / hybrid
+init only) and the init velocity block from ``torch.rand``, one block a
+solve each, then one ``(n, S, P, D)`` block per iteration: ``(u_w, u_c,
+u_s)`` with randomized inertia, ``(u_c, u_s)`` with canonical inertia,
+plus one re-kick block when ``rekick_interval > 0``. Off the card each
+iteration's block is ``torch.rand``'s. On the card (kernel C's fitness,
+:func:`step_route`) the solve draws ``(S, 2)`` int32 seed words from the
+generator after the init blocks (:func:`step_seeds`, as
+``pso/fused.py``'s solver seeds kernel A) and the scan step draws each
+iteration's uniforms in registers from them (Philox4x32-10, the counter
+mapping of ``ops.philox.step_uniforms``, which is the same block in
+plain torch); no iteration's block is written to device memory.
+``ScanDraws`` injects every block instead (the test hook, as kernel A's
+``uniforms`` replay input; on the card the step then reads them:
+the replay step). Every draw maps to its range exactly as
+``jax.random.uniform`` maps its U[0, 1) floats (``u * (max - min) +
+min``, floored at ``min``).
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, Obstacles
 from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.ops.fitness import FitnessConfig, fitness, true_effector_error
 from ikpso_tpu_torch.ops.fitness_kernel import TWO_PI, KernelFitness
+from ikpso_tpu_torch.ops.philox import step_uniforms
 from ikpso_tpu_torch.pso.config import PSOConfig
 
 FitnessFn = Callable[[torch.Tensor], torch.Tensor]  # (S, P, D) -> (S, P)
@@ -81,6 +91,43 @@ def draws_per_iteration(pso: PSOConfig) -> int:
 def _uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
     return torch.rand(shape, generator=generator, device=generator.device,
                       dtype=torch.float32).to(device)
+
+
+def step_seeds(generator: torch.Generator, num_swarms: int, device) -> torch.Tensor:
+    """The drawing step's ``(S, 2)`` int32 Philox key words, drawn from
+    ``generator`` on its device as ``pso.fused.make_fused_solver`` draws
+    kernel A's."""
+    return torch.randint(-2**31, 2**31, (num_swarms, 2), generator=generator,
+                         device=generator.device, dtype=torch.int32).to(device)
+
+
+class StepDraws:
+    """The drawing step's iteration blocks as ``ScanDraws.steps``: item
+    ``it`` is ``ops.philox.step_uniforms(seeds, it, n, P, D)``, computed
+    when it is read (a whole solve's blocks need not fit in memory)."""
+
+    def __init__(self, seeds: torch.Tensor, n: int, num_particles: int, dof: int):
+        self.seeds, self.n, self.num_particles, self.dof = seeds, n, num_particles, dof
+
+    def __getitem__(self, iteration: int) -> torch.Tensor:
+        return step_uniforms(self.seeds, iteration, self.n, self.num_particles, self.dof)
+
+
+def drawing_route_draws(generator: torch.Generator, pso: PSOConfig, num_swarms: int,
+                        num_particles: int, dof: int, device) -> ScanDraws:
+    """What :func:`solve` draws from ``generator`` on the drawing step's
+    route, as :class:`ScanDraws`: the init blocks from ``torch.rand`` in
+    :func:`init_swarm`'s order, then the seed words, the iterations'
+    blocks as :class:`StepDraws` of them. ``pso_iteration`` fed these is
+    the drawing route's plain twin, bit for bit (tests and
+    ``chip_smoke.py``)."""
+    shape = (num_swarms, num_particles, dof)
+    position = (_uniform(generator, shape, device)
+                if pso.init_mode in ("uniform", "hybrid") else None)
+    velocity = _uniform(generator, shape, device)
+    seeds = step_seeds(generator, num_swarms, device)
+    return ScanDraws(position, velocity,
+                     StepDraws(seeds, draws_per_iteration(pso), num_particles, dof))
 
 
 def _scale(u: torch.Tensor, lo, hi) -> torch.Tensor:
@@ -199,23 +246,37 @@ def first_min_of_blocks(cand_val: torch.Tensor, cand_id: torch.Tensor
 
 
 def scan_step(fitness: KernelFitness, x, v, lbest, lbest_val, gbest, gbest_val,
-              u: torch.Tensor, limits: torch.Tensor, pso: PSOConfig, iteration: int = 0,
-              gbest_reduce: Optional[GbestReduce] = None, work: Optional[StepWork] = None):
+              u: Optional[torch.Tensor], limits: torch.Tensor, pso: PSOConfig,
+              iteration: int = 0, gbest_reduce: Optional[GbestReduce] = None,
+              work: Optional[StepWork] = None, seeds: Optional[torch.Tensor] = None):
     """One PSO step through the scan-step kernel: :func:`pso_iteration`
-    with kernel C's evaluation, in one launch. ``limits`` is the ``(2, D)``
-    stack of the joint limits, ``work`` the step's scratch
-    (:func:`step_work`).
+    with kernel C's evaluation, in one launch. The iteration's uniforms
+    are either ``u``, its ``(n, S, P, D)`` block (the replay step reads
+    it), or drawn in the kernel from ``seeds``, the swarms' ``(S, 2)``
+    int32 Philox key words (the drawing step: the block
+    ``ops.philox.step_uniforms(seeds, iteration, n, P, D)``); exactly one
+    of the two is given. ``limits`` is the ``(2, D)`` stack of the joint
+    limits, ``work`` the step's scratch (:func:`step_work`).
 
     CPU tensors run :func:`pso_iteration` (with ``fitness``, whose CPU
-    call is kernel C's plain twin). CUDA tensors launch the kernel or
-    raise: x, v, lbest and lbest_val are updated in place, and gbest and
-    gbest_val too without ``gbest_reduce``; with it the kernel returns
-    each swarm's candidate and the hook and the two ``torch.where`` run as
-    in :func:`pso_iteration`. x, v and lbest must be separate buffers."""
+    call is kernel C's plain twin; with ``seeds``, on ``step_uniforms``'s
+    block). CUDA tensors launch the kernel or raise: x, v, lbest and
+    lbest_val are updated in place, and gbest and gbest_val too without
+    ``gbest_reduce``; with it the kernel returns each swarm's candidate and
+    the hook and the two ``torch.where`` run as in :func:`pso_iteration`.
+    x, v and lbest must be separate buffers."""
+    if (u is None) == (seeds is None):
+        raise ValueError("scan_step takes either the iteration's uniforms u or the "
+                         "seed words it draws them from, not both or neither")
+    n = draws_per_iteration(pso)
     if x.device.type == "cpu":
+        if u is None:
+            u = step_uniforms(seeds, iteration, n, x.shape[1], x.shape[2])
         return pso_iteration(x, v, lbest, lbest_val, gbest, gbest_val, u, fitness,
                              limits[0], limits[1], pso, iteration=iteration,
                              gbest_reduce=gbest_reduce)
+    if u is not None and u.shape[0] != n:
+        raise ValueError(f"scan_step: u holds {u.shape[0]} blocks, the iteration draws {n}")
     randomized = pso.inertia_mode == "randomized"
     w = pso.inertia if randomized else inertia_at(pso, iteration)
     update = (w, pso.cognitive, pso.social, int(randomized), _kick(pso, iteration),
@@ -225,9 +286,10 @@ def scan_step(fitness: KernelFitness, x, v, lbest, lbest_val, gbest, gbest_val,
     reduced = None
     if gbest_reduce is not None:
         reduced = (torch.empty_like(gbest_val), torch.empty_like(gbest))
-    fitness.launch_step(x, v, lbest, lbest_val, u, limits, gbest, gbest_val, reduced,
-                        update, work)
+    fitness.launch_step(x, v, lbest, lbest_val, (u, seeds, n, iteration), limits, gbest,
+                        gbest_val, reduced, update, work)
     scan_step.launches += 1
+    scan_step.replay_launches += u is not None
     if reduced is not None:
         cand_val, cand = gbest_reduce(*reduced)
         better = cand_val < gbest_val
@@ -236,7 +298,8 @@ def scan_step(fitness: KernelFitness, x, v, lbest, lbest_val, gbest, gbest_val,
     return x, v, lbest, lbest_val, gbest, gbest_val
 
 
-scan_step.launches = 0
+scan_step.launches = 0  # every launch
+scan_step.replay_launches = 0  # of which the replay step's
 
 
 def step_route(fitness_fn, device) -> bool:
@@ -306,8 +369,9 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
     """Solve a batch of IK problems (one leading swarm axis) with PSO.
 
     ``fitness_fn`` overrides the plain fitness (e.g. kernel C's
-    ``make_kernel_fitness``, whose iterations on the card are scan-step
-    launches); ``uniforms`` replaces the generator; ``gbest_reduce``
+    ``make_kernel_fitness``, whose iterations on the card are launches of
+    the drawing scan step, or of the replay step under ``uniforms``);
+    ``uniforms`` replaces the generator; ``gbest_reduce``
     reduces the gbest candidates across ranks.
     ``vary_axes`` is accepted for JAX's signature: it marks the carry as
     rank-varying for ``shard_map``'s types, and a rank's torch tensors
@@ -342,15 +406,20 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
         state = step_buffers(state)
         limits = torch.stack((lo, hi)).contiguous()
         work = step_work(state[0].shape[0], num_particles, anchor_angles.device)
+        # The drawing step: the iterations' uniforms from these seed words,
+        # in the kernel.
+        seeds = (None if uniforms is not None
+                 else step_seeds(generator, state[0].shape[0], anchor_angles.device))
     n = draws_per_iteration(pso)
     for it in range(pso.iterations):
-        u = (uniforms.steps[it] if uniforms is not None
-             else _uniform(generator, (n,) + tuple(state[0].shape), anchor_angles.device))
         if on_card:
-            state = scan_step(fitness_fn, *state, u.contiguous(), limits, pso, iteration=it,
-                              gbest_reduce=gbest_reduce, work=work)
+            u = None if seeds is not None else uniforms.steps[it].contiguous()
+            state = scan_step(fitness_fn, *state, u, limits, pso, iteration=it,
+                              gbest_reduce=gbest_reduce, work=work, seeds=seeds)
             trace.append(state[5].clone())
         else:
+            u = (uniforms.steps[it] if uniforms is not None
+                 else _uniform(generator, (n,) + tuple(state[0].shape), anchor_angles.device))
             state = pso_iteration(*state, u, fitness_fn, lo, hi, pso, iteration=it,
                                   gbest_reduce=gbest_reduce)
             trace.append(state[5])

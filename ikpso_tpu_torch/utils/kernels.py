@@ -417,7 +417,8 @@ _SCENE = [_I, _F, _F, _F, _F]  # obstacle count, collider sizes
 _STEP = [
     _VP, _VP, _I, _VP,  # meta, swarm, K, limits (2, D)
     _VP, _VP, _VP, _VP,  # x, v, lbest, lbest values
-    _VP, _I,  # the iteration's uniforms, n_draws
+    _I, _VP, _VP,  # replay flag, the iteration's uniforms (replay), seed words (drawing)
+    _I, _I,  # n_draws, iteration
     _VP, _VP,  # gbest, gbest values
     _VP, _VP,  # the hook's candidate value and coordinates (null: none)
     _F, _F, _F, _I,  # w, c1, c2, randomized inertia flag
@@ -602,6 +603,23 @@ def check(rc: int, name: str) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# The scan step's block (csrc/scan_step.cuh: kStepMaxThreads, kStepSmemBudget,
+# step_smem_bytes, step_threads), mirrored for the op model.
+STEP_MAX_THREADS = 128
+STEP_SMEM_BUDGET = 48 * 1024
+
+
+def step_threads(dof: int) -> int:
+    """Threads a block of the scan step takes for ``dof`` angles: the most
+    of 128, 64, 32 whose shared memory (the x slab at an odd row
+    stride, gbest and the limits, the candidates) fits 48 KB; 0 where none
+    does."""
+    t = STEP_MAX_THREADS
+    while t >= 32 and 4 * (t * (dof | 1) + 3 * dof) + 12 * t > STEP_SMEM_BUDGET:
+        t //= 2
+    return t if t >= 32 else 0
 
 
 def require_cuda_contiguous(name: str, *tensors: torch.Tensor) -> None:

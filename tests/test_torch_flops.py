@@ -25,7 +25,7 @@ from ikpso_tpu_torch.ops.fitness_kernel import (
 )
 from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.ops.philox import MASK32
-from ikpso_tpu_torch.utils import flops, roofline
+from ikpso_tpu_torch.utils import flops, kernels, roofline
 
 SPEC_J = jlib.arm_7dof()[0]
 SPEC = convert.chain_spec_from(SPEC_J)
@@ -205,6 +205,47 @@ def test_scan_step_count_moves_each_byte_once(mode, kick, planes):
     per = (tile.flops + update.flops - 3 * update.rng_elems + (3 * d if kick else 0) + 2)
     assert c.flops == pytest.approx(per * s * p)
     assert c.rng_elems == 0.0
+
+
+@pytest.mark.parametrize("mode,kick,planes", [("randomized", False, 3),
+                                               ("randomized", True, 4),
+                                               ("canonical", False, 2),
+                                               ("canonical", True, 3)])
+@pytest.mark.parametrize("p", [300, 1024])
+def test_scan_step_count_drawing_step_reads_no_planes(mode, kick, planes, p):
+    s, d = 16, SPEC.dof
+    fit = convert.fitness_config_from(JFit())
+    pso = convert.pso_config_from(JPSO(iterations=5, inertia_mode=mode))
+    lay = MetaLayout(SPEC)
+    replay = flops.scan_step_count(SPEC, pso, fit, num_swarms=s, num_particles=p,
+                                   improved=70, kick=kick)
+    c = flops.scan_step_count(SPEC, pso, fit, num_swarms=s, num_particles=p, improved=70,
+                              kick=kick, drawing=True)
+    b = kernels.step_threads(d)
+    assert b == 128  # arm_7dof's step block
+    blocks = -(-p // b)
+    # No uniform plane; the seed words once a block.
+    assert c.bytes == 4 * (s * p * (3 * d + 1 + 2 * d) + 70 * (d + 1) + 2 * s * (d + 1)
+                           + lay.meta_size + s * lay.swarm_size + 2 * d + 2 * s * blocks)
+    assert replay.bytes - c.bytes == 4 * s * (p * planes * d - 2 * blocks)
+    # The draws' conversion, 3 ops each, over the replay step's arithmetic.
+    assert c.flops - replay.flops == pytest.approx(3.0 * planes * d * s * p)
+    assert c.rng_elems == planes * d * s * p
+    # Philox: ceil(P * D / 4) calls a swarm and slot of counter (call, slot, 0, 0);
+    # each thread that draws runs the key schedule and each slot's fixed words once.
+    per_call, per_thread = flops.philox_call_ops((flops.CALL, flops.THREAD, flops.ZERO,
+                                                  flops.ZERO))
+    assert (per_call, per_thread) == (70.0, 5.0)
+    threads = sum(min(b, -(-min(b, p - k * b) * d // 4)) for k in range(blocks))
+    assert c.int_ops == s * (planes * -(-p * d // 4) * per_call
+                             + threads * (flops.PHILOX_KEY_SCHEDULE_OPS + planes * per_thread))
+    # The scan shape with randomized inertia and every particle improved: 56
+    # floats a particle (224 B) against the replay step's 83.
+    if mode == "randomized" and not kick and p == 1024:
+        full = flops.scan_step_count(SPEC, pso, fit, num_swarms=1, num_particles=1024,
+                                     improved=1024, drawing=True)
+        fixed = 4 * (2 * (d + 1) + lay.meta_size + lay.swarm_size + 2 * d + 2 * 8)
+        assert full.bytes - fixed == 4 * 56 * 1024
 
 
 def test_bound_takes_the_larger_term():

@@ -48,6 +48,7 @@ from ikpso_tpu_torch.models import convert, library
 from ikpso_tpu_torch.ops import fk as fk_ops
 from ikpso_tpu_torch.ops import fitness_kernel as fkm
 from ikpso_tpu_torch.ops.fitness import FitnessConfig
+from ikpso_tpu_torch.ops.philox import step_uniforms
 from ikpso_tpu_torch.pso import solver
 from ikpso_tpu_torch.pso.config import PSOConfig
 from ikpso_tpu_torch.utils import kernels
@@ -277,8 +278,11 @@ def host_step(tmp_path_factory):
     return libs
 
 
-def _run_host_step(libs, fitness, state, u, limits, pso, iteration, gbest_reduce, work):
-    """``solver.scan_step`` on CPU tensors through the g++-built source."""
+def _run_host_step(libs, fitness, state, u, limits, pso, iteration, gbest_reduce, work,
+                   seeds=None):
+    """``solver.scan_step`` on CPU tensors through the g++-built source: the
+    replay step on ``u``, or with ``seeds`` (and ``u`` None) the drawing
+    step."""
     x, v, lbest, lbest_val, gbest, gbest_val = state
     randomized = pso.inertia_mode == "randomized"
     w = pso.inertia if randomized else solver.inertia_at(pso, iteration)
@@ -292,8 +296,10 @@ def _run_host_step(libs, fitness, state, u, limits, pso, iteration, gbest_reduce
     meta = fitness.meta.reshape(-1)
     tail = (meta.data_ptr(), fitness.swarm.data_ptr(), fitness.swarm.shape[1],
             limits.data_ptr(), x.data_ptr(), v.data_ptr(), lbest.data_ptr(),
-            lbest_val.data_ptr(), u.data_ptr(), u.shape[0], gbest.data_ptr(),
-            gbest_val.data_ptr(), *red, *update, work.cand_val.data_ptr(),
+            lbest_val.data_ptr(), int(seeds is None), None if u is None else u.data_ptr(),
+            None if seeds is None else seeds.data_ptr(), solver.draws_per_iteration(pso),
+            iteration, gbest.data_ptr(), gbest_val.data_ptr(), *red, *update,
+            work.cand_val.data_ptr(),
             work.cand_id.data_ptr(), work.cand_val.shape[1], work.arrivals.data_ptr(), s, p,
             None)
     b = fitness.branches
@@ -372,7 +378,43 @@ STEP_CASES = {
 
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_step_source_equals_pso_iteration_bit_for_bit(host_step, case, torch_single_thread):
-    model, s, p, pso, fit, scene, force = STEP_CASES[case]
+    _hold_step_to_pso_iteration(host_step, case, STEP_CASES[case], drawing=False)
+
+
+# The drawing step (REPLAY off), held to pso_iteration fed step_uniforms:
+# both inertia modes, the re-kick with and without a threshold, a box scene,
+# a ragged P (1,000: the last block partial), P=257 at D=9 (P * D odd, so
+# every swarm after the first starts off a 16-byte boundary: the 4-byte
+# path, vec == 0), the gbest_reduce hook, the serial-chain and on-demand
+# entries.
+DRAW_CASES = {
+    "scan_shape": STEP_CASES["scan_shape"],
+    "canonical_rekick_vec0": STEP_CASES["canonical_rekick"],
+    "rekick_all": STEP_CASES["rekick_all"],
+    "ragged_1000": ("arm_7dof", 2, 1000, PSOConfig(iterations=3, inertia_mode="randomized",
+                                                   init_mode="uniform"),
+                    FitnessConfig(angle_weight=0.3), None, None),
+    "reference_arm": STEP_CASES["reference_arm"],
+    "box": STEP_CASES["box"],
+    "serial": STEP_CASES["serial"],
+    "on_demand_box": STEP_CASES["on_demand_box"],
+    "hook": STEP_CASES["hook"],
+    "nan": STEP_CASES["nan"],
+}
+
+
+@pytest.mark.parametrize("case", list(DRAW_CASES))
+def test_drawing_step_source_equals_pso_iteration_on_step_uniforms(host_step, case,
+                                                                    torch_single_thread):
+    _hold_step_to_pso_iteration(host_step, "draw_" + case, DRAW_CASES[case], drawing=True)
+
+
+def _hold_step_to_pso_iteration(host_step, case, spec_case, drawing):
+    """Steps of the g++-built step against ``pso_iteration`` on kernel C's
+    plain twin, state for state: the replay step on numpy uniforms, or the
+    drawing step on seed words with ``step_uniforms``'s block on the plain
+    side."""
+    model, s, p, pso, fit, scene, force = spec_case
     rng = np.random.default_rng(sum(map(ord, case)))
     spec, batched = _scan_problem(s, rng, model)
     obstacles = None if scene is None else obstacle_scene(spec, 4)
@@ -394,6 +436,8 @@ def test_step_source_equals_pso_iteration_bit_for_bit(host_step, case, torch_sin
         {False: recording(False), True: recording(True)} if force == "nan"
         else {False: None, True: None})
     n = solver.draws_per_iteration(pso)
+    seeds = (torch.as_tensor(rng.integers(-2**31, 2**31, size=(s, 2), dtype=np.int32))
+             if drawing else None)
     hits = 0
     for it in range(pso.iterations):
         if it == 1 and force == "tie":
@@ -403,9 +447,14 @@ def test_step_source_equals_pso_iteration_bit_for_bit(host_step, case, torch_sin
             for st in (mine, plain):  # the first NaN lbest value wins; a NaN velocity
                 st[3][0, 280] = st[3][0, 20] = st[3][1, 7] = float("nan")  # clamps to NaN
                 st[1][1, 3, 2] = float("nan")
-        u = torch.as_tensor(rng.random((n, s, p, spec.dof), dtype=np.float32))
-        mine = _run_host_step(host_step, fitness, mine, u, limits, pso, it, hooks[False],
-                              work)
+        if drawing:
+            u = step_uniforms(seeds, it, n, p, spec.dof)
+            mine = _run_host_step(host_step, fitness, mine, None, limits, pso, it,
+                                  hooks[False], work, seeds=seeds)
+        else:
+            u = torch.as_tensor(rng.random((n, s, p, spec.dof), dtype=np.float32))
+            mine = _run_host_step(host_step, fitness, mine, u, limits, pso, it, hooks[False],
+                                  work)
         plain = solver.pso_iteration(*plain, u, fitness.plain, lo, hi, pso, iteration=it,
                                      gbest_reduce=hooks[True])
         for name, a, b in zip(("x", "v", "lbest", "lbest_val", "gbest", "gbest_val"),
@@ -430,10 +479,10 @@ def test_step_source_equals_pso_iteration_bit_for_bit(host_step, case, torch_sin
 def test_step_block_takes_the_widest_chains_and_refuses_the_rest(host_step):
     lib = host_step["prebuilt"]
     lib.probe_step_threads.argtypes = [ctypes.c_int]
-    # arm_7dof, reference_arm, humanoid_45dof, hand21, snake:50: a block's
-    # shared memory fits 48 KB, and the candidate scratch (32-thread blocks)
-    # holds any of them.
-    assert [lib.probe_step_threads(d) for d in (9, 21, 45, 60, 150)] == [256, 256, 128, 128, 64]
+    # arm_7dof, reference_arm, humanoid_45dof, hand21, snake:50: at most 128
+    # threads a block, a block's shared memory fits 48 KB, and the candidate
+    # scratch (32-thread blocks) holds any of them.
+    assert [lib.probe_step_threads(d) for d in (9, 21, 45, 60, 150)] == [128, 128, 128, 128, 64]
     assert lib.probe_step_threads(400) == 0
     # A chain no block holds: the launcher refuses it (on the card the
     # wrapper raises, naming the configuration).
@@ -444,3 +493,130 @@ def test_step_block_takes_the_widest_chains_and_refuses_the_rest(host_step):
     with pytest.raises(AssertionError):
         _run_host_step(host_step, fitness, solver.step_buffers(state), u,
                        torch.stack((lo, hi)), pso, 0, None, solver.step_work(1, 32, "cpu"))
+
+
+def test_step_threads_mirror_matches_the_source(host_step):
+    lib = host_step["prebuilt"]
+    lib.probe_step_threads.argtypes = [ctypes.c_int]
+    for d in range(1, 401):
+        assert kernels.step_threads(d) == lib.probe_step_threads(d), d
+
+
+# --- the drawing route ---------------------------------------------------------
+
+
+def _route_case(rng, pso):
+    spec, batched = _scan_problem(3, rng)
+    fit = FitnessConfig(angle_weight=0.3)
+    return spec, batched, fit, fkm.make_kernel_fitness(spec, batched, fit)
+
+
+def test_solve_on_the_cpu_draws_the_torch_rand_blocks(torch_single_thread):
+    # Off the card every block is torch.rand's, in the JAX package's order:
+    # position (uniform init), velocity, then one (n, S, P, D) block an
+    # iteration. No seed words are drawn.
+    pso = PSOConfig(iterations=3, inertia_mode="randomized", init_mode="uniform",
+                    rekick_interval=2)
+    spec, batched, fit, fitness = _route_case(np.random.default_rng(5), pso)
+    p = 40
+    got = solver.solve(spec, batched, torch.Generator().manual_seed(3), pso, fit,
+                       num_particles=p, fitness_fn=fitness)
+    gen = torch.Generator().manual_seed(3)
+    shape = (3, p, spec.dof)
+    n = solver.draws_per_iteration(pso)
+    draws = solver.ScanDraws(torch.rand(shape, generator=gen), torch.rand(shape, generator=gen),
+                             torch.rand((pso.iterations, n) + shape, generator=gen))
+    want = solver.solve(spec, batched, None, pso, fit, num_particles=p, fitness_fn=fitness,
+                        uniforms=draws)
+    for a, b in zip((got.angles, got.fitness, got.trace), (want.angles, want.fitness,
+                                                           want.trace)):
+        assert torch.equal(a, b)
+
+
+def _host_route(monkeypatch, host_step, calls):
+    """``solve``'s card route on CPU tensors: ``step_route`` true for kernel
+    C's fitness, ``scan_step`` the g++-built step (recording, per call,
+    whether it was handed u and seeds)."""
+    monkeypatch.setattr(solver, "step_route",
+                        lambda fn, device: isinstance(fn, fkm.KernelFitness))
+
+    def step(fitness, *args, iteration=0, gbest_reduce=None, work=None, seeds=None):
+        state, u, limits, pso = args[:6], args[6], args[7], args[8]
+        calls.append((u is not None, seeds is not None))
+        return _run_host_step(host_step, fitness, state, u, limits, pso, iteration,
+                              gbest_reduce, work, seeds=seeds)
+
+    monkeypatch.setattr(solver, "scan_step", step)
+
+
+@pytest.mark.parametrize("init_mode", ["warm", "uniform"])
+def test_drawing_route_draws_no_iteration_block(host_step, init_mode, monkeypatch,
+                                                torch_single_thread):
+    # The card's route without injected uniforms: the init blocks from
+    # torch.rand, then seed words, every iteration the drawing step; the
+    # whole solve equals pso_iteration fed drawing_route_draws' blocks.
+    pso = PSOConfig(iterations=4, inertia_mode="randomized", init_mode=init_mode,
+                    rekick_interval=2, rekick_threshold=1e-3)
+    spec, batched, fit, fitness = _route_case(np.random.default_rng(6), pso)
+    p = 300
+    uniform_calls, steps = [], []
+    real_uniform = solver._uniform
+
+    def counted_uniform(generator, shape, device):
+        uniform_calls.append(tuple(shape))
+        return real_uniform(generator, shape, device)
+
+    monkeypatch.setattr(solver, "_uniform", counted_uniform)
+    want = solver.solve(spec, batched, None, pso, fit, num_particles=p,
+                        fitness_fn=fitness.plain, uniforms=solver.drawing_route_draws(
+                            torch.Generator().manual_seed(4), pso, 3, p, spec.dof, "cpu"))
+    uniform_calls.clear()
+    _host_route(monkeypatch, host_step, steps)
+    got = solver.solve(spec, batched, torch.Generator().manual_seed(4), pso, fit,
+                       num_particles=p, fitness_fn=fitness)
+    n_init = 1 if init_mode == "warm" else 2
+    assert uniform_calls == [(3, p, spec.dof)] * n_init  # the init blocks only
+    assert steps == [(False, True)] * pso.iterations  # seeds, never u
+    for a, b in zip((got.angles, got.fitness, got.trace), (want.angles, want.fitness,
+                                                           want.trace)):
+        assert torch.equal(a, b)
+
+
+def test_scan_draws_select_the_replay_step(host_step, monkeypatch, torch_single_thread):
+    pso = PSOConfig(iterations=3, inertia_mode="canonical", init_mode="warm")
+    spec, batched, fit, fitness = _route_case(np.random.default_rng(7), pso)
+    p = 256
+    rng = np.random.default_rng(8)
+    shape = (3, p, spec.dof)
+    draws = solver.ScanDraws(None, torch.as_tensor(rng.random(shape, dtype=np.float32)),
+                             torch.as_tensor(rng.random(
+                                 (pso.iterations, solver.draws_per_iteration(pso)) + shape,
+                                 dtype=np.float32)))
+    want = solver.solve(spec, batched, None, pso, fit, num_particles=p,
+                        fitness_fn=fitness.plain, uniforms=draws)
+    steps = []
+    _host_route(monkeypatch, host_step, steps)
+    got = solver.solve(spec, batched, None, pso, fit, num_particles=p, fitness_fn=fitness,
+                       uniforms=draws)
+    assert steps == [(True, False)] * pso.iterations  # u, never seeds
+    assert torch.equal(got.angles, want.angles) and torch.equal(got.trace, want.trace)
+
+
+def test_scan_step_takes_either_u_or_seeds():
+    rng = np.random.default_rng(9)
+    spec, batched = _scan_problem(2, rng)
+    fitness = fkm.make_kernel_fitness(spec, batched, FitnessConfig(angle_weight=0.3))
+    pso = PSOConfig(iterations=2, inertia_mode="randomized", rekick_interval=1)
+    state, u, lo, hi = _init(spec, batched, fitness, pso, 64, rng)
+    limits = torch.stack((lo, hi))
+    seeds = torch.as_tensor(rng.integers(-2**31, 2**31, size=(2, 2), dtype=np.int32))
+    for bad in ((u, seeds), (None, None)):
+        with pytest.raises(ValueError, match="either"):
+            solver.scan_step(fitness, *state, bad[0], limits, pso, iteration=1,
+                             seeds=bad[1])
+    # On CPU tensors the drawing step is pso_iteration on step_uniforms' block.
+    got = solver.scan_step(fitness, *state, None, limits, pso, iteration=1, seeds=seeds)
+    want = solver.pso_iteration(*state, step_uniforms(seeds, 1, 4, 64, spec.dof), fitness,
+                                lo, hi, pso, iteration=1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
