@@ -472,25 +472,51 @@ class _OlderLibrary:
         return self._lib.ikpso_fused_solve_serial(replay, *rest)
 
 
+class _NoBoundLibrary:
+    """Another checkout's prebuilt library whose ``ikpso_fused_solve``
+    predates the thread-bound argument (it lacks
+    ``ikpso_kernel_a_short_threads``: one instantiation a topology): the
+    argument is dropped, every other entry point passed through."""
+
+    def __init__(self, lib):
+        import ctypes
+
+        from ikpso_tpu_torch.utils import kernels
+
+        self._lib = lib
+        fn = getattr(lib, "ikpso_fused_solve")
+        fn.argtypes = kernels.SIGNATURES["ikpso_fused_solve"][:-2] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def ikpso_fused_solve(self, *args):
+        return self._lib.ikpso_fused_solve(*args[:-2], args[-1])
+
+
 class _sources:
     """Point ``utils.kernels`` at another checkout's ``csrc`` (and a build
-    directory of its own) while the block runs."""
+    directory of its own, and the sources of this checkout's list that it
+    has) while the block runs."""
 
     def __init__(self, root):
         from ikpso_tpu_torch.utils import kernels
 
         self.kernels = kernels
-        self.paths = (Path(root).resolve() / "ikpso_tpu_torch" / "csrc",
-                      kernels.BUILD_DIR.parent / "against")
+        csrc = Path(root).resolve() / "ikpso_tpu_torch" / "csrc"
+        self.paths = (csrc, kernels.BUILD_DIR.parent / "against",
+                      tuple(src for src in kernels.SOURCES if (csrc / src).exists()))
 
     def __enter__(self):
         k = self.kernels
-        self.saved = (k.CSRC, k.BUILD_DIR)
-        k.CSRC, k.BUILD_DIR = self.paths
+        self.saved = (k.CSRC, k.BUILD_DIR, k.SOURCES)
+        k.CSRC, k.BUILD_DIR, k.SOURCES = self.paths
         return k
 
     def __exit__(self, *exc):
-        self.kernels.CSRC, self.kernels.BUILD_DIR = self.saved
+        k = self.kernels
+        k.CSRC, k.BUILD_DIR, k.SOURCES = self.saved
 
 
 # phase_against's kernel A cases beyond the 7-DOF ones: (tag, model or
@@ -502,7 +528,8 @@ AGAINST_TREES = (("dual_arm_14dof", 262_144, 3), ("humanoid_45dof", 16_384, 3),
                  ("snake:16", 65_536, 3), ("snake:20", 65_536, 3), ("snake:35", 65_536, 1),
                  ("snake:50", 65_536, 1))
 AGAINST_ON_DEMAND = (("dual_arm_box", 4096, 3), ("dual_arm_orientation", 4096, 3),
-                     ("hand21", 1024, 3), ("snake20_box", 1024, 3))
+                     ("hand21", 1024, 3), ("snake20_box", 1024, 3),
+                     ("distance", 65_536, 10), ("exact", 65_536, 10))
 
 
 def phase_against(other_root, device, pairs=10):
@@ -536,6 +563,8 @@ def phase_against(other_root, device, pairs=10):
         other_lib = other.library.__wrapped__()
     if not hasattr(other_lib, "ikpso_kernel_a_smem_bytes"):
         other_lib = _OlderLibrary(other_lib)
+    if not hasattr(other_lib, "ikpso_kernel_a_short_threads"):
+        other_lib = _NoBoundLibrary(other_lib)
     libs = {"this": kernels.library(), "other": other_lib}
     mine = {r["kernel"]: r for r in mine}
     changed = [{"kernel": k, "this": mine[k], "other": theirs[k]}
@@ -553,7 +582,9 @@ def phase_against(other_root, device, pairs=10):
     od_contenders, keys = {}, od_keys()
     for tag, _, _ in AGAINST_ON_DEMAND:
         key = keys[tag]
-        if key.scratch:
+        if not (key.scratch or key.stream or key.shared):
+            alts = {}  # a short chain: its one kernel
+        elif key.scratch:
             alts = {f"this/{t} {'shared' if sh else 'global'}":
                     key._replace(threads=t, shared=sh)
                     for t, sh in ((1024, False), (512, False), (512, True))}
@@ -585,7 +616,7 @@ def phase_against(other_root, device, pairs=10):
                                .astype(np.int32), device=device)
 
     patched = ("library", "SHARED_IDS", "serial_lbest_shared", "on_demand_key",
-               "on_demand_library", "on_demand_threads")
+               "on_demand_library", "on_demand_threads", "SHORT_THREADS")
 
     def under(use, fn):
         """``fn()`` with a contender's libraries and placement rules in place
@@ -598,12 +629,15 @@ def phase_against(other_root, device, pairs=10):
             for n, v in saved.items():
                 setattr(kernels, n, v)
 
-    def prebuilt(who, serial_shared=None):
+    def prebuilt(who, serial_shared=None, short_bound=True):
         """A build's prebuilt library and, for the serial-chain variant, an
         lbest placement (where the other build predates the placements:
-        its own, registers and lbest in global scratch)."""
+        its own, registers and lbest in global scratch); without
+        ``short_bound``, a short chain's 1,024-thread instantiation."""
         def use():
             kernels.library = lambda: libs[who]
+            if not short_bound:
+                kernels.SHORT_THREADS = 0
             if isinstance(libs[who], _OlderLibrary):
                 kernels.SHARED_IDS = ()
                 kernels.serial_lbest_shared = lambda *a: False
@@ -621,30 +655,40 @@ def phase_against(other_root, device, pairs=10):
             kernels.on_demand_threads = lambda spec: key.threads
         return use
 
-    def ptxas_of(prefix):
-        return {who: [r for name, r in rows.items() if name.startswith(prefix)]
+    def ptxas_of(*prefixes):
+        return {who: [r for name, r in rows.items() if name.startswith(prefixes)]
                 for who, rows in (("this", mine), ("other", theirs))}
 
     rng = np.random.default_rng(4)
     pso, fit = _headline_configs()
     two = {"this": prebuilt("this"), "other": prebuilt("other")}
+    # The short chains: this build at either thread bound against the other.
+    short = {**two, "this/1024": prebuilt("this", short_bound=False)}
     cases = {}  # name -> (fn, reps, contenders, layout args, ptxas lines by contender)
-    arm = "fused_solve_kernel<Topology<4, 8448, 8>"
+    arm = ("fused_solve_kernel<Topology<4, 8448, 8>",
+           "fused_solve_short_kernel<Topology<4, 8448, 8>")
     for swarms in (HEADLINE_SWARMS, TIMING_SWARMS):
         spec, batched = _problem("arm_7dof", swarms, rng, device)
         meta, swarm = _packed(spec, batched, fit)
         seeds = seeds_of(rng, swarms)
         args = (spec, pso, fit, meta, swarm, spec.limits(), seeds, 128)
-        cases[f"arm_7dof S={swarms}"] = (lambda args=args: fused_solve(*args), 10, two,
-                                         (spec, fit, swarm, 128), ptxas_of(f"{arm}, 0, 0"))
+        cases[f"arm_7dof S={swarms}"] = (lambda args=args: fused_solve(*args), 10, short,
+                                         (spec, fit, swarm, 128),
+                                         ptxas_of(*(f"{a}, 0, 0" for a in arm)))
+    pre_p, pso_p, fit_p, spec_p, meta_p, swarm_p, lim_p, seeds_p = _tree_setup(
+        "planar_3dof", TREE_SWARMS["planar_3dof"], rng=rng, device=device)
+    args_p = (spec_p, pso_p, fit_p, meta_p, swarm_p, lim_p, seeds_p, pre_p.particles)
+    cases[f"planar_3dof S={TREE_SWARMS['planar_3dof']}"] = (
+        lambda: fused_solve(*args_p), 10, short, (spec_p, fit_p, swarm_p, pre_p.particles),
+        ptxas_of(*(f"{a}, 0, 0" for a in arm)))
     obs = _scene(spec, device)
     for c, shape in enumerate(("box", "capsule"), 1):
         fit_s = dataclasses.replace(fit, collision_shape=shape)
         meta_s, _ = _packed(spec, batched, fit_s, obs)
         args = (spec, pso, fit_s, meta_s, swarm, spec.limits(), seeds, 128)
         cases[f"arm_7dof {shape} S={TIMING_SWARMS}"] = (
-            lambda args=args: fused_solve(*args, num_obstacles=obs.count), 10, two,
-            (spec, fit_s, swarm, 128, obs.count), ptxas_of(f"{arm}, {c}, 0"))
+            lambda args=args: fused_solve(*args, num_obstacles=obs.count), 10, short,
+            (spec, fit_s, swarm, 128, obs.count), ptxas_of(*(f"{a}, {c}, 0" for a in arm)))
     # Kernel B's collider branches on their own (the timing phase's shape).
     lim = spec.limits().cpu().numpy()
     x_b = torch.as_tensor((lim[0] + rng.random((TIMING_SWARMS, 128, spec.dof))
@@ -663,9 +707,10 @@ def phase_against(other_root, device, pairs=10):
     args_o = (spec_o, pso_o, fit_o, meta_o, swarm_o, spec_o.limits(),
               seeds_of(rng, TIMING_SWARMS), 128)
     cases[f"arm_6dof orientation re-kick S={TIMING_SWARMS}"] = (
-        lambda: fused_solve(*args_o, use_orientation=True), 10, two,
+        lambda: fused_solve(*args_o, use_orientation=True), 10, short,
         (spec_o, fit_o, swarm_o, 128, 0, True),
-        ptxas_of("fused_solve_kernel<Topology<3, 256, 4>, 0, 1"))
+        ptxas_of("fused_solve_kernel<Topology<3, 256, 4>, 0, 1",
+                 "fused_solve_short_kernel<Topology<3, 256, 4>, 0, 1"))
     for model, swarms, reps in AGAINST_TREES:
         pre, pso_t, fit_t, spec_t, meta_t, swarm_t, lim_t, seeds_t = _tree_setup(
             model, swarms, rng=rng, device=device)
@@ -714,7 +759,8 @@ def phase_against(other_root, device, pairs=10):
             if layout_args is not None:
                 layout = under(contenders[who], lambda: kernel_a_layout(*layout_args))
                 row[who].update(placement=layout.placement, smem_bytes=layout.smem_bytes,
-                                scratch_planes=layout.scratch_planes)
+                                scratch_planes=layout.scratch_planes,
+                                threads=layout.threads, static_bytes=layout.static_bytes)
         rows[name] = {"contenders": row, "this_over_other": med["this"] / med["other"],
                       "this_faster_pairs": sum(t < o for t, o in zip(ms["this"],
                                                                      ms["other"])),
@@ -844,7 +890,8 @@ def _headline_configs():
     return pso, FitnessConfig(angle_weight=0.0, distance_weight=0.0)
 
 
-def phase_fused_replay(device, swarms=1024, particles=128):
+def phase_fused_replay(device, swarms=1024, particles=128,
+                       models=("arm_7dof", "reference_arm")):
     import numpy as np
     import torch
 
@@ -852,7 +899,7 @@ def phase_fused_replay(device, swarms=1024, particles=128):
 
     pso, fit = _headline_configs()
     worst = 0.0
-    for name, s in (("arm_7dof", swarms), ("reference_arm", 256)):
+    for name, s in ((m, 256 if m == "reference_arm" else swarms) for m in models):
         rng = np.random.default_rng(2)
         spec, batched = _problem(name, s, rng, device)
         meta, swarm = _packed(spec, batched, fit)
@@ -1505,6 +1552,10 @@ def _device_ms_readings(prof, kernel):
             "events": len(events)}
 
 
+# Kernel A's kernels (csrc/fused_solve.cuh): the register layout's trees,
+# the short chains, the serial-chain variant and the scratch layout.
+KERNEL_A_NAMES = ("fused_solve_kernel", "fused_solve_short_kernel",
+                  "fused_solve_serial_kernel", "fused_solve_tree_scratch_kernel")
 # The scan solver's device time by kernel: the step, kernel C (init), torch's
 # random draws (torch.rand), and the rest ("other": every other op).
 SCAN_SPLIT = {"scan_step": ("scan_step_kernel",), "kernel_c": ("fused_fitness_kernel",),
@@ -1711,9 +1762,7 @@ def _stage_times(device, stages, full, problem, gen):
         full(problem, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy, ms = _device_ms(prof, {
-        "a": ("fused_solve_kernel", "fused_solve_serial_kernel",
-              "fused_solve_tree_scratch_kernel"), **SCAN_SPLIT})
+    busy, ms = _device_ms(prof, {"a": KERNEL_A_NAMES, **SCAN_SPLIT})
     out.update(profiled_wall_ms=wall_ms,
                device_busy_ms=busy if busy else None,
                kernel_a_device_ms=ms["a"] if busy else None,
@@ -2146,7 +2195,8 @@ def kernel_names(model):
         return {"A": "fused_solve_serial_kernel", "B": "fk_fitness_serial_kernel",
                 "C": "fused_fitness_serial_kernel"}
     n = spec.num_nodes
-    return {"A": f"fused_solve_kernel<Topology<{n}, ",
+    short = kernels.topology_id(spec) in kernels.SHORT_IDS
+    return {"A": f"fused_solve{'_short' if short else ''}_kernel<Topology<{n}, ",
             "B": f"fk_fitness_kernel<Topology<{n}, ",
             "C": f"fused_fitness_kernel<Topology<{n}, "}
 
@@ -2166,11 +2216,14 @@ def kernel_a_placement(spec, fit, particles, num_obstacles=0, use_orientation=Fa
     planes = ((1 if layout.scratch else 2) if layout.placement == "shared" else 0)
     bytes_c = kernels.library().ikpso_kernel_a_smem_bytes(
         lay.meta_size, lay.swarm_size, spec.dof, particles, planes)
+    if kernels.library().ikpso_kernel_a_short_threads() != kernels.SHORT_THREADS:
+        raise AssertionError("kShortThreads and SHORT_THREADS differ")
     if bytes_c != layout.smem_bytes:
         raise AssertionError(f"kernel A's shared memory: {layout.smem_bytes} bytes "
                              f"reckoned in Python, {bytes_c} by the kernels")
     return {"placement": layout.placement, "smem_bytes": layout.smem_bytes,
-            "scratch_planes": layout.scratch_planes}
+            "scratch_planes": layout.scratch_planes, "threads": layout.threads,
+            "static_bytes": layout.static_bytes}
 
 
 def phase_ptxas():
@@ -3486,6 +3539,117 @@ def phase_sass_philox():
     return per_call
 
 
+# SASS instruction classes (phase_sass_kernel_a), by opcode; an opcode of
+# the uniform datapath not listed is "uniform".
+SASS_CLASSES = (
+    ("fp32", ("FADD", "FMUL", "FFMA", "FSETP", "FSEL", "FMNMX", "FRND", "FCHK", "MUFU",
+              "FSET", "HFMA2")),
+    ("integer", ("IMAD", "IADD3", "IADD", "LOP3", "SHF", "VIADD", "ISETP", "SEL", "LEA",
+                 "IMNMX", "VIMNMX", "PRMT", "I2FP", "F2I", "I2F", "POPC", "FLO", "IABS",
+                 "IMUL")),
+    ("move", ("MOV", "CS2R", "S2R", "S2UR", "R2UR", "PLOP3", "P2R", "R2P")),
+    ("shared_load", ("LDS",)), ("shared_store", ("STS",)), ("local", ("LDL", "STL")),
+    ("global", ("LDG", "STG", "LDC")), ("shuffle", ("SHFL",)), ("redux", ("REDUX",)),
+    ("barrier", ("BAR",)),
+    ("branch", ("BRA", "BSSY", "BSYNC", "EXIT", "CALL", "RET", "WARPSYNC", "BMOV", "NOP")),
+)
+# The headline instantiation of kernel A (arm_7dof, no scene, no
+# orientation, the Philox draws) in mangled names: the short chains'
+# canonical one at the 256-thread bound, or an older checkout's one.
+HEADLINE_KERNEL_A = (
+    r"fused_solve_short_kernelINS_8TopologyILi4ELy8448ELj8EEELi0ELb0ELb0ELi256ELb1E",
+    r"fused_solve_kernelINS_8TopologyILi4ELy8448ELj8EEELi0ELb0ELb0EEE")
+WARP_ISSUE_PER_SM_CLOCK = 4  # an H100 SM: four schedulers, one warp instruction a clock each
+
+
+def sass_class(text):
+    """The SASS_CLASSES class of one instruction (its predicate dropped)."""
+    op = re.sub(r"^@!?U?P[T\d] ", "", text).split()[0].split(".")[0]
+    for name, ops in SASS_CLASSES:
+        if op in ops:
+            return name
+    return "uniform" if op.startswith("U") else "other"
+
+
+def sass_loop_mix(sass, function):
+    """One trip of a kernel's main loop (its longest span closed by a
+    backward branch) in ``sass`` (cuobjdump -sass text), by instruction
+    class: ``loop_static``, every instruction of the span; ``loop_path``,
+    the span less its inner loops and less the blocks a forward branch
+    skips that hold Philox products and no barrier (the optional draws: the
+    randomized inertia's and the re-kick's, which the headline does not
+    run)."""
+    from collections import Counter
+
+    body = sass.split(f"Function : {function}")[1].split("Function : ")[0]
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,5})\*/\s+([^;]+);", body)]
+
+    def target(t):
+        m = re.match(r"(?:@!?U?P[T\d] )?BRA (?:!?U?P\d, )?0x([0-9a-f]+)", t)
+        return int(m.group(1), 16) if m else None
+
+    back = [(target(t), a) for a, t in ins if target(t) is not None and target(t) < a]
+    start, end = max(back, key=lambda span: span[1] - span[0])
+    loop = [(a, t) for a, t in ins if start <= a <= end]
+    skipped = {a for s, e in back if start < s and e < end for a, _ in loop if s <= a <= e}
+    draws = 0
+    for a, t in loop:
+        tg = target(t)
+        if tg is None or tg <= a or tg > end or not t.startswith("@"):
+            continue
+        span = [(b, u) for b, u in loop if a < b < tg]
+        if (any(u.startswith("IMAD.WIDE.U32") for _, u in span)
+                and not any(u.startswith("BAR") for _, u in span)):
+            draws += 1
+            skipped |= {b for b, _ in span}
+    path = [t for a, t in loop if a not in skipped]
+    return {"loop_static": dict(Counter(sass_class(t) for _, t in loop)),
+            "loop_path": dict(Counter(sass_class(t) for t in path)),
+            "static_instructions": len(loop), "path_instructions": len(path),
+            "inner_loops": sum(1 for s, e in back if start < s and e < end),
+            "skipped_draw_blocks": draws}
+
+
+def phase_sass_kernel_a(other_root=None, swarms=HEADLINE_SWARMS, particles=128,
+                        iterations=8):
+    """The headline instantiation of kernel A in SASS (cuobjdump -sass of
+    the built prebuilt library): one trip of its PSO loop by instruction
+    class (sass_loop_mix), and with ``other_root`` the same for that
+    checkout's library, built with this checkout's flags; and the
+    issue-rate time of the headline's solve, (iterations + 1) loop trips a
+    warp (the init's draws and evaluation are about one trip) at one warp
+    instruction a scheduler a clock, over the card's SMs at its maximum SM
+    clock. Returns this build's row."""
+    import torch
+
+    from ikpso_tpu_torch.utils import kernels
+
+    max_hz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"]).split()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    warps = swarms * particles // 32
+    libs = {"this": kernels.build()}
+    if other_root:
+        with _sources(other_root) as other:
+            libs["other"] = other.build()
+    out = {}
+    for who, lib in libs.items():
+        sass = run([str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(lib)])
+        names = re.findall(r"Function : (\S+)", sass)
+        function = next(f for pattern in HEADLINE_KERNEL_A for f in names
+                        if re.search(pattern, f))
+        row = sass_loop_mix(sass, function)
+        per_warp = (iterations + 1) * row["path_instructions"]
+        row.update(function=function, issue_bound_ms=warps * per_warp / (
+            WARP_ISSUE_PER_SM_CLOCK * sms * max_hz) * 1e3)
+        out[who] = row
+    emit("sass_kernel_a", **out, sms=sms, max_sm_hz=max_hz,
+         shape={"swarms": swarms, "particles": particles, "iterations": iterations},
+         ok=True)
+    return out["this"]
+
+
 # This slice's paths: GJK on the card (agreement with SAT, and the GJK
 # document's solve through harness.configs with --impl jnp), host-gather
 # and from-best retries on the headline batch, the sharded solves of two
@@ -3715,7 +3879,7 @@ def phase_retries_host(device, card):
         retried(batched, gen())
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) * 1e3
-    busy, ms = _device_ms(prof, {"a": ("fused_solve_kernel",)})
+    busy, ms = _device_ms(prof, {"a": KERNEL_A_NAMES})
     topk = build_headline_solver(spec, swarms, device)(batched, gen())
     bucket = headline_bucket(swarms, pre.retry_bucket_decay)
     one_round = {start: failures(make_topk_retry_solver(
@@ -4223,6 +4387,10 @@ def run_phases(device, card, od_ptxas):
     phase_fused_tie(device, particles=1024, model="dual_arm_14dof")
     phase_fused_penalty_ties(device)
     phase_fused_philox(device)
+    # The short chains' 1,024-thread instantiation (P > 256) on both streams.
+    a_err = max(a_err, phase_fused_replay(device, swarms=256, particles=512,
+                                          models=("arm_7dof", "arm_6dof")))
+    phase_fused_philox(device, swarms=256, particles=512)
     c_err = phase_fused_fitness(device)
     scan_err = phase_scan_replay(device)
     tree_err = phase_tree_fitness(device)
@@ -4236,6 +4404,7 @@ def run_phases(device, card, od_ptxas):
     phase_sass_sincos()
     phase_sass_bisection()
     e_per_call = phase_sass_philox()
+    a_sass = phase_sass_kernel_a()
     phase_tensor_polish(device)
     paths = {
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
@@ -4369,6 +4538,10 @@ def run_phases(device, card, od_ptxas):
          "on_demand_source": "ikpso_tpu_torch/csrc/on_demand.cuh",
          "ms_at_headline_swarms": t["fused_solve_big_ms"],
          "bound_at_headline_swarms": bound_keys("A headline, no scene"),
+         "issue_bound_ms_at_headline_swarms": a_sass["issue_bound_ms"],
+         "issue_share_at_headline_swarms": a_sass["issue_bound_ms"]
+                                           / t["fused_solve_big_ms"],
+         "loop_trip_instructions": a_sass["loop_path"],
          "box_ms_at_headline_swarms": t["fused_solve_box_big_ms"],
          "headline_sol_frac": sol["sol_frac"],
          "track_shape": {"ms": t["fused_solve_track_ms"],
@@ -4515,6 +4688,7 @@ def main(argv=None) -> None:
     od_ptxas = phase_build(on_demand=not args.against)
     if args.against:
         phase_against(args.against, torch.device("cuda", 0))
+        phase_sass_kernel_a(args.against)
         return
     kernels = run_phases(torch.device("cuda", 0), card, od_ptxas)
     print(card, flush=True)

@@ -561,19 +561,47 @@ __device__ __forceinline__ bool node_hits(const float (&pk)[3], const float (&rk
   return false;
 }
 
+// Meta's offsets past the link lengths for topology T: the effector
+// weights, then the scene boxes (15 floats each) and, with the orientation
+// term, its weight after them.
+template <class T>
+__host__ __device__ constexpr int meta_ew() {
+  return kMetaLen + (T::N - 1);
+}
+template <class T>
+__host__ __device__ constexpr int meta_obs() {
+  return meta_ew<T>() + T::E;
+}
+
+// The two locality weights over the joint count, aw / (N-1) and
+// dw / (N-1) (the distance term's), as the cost adds them; the same for
+// every particle of a chain, so a caller may compute them once.
+struct JointWeights {
+  float angle, distance;
+};
+template <class T>
+__device__ __forceinline__ JointWeights joint_weights(const float* __restrict__ meta) {
+  JointWeights w{meta[kMetaAw] / static_cast<float>(T::N - 1), 0.0f};
+  if constexpr (T::kDistance) w.distance = meta[kMetaDw] / static_cast<float>(T::N - 1);
+  return w;
+}
+
 // Fitness of one particle: x(d) returns its angle d; meta / sw point at
-// the packed per-chain / per-swarm constants (MetaLayout); scene is read
-// only when C != kNoCollider, row_slack (box_row_slack of sw) only when C
-// is kBoxCollider; O adds the orientation term; T::kDistance the distance
-// term, T::kExact stock trig.
-template <class T, int C, bool O, class X>
-__device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict__ meta,
-                                                    const float* __restrict__ sw,
-                                                    Scene scene, float row_slack) {
+// the packed per-chain / per-swarm constants (MetaLayout) and are read at
+// compile-time offsets only; obs points at meta's scene boxes and, after
+// them, the orientation weight (meta + meta_obs<T>()); weights() returns
+// meta's locality weights (joint_weights), asked for after the walk.
+// scene is read only when C != kNoCollider, row_slack (box_row_slack of
+// sw) only when C is kBoxCollider; O adds the orientation term;
+// T::kDistance the distance term, T::kExact stock trig.
+template <class T, int C, bool O, class X, class W>
+__device__ __forceinline__ float fk_fitness_walk(X x, const float* __restrict__ meta,
+                                                 const float* __restrict__ sw,
+                                                 const float* __restrict__ obs, W weights,
+                                                 Scene scene, float row_slack) {
   constexpr int N = T::N;
   constexpr int D = T::D;
-  constexpr int kMetaEw = kMetaLen + (N - 1);
-  constexpr int kMetaObs = kMetaEw + T::E;
+  constexpr int kMetaEw = meta_ew<T>();
   constexpr int kSwTgt = kSwAnchor + D;
   constexpr int kSwApos = kSwTgt + 3 * T::E;
   constexpr int kSwTrot = kSwApos + 3 * (N - 1);
@@ -621,7 +649,7 @@ __device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict
     }
     if constexpr (C != kNoCollider) {
       if (!hit) {
-        hit = node_hits<C>(pos[k], rot[k], pos[p], len, meta + kMetaObs, scene, slack);
+        hit = node_hits<C>(pos[k], rot[k], pos[p], len, obs, scene, slack);
       }
     }
 
@@ -633,7 +661,7 @@ __device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict
       const float ez = pos[k][2] - sw[kSwTgt + 3 * e + 2];
       cost = cost + w * (ex * ex + ey * ey + ez * ez);
       if constexpr (O) {
-        const float ow = meta[kMetaObs + (C == kNoCollider ? 0 : 15 * scene.count)];
+        const float ow = obs[C == kNoCollider ? 0 : 15 * scene.count];
         const float* rt = sw + kSwTrot + 9 * e;
         float fro = 0.0f;
 #pragma unroll
@@ -645,12 +673,21 @@ __device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict
       }
     }
   }
-  float total = cost + (meta[kMetaAw] / static_cast<float>(N - 1)) * rot_diff;
-  if constexpr (T::kDistance) {
-    total = total + (meta[kMetaDw] / static_cast<float>(N - 1)) * pos_diff;
-  }
+  const JointWeights jw = weights();
+  float total = cost + jw.angle * rot_diff;
+  if constexpr (T::kDistance) total = total + jw.distance * pos_diff;
   if constexpr (C != kNoCollider) return hit ? FLT_MAX : total;
   return total;
+}
+
+// fk_fitness_walk with its scene boxes and weights read from meta.
+template <class T, int C, bool O, class X>
+__device__ __forceinline__ float fk_fitness_eval_at(X x, const float* __restrict__ meta,
+                                                    const float* __restrict__ sw,
+                                                    Scene scene, float row_slack) {
+  return fk_fitness_walk<T, C, O>(
+      x, meta, sw, meta + meta_obs<T>(), [=] { return joint_weights<T>(meta); }, scene,
+      row_slack);
 }
 
 // fk_fitness_eval_at on a register array of the D angles.

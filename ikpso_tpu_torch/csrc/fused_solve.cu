@@ -22,8 +22,9 @@
 // fused_solve.cuh, with the design notes of the scratch layout); a tree
 // past 45 DOFs built on demand takes the same layout
 // (fused_solve_tree_scratch_kernel, on_demand.cuh). The kernel templates
-// live in fused_solve.cuh; this file instantiates the prebuilt topologies
-// behind the C entry points.
+// live in fused_solve.cuh; this file instantiates the prebuilt trees and
+// the serial-chain variant behind the C entry points, fused_solve_short.cu
+// the prebuilt short chains (below).
 // x (D floats) and lval live in registers for the whole solve; v and
 // lbest (D floats each) beside them for the short chains, and in dynamic
 // shared memory, [D][P] each, for the trees, reference_arm and snake_30dof
@@ -36,14 +37,54 @@
 // The TPU kernel's 8x128 tiles, swarm packing, roll-tree reductions and
 // constant hoisting are TPU layout devices and have no counterpart here.
 //
-// gbest: a block-wide argmin over (lval, particle id) -- warp butterfly
-// with __shfl_xor_sync, then one pass over the per-warp winners in shared
-// memory. Ties go to the lowest particle id, the first-minimum semantics
-// of pso/fused.py:255-260, 344-359 (thrust::min_element in the reference).
-// The winner's lbest is copied to shared memory (by the winner from its
-// registers, or by the block together where lbest is in shared memory);
-// everyone reads it after a __syncthreads(). Two barriers per gbest
-// refresh; an iteration without a refresh (gbest_interval > 1) has none.
+// gbest (fused_solve_kernel): a block-wide argmin over (lval, particle
+// id) -- warp butterfly with __shfl_xor_sync, then one pass over the
+// per-warp winners in shared memory. Ties go to the lowest particle id, the
+// first-minimum semantics of pso/fused.py:255-260, 344-359
+// (thrust::min_element in the reference). The winner's lbest is copied to
+// shared memory (by the winner from its registers, or by the block
+// together where lbest is in shared memory); everyone reads it after a
+// __syncthreads(). Two barriers per gbest refresh; an iteration without a
+// refresh (gbest_interval > 1) has none.
+//
+// Short chains (fused_solve_short_kernel: the register placement with
+// whole draw arrays -- arm_7dof, which planar_3dof runs on, with or without
+// a scene, arm_6dof with or without the orientation term, and an
+// on-demand chain placed so). What bounds them on this card is instruction
+// issue: -fmad=false (the bit-for-bit contract) makes every mul and add of
+// the walk its own instruction, and the SASS of the headline's loop
+// (chip_smoke.py, phase sass_kernel_a) held ~1,060 warp instructions an
+// iteration, ~630 of them the FP32 arithmetic, ~220 Philox's (its round
+// keys already in uniform registers: the key schedule costs nothing an
+// iteration), ~125 the gbest refresh, 61 scalar shared loads of the
+// constants, limits and gbest, and the run-time update branches' moves;
+// at one warp instruction a scheduler a clock that is ~0.85 of the time
+// the kernel took. The design cuts what issues around the arithmetic,
+// which stays op for op:
+//   - gbest in one barrier: each warp takes its (min lval, lowest id) with
+//     two __reduce_min_sync on an order-preserving unsigned key
+//     (order_key), its winner publishes key, id, value and lbest in a warp
+//     slot, and after the one barrier every thread scans the warp winners
+//     in warp order (the first least key holds the least id) and reads the
+//     winner's row in place; two slot sets taken in turn keep a refresh's
+//     writes off the previous refresh's reads;
+//   - the walk's constants (the swarm row's head, meta's head) and the
+//     limits copied once into 16-byte aligned static shared memory
+//     (ShortShared), read as float4; the constants then held in registers
+//     for the whole solve, and the angle weight's division by N - 1
+//     computed once (JointWeights);
+//   - a second instantiation at a 256-thread bound (kShortThreads; a swarm
+//     of at most 256 particles takes it, every short-chain preset runs
+//     128), with the register cap of ShortMinBlocks instead of the
+//     1,024-thread bound's 64, where the box scene spilled 452 bytes;
+//   - at that bound, the canonical update (canonical inertia, gbest every
+//     iteration, no re-kick: the headline's) as a template flag with its
+//     branches gone (CANON); every other update keeps the run-time ones.
+// The draws keep their counters, slots and words, so the plain twin and
+// the replay are unchanged. One difference from fused_solve_kernel's
+// argmin: where a swarm's lvals mix NaN with numbers, the butterfly's pick
+// depends on the lanes' order and this argmin takes the least number (NaN
+// sorts last); where every lval is NaN both take particle 0.
 //
 // Re-kick (pso/fused.py:383-426): iterations run in blocks of
 // rekick_interval (a multiple of gbest_interval, so every block starts with
@@ -74,14 +115,15 @@
 // the lowest particle id like every other tie; a swarm whose particles
 // all collide returns particle 0's lbest with value FLT_MAX.
 //
-// Bound on this card: arithmetic. HBM sees only the swarm constants in
-// and one (D + 1)-float row out per swarm; per particle and iteration the
-// work is one FK + cost (fk_fitness.cuh), 3 Philox calls per draw slot
-// (10 rounds of 2 mul.hi + 2 mul.lo each) and the velocity update. The
-// short chains keep all state in registers and spend shared memory only on
-// the constants and the argmin scratch, so many blocks fit per SM; a
-// tree's block fills its SM's registers on its own, so the shared memory
-// its v and lbest take costs it no occupancy.
+// Bound on this card: arithmetic, issued one instruction at a time (see
+// Short chains). HBM sees only the swarm constants in and one
+// (D + 1)-float row out per swarm; per particle and iteration the work is
+// one FK + cost (fk_fitness.cuh), 3 Philox calls per draw slot (10 rounds
+// of 2 mul.hi + 2 mul.lo each) and the velocity update. The short chains
+// keep all state in registers and spend shared memory only on the
+// constants and the argmin slots, so many blocks fit per SM; a tree's
+// block fills its SM's registers on its own, so the shared memory its v
+// and lbest take costs it no occupancy.
 #include <cuda_runtime.h>
 
 #include "fused_solve.cuh"
@@ -96,11 +138,11 @@ extern "C" int ikpso_fused_solve(int topo, int collider, int orient, int replay,
                                  int rekick_interval, float rekick_scale,
                                  float rekick_threshold, const float* uniforms,
                                  int n_draws, float* gbest, float* gval, int S, int P,
-                                 void* stream) {
+                                 int threads, void* stream) {
   using namespace ikpso;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (S <= 0) return static_cast<int>(cudaGetLastError());
-  if (P <= 0 || P > 1024 || P % 32 != 0 || init_mode < kInitWarm ||
+  if (P <= 0 || P > threads || P % 32 != 0 || init_mode < kInitWarm ||
       init_mode > kInitHybrid || n_obs < 0 || gbest_interval < 1 ||
       rekick_interval < 0 || (rekick_interval > 0 && rekick_interval % gbest_interval) ||
       (orient && (topo != 2 || collider != kNoCollider))) {
@@ -110,22 +152,20 @@ extern "C" int ikpso_fused_solve(int topo, int collider, int orient, int replay,
   const Update up{randomized != 0, gbest_interval, rekick_interval, rekick_scale,
                   rekick_threshold};
   cudaError_t rc = cudaSuccess;
-#define IKPSO_LAUNCH(TOPO, C, O)                                                       \
-  rc = launch_fused_solve<TOPO, C, O>(replay != 0, meta, M, swarm, K, limits, seeds,  \
-                                      inertia, iters, c1, c2, vscale, init_mode, scene, \
-                                      up, uniforms, n_draws, gbest, gval, S, P, st)
-  if (topo == 0 && collider == kNoCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kNoCollider, false);
-  } else if (topo == 0 && collider == kBoxCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kBoxCollider, false);
-  } else if (topo == 0 && collider == kCapsuleCollider) {
-    IKPSO_LAUNCH(Arm7Dof, kCapsuleCollider, false);
+#define IKPSO_LAUNCH(TOPO, C, O)                                                         \
+  rc = threads != KernelAThreads<TOPO>::value                                           \
+           ? cudaErrorInvalidValue                                                      \
+           : launch_fused_solve<TOPO, C, O>(replay != 0, meta, M, swarm, K, limits, seeds, \
+                                            inertia, iters, c1, c2, vscale, init_mode,   \
+                                            scene, up, uniforms, n_draws, gbest, gval, S, \
+                                            P, st)
+  if (topo == 0 || topo == 2) {
+    rc = launch_short_prebuilt(topo, collider, orient != 0, threads, replay != 0, meta, M,
+                               swarm, K, limits, seeds, inertia, iters, c1, c2, vscale,
+                               init_mode, scene, up, uniforms, n_draws, gbest, gval, S, P,
+                               st);
   } else if (topo == 1 && collider == kNoCollider) {
     IKPSO_LAUNCH(ReferenceArm, kNoCollider, false);
-  } else if (topo == 2 && collider == kNoCollider && !orient) {
-    IKPSO_LAUNCH(Arm6Dof, kNoCollider, false);
-  } else if (topo == 2 && collider == kNoCollider && orient) {
-    IKPSO_LAUNCH(Arm6Dof, kNoCollider, true);
   } else if (topo == 3 && collider == kNoCollider && !orient) {
     IKPSO_LAUNCH(DualArm14, kNoCollider, false);
   } else if (topo == 4 && collider == kNoCollider && !orient) {
@@ -139,6 +179,10 @@ extern "C" int ikpso_fused_solve(int topo, int collider, int orient, int replay,
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The short chains' second thread bound (kShortThreads; SHORT_THREADS in
+// utils/kernels.py).
+extern "C" int ikpso_kernel_a_short_threads() { return ikpso::kShortThreads; }
 
 // Kernel A's dynamic shared-memory bytes with `planes` [D][P] float planes
 // after the constants (kernel_a_smem_bytes): lets a caller hold its own

@@ -260,17 +260,21 @@ static size_t kernel_a_smem_bytes(int M, int K, int D, int P, int planes) {
   return sizeof(float) * (smem_head_floats(M, K, D) + static_cast<size_t>(planes) * D * P);
 }
 
-// Lets `kernel` take the card's opt-in maximum of dynamic shared memory
-// per block (past the default 48 KB) and returns that maximum, 0 on an
-// error. Each launcher calls it once per instantiation, from a static.
+// Lets `kernel` take the card's opt-in maximum of shared memory per block
+// (past the default 48 KB) less its static shared memory (static_bytes)
+// as dynamic shared memory, and returns that, 0 on an error. Each launcher
+// calls it once per instantiation, from a static.
 template <class F>
-static int allow_dynamic_smem(F kernel) {
+static int allow_dynamic_smem(F kernel, size_t static_bytes = 0) {
   int device = 0, most = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-          cudaSuccess ||
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most) !=
           cudaSuccess) {
+    return 0;
+  }
+  most -= static_cast<int>(static_bytes);
+  if (most < 0 || cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       most) != cudaSuccess) {
     return 0;
   }
   return most;
@@ -462,6 +466,331 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
   if (p == win) out_gval[s] = lval;
 }
 
+// ---------------------------------------------------------------------------
+// Kernel A's short chains: the register layout without streamed draws
+// (ShortChain: arm_7dof, which planar_3dof runs on, arm_6dof, and an
+// on-demand chain placed so), fused_solve_short_kernel. The design notes
+// are fused_solve.cu's "Short chains"; the arithmetic, the draws and the
+// first-minimum rule are fused_solve_kernel's, op for op.
+
+template <class T>
+struct ShortChain {
+  static constexpr bool value =
+      StatePlacement<T>::value == kRegisters && !StreamDraws<T>::value;
+};
+
+// The short chains' second thread bound (their presets run P = 128; must
+// match SHORT_THREADS in utils/kernels.py) and the least blocks an SM
+// keeps at it (the second argument of __launch_bounds__), so the register
+// cap: 3 blocks, 80 registers, where the walk fits them (the headline's
+// instantiation takes 76, so six blocks of 128 threads an SM); 2 blocks,
+// 128 registers, for the box scene, which spilled 224-372 bytes at 80 and
+// ran 7% slower on an H100 (PERF.md, tools/kernel_a_variants.py). At the
+// 1,024-thread bound one block, 64 registers.
+constexpr int kShortThreads = 256;
+template <int C, int TH>
+struct ShortMinBlocks {
+  static constexpr int value = TH != kShortThreads ? 1 : C == kBoxCollider ? 2 : 3;
+};
+
+// A short chain's static shared memory (fused_solve_short_kernel): the
+// walk's constants at compile-time offsets -- the swarm row through the
+// target rotations, meta through the effector weights and, without a
+// scene, the orientation weight -- and the limits, each a whole number of
+// float4, so an evaluation or an update loads them 16 bytes at a time;
+// then, for the two gbest refreshes in turn, each warp's winner: its key,
+// id, value and lbest. Must match short_static_bytes in
+// ikpso_tpu_torch/utils/kernels.py.
+template <class T, int C, bool O, int TH>
+struct ShortShared {
+  static constexpr int kD4 = (T::D + 3) / 4 * 4;
+  static constexpr int kWarps = TH / 32;
+  static constexpr int kSw =
+      (kSwAnchor + T::D + 3 * T::E + 3 * (T::N - 1) + (O ? 9 * T::E : 0) + 3) / 4 * 4;
+  static constexpr int kMeta = (meta_obs<T>() + (O && C == kNoCollider ? 1 : 0) + 3) / 4 * 4;
+  float sw[kSw];
+  float meta[kMeta];
+  float lo[kD4];
+  float hi[kD4];
+  float lb[2][kWarps][kD4];
+  unsigned key[2][kWarps];
+  int id[2][kWarps];
+  float val[2][kWarps];
+};
+
+// r[0, N) from 16-byte aligned shared memory, a float4 at a time.
+template <int N>
+__device__ __forceinline__ void load4(float (&r)[N], const float* __restrict__ s) {
+  static_assert(N % 4 == 0, "whole float4");
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(s + i);
+    r[i] = v.x;
+    r[i + 1] = v.y;
+    r[i + 2] = v.z;
+    r[i + 3] = v.w;
+  }
+}
+
+// v[0, D) to 16-byte aligned shared memory, a float4 at a time (the pad
+// after D is written with zeros and never read).
+template <int D>
+__device__ __forceinline__ void store4(float* __restrict__ s, const float (&v)[D]) {
+#pragma unroll
+  for (int i = 0; i < D; i += 4) {
+    *reinterpret_cast<float4*>(s + i) =
+        make_float4(v[i], i + 1 < D ? v[i + 1] : 0.0f, i + 2 < D ? v[i + 2] : 0.0f,
+                    i + 3 < D ? v[i + 3] : 0.0f);
+  }
+}
+
+// An unsigned key in the order of the floats: k(a) < k(b) exactly where
+// a < b for non-NaN a, b (-0 and +0 share a key: v + 0.0f is +0 for
+// both), NaN above everything. A warp takes its (min value, lowest id)
+// with two __reduce_min_sync: the least key, then the least id holding it.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = __float_as_uint(v + 0.0f);
+  if (v != v) return 0xffffffffu;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+
+template <class T, int C, bool O, bool REPLAY, int TH, bool CANON>
+__global__ void __launch_bounds__(TH, ShortMinBlocks<C, TH>::value)
+    fused_solve_short_kernel(const float* __restrict__ meta, int M,
+                             const float* __restrict__ swarm, int K,
+                             const float* __restrict__ limits, const int* __restrict__ seeds,
+                             const float* __restrict__ inertia, int iters, float c1,
+                             float c2, float vscale, int init_mode, Scene scene, Update up,
+                             const float* __restrict__ uniforms, int n_draws,
+                             float* __restrict__ out_gbest, float* __restrict__ out_gval) {
+  constexpr int D = T::D;
+  using Sh = ShortShared<T, C, O, TH>;
+  __shared__ __align__(16) Sh sh;
+  extern __shared__ float smem[];  // meta, for the scene boxes (kernel_a_smem_bytes)
+
+  const int s = blockIdx.x;
+  const int P = blockDim.x;
+  const int p = threadIdx.x;
+  const float* row = swarm + static_cast<long long>(s) * K;
+  for (int i = p; i < Sh::kSw; i += P) sh.sw[i] = i < K ? row[i] : 0.0f;
+  for (int i = p; i < Sh::kMeta; i += P) sh.meta[i] = i < M ? meta[i] : 0.0f;
+  for (int i = p; i < Sh::kD4; i += P) {
+    sh.lo[i] = i < D ? limits[i] : 0.0f;
+    sh.hi[i] = i < D ? limits[D + i] : 0.0f;
+  }
+  if constexpr (C != kNoCollider) {
+    for (int i = p; i < M; i += P) smem[i] = meta[i];
+  }
+  __syncthreads();
+
+  const uint2 key = make_uint2(static_cast<unsigned>(seeds[2 * s]),
+                               static_cast<unsigned>(seeds[2 * s + 1]));
+  const float* u_swarm =
+      REPLAY ? uniforms + static_cast<long long>(s) * n_draws * D * P : nullptr;
+  const JointWeights jw = joint_weights<T>(sh.meta);
+  const float row_slack = box_row_slack<T, C>(smem, sh.sw, scene);
+  // The walk's constants, held in registers for the whole solve (loaded
+  // once an evaluation instead, the short chains ran 1-7% slower at either
+  // bound: PERF.md, tools/kernel_a_variants.py). The scene boxes (and,
+  // after them, the orientation weight) stay in shared memory; without a
+  // scene the weight is in c_meta.
+  float c_sw[Sh::kSw], c_meta[Sh::kMeta];
+  load4(c_sw, sh.sw);
+  load4(c_meta, sh.meta);
+  auto eval = [&](const float (&xe)[D]) {
+    const float* obs = C == kNoCollider ? c_meta + meta_obs<T>() : smem + meta_obs<T>();
+    return fk_fitness_walk<T, C, O>([&](int d) { return xe[d]; }, c_meta, c_sw, obs,
+                                    [&] { return jw; }, scene, row_slack);
+  };
+
+  float x[D], v[D], lb[D], uc[D], us[D];
+  const int n_init = init_mode == kInitWarm ? 1 : 2;
+  if (init_mode == kInitWarm || (init_mode == kInitHybrid && p == 0)) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = sh.sw[kSwAnchor + d];
+  }
+  if (init_mode != kInitWarm) {
+    // U(lo, hi) over the joint range clamped to +-2pi (pso/fused.py:269-283).
+    draw<D, REPLAY>(uc, 0, p, P, key, u_swarm);
+    if (init_mode == kInitUniform || p != 0) {
+      constexpr float kTwoPi = 0x1.921fb6p+2f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const float lo_c = fmaxf(sh.lo[d], -kTwoPi);
+        const float hi_c = fminf(sh.hi[d], kTwoPi);
+        x[d] = lo_c + uc[d] * (hi_c - lo_c);
+      }
+    }
+  }
+  draw<D, REPLAY>(uc, n_init - 1, p, P, key, u_swarm);
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    v[d] = (uc[d] * 2.0f - 1.0f) * vscale;
+    lb[d] = x[d];
+  }
+  float lval = eval(x);
+
+  // gbest refresh: the first-minimum block argmin over (lval, p) with one
+  // barrier. Each warp's winner publishes its key, id, value and lbest in
+  // slot [buf][warp]; after the barrier every thread scans the warp
+  // winners in warp order (the first least key holds the least id) and
+  // reads the winner's row. Refreshes alternate between the two slots, so
+  // a refresh's writes never meet the previous refresh's reads: those end
+  // before this refresh's barrier, which every thread must reach.
+  const int nwarps = P >> 5;
+  int buf = 0;
+  auto refresh = [&](float& best, int& win) -> const float* {
+    const unsigned k = order_key(lval);
+    const unsigned wk = __reduce_min_sync(0xffffffffu, k);
+    const unsigned wi =
+        __reduce_min_sync(0xffffffffu, k == wk ? static_cast<unsigned>(p) : 0xffffffffu);
+    const int warp = p >> 5;
+    if (static_cast<unsigned>(p) == wi) {
+      sh.key[buf][warp] = wk;
+      sh.id[buf][warp] = p;
+      sh.val[buf][warp] = lval;
+      store4<D>(sh.lb[buf][warp], lb);
+    }
+    __syncthreads();
+    int ww = 0;
+    unsigned bk = sh.key[buf][0];
+    auto scan = [&](int w) {
+      const unsigned kw = sh.key[buf][w];
+      if (kw < bk) {
+        bk = kw;
+        ww = w;
+      }
+    };
+    if constexpr (Sh::kWarps <= 8) {
+      // Straight-line code at the short bound: no loop to set up.
+#pragma unroll
+      for (int w = 1; w < Sh::kWarps; ++w) {
+        if (w < nwarps) scan(w);
+      }
+    } else {
+      for (int w = 1; w < nwarps; ++w) scan(w);
+    }
+    best = sh.val[buf][ww];
+    win = sh.id[buf][ww];
+    const float* g = sh.lb[buf][ww];
+    buf ^= 1;
+    return g;
+  };
+
+  const int dpi = CANON ? 2 : (up.randomized ? 3 : 2) + (up.rekick_interval > 0 ? 1 : 0);
+  // Countdowns to the next gbest refresh and the next kick block start
+  // (it % gbest_interval == 0; it % rekick_interval == 0 and it > 0).
+  int refresh_in = 0;
+  int kick_in = up.rekick_interval;
+  const float* g_row = sh.lb[0][0];
+  for (int it = 0; it < iters; ++it) {
+    bool kick = false;
+    if constexpr (!CANON) {
+      kick = up.rekick_interval > 0 && kick_in == 0;
+      kick_in = (kick ? up.rekick_interval : kick_in) - 1;
+    }
+    if (CANON || refresh_in == 0) {
+      refresh_in = up.gbest_interval;
+      float best;
+      int win;
+      g_row = refresh(best, win);
+      if (kick && (up.rekick_threshold < 0.0f || best > up.rekick_threshold)) {
+        draw<D, REPLAY>(uc, n_init + it * dpi + dpi - 1, p, P, key, u_swarm);
+#pragma unroll
+        for (int d = 0; d < D; ++d) v[d] = (uc[d] * 2.0f - 1.0f) * up.rekick_scale;
+      }
+    }
+    --refresh_in;
+    // The inertia term first (w * v, or (w * u_w) * v), rounded into v.
+    const int base = n_init + it * dpi;
+    const float w = inertia[it];
+    if (!CANON && up.randomized) {
+      draw<D, REPLAY>(uc, base + 2, p, P, key, u_swarm);
+#pragma unroll
+      for (int d = 0; d < D; ++d) v[d] = (w * uc[d]) * v[d];
+    } else {
+#pragma unroll
+      for (int d = 0; d < D; ++d) v[d] = w * v[d];
+    }
+    draw<D, REPLAY>(uc, base, p, P, key, u_swarm);
+    draw<D, REPLAY>(us, base + 1, p, P, key, u_swarm);
+    float gb[Sh::kD4], lo[Sh::kD4], hi[Sh::kD4];
+    load4(gb, g_row);
+    load4(lo, sh.lo);
+    load4(hi, sh.hi);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const float vd = v[d] + c1 * uc[d] * (lb[d] - x[d]) + c2 * us[d] * (gb[d] - x[d]);
+      v[d] = vd;
+      x[d] = fminf(fmaxf(x[d] + vd, lo[d]), hi[d]);
+    }
+    const float f = eval(x);
+    if (f < lval) {
+      lval = f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) lb[d] = x[d];
+    }
+  }
+
+  float best;
+  int win;
+  refresh(best, win);
+  if (p == win) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) out_gbest[static_cast<long long>(s) * D + d] = lb[d];
+    out_gval[s] = lval;
+  }
+}
+
+// A short chain's launch at thread bound TH: the canonical instantiation
+// (CANON: canonical inertia, gbest every iteration, no re-kick, its
+// branches gone at compile time) where the update is that and the draws
+// are Philox's, at the short bound only; else the run-time branches.
+template <class T, int C, bool O, int TH>
+static cudaError_t launch_fused_solve_short(bool replay, const float* meta, int M,
+                                            const float* swarm, int K, const float* limits,
+                                            const int* seeds, const float* inertia,
+                                            int iters, float c1, float c2, float vscale,
+                                            int init_mode, Scene scene, Update up,
+                                            const float* uniforms, int n_draws,
+                                            float* gbest, float* gval, int S, int P,
+                                            cudaStream_t stream) {
+  static_assert(ShortChain<T>::value, "the register layout without streamed draws");
+  constexpr size_t kStatic = sizeof(ShortShared<T, C, O, TH>);
+  constexpr bool kCanon = TH == kShortThreads;
+  if (P > TH) return cudaErrorInvalidValue;
+  const bool canon = kCanon && !replay && !up.randomized && up.gbest_interval == 1 &&
+                     up.rekick_interval == 0;
+  static const int most_replay =
+      allow_dynamic_smem(fused_solve_short_kernel<T, C, O, true, TH, false>, kStatic);
+  static const int most_philox =
+      allow_dynamic_smem(fused_solve_short_kernel<T, C, O, false, TH, false>, kStatic);
+  const size_t smem = kernel_a_smem_bytes(M, K, T::D, P, 0);
+  if (smem > static_cast<size_t>(replay ? most_replay : most_philox)) {
+    return cudaErrorInvalidValue;
+  }
+#define IKPSO_SHORT_ARGS                                                              \
+  meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode, scene, up, \
+      uniforms, n_draws, gbest, gval
+  if (replay) {
+    fused_solve_short_kernel<T, C, O, true, TH, false><<<S, P, smem, stream>>>(
+        IKPSO_SHORT_ARGS);
+  } else if (canon) {
+    if constexpr (kCanon) {
+      static const int most_canon =
+          allow_dynamic_smem(fused_solve_short_kernel<T, C, O, false, TH, true>, kStatic);
+      if (smem > static_cast<size_t>(most_canon)) return cudaErrorInvalidValue;
+      fused_solve_short_kernel<T, C, O, false, TH, true><<<S, P, smem, stream>>>(
+          IKPSO_SHORT_ARGS);
+    }
+  } else {
+    fused_solve_short_kernel<T, C, O, false, TH, false><<<S, P, smem, stream>>>(
+        IKPSO_SHORT_ARGS);
+  }
+#undef IKPSO_SHORT_ARGS
+  return cudaSuccess;
+}
+
 template <class T, int C, bool O = false>
 static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
                                       const float* swarm, int K, const float* limits,
@@ -471,24 +800,42 @@ static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
                                       int n_draws, float* gbest, float* gval, int S,
                                       int P, cudaStream_t stream) {
   if (P > KernelAThreads<T>::value) return cudaErrorInvalidValue;
-  static const int most_replay = allow_dynamic_smem(fused_solve_kernel<T, C, O, true>);
-  static const int most_philox = allow_dynamic_smem(fused_solve_kernel<T, C, O, false>);
-  const size_t smem = kernel_a_smem_bytes(M, K, T::D, P,
-                                          StatePlacement<T>::value == kShared ? 2 : 0);
-  if (smem > static_cast<size_t>(replay ? most_replay : most_philox)) {
-    return cudaErrorInvalidValue;
-  }
-  if (replay) {
-    fused_solve_kernel<T, C, O, true><<<S, P, smem, stream>>>(
-        meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
-        scene, up, uniforms, n_draws, gbest, gval);
+  if constexpr (ShortChain<T>::value) {
+    return launch_fused_solve_short<T, C, O, KernelAThreads<T>::value>(
+        replay, meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+        scene, up, uniforms, n_draws, gbest, gval, S, P, stream);
   } else {
-    fused_solve_kernel<T, C, O, false><<<S, P, smem, stream>>>(
-        meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
-        scene, up, uniforms, n_draws, gbest, gval);
+    static const int most_replay = allow_dynamic_smem(fused_solve_kernel<T, C, O, true>);
+    static const int most_philox = allow_dynamic_smem(fused_solve_kernel<T, C, O, false>);
+    const size_t smem = kernel_a_smem_bytes(M, K, T::D, P,
+                                            StatePlacement<T>::value == kShared ? 2 : 0);
+    if (smem > static_cast<size_t>(replay ? most_replay : most_philox)) {
+      return cudaErrorInvalidValue;
+    }
+    if (replay) {
+      fused_solve_kernel<T, C, O, true><<<S, P, smem, stream>>>(
+          meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+          scene, up, uniforms, n_draws, gbest, gval);
+    } else {
+      fused_solve_kernel<T, C, O, false><<<S, P, smem, stream>>>(
+          meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+          scene, up, uniforms, n_draws, gbest, gval);
+    }
+    return cudaSuccess;
   }
-  return cudaSuccess;
 }
+
+// Kernel A on the prebuilt short chains (fused_solve_short.cu): topology
+// id 0 (Arm7Dof) with collider C, id 2 (Arm6Dof) without a scene, with or
+// without the orientation term, at thread bound `threads` (kShortThreads,
+// or the topology's KernelAThreads); cudaErrorInvalidValue for any other.
+cudaError_t launch_short_prebuilt(int topo, int collider, bool orient, int threads,
+                                  bool replay, const float* meta, int M, const float* swarm,
+                                  int K, const float* limits, const int* seeds,
+                                  const float* inertia, int iters, float c1, float c2,
+                                  float vscale, int init_mode, Scene scene, Update up,
+                                  const float* uniforms, int n_draws, float* gbest,
+                                  float* gval, int S, int P, cudaStream_t stream);
 
 // ---------------------------------------------------------------------------
 // Kernel A's serial-chain variant: any chain whose node k hangs off node

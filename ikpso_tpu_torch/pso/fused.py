@@ -147,10 +147,11 @@ def _check_args(spec, pso, fit, swarm, limits, seeds, num_particles, uniforms,
                "topology)")
         )
     layout = kernel_a_layout(spec, fit, swarm, num_particles, num_obstacles, use_orientation)
-    if layout.smem_bytes > kernels.SMEM_OPTIN:
+    if layout.smem_bytes + layout.static_bytes > kernels.SMEM_OPTIN:
         raise ValueError(
-            f"kernel A needs {layout.smem_bytes} bytes of shared memory a block for "
-            f"{spec.num_nodes} nodes, P={num_particles} and {num_obstacles} obstacles "
+            f"kernel A needs {layout.smem_bytes} bytes of shared memory a block"
+            + (f" (and {layout.static_bytes} static)" if layout.static_bytes else "")
+            + f" for {spec.num_nodes} nodes, P={num_particles} and {num_obstacles} obstacles "
             f"(v and lbest: {layout.placement}); a block has at most "
             f"{kernels.SMEM_OPTIN}"
         )
@@ -291,6 +292,14 @@ def fused_solve(
                                  use_orientation=use_orientation)
     if swarm.device.type != "cuda":
         raise ValueError(f"fused_solve: unsupported device {swarm.device}")
+    return _launch(spec, pso, fit, meta, swarm, limits, seeds, num_particles, uniforms,
+                   num_obstacles, use_orientation, layout, interval)
+
+
+def _launch(spec, pso, fit, meta, swarm, limits, seeds, num_particles, uniforms,
+            num_obstacles, use_orientation, layout, interval):
+    """Kernel A's launch on ``swarm``'s device, after :func:`fused_solve`'s
+    checks (``layout`` from ``_check_args``); counts it."""
     distance = uses_distance(fit)
     topo, collider, orient = kernels.kernel_variant(spec, num_obstacles,
                                                     fit.collision_shape, use_orientation,
@@ -332,7 +341,8 @@ def fused_solve(
             topo, collider, orient, replay, INIT_MODES[pso.init_mode],
             num_obstacles, *scene_constants(fit.gizmo_size),
             meta.data_ptr(), meta.numel(), swarm.data_ptr(), swarm.shape[1], *update,
-            gbest.data_ptr(), gval.data_ptr(), s, num_particles, kernels.stream_ptr(dev),
+            gbest.data_ptr(), gval.data_ptr(), s, num_particles, layout.threads,
+            kernels.stream_ptr(dev),
         )
         kernels.check(rc, "fused_solve")
     fused_solve.launches += 1

@@ -57,8 +57,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
-SOURCES = ("fused_solve.cu", "fk_fitness.cu", "fused_fitness.cu", "scan_step.cu",
-           "roofline.cu")
+SOURCES = ("fused_solve.cu", "fused_solve_short.cu", "fk_fitness.cu", "fused_fitness.cu",
+           "scan_step.cu", "roofline.cu")
 
 # (num_nodes, packed parents, effector bit mask) -> id; must match the
 # instantiations in csrc/fk_fitness.cuh (Arm7Dof, ReferenceArm, Arm6Dof,
@@ -92,6 +92,14 @@ TRIG_IMPLS = ("poly", "exact")
 # two blocks an SM (KernelAMinBlocks), 512 (the humanoid's) 128 with one,
 # 1024 only 64.
 MAX_PARTICLES = {1: 256, 4: 512, 5: 256}
+# The prebuilt short chains (ShortChain in csrc/fused_solve.cuh: v and
+# lbest in registers, whole draw arrays; an on-demand chain placed so runs
+# the same kernel at its key's bound): arm_7dof and arm_6dof. Each has a
+# second instantiation at SHORT_THREADS threads (kShortThreads), which a
+# swarm of at most that many particles takes: a thread may hold 80
+# registers there (128 with the box scene) instead of 64.
+SHORT_IDS = (0, 2)
+SHORT_THREADS = 256
 # The prebuilt topologies whose kernel A streams its draws (StreamDraws in
 # csrc/fused_solve.cuh); an on-demand topology streams from STREAM_DOF DOFs.
 STREAM_IDS = (3, 4, 5)
@@ -302,18 +310,22 @@ def on_demand_key(spec, collider: int, orientation: bool, distance: bool = False
 
 class KernelALayout(NamedTuple):
     """Where one launch of kernel A keeps its state (StatePlacement in
-    ``csrc/fused_solve.cuh``) and the dynamic shared memory a block takes.
-    In the register layout (``scratch`` false) x is in registers and v
-    and lbest are in registers too (``placement`` "registers") or in
-    shared memory, ``[D][P]`` each ("shared"); in the scratch layout x and
-    v are in global scratch (``scratch_planes`` ``[D][P]`` planes a block)
-    and lbest is in shared memory ("shared") or in the scratch too
-    ("global")."""
+    ``csrc/fused_solve.cuh``), the dynamic shared memory a block takes and
+    the thread bound of the instantiation it runs. In the register layout
+    (``scratch`` false) x is in registers and v and lbest are in registers
+    too (``placement`` "registers") or in shared memory, ``[D][P]`` each
+    ("shared"); in the scratch layout x and v are in global scratch
+    (``scratch_planes`` ``[D][P]`` planes a block) and lbest is in shared
+    memory ("shared") or in the scratch too ("global"). A short chain's
+    kernel takes ``static_bytes`` of static shared memory besides
+    (:func:`short_static_bytes`)."""
 
     scratch: bool
     placement: str
     smem_bytes: int
     scratch_planes: int
+    threads: int
+    static_bytes: int
 
 
 def kernel_a_layout(spec, num_particles: int, num_obstacles: int = 0,
@@ -332,16 +344,40 @@ def kernel_a_layout(spec, num_particles: int, num_obstacles: int = 0,
     m, k = lay.meta_size, lay.swarm_size if swarm_width is None else int(swarm_width)
     d, p = spec.dof, num_particles
     if topo == SERIAL:
-        scratch, shared = True, serial_lbest_shared(d, p, m, k)
+        scratch, shared, threads = True, serial_lbest_shared(d, p, m, k), 1024
+        short = False
     elif topo == ON_DEMAND:
         key = on_demand_key(spec, collider, orient, use_distance, trig_impl == "exact")
-        scratch, shared = key.scratch, key.shared
+        scratch, shared, threads = key.scratch, key.shared, key.threads
+        short = not (key.scratch or key.stream or key.shared)
     else:
         scratch, shared = False, topo in SHARED_IDS
+        short = topo in SHORT_IDS
+        threads = (SHORT_THREADS if short and p <= SHORT_THREADS
+                   else MAX_PARTICLES.get(topo, 1024))
     planes = (1 if scratch else 2) if shared else 0
     placement = "shared" if shared else ("global" if scratch else "registers")
     return KernelALayout(scratch, placement, kernel_a_smem_bytes(m, k, d, p, planes),
-                         (2 if shared else 3) if scratch else 0)
+                         (2 if shared else 3) if scratch else 0, threads,
+                         short_static_bytes(spec, collider, bool(orient), threads)
+                         if short else 0)
+
+
+def short_static_bytes(spec, collider: int, orientation: bool, threads: int) -> int:
+    """A short chain's static shared memory (``ShortShared`` in
+    ``csrc/fused_solve.cuh``): the swarm row through the target rotations
+    and meta through the effector weights (and, without a scene, the
+    orientation weight), the two limit rows, each rounded up to whole
+    float4, then for two refreshes each warp's lbest row, key, id and
+    value."""
+    def pad(n):
+        return (n + 3) // 4 * 4
+
+    n, d, e = spec.num_nodes, spec.dof, len(spec.effector_idx)
+    sw = pad(12 + d + 3 * e + 3 * (n - 1) + (9 * e if orientation else 0))
+    meta = pad(2 + (n - 1) + e + (1 if orientation and not collider else 0))
+    warps = threads // 32
+    return 4 * (sw + meta + 2 * pad(d) + 2 * warps * pad(d) + 6 * warps)
 
 
 def max_particles(spec, num_obstacles: int = 0, collision_shape: str = "box",
@@ -451,7 +487,7 @@ SIGNATURES = {
         _VP, _I,  # swarm, K
         *_UPDATE,
         _VP, _VP,  # out gbest, out gval
-        _I, _I, _VP,  # S, P, stream
+        _I, _I, _I, _VP,  # S, P, the instantiation's thread bound, stream
     ],
     "ikpso_fused_solve_serial": [
         _I, _I, _I, _I,  # replay, lbest in shared memory, init mode, nodes
@@ -464,6 +500,7 @@ SIGNATURES = {
     # replay, lbest in shared memory, P, M, K, nodes
     "ikpso_fused_solve_serial_blocks": [_I, _I, _I, _I, _I, _I],
     "ikpso_kernel_a_smem_bytes": [_I, _I, _I, _I, _I],  # M, K, D, P, planes
+    "ikpso_kernel_a_short_threads": [],
     "ikpso_fused_fitness": [
         _I, _I, _I, *_SCENE,  # topology id, collider id, orientation flag, scene
         _VP, _VP, _VP, _I, _VP, _I, _I, _VP,  # x, meta, swarm, K, out, S, P, stream

@@ -426,6 +426,13 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t
 }
 inline void __syncthreads() {}
 template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
+inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
+inline unsigned __float_as_uint(float v) {
+  unsigned b;
+  __builtin_memcpy(&b, &v, sizeof b);
+  return b;
+}
+#define __align__(n) __attribute__((aligned(n)))
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
