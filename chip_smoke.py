@@ -9,7 +9,11 @@ SASS free of int-to-float conversions --, with the orientation term, on
 the two trees, on snake_30dof and on the serial-chain variant; kernel A
 in replay with every init mode, collider, inertia mode, re-kick and gbest
 interval, with orientation, on
-the trees, on snake_30dof, the serial-chain variant and reference_arm;
+the trees, on snake_30dof, the serial-chain variant and reference_arm, and
+on exact ties and NaN fitness values, first minimum and NaN first as its
+plain twin's torch.argmin, across a cluster's blocks too (hand21's cluster
+layout, ptxas and cudaOccupancyMaxActiveClusters in the build line, its
+PSO loop's SASS mix);
 kernel C likewise, and the scan solve through it in replay; the
 tensor-path LM polish on the card against the CPU), drives the main paths
 through their entry points -- the 7-DOF headline solve
@@ -438,8 +442,40 @@ def phase_build(on_demand=False):
          scan_step_instantiations=len(steps),
          scan_step_registers=sorted({r.get("registers") for r in steps if "registers" in r}),
          scan_step_spill_store_bytes=max((r.get("spill_stores", 0) for r in steps), default=None),
+         cluster_layout=cluster_layout_report(report, ptxas),
          with_on_demand_seconds=time.perf_counter() - t0)
     return ptxas
+
+
+# Kernel A's cluster layout at the shapes of its paths: (on-demand case,
+# particles).
+CLUSTER_SHAPES = (("hand21", 512),)
+
+
+def cluster_layout_report(report, od_ptxas=None):
+    """Kernel A's cluster-layout instantiations: registers and spill bytes
+    (ptxas; ``report`` the prebuilt library's, ``od_ptxas`` the on-demand
+    keys'), and at each of ``CLUSTER_SHAPES`` the cluster size, the threads
+    and shared bytes of a block and the clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    from ikpso_tpu_torch.ops.fitness_kernel import MetaLayout
+    from ikpso_tpu_torch.utils import kernels
+
+    rows = [r for r in report if "cluster_kernel" in r["kernel"]]
+    for tag, lines in (od_ptxas or {}).items():
+        rows += [{**r, "case": tag} for r in lines if "cluster_kernel" in r["kernel"]]
+    shapes = {}
+    for name, p in CLUSTER_SHAPES if od_ptxas is not None else ():
+        spec = _config(ON_DEMAND_CASES[name][0], "cpu").spec
+        lay = MetaLayout(spec)
+        layout = kernels.kernel_a_layout(spec, p)
+        c = layout.cluster
+        shapes[f"{name} P={p}"] = {
+            "cluster": c, "threads_a_block": p // c, "smem_bytes_a_block": layout.smem_bytes,
+            "active_clusters": kernels.on_demand_library(od_keys()[name])
+            .ikpso_od_fused_solve_cluster_blocks(0, c, p, lay.meta_size, lay.swarm_size)}
+    return {"kernels": rows, "max_spill_store_bytes": max(
+        (r.get("spill_stores", 0) for r in rows), default=None), "shapes": shapes}
 
 
 class _OlderLibrary:
@@ -528,7 +564,7 @@ AGAINST_TREES = (("dual_arm_14dof", 262_144, 3), ("humanoid_45dof", 16_384, 3),
                  ("snake:16", 65_536, 3), ("snake:20", 65_536, 3), ("snake:35", 65_536, 1),
                  ("snake:50", 65_536, 1))
 AGAINST_ON_DEMAND = (("dual_arm_box", 4096, 3), ("dual_arm_orientation", 4096, 3),
-                     ("hand21", 1024, 3), ("snake20_box", 1024, 3),
+                     ("hand21", 16_384, 1), ("snake20_box", 1024, 3),
                      ("distance", 65_536, 10), ("exact", 65_536, 10))
 
 
@@ -542,10 +578,12 @@ def phase_against(other_root, device, pairs=10):
     the 7-DOF cases (this build against the other); the trees at the
     timing phases' shapes (the serial-chain variant in both lbest
     placements); and the on-demand cases, where this build's key in each
-    state placement (and, in the scratch layout, at either thread bound)
-    meets the other build's key. Each contender's row holds its
-    placement, shared-memory bytes, ptxas lines, times, median and
-    spread; a line per case, then one for all."""
+    state placement (in the scratch layout, at either thread bound; a
+    cluster key in its other layout, and in the cluster layout at another
+    cluster size) meets the other build's key (for a cluster key, the
+    scratch layout's key, as the other build's rule had it). Each
+    contender's row holds its placement, shared-memory bytes, ptxas lines,
+    times, median and spread; a line per case, then one for all."""
     import dataclasses
     import statistics
 
@@ -579,11 +617,24 @@ def phase_against(other_root, device, pairs=10):
     # sources that predate IKPSO_OD_SHARED run their own placement), and
     # this build's key in the other placements (in the scratch layout, at
     # either bound).
-    od_contenders, keys = {}, od_keys()
+    od_contenders, od_cluster, keys = {}, {}, od_keys()
     for tag, _, _ in AGAINST_ON_DEMAND:
         key = keys[tag]
+        other = key
         if not (key.scratch or key.stream or key.shared):
             alts = {}  # a short chain: its one kernel
+        elif key.cluster:
+            other = key._replace(cluster=False)
+            spec_c, _, fit_c, p_c, meta_c, swarm_c, obs_c, orient_c = od_case(
+                tag, "cpu", 1, np.random.default_rng(0))
+            rule = kernel_a_layout(spec_c, fit_c, swarm_c, p_c,
+                                   0 if obs_c is None else obs_c.count, orient_c).cluster
+            forced = ({0, 4 if rule != 4 else 2} if rule else
+                      {kernels.cluster_size(spec_c.dof, p_c, meta_c.numel(), swarm_c.shape[1])})
+            alts = {}
+            for c in sorted(forced):
+                alts[f"this/c{c}" if c else "this/scratch"] = key
+                od_cluster[(tag, f"this/c{c}" if c else "this/scratch")] = c
         elif key.scratch:
             alts = {f"this/{t} {'shared' if sh else 'global'}":
                     key._replace(threads=t, shared=sh)
@@ -593,8 +644,9 @@ def phase_against(other_root, device, pairs=10):
                     key._replace(shared=not key.shared)}
         od_contenders[tag] = {
             "this": key,
-            "other": key,
-            **{name: alt for name, alt in alts.items() if alt != key}}
+            "other": other,
+            **{name: alt for name, alt in alts.items()
+               if alt != key or (tag, name) in od_cluster}}
     t0 = time.perf_counter()
     od_libs, od_ptxas = {}, {}
     for who in ("this", "other"):
@@ -615,8 +667,8 @@ def phase_against(other_root, device, pairs=10):
         return torch.as_tensor(rng.integers(-2**31, 2**31, (swarms, 2), dtype=np.int64)
                                .astype(np.int32), device=device)
 
-    patched = ("library", "SHARED_IDS", "serial_lbest_shared", "on_demand_key",
-               "on_demand_library", "on_demand_threads", "SHORT_THREADS")
+    patched = ("library", "SHARED_IDS", "serial_lbest_shared", "tree_cluster",
+               "on_demand_key", "on_demand_library", "on_demand_threads", "SHORT_THREADS")
 
     def under(use, fn):
         """``fn()`` with a contender's libraries and placement rules in place
@@ -647,12 +699,15 @@ def phase_against(other_root, device, pairs=10):
 
     def on_demand(tag, name):
         """An on-demand contender's key and library, its bound as the
-        particle bound."""
+        particle bound (and a cluster key's layout where it is forced:
+        the cluster size, 0 for the scratch layout)."""
         def use():
             key, lib = od_contenders[tag][name], od_libs[(tag, name)]
             kernels.on_demand_key = lambda *a, **kw: key
             kernels.on_demand_library = lambda k: lib
             kernels.on_demand_threads = lambda spec: key.threads
+            if (tag, name) in od_cluster:
+                kernels.tree_cluster = lambda *a: od_cluster[(tag, name)]
         return use
 
     def ptxas_of(*prefixes):
@@ -760,7 +815,8 @@ def phase_against(other_root, device, pairs=10):
                 layout = under(contenders[who], lambda: kernel_a_layout(*layout_args))
                 row[who].update(placement=layout.placement, smem_bytes=layout.smem_bytes,
                                 scratch_planes=layout.scratch_planes,
-                                threads=layout.threads, static_bytes=layout.static_bytes)
+                                threads=layout.threads, static_bytes=layout.static_bytes,
+                                cluster=layout.cluster)
         rows[name] = {"contenders": row, "this_over_other": med["this"] / med["other"],
                       "this_faster_pairs": sum(t < o for t, o in zip(ms["this"],
                                                                      ms["other"])),
@@ -922,11 +978,14 @@ TIE_CHAINS = {
     # serial-chain variant).
     "snake_30dof": (list(range(-1, 10)), [0.0] + [1.0] * 9 + [0.0], [10], [27, 28, 29]),
     "snake:16": (list(range(-1, 16)), [0.0] + [1.0] * 15 + [0.0], [16], [45, 46, 47]),
+    # snake:50's 51 nodes (the serial-chain variant's scratch layout, lbest
+    # in global scratch at P = 256).
+    "snake:50": (list(range(-1, 50)), [0.0] + [1.0] * 49 + [0.0], [50], [147, 148, 149]),
     # reference_arm's topology (id 1): three zero-length effector links, so
     # the effectors sit on node 4 whatever their nine angles.
     "reference_arm": ([-1, 0, 1, 2, 3, 4, 4, 4], [0.0] + [1.0] * 4 + [0.0] * 3, [5, 6, 7],
                       list(range(12, 21))),
-    # hand21's topology, built on demand (the scratch layout): each
+    # hand21's topology, built on demand (the cluster layout): each
     # fingertip link of length 0.
     "hand21": ([-1, 0, 1, 2, 3, 0, 5, 6, 7, 0, 9, 10, 11, 0, 13, 14, 15, 0, 17, 18, 19],
                [0.0] + [0.3, 0.3, 0.3, 0.0] * 5, [4, 8, 12, 16, 20],
@@ -938,7 +997,8 @@ def phase_fused_tie(device, particles=128, model="arm_7dof"):
     """Kernel A's argmin on exact ties (``TIE_CHAINS``). All particles move
     alike in every other DOF and differently in the wrists; after one
     iteration every lval ties and the lbests differ only in the wrists, so
-    gbest must carry particle 0's wrist angles, across all P / 32 warps."""
+    gbest must carry particle 0's wrist angles, across all P / 32 warps
+    (and the blocks of a cluster). Then NaN first (``_nan_first``)."""
     import numpy as np
     import torch
 
@@ -979,6 +1039,58 @@ def phase_fused_tie(device, particles=128, model="arm_7dof"):
          want=float(want), got=got[:, 0].tolist(), ok=ok)
     if not ok:
         raise AssertionError(f"kernel A broke an exact tie away from particle 0 ({model}, "
+                             f"P={particles})")
+    _nan_first(f"fused_tie {model}", spec, FitnessConfig(angle_weight=0.0), meta, swarm,
+               particles, device)
+
+
+def same_or_nan(a, b):
+    """Equal, NaN where the other is NaN."""
+    import torch
+
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _nan_first(tag, spec, fit, meta, swarm, particles, device, num_obstacles=0,
+               penalty=False):
+    """Kernel A on a block whose fitness values mix NaN with numbers: a
+    uniform init with NaN in the first position draw of particles P - 7 and
+    P / 2 + 9 (a later warp, and a later block of a cluster). The plain
+    twin's torch.argmin returns the first NaN, so gbest must be particle P /
+    2 + 9's initial position, its first DOF NaN, and gval NaN, as
+    fused_solve_plain gives them; with ``penalty`` (a scene every pose hits,
+    so a NaN pose scores the collision penalty too) as fused_solve_plain
+    gives them."""
+    import numpy as np
+    import torch
+
+    from ikpso_tpu_torch.pso.config import PSOConfig
+    from ikpso_tpu_torch.pso.fused import (
+        TWO_PI, fused_solve, fused_solve_plain, kernel_a_layout, num_draws)
+
+    swarms = swarm.shape[0]
+    pso = PSOConfig(iterations=2, inertia_mode="canonical", init_mode="uniform")
+    u = torch.as_tensor(np.random.default_rng(5).random(
+        (swarms, num_draws(pso), spec.dof, particles), dtype=np.float32), device=device)
+    first = particles // 2 + 9
+    u[:, 0, 0, [particles - 7, first]] = float("nan")
+    zeros = torch.zeros((swarms, 2), dtype=torch.int32, device=device)
+    lim = spec.limits()
+    args = (spec, pso, fit, meta, swarm, lim, zeros, particles)
+    gb, gv = fused_solve(*args, uniforms=u, num_obstacles=num_obstacles)
+    want = fused_solve_plain(*args, uniforms=u, num_obstacles=num_obstacles)
+    torch.cuda.synchronize()
+    lo_c, hi_c = torch.clamp_min(lim[0], -TWO_PI), torch.clamp_max(lim[1], TWO_PI)
+    x0 = lo_c + u[:, 0, :, first] * (hi_c - lo_c)
+    ok = same_or_nan(gb, want[0]) and same_or_nan(gv, want[1]) and (
+        penalty or (bool(torch.isnan(gv).all()) and same_or_nan(gb, x0)))
+    layout = kernel_a_layout(spec, fit, swarm, particles, num_obstacles)
+    emit("fused_nan_first", case=tag, particles=particles, nan_particles=[first,
+                                                                          particles - 7],
+         cluster=layout.cluster, placement=layout.placement, threads=layout.threads,
+         equals_plain=same_or_nan(gb, want[0]) and same_or_nan(gv, want[1]), ok=ok)
+    if not ok:
+        raise AssertionError(f"kernel A did not put NaN first as its plain twin ({tag}, "
                              f"P={particles})")
 
 
@@ -1236,6 +1348,11 @@ def phase_fused_penalty_ties(device, swarms=4, particles=128):
              gbest_equals_particle0_x0=bool(torch.equal(gb, want)), ok=ok)
         if not ok:
             raise AssertionError("kernel A broke a tie at the collision penalty")
+        # NaN among particles tied at the penalty (the box collider; the
+        # capsule's calls a NaN pose a hit where the plain one does not).
+        if shape == "box":
+            _nan_first(f"penalty {shape}", spec, fit, meta, swarm, particles, device,
+                       obs.count, penalty=True)
 
 
 def phase_fused_fitness(device, swarms=64, particles=1024):
@@ -1555,7 +1672,8 @@ def _device_ms_readings(prof, kernel):
 # Kernel A's kernels (csrc/fused_solve.cuh): the register layout's trees,
 # the short chains, the serial-chain variant and the scratch layout.
 KERNEL_A_NAMES = ("fused_solve_kernel", "fused_solve_short_kernel",
-                  "fused_solve_serial_kernel", "fused_solve_tree_scratch_kernel")
+                  "fused_solve_serial_kernel", "fused_solve_tree_scratch_kernel",
+                  "fused_solve_tree_cluster_kernel")
 # The scan solver's device time by kernel: the step, kernel C (init), torch's
 # random draws (torch.rand), and the rest ("other": every other op).
 SCAN_SPLIT = {"scan_step": ("scan_step_kernel",), "kernel_c": ("fused_fitness_kernel",),
@@ -2214,8 +2332,12 @@ def kernel_a_placement(spec, fit, particles, num_obstacles=0, use_orientation=Fa
                                      fit.trig_impl)
     lay = MetaLayout(spec, num_obstacles, use_orientation)
     planes = ((1 if layout.scratch else 2) if layout.placement == "shared" else 0)
-    bytes_c = kernels.library().ikpso_kernel_a_smem_bytes(
-        lay.meta_size, lay.swarm_size, spec.dof, particles, planes)
+    if layout.cluster:
+        bytes_c = kernels.library().ikpso_kernel_a_cluster_smem_bytes(
+            lay.meta_size, lay.swarm_size, spec.dof, particles // layout.cluster)
+    else:
+        bytes_c = kernels.library().ikpso_kernel_a_smem_bytes(
+            lay.meta_size, lay.swarm_size, spec.dof, particles, planes)
     if kernels.library().ikpso_kernel_a_short_threads() != kernels.SHORT_THREADS:
         raise AssertionError("kShortThreads and SHORT_THREADS differ")
     if bytes_c != layout.smem_bytes:
@@ -2223,7 +2345,7 @@ def kernel_a_placement(spec, fit, particles, num_obstacles=0, use_orientation=Fa
                              f"reckoned in Python, {bytes_c} by the kernels")
     return {"placement": layout.placement, "smem_bytes": layout.smem_bytes,
             "scratch_planes": layout.scratch_planes, "threads": layout.threads,
-            "static_bytes": layout.static_bytes}
+            "static_bytes": layout.static_bytes, "cluster": layout.cluster}
 
 
 def phase_ptxas():
@@ -3571,9 +3693,11 @@ def sass_class(text):
     return "uniform" if op.startswith("U") else "other"
 
 
-def sass_loop_mix(sass, function):
+def sass_loop_mix(sass, function, nested=False):
     """One trip of a kernel's main loop (its longest span closed by a
-    backward branch) in ``sass`` (cuobjdump -sass text), by instruction
+    backward branch; with ``nested``, its longest such span inside another:
+    the PSO loop of a kernel whose grid strides over the swarms) in
+    ``sass`` (cuobjdump -sass text), by instruction
     class: ``loop_static``, every instruction of the span; ``loop_path``,
     the span less its inner loops and less the blocks a forward branch
     skips that hold Philox products and no barrier (the optional draws: the
@@ -3590,6 +3714,9 @@ def sass_loop_mix(sass, function):
         return int(m.group(1), 16) if m else None
 
     back = [(target(t), a) for a, t in ins if target(t) is not None and target(t) < a]
+    if nested:
+        back = [(s, e) for s, e in back
+                if any(s2 < s and e < e2 for s2, e2 in back)] or back
     start, end = max(back, key=lambda span: span[1] - span[0])
     loop = [(a, t) for a, t in ins if start <= a <= end]
     skipped = {a for s, e in back if start < s and e < end for a, _ in loop if s <= a <= e}
@@ -3609,6 +3736,21 @@ def sass_loop_mix(sass, function):
             "static_instructions": len(loop), "path_instructions": len(path),
             "inner_loops": sum(1 for s, e in back if start < s and e < end),
             "skipped_draw_blocks": draws}
+
+
+def phase_sass_cluster(tag="hand21"):
+    """Kernel A's cluster layout in SASS: one trip of the PSO loop (the
+    loop inside the swarms' loop) of an on-demand case's Philox
+    instantiation without the orientation term, by instruction class."""
+    from ikpso_tpu_torch.utils import kernels
+
+    lib = kernels.on_demand_path(od_keys()[tag])
+    sass = run([str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(lib)])
+    function = next(f for f in re.findall(r"Function : (\S+)", sass)
+                    if "fused_solve_tree_cluster_kernel" in f and "Lb0ELb0EEEv" in f)
+    row = {"function": function, **sass_loop_mix(sass, function, nested=True)}
+    emit("sass_cluster", case=tag, **row, ok=True)
+    return row
 
 
 def phase_sass_kernel_a(other_root=None, swarms=HEADLINE_SWARMS, particles=128,
@@ -4384,6 +4526,7 @@ def run_phases(device, card, od_ptxas):
     a_obs_err = phase_fused_obstacles_replay(device)
     a_branch_err = phase_fused_branch_replay(device)
     phase_fused_tie(device)
+    phase_fused_tie(device, particles=512)  # the short chain's 1,024-thread bound
     phase_fused_tie(device, particles=1024, model="dual_arm_14dof")
     phase_fused_penalty_ties(device)
     phase_fused_philox(device)
@@ -4397,9 +4540,11 @@ def run_phases(device, card, od_ptxas):
     a_tree_err = phase_fused_tree_replay(device)
     phase_fused_tie(device, particles=256, model="snake_30dof")
     phase_fused_tie(device, particles=1024, model="snake:16")
+    phase_fused_tie(device, particles=256, model="snake:50")
     phase_fused_tie(device, particles=256, model="reference_arm")
     ptxas, placement = phase_ptxas()
     od_err = phase_on_demand_checks(device)
+    phase_sass_cluster()
     phase_fused_tie(device, particles=512, model="hand21")
     phase_sass_sincos()
     phase_sass_bisection()
@@ -4689,6 +4834,7 @@ def main(argv=None) -> None:
     if args.against:
         phase_against(args.against, torch.device("cuda", 0))
         phase_sass_kernel_a(args.against)
+        phase_sass_cluster()
         return
     kernels = run_phases(torch.device("cuda", 0), card, od_ptxas)
     print(card, flush=True)

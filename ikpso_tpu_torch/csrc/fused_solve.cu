@@ -21,7 +21,9 @@
 // where it does not fit shared memory) in global scratch (scratch_solve in
 // fused_solve.cuh, with the design notes of the scratch layout); a tree
 // past 45 DOFs built on demand takes the same layout
-// (fused_solve_tree_scratch_kernel, on_demand.cuh). The kernel templates
+// (fused_solve_tree_scratch_kernel, on_demand.cuh), and a branching tree
+// of up to 60 DOFs the cluster layout instead, a swarm over a
+// thread-block cluster (fused_solve_cluster.cuh). The kernel templates
 // live in fused_solve.cuh; this file instantiates the prebuilt trees and
 // the serial-chain variant behind the C entry points, fused_solve_short.cu
 // the prebuilt short chains (below).
@@ -38,10 +40,11 @@
 // constant hoisting are TPU layout devices and have no counterpart here.
 //
 // gbest (fused_solve_kernel): a block-wide argmin over (lval, particle
-// id) -- warp butterfly with __shfl_xor_sync, then one pass over the
-// per-warp winners in shared memory. Ties go to the lowest particle id, the
-// first-minimum semantics of pso/fused.py:255-260, 344-359
-// (thrust::min_element in the reference). The winner's lbest is copied to
+// id) -- each warp's (least order_key, least id) by two __reduce_min_sync,
+// then one pass over the per-warp winners in shared memory. Ties go to the
+// lowest particle id, the first-minimum semantics of pso/fused.py:255-260,
+// 344-359 (thrust::min_element in the reference), NaN first as
+// torch.argmin puts it. The winner's lbest is copied to
 // shared memory (by the winner from its registers, or by the block
 // together where lbest is in shared memory); everyone reads it after a
 // __syncthreads(). Two barriers per gbest refresh; an iteration without a
@@ -81,10 +84,9 @@
 //     iteration, no re-kick: the headline's) as a template flag with its
 //     branches gone (CANON); every other update keeps the run-time ones.
 // The draws keep their counters, slots and words, so the plain twin and
-// the replay are unchanged. One difference from fused_solve_kernel's
-// argmin: where a swarm's lvals mix NaN with numbers, the butterfly's pick
-// depends on the lanes' order and this argmin takes the least number (NaN
-// sorts last); where every lval is NaN both take particle 0.
+// the replay are unchanged. Every argmin of kernel A takes the plain twin's
+// order (order_key): a NaN lval goes before every number, the first NaN by
+// particle id where there are several.
 //
 // Re-kick (pso/fused.py:383-426): iterations run in blocks of
 // rekick_interval (a multiple of gbest_interval, so every block starts with
@@ -189,6 +191,12 @@ extern "C" int ikpso_kernel_a_short_threads() { return ikpso::kShortThreads; }
 // reckoning against the kernels'.
 extern "C" long long ikpso_kernel_a_smem_bytes(int M, int K, int D, int P, int planes) {
   return static_cast<long long>(ikpso::kernel_a_smem_bytes(M, K, D, P, planes));
+}
+
+// Kernel A's cluster-layout dynamic shared-memory bytes (cluster_smem_bytes,
+// Pb threads a block).
+extern "C" long long ikpso_kernel_a_cluster_smem_bytes(int M, int K, int D, int Pb) {
+  return static_cast<long long>(ikpso::cluster_smem_bytes(M, K, D, Pb));
 }
 
 namespace {

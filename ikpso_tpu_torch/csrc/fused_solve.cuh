@@ -67,40 +67,55 @@ __device__ __forceinline__ void draw_group(float (&u)[4], int g, int slot, int d
   }
 }
 
-__device__ __forceinline__ bool better_pair(float va, int ia, float vb, int ib) {
-  return va < vb || (va == vb && ia < ib);
+// An unsigned key in the order of kernel A's argmin: k(a) < k(b) exactly
+// where a < b for non-NaN a, b (-0 and +0 share a key: v + 0.0f is +0 for
+// both), NaN (key 0) below everything -- the plain twin's torch.argmin,
+// which returns the first NaN where there is one. A warp takes its (least
+// key, lowest id) with two __reduce_min_sync: the least key, then the
+// least id holding it.
+__device__ __forceinline__ unsigned order_key(float v) {
+  const unsigned b = __float_as_uint(v + 0.0f);
+  if (v != v) return 0u;
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
-// Block-wide argmin over (val, id); every thread gets the winning id and,
-// in best, the winning value.
-__device__ __forceinline__ int block_argmin(float val, int id, float* s_wval,
-                                            int* s_wid, float& best) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, val, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, id, off);
-    if (better_pair(ov, oi, val, id)) {
-      val = ov;
-      id = oi;
-    }
-  }
+// The value of order_key k (-0 comes back as +0, a NaN as the canonical
+// one): what a comparison with a threshold needs.
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float(k == 0u ? 0x7fffffffu
+                                 : (k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// Block-wide first-minimum argmin over (val, id) in order_key's order
+// (id: the thread's particle, ids ascending with the warps); every thread
+// gets the winning id and, in best, the winning value as key_value gives
+// it. Each warp's (least key, least id) by two __reduce_min_sync goes to
+// shared memory (s_wval holds the key's bits); after the barrier every
+// thread scans the warps in order (the first least key holds the least id).
+__device__ __forceinline__ int block_argmin(float val, int id, float* s_wval, int* s_wid,
+                                            float& best) {
+  const unsigned k = order_key(val);
+  const unsigned wk = __reduce_min_sync(0xffffffffu, k);
+  const unsigned wi =
+      __reduce_min_sync(0xffffffffu, k == wk ? static_cast<unsigned>(id) : 0xffffffffu);
+  unsigned* s_wkey = reinterpret_cast<unsigned*>(s_wval);
   const int warp = threadIdx.x >> 5;
   if ((threadIdx.x & 31) == 0) {
-    s_wval[warp] = val;
-    s_wid[warp] = id;
+    s_wkey[warp] = wk;
+    s_wid[warp] = static_cast<int>(wi);
   }
   __syncthreads();
-  float bv = s_wval[0];
-  int bi = s_wid[0];
+  unsigned bk = s_wkey[0];
+  int bw = 0;
   const int nwarps = blockDim.x >> 5;
   for (int w = 1; w < nwarps; ++w) {
-    if (better_pair(s_wval[w], s_wid[w], bv, bi)) {
-      bv = s_wval[w];
-      bi = s_wid[w];
+    if (s_wkey[w] < bk) {
+      bk = s_wkey[w];
+      bw = w;
     }
   }
-  best = bv;
-  return bi;
+  best = key_value(bk);
+  return s_wid[bw];
 }
 
 // Kernel A's thread-block bound per topology (its __launch_bounds__, and so
@@ -258,6 +273,28 @@ __host__ __device__ constexpr size_t smem_head_floats(int M, int K, int D) {
 }
 static size_t kernel_a_smem_bytes(int M, int K, int D, int P, int planes) {
   return sizeof(float) * (smem_head_floats(M, K, D) + static_cast<size_t>(planes) * D * P);
+}
+
+__host__ __device__ constexpr int round4(int n) { return (n + 3) / 4 * 4; }
+// A thread's row of v or lbest: D rounded up to an odd number of float4.
+__host__ __device__ constexpr int cluster_row(int D) {
+  return round4(D) / 4 % 2 ? round4(D) : round4(D) + 4;
+}
+
+// A block's dynamic shared memory in the cluster layout
+// (fused_solve_cluster.cuh), in floats, each part 16-byte aligned
+// (D4 = round4(D)): the limits lo and hi (2 D4); two slots of a block
+// winner's lbest row (2 D4) and its key, id and value (2 x 4 words); each
+// warp winner's key, id and value (3 x 32 words); meta and the swarm row
+// (M + K, rounded up to 4); then two planes, v and lbest, of Pb rows of
+// cluster_row(D) floats. Must match cluster_smem_bytes in
+// ikpso_tpu_torch/utils/kernels.py.
+__host__ __device__ constexpr size_t cluster_head_floats(int M, int K, int D) {
+  return static_cast<size_t>(4) * round4(D) + 8 + 96 + round4(M + K);
+}
+static size_t cluster_smem_bytes(int M, int K, int D, int Pb) {
+  return sizeof(float) *
+         (cluster_head_floats(M, K, D) + static_cast<size_t>(2) * cluster_row(D) * Pb);
 }
 
 // Lets `kernel` take the card's opt-in maximum of shared memory per block
@@ -542,16 +579,6 @@ __device__ __forceinline__ void store4(float* __restrict__ s, const float (&v)[D
         make_float4(v[i], i + 1 < D ? v[i + 1] : 0.0f, i + 2 < D ? v[i + 2] : 0.0f,
                     i + 3 < D ? v[i + 3] : 0.0f);
   }
-}
-
-// An unsigned key in the order of the floats: k(a) < k(b) exactly where
-// a < b for non-NaN a, b (-0 and +0 share a key: v + 0.0f is +0 for
-// both), NaN above everything. A warp takes its (min value, lowest id)
-// with two __reduce_min_sync: the least key, then the least id holding it.
-__device__ __forceinline__ unsigned order_key(float v) {
-  const unsigned b = __float_as_uint(v + 0.0f);
-  if (v != v) return 0xffffffffu;
-  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
 }
 
 template <class T, int C, bool O, bool REPLAY, int TH, bool CANON>
@@ -861,8 +888,10 @@ cudaError_t launch_short_prebuilt(int topo, int collider, bool orient, int threa
 // above.
 //
 // The same layout serves a compile-time tree whose state outgrows the
-// registers (fused_solve_tree_scratch_kernel, built on demand): the walk
-// is a template parameter of the shared body, scratch_solve.
+// registers (fused_solve_tree_scratch_kernel, built on demand; a branching
+// tree of up to 60 DOFs takes the cluster layout where a cluster holds its
+// swarm, fused_solve_cluster.cuh):
+// the walk is a template parameter of the shared body, scratch_solve.
 //
 // Everything else is the compile-time kernel's, in the same order: the
 // Philox counter layout and draw slots, uniforms drawn four DOFs at a time

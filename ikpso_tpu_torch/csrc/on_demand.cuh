@@ -20,6 +20,10 @@
 //   IKPSO_OD_THREADS     kernel A's thread-block bound (the most particles)
 //   IKPSO_OD_STREAM      1: kernel A draws four DOFs at a time (StreamDraws)
 //   IKPSO_OD_SCRATCH     1: kernel A keeps x and v (and lbest) in global scratch
+//   IKPSO_OD_CLUSTER     1: kernel A has the cluster layout
+//                        (fused_solve_cluster.cuh: x in registers, v and
+//                        lbest in shared memory, a swarm over a cluster)
+//                        beside the scratch layout (IKPSO_OD_SCRATCH 1)
 //   IKPSO_OD_SHARED      1: kernel A keeps v and lbest (the scratch layout:
 //                        lbest) in dynamic shared memory (StatePlacement)
 //   IKPSO_OD_COLLIDER    enum Collider
@@ -28,7 +32,10 @@
 // Entry points (one set per library, so fixed names): ikpso_od_fused_solve
 // (kernel A; the scratch layout takes a scratch of grid x planes x D x P
 // floats, planes 2 with IKPSO_OD_SHARED and 3 without, grid <=
-// ikpso_od_fused_solve_blocks), ikpso_od_fk_fitness (kernel B's
+// ikpso_od_fused_solve_blocks; with IKPSO_OD_CLUSTER,
+// ikpso_od_fused_solve_cluster on clusters <=
+// ikpso_od_fused_solve_cluster_blocks runs the cluster layout),
+// ikpso_od_fk_fitness (kernel B's
 // standalone launcher), ikpso_od_fused_fitness (kernel C) and
 // ikpso_od_scan_step (the scan solver's step, drawing or replay). Each
 // returns a CUDA error code, as the prebuilt ones do.
@@ -39,6 +46,9 @@
 #include "fused_fitness.cuh"
 #include "fused_solve.cuh"
 #include "scan_step.cuh"
+#if IKPSO_OD_CLUSTER
+#include "fused_solve_cluster.cuh"
+#endif
 
 namespace ikpso {
 
@@ -49,6 +59,8 @@ using OdTopology =
 constexpr int kOdCollider = IKPSO_OD_COLLIDER;
 constexpr bool kOdOrientation = IKPSO_OD_ORIENTATION != 0;
 constexpr bool kOdScratch = IKPSO_OD_SCRATCH != 0;
+static_assert(!IKPSO_OD_CLUSTER || IKPSO_OD_SCRATCH,
+              "the cluster layout beside the scratch one");
 static_assert(OdTopology::N >= 2 && OdTopology::parent(0) == -1, "a tree rooted at node 0");
 static_assert(kOdCollider >= kNoCollider && kOdCollider <= kCapsuleCollider, "collider id");
 
@@ -66,9 +78,10 @@ static size_t od_smem_bytes(int M, int K, int P) {
   return kernel_a_smem_bytes(M, K, OdTopology::D, P, planes);
 }
 
-// Kernel A's two layouts behind a template flag: the member functions of a
-// class template are instantiated only where called, and if constexpr
-// discards the other layout, so only the chosen one is compiled. In an
+// Kernel A's two layouts behind a template flag (the cluster layout has
+// entry points of its own, below): the member functions of a class
+// template are instantiated only where called, and if constexpr discards
+// the other layout, so only the chosen one is compiled. In an
 // unnamed namespace: two libraries of one tree in two placements share
 // the topology's type, and a static of a class with external linkage
 // would be one object for both (a unique symbol), so the second library
@@ -129,7 +142,66 @@ struct OdKernelA {
 };
 }  // namespace
 
+#if IKPSO_OD_CLUSTER
+namespace {
+// The cluster layout's kernel for a replay flag, allowed the card's opt-in
+// shared memory (once per instantiation); most is that maximum.
+template <bool REPLAY>
+auto od_cluster_kernel(int& most) {
+  static const int allowed = allow_dynamic_smem(
+      fused_solve_tree_cluster_kernel<OdTopology, kOdCollider, kOdOrientation, REPLAY>);
+  most = allowed;
+  return fused_solve_tree_cluster_kernel<OdTopology, kOdCollider, kOdOrientation, REPLAY>;
+}
+}  // namespace
+#endif
+
 }  // namespace ikpso
+
+#if IKPSO_OD_CLUSTER
+// How many clusters of cl blocks of the cluster layout fit the card at
+// once; <= 0 on an error or where one block does not fit.
+extern "C" int ikpso_od_fused_solve_cluster_blocks(int replay, int cl, int P, int M, int K) {
+  using namespace ikpso;
+  if (!cluster_shape_ok(cl, P) || P > OdTopology::kThreads) return -1;
+  int most = 0;
+  const auto kernel = replay ? od_cluster_kernel<true>(most) : od_cluster_kernel<false>(most);
+  return active_clusters(kernel, most, cl, P / cl,
+                         cluster_smem_bytes(M, K, OdTopology::D, P / cl));
+}
+
+// Kernel A in the cluster layout: `clusters` clusters of cl blocks (<=
+// ikpso_od_fused_solve_cluster_blocks) stride over the S swarms.
+extern "C" int ikpso_od_fused_solve_cluster(
+    int replay, int cl, int init_mode, int n_obs, float node_half, float link_half,
+    float node_r2, float link_r2, const float* meta, int M, const float* swarm, int K,
+    const float* limits, const int* seeds, const float* inertia, int iters, float c1,
+    float c2, float vscale, int randomized, int gbest_interval, int rekick_interval,
+    float rekick_scale, float rekick_threshold, const float* uniforms, int n_draws,
+    int clusters, float* gbest, float* gval, int S, int P, void* stream) {
+  using namespace ikpso;
+  if (S <= 0) return static_cast<int>(cudaGetLastError());
+  if (!cluster_shape_ok(cl, P) || P > OdTopology::kThreads || clusters <= 0 ||
+      init_mode < kInitWarm || init_mode > kInitHybrid || n_obs < 0 ||
+      (kOdCollider == kNoCollider && n_obs) || gbest_interval < 1 || rekick_interval < 0 ||
+      (rekick_interval > 0 && rekick_interval % gbest_interval)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int most = 0;
+  const auto kernel = replay ? od_cluster_kernel<true>(most) : od_cluster_kernel<false>(most);
+  const int Pb = P / cl;
+  const size_t smem = cluster_smem_bytes(M, K, OdTopology::D, Pb);
+  if (smem > static_cast<size_t>(most)) return static_cast<int>(cudaErrorInvalidValue);
+  ClusterLaunch l(clusters * cl, cl, Pb, smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t rc = cudaLaunchKernelEx(
+      &l.cfg, kernel, Scene{n_obs, node_half, link_half, node_r2, link_r2}, cl, meta, M, swarm,
+      K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+      Update{randomized != 0, gbest_interval, rekick_interval, rekick_scale, rekick_threshold},
+      uniforms, n_draws, gbest, gval, S);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif
 
 // How many blocks of the scratch layout fit the card at once (its grid, and
 // so its scratch); <= 0 on an error, where one block's shared memory does

@@ -5,9 +5,11 @@ Port of ``ikpso_tpu/pso/fused.py`` (``fused_solve_raw``,
 
   * ``fused_solve`` — kernel A (``csrc/fused_solve.cu``): one thread
     block per swarm, one thread per particle, the whole solve on chip: x
-    in registers, v and lbest in registers or shared memory (serial chains
-    without a compile-time topology and trees past 45 DOFs: x and v in a
-    global scratch, lbest in shared memory where it fits;
+    in registers, v and lbest in registers or shared memory (branching
+    trees of 46-60 DOFs: a swarm over a cluster of blocks, v and lbest in
+    their shared memory, ``csrc/fused_solve_cluster.cuh``; serial chains
+    without a compile-time topology and the other trees past 45 DOFs: x
+    and v in a global scratch, lbest in shared memory where it fits;
     :func:`kernel_a_layout`); CPU tensors run ``fused_solve_plain``
     instead;
   * ``fused_solve_plain`` — the same solve on ``(S, P, D)`` tensors,
@@ -389,10 +391,27 @@ def _launch_serial(spec, init_mode, replay, meta, swarm, update, gbest, gval,
 
 def _launch_on_demand(key, init_mode, replay, num_obstacles, scene, meta, swarm, update,
                       gbest, gval, num_particles, layout):
-    """Launch kernel A from the on-demand library of ``key``; its scratch
-    layout takes a scratch sized as :func:`_launch_serial`'s."""
+    """Launch kernel A from the on-demand library of ``key``: in the cluster
+    layout where ``layout.cluster`` is set (that many blocks a swarm, a grid
+    of the clusters that fit the card at once striding over the swarms, no
+    scratch), else in the key's own layout, whose scratch layout takes a
+    scratch sized as :func:`_launch_serial`'s."""
     lib = kernels.on_demand_library(key)
     s, p = swarm.shape[0], num_particles
+    stream = kernels.stream_ptr(swarm.device)
+    if layout.cluster:
+        c = layout.cluster
+        clusters = lib.ikpso_od_fused_solve_cluster_blocks(replay, c, p, meta.numel(),
+                                                           swarm.shape[1])
+        if clusters <= 0:
+            raise RuntimeError(f"fused_solve: no cluster of the cluster layout fits the "
+                               f"card for {key.name()} at P={p}, c={c}")
+        rc = lib.ikpso_od_fused_solve_cluster(
+            replay, c, init_mode, num_obstacles, *scene, meta.data_ptr(), meta.numel(),
+            swarm.data_ptr(), swarm.shape[1], *update, min(s, clusters),
+            gbest.data_ptr(), gval.data_ptr(), s, p, stream)
+        kernels.check(rc, "fused_solve")
+        return
     scratch, grid = None, 0
     if key.scratch:
         blocks = lib.ikpso_od_fused_solve_blocks(replay, p, meta.numel(), swarm.shape[1])
@@ -405,7 +424,7 @@ def _launch_on_demand(key, init_mode, replay, num_obstacles, scene, meta, swarm,
         replay, init_mode, num_obstacles, *scene, meta.data_ptr(), meta.numel(),
         swarm.data_ptr(), swarm.shape[1], *update,
         None if scratch is None else scratch.data_ptr(), grid,
-        gbest.data_ptr(), gval.data_ptr(), s, p, kernels.stream_ptr(swarm.device))
+        gbest.data_ptr(), gval.data_ptr(), s, p, stream)
     kernels.check(rc, "fused_solve")
 
 

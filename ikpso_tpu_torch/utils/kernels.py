@@ -111,6 +111,22 @@ STREAM_DOF = 18
 # layout spilled 300 bytes on the 21-keypoint hand (PERF.md).
 SCRATCH_DOF = 45
 
+# Kernel A's cluster layout (csrc/fused_solve_cluster.cuh): x in registers,
+# v and lbest in shared memory, a swarm over a cluster of c blocks of at
+# most CLUSTER_THREADS threads (kClusterThreads, kClusterMax). An on-demand
+# tree of SCRATCH_DOF + 1 to CLUSTER_MAX_DOF DOFs that branches builds it
+# beside the scratch layout, and takes it at any swarm whose blocks hold
+# v and lbest (tree_cluster). The evidence, on an H100 (PERF.md): hand21
+# (60 DOFs, the widest measured: 255 registers, 0 spill bytes) ran 1.9x
+# faster than its scratch layout at P = 512 and 2.0x at P = 256, hand16
+# (48 DOFs) 1.6x at P = 512; every chain lost: snake20_box (a 21-node
+# chain among boxes, built on demand, P = 256) 1.18x slower, and the
+# serial chains' cluster source (tools/kernel_a_cluster_serial.cu) 1.2-2.6x
+# slower on snake:16 to snake:50. So chains keep the scratch layout.
+CLUSTER_THREADS = 256
+CLUSTER_SIZES = (1, 2, 4)
+CLUSTER_MAX_DOF = 60
+
 # The prebuilt topologies whose v and lbest are in shared memory: the trees,
 # reference_arm and snake_30dof. An on-demand topology in the register
 # layout follows its prebuilt twin's placement, else takes shared memory
@@ -151,8 +167,10 @@ class OnDemandKey(NamedTuple):
     tree, the collider id, the three term flags, and kernel A's traits
     chosen for the topology (:func:`on_demand_key`): its thread bound,
     streamed draws, the scratch layout and its state placement (``shared``:
-    v and lbest, in the scratch layout lbest, in shared memory). Kernel A's
-    replay and Philox instantiations share a library."""
+    v and lbest, in the scratch layout lbest, in shared memory), and the
+    cluster layout beside the scratch one (``cluster``; :func:`tree_cluster`
+    picks one a launch). Kernel A's replay and Philox instantiations share a
+    library."""
 
     parents: Tuple[int, ...]
     effectors: Tuple[int, ...]
@@ -164,17 +182,25 @@ class OnDemandKey(NamedTuple):
     stream: bool
     scratch: bool
     shared: bool
+    cluster: bool = False
 
     def name(self) -> str:
         """A short readable tag: nodes, collider and terms."""
         flags = "".join(c for c, on in (("o", self.orientation), ("d", self.distance),
                                         ("x", self.exact)) if on)
         return (f"n{len(self.parents)}-c{self.collider}-{flags or 'p'}"
-                f"{'-scratch' if self.scratch else ''}")
+                f"{'-scratch' if self.scratch else ''}{'-cluster' if self.cluster else ''}")
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+def branches(spec) -> bool:
+    """Whether some node of ``spec`` has two or more children (a chain
+    has none)."""
+    kids = list(spec.parent[1:])
+    return len(set(kids)) < len(kids)
 
 
 def is_serial(spec) -> bool:
@@ -294,29 +320,72 @@ def serial_lbest_shared(d: int, p: int, m: int, k: int) -> bool:
     return fit >= min(2, by_registers)
 
 
+def cluster_smem_bytes(m: int, k: int, d: int, pb: int) -> int:
+    """A block's dynamic shared memory in kernel A's cluster layout
+    (``cluster_smem_bytes`` in ``csrc/fused_solve.cuh``), ``pb``
+    threads a block: the limits and two winner rows (``4 d4``, ``d4`` =
+    ``d`` rounded up to 4), two slots of 4 words, 3 x 32 warp words, meta
+    and the swarm row rounded up to 4, then two planes (v and lbest) of
+    ``pb`` rows, each ``d4`` rounded up to an odd number of float4
+    (``cluster_row``)."""
+    d4 = (d + 3) // 4 * 4
+    row = d4 if d4 // 4 % 2 else d4 + 4
+    return 4 * (4 * d4 + 8 + 96 + (m + k + 3) // 4 * 4 + 2 * row * pb)
+
+
+def cluster_size(d: int, p: int, m: int, k: int) -> int:
+    """The cluster size of kernel A's cluster layout for ``p`` particles:
+    the least of :data:`CLUSTER_SIZES` whose blocks (``p / c`` threads, a
+    multiple of 32, at most :data:`CLUSTER_THREADS`) hold v and lbest in
+    their shared memory (:func:`cluster_smem_bytes`), 0 where none does."""
+    for c in CLUSTER_SIZES:
+        if (p % (32 * c) == 0 and p // c <= CLUSTER_THREADS
+                and cluster_smem_bytes(m, k, d, p // c) <= SMEM_OPTIN):
+            return c
+    return 0
+
+
 def on_demand_key(spec, collider: int, orientation: bool, distance: bool = False,
                   exact: bool = False) -> OnDemandKey:
-    """The on-demand library of ``spec`` with a collider id and term flags."""
+    """The on-demand library of ``spec`` with a collider id and term flags.
+    A tree past :data:`SCRATCH_DOF` DOFs takes the scratch layout and, if
+    it branches (:func:`branches`), has at most :data:`CLUSTER_MAX_DOF`
+    DOFs and a cluster of blocks holds its state at the topology's thread
+    bound with :data:`SMEM_RESERVE` to spare, the cluster layout beside it
+    (:func:`tree_cluster` picks one a launch)."""
     topo = _prebuilt_id(spec)
-    scratch = topo is None and spec.dof > SCRATCH_DOF
-    stream = scratch or (topo in STREAM_IDS if topo is not None else spec.dof >= STREAM_DOF)
     threads = on_demand_threads(spec)
+    scratch = topo is None and spec.dof > SCRATCH_DOF
+    cluster = (scratch and spec.dof <= CLUSTER_MAX_DOF and branches(spec)
+               and cluster_size(spec.dof, threads, SMEM_RESERVE // 4, 0) > 0)
+    stream = scratch or (topo in STREAM_IDS if topo is not None else spec.dof >= STREAM_DOF)
     return OnDemandKey(tuple(int(p) for p in spec.parent),
                        tuple(int(e) for e in spec.effector_idx), int(collider),
                        bool(orientation), bool(distance), bool(exact),
                        threads, bool(stream), bool(scratch),
-                       on_demand_shared(spec, threads, scratch))
+                       on_demand_shared(spec, threads, scratch), bool(cluster))
+
+
+def tree_cluster(key: OnDemandKey, d: int, p: int, m: int, k: int) -> int:
+    """The cluster size kernel A of an on-demand ``key`` takes at ``p``
+    particles with ``m`` + ``k`` constants (:func:`cluster_size`), 0 for
+    its scratch layout: a key without the cluster layout, or a swarm that
+    no cluster's blocks hold."""
+    return cluster_size(d, p, m, k) if key.cluster else 0
 
 
 class KernelALayout(NamedTuple):
     """Where one launch of kernel A keeps its state (StatePlacement in
     ``csrc/fused_solve.cuh``), the dynamic shared memory a block takes and
     the thread bound of the instantiation it runs. In the register layout
-    (``scratch`` false) x is in registers and v and lbest are in registers
-    too (``placement`` "registers") or in shared memory, ``[D][P]`` each
-    ("shared"); in the scratch layout x and v are in global scratch
-    (``scratch_planes`` ``[D][P]`` planes a block) and lbest is in shared
-    memory ("shared") or in the scratch too ("global"). A short chain's
+    (``scratch`` false, ``cluster`` 0) x is in registers and v and lbest are
+    in registers too (``placement`` "registers") or in shared memory,
+    ``[D][P]`` each ("shared"); in the scratch layout x and v are in global
+    scratch (``scratch_planes`` ``[D][P]`` planes a block) and lbest is in
+    shared memory ("shared") or in the scratch too ("global"); in the
+    cluster layout (``cluster``: c > 0 blocks a swarm,
+    ``csrc/fused_solve_cluster.cuh``) x is in registers and v and lbest are
+    in each block's shared memory ("shared"), no scratch. A short chain's
     kernel takes ``static_bytes`` of static shared memory besides
     (:func:`short_static_bytes`)."""
 
@@ -326,6 +395,7 @@ class KernelALayout(NamedTuple):
     scratch_planes: int
     threads: int
     static_bytes: int
+    cluster: int = 0
 
 
 def kernel_a_layout(spec, num_particles: int, num_obstacles: int = 0,
@@ -343,11 +413,17 @@ def kernel_a_layout(spec, num_particles: int, num_obstacles: int = 0,
     lay = MetaLayout(spec, num_obstacles, use_orientation)
     m, k = lay.meta_size, lay.swarm_size if swarm_width is None else int(swarm_width)
     d, p = spec.dof, num_particles
+    c = 0
+    if topo == ON_DEMAND:
+        key = on_demand_key(spec, collider, orient, use_distance, trig_impl == "exact")
+        c = tree_cluster(key, d, p, m, k)
+    if c:
+        return KernelALayout(False, "shared", cluster_smem_bytes(m, k, d, p // c), 0,
+                             CLUSTER_THREADS, 0, c)
     if topo == SERIAL:
         scratch, shared, threads = True, serial_lbest_shared(d, p, m, k), 1024
         short = False
     elif topo == ON_DEMAND:
-        key = on_demand_key(spec, collider, orient, use_distance, trig_impl == "exact")
         scratch, shared, threads = key.scratch, key.shared, key.threads
         short = not (key.scratch or key.stream or key.shared)
     else:
@@ -499,6 +575,7 @@ SIGNATURES = {
     ],
     # replay, lbest in shared memory, P, M, K, nodes
     "ikpso_fused_solve_serial_blocks": [_I, _I, _I, _I, _I, _I],
+    "ikpso_kernel_a_cluster_smem_bytes": [_I, _I, _I, _I],  # M, K, D, Pb
     "ikpso_kernel_a_smem_bytes": [_I, _I, _I, _I, _I],  # M, K, D, P, planes
     "ikpso_kernel_a_short_threads": [],
     "ikpso_fused_fitness": [
@@ -534,6 +611,16 @@ OD_SIGNATURES = {
         _I, _I, _VP,  # S, P, stream
     ],
     "ikpso_od_fused_solve_blocks": [_I, _I, _I, _I],  # replay, P, M, K
+    # The cluster layout's (a library of a cluster key has them).
+    "ikpso_od_fused_solve_cluster": [
+        _I, _I, _I, *_SCENE,  # replay, cluster size, init mode, scene
+        _VP, _I, _VP, _I,  # meta, M, swarm, K
+        *_UPDATE,
+        _I,  # clusters
+        _VP, _VP,  # out gbest, out gval
+        _I, _I, _VP,  # S, P, stream
+    ],
+    "ikpso_od_fused_solve_cluster_blocks": [_I, _I, _I, _I, _I],  # replay, c, P, M, K
     "ikpso_od_fk_fitness": [*_SCENE, _VP, _VP, _VP, _I, _VP, ctypes.c_longlong, _I, _VP],
     "ikpso_od_fused_fitness": [*_SCENE, _VP, _VP, _VP, _I, _VP, _I, _I, _VP],
     "ikpso_od_scan_step": [*_SCENE, *_STEP],
@@ -547,7 +634,7 @@ def on_demand_source(key: OnDemandKey) -> str:
         "PARENTS": ", ".join(map(str, key.parents)),
         "EFFECTORS": ", ".join(map(str, key.effectors)),
         "THREADS": key.threads, "STREAM": int(key.stream), "SCRATCH": int(key.scratch),
-        "SHARED": int(key.shared),
+        "CLUSTER": int(key.cluster), "SHARED": int(key.shared),
         "COLLIDER": key.collider, "ORIENTATION": int(key.orientation),
         "DISTANCE": int(key.distance), "EXACT": int(key.exact),
     }
@@ -610,9 +697,10 @@ def on_demand_library(key: OnDemandKey) -> ctypes.CDLL:
     prebuild([key])
     lib = ctypes.CDLL(str(on_demand_path(key)))
     for name, argtypes in OD_SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _I
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = _I
     return lib
 
 
@@ -627,8 +715,9 @@ def library() -> ctypes.CDLL:
         if fn is not None:
             fn.argtypes = argtypes
             fn.restype = _I
-    if hasattr(lib, "ikpso_kernel_a_smem_bytes"):
-        lib.ikpso_kernel_a_smem_bytes.restype = ctypes.c_longlong
+    for name in ("ikpso_kernel_a_smem_bytes", "ikpso_kernel_a_cluster_smem_bytes"):
+        if hasattr(lib, name):
+            getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 

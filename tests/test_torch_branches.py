@@ -334,10 +334,14 @@ def test_on_demand_routing_for_trees_that_used_to_raise():
         assert kernels.kernel_variant(spec, 0, "box", False) == (kernels.ON_DEMAND, 0, 0)
         assert kernels.topology_name(spec) == f"tree{spec.num_nodes}"
     assert kernels.topology_code(hand) == (21, None, sum(1 << e for e in (4, 8, 12, 16, 20)))
-    # The hand's 60 DOFs take the scratch layout at a 512-thread bound;
-    # the 17-node tree's 48 too; the 5-node tree stays in registers.
+    # The hand's 60 DOFs take the scratch layout and, beside it, the
+    # cluster layout at a 512-particle bound; the 17-node tree's 48 too;
+    # the 5-node tree stays in registers.
     assert kernels.max_particles(hand) == kernels.max_particles(branched17) == 512
     assert kernels.on_demand_key(hand, 0, False).scratch
+    assert kernels.on_demand_key(hand, 0, False).cluster
+    assert kernels.on_demand_key(branched17, 0, False).cluster
+    assert not kernels.on_demand_key(short, 0, False).cluster
     assert not kernels.on_demand_key(short, 0, False).scratch
     assert kernels.max_particles(short) == 1024
     assert kernels.max_particles(_tree([-1, 0, 1, 2, 3, 4, 5, 6, 1, 8], [7, 9])) == 512
@@ -376,7 +380,7 @@ def test_on_demand_key_names_and_hashes():
     # Two keys never share a library; the same key always maps to one.
     assert len(set(paths)) == len(keys)
     assert kernels.on_demand_path(kernels.on_demand_key(hand, 0, False)) == paths[0]
-    assert keys[0].name() == "n21-c0-p-scratch" and keys[4].name() == "n7-c1-d"
+    assert keys[0].name() == "n21-c0-p-scratch-cluster" and keys[4].name() == "n7-c1-d"
     assert all(p.parent == kernels.BUILD_DIR and p.name.startswith("libikpso_od-")
                for p in paths)
     assert re.fullmatch(r"libikpso_od-n7-c1-ox-[0-9a-f]{16}\.so",
@@ -404,7 +408,11 @@ struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
-struct dim3 { unsigned x = 1, y = 1, z = 1; };
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() = default;
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
 extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -442,23 +450,65 @@ inline void __threadfence() {}
 inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline float __uint_as_float(unsigned b) {
+  float v;
+  __builtin_memcpy(&v, &b, sizeof v);
+  return v;
+}
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t*, void (*)(P...), A&&...) {
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* n, F, const cudaLaunchConfig_t*) {
+  *n = 1;
+  return cudaSuccess;
+}
+namespace cooperative_groups {
+struct cluster_group {
+  unsigned block_rank() const { return 0; }
+  void sync() const { __syncthreads(); }
+  template <class T> T* map_shared_rank(T* p, int) const { return p; }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 #include <algorithm>
 #include <climits>
 using std::isnan;
 using std::min;
 """
+# The header the cluster layout includes; the stand-in above declares it.
+COOPERATIVE_GROUPS = '#pragma once\n#include "cuda_runtime.h"\n'
 
 
 def test_on_demand_source_compiles_with_a_host_compiler(tmp_path):
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this machine")
     (tmp_path / "cuda_runtime.h").write_text(STANDIN)
+    (tmp_path / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
     for src in kernels.CSRC.glob("*.cu*"):
         (tmp_path / src.name).write_text(
             re.sub(r"<<<.*?>>>", "", src.read_text(), flags=re.S))
     hand = _tree(HAND_PARENTS, [4, 8, 12, 16, 20])
-    keys = [kernels.on_demand_key(hand, 0, False),  # the scratch layout
+    # Past CLUSTER_MAX_DOF DOFs (22 nodes: 63) a tree keeps the scratch layout.
+    wide = _tree([-1] + [0] * 21, [21])
+    keys = [kernels.on_demand_key(hand, 0, False),  # the scratch and cluster layouts
+            kernels.on_demand_key(wide, 0, False),  # the scratch layout alone
             kernels.on_demand_key(library.dual_arm_14dof()[0], 1, True, True, True)]
+    assert keys[0].cluster and keys[0].scratch and keys[1].scratch
+    assert not keys[1].cluster
     for i, key in enumerate(keys):
         cu = tmp_path / f"od{i}.cu"
         cu.write_text(kernels.on_demand_source(key))

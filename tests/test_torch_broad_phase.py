@@ -52,7 +52,7 @@ from ikpso_tpu_torch.ops import fitness_kernel as fkm
 from ikpso_tpu_torch.ops.fitness import COLLISION_PENALTY, FitnessConfig
 from ikpso_tpu_torch.pso.polish_soa import anchor_positions_flat
 from ikpso_tpu_torch.utils import kernels
-from test_torch_branches import STANDIN
+from test_torch_branches import COOPERATIVE_GROUPS, STANDIN
 
 ROOT = Path(__file__).resolve().parents[1]
 SCENE_TOL = 2e-4  # tests/test_torch_fitness.py: JAX's bar for the tile with a scene
@@ -317,6 +317,7 @@ def host_kernels(tmp_path_factory):
         "extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;",
         "extern thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;\n"
         "template <class T> T __shfl_sync(unsigned, T v, int) { return v; }"))
+    (tmp / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
     for src in kernels.CSRC.glob("*.cu*"):
         (tmp / src.name).write_text(_host_source(src.read_text()))
     sources = {"prebuilt": (tmp / "fk_fitness.cu").read_text(), "probe": PROBE}

@@ -14,8 +14,10 @@ the re-kick -- at both thread bounds (256 and 1,024), in the drawing and
 the replay form, at P = 64 and P = 32; the canonical update (the headline
 at the 256 bound, drawing) and the run-time branches (randomized inertia,
 uniform init, a gbest interval of 2) both; and the first-minimum rule on
-exact ties (``tests/test_torch_fused.py``'s tie and all-colliding cases).
-Besides, ``kernel_a_layout``'s choice of the bound: 256 threads up to 256
+exact ties (``tests/test_torch_fused.py``'s tie and all-colliding cases);
+NaN first on a block whose fitness values mix NaN with numbers (the plain
+twin's ``torch.argmin``), at both short bounds and in the general kernel
+(the dual arm's ``fused_solve_kernel``). Besides, ``kernel_a_layout``'s choice of the bound: 256 threads up to 256
 particles, 1,024 above, and a P no instantiation takes raises before any
 launch.
 """
@@ -41,6 +43,7 @@ from ikpso_tpu_torch.pso.polish_soa import anchor_positions_flat
 from ikpso_tpu_torch.utils import kernels
 
 from test_torch_branches import STANDIN as BRANCHES_STANDIN
+from test_torch_cluster_host import _problem, same
 from test_torch_fused import penalty_tie_case, tie_case
 
 STANDIN = (BRANCHES_STANDIN
@@ -264,6 +267,70 @@ def test_short_chain_source_keeps_the_first_minimum(host_lib, monkeypatch, threa
                                     n_obs)
     assert torch.equal(got[0], want) and torch.equal(got[0], plain[0])
     assert torch.equal(got[1], plain[1])
+
+
+@pytest.mark.parametrize("threshold", [-1.0, 2.0])  # every swarm; some of them
+@pytest.mark.parametrize("model", ["dual_arm_14dof", "snake_30dof"])
+def test_general_kernel_source_matches_the_plain_solve(host_lib, monkeypatch, model,
+                                                       threshold):
+    # fused_solve_kernel (the trees' and snake_30dof's register layout, v
+    # and lbest in shared memory): uniform init, randomized inertia and the
+    # re-kick every 2 iterations, of every swarm or above a threshold that
+    # the block argmin's winning value decides, drawing and replay.
+    rng = np.random.default_rng(30)
+    s, p = 3, 64
+    spec, fit, meta, swarm = _problem(model, s, rng)
+    pso = PSOConfig(iterations=4, inertia_mode="randomized", init_mode="uniform",
+                    rekick_interval=2, rekick_threshold=threshold)
+    seeds = torch.as_tensor(rng.integers(-2**31, 2**31, (s, 2)).astype(np.int32))
+    u = torch.as_tensor(rng.random((s, fused.num_draws(pso), spec.dof, p), dtype=np.float32))
+    for uniforms in (None, u):
+        want = fused.fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, p,
+                                       uniforms)
+        got = _run_host(host_lib, monkeypatch, spec, pso, fit, meta, swarm, seeds, p, uniforms)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("nan_ids,first", [((40, 50), 40), ((50, 5), 5)])
+@pytest.mark.parametrize("model,threads", [("arm_7dof", 256), ("arm_7dof", 1024),
+                                           ("dual_arm_14dof", 1024)])
+def test_kernel_a_source_puts_nan_first(host_lib, monkeypatch, model, threads, nan_ids,
+                                        first):
+    # A block whose lvals mix NaN with numbers: uniform init with NaN in
+    # the first position draw of the particles in nan_ids. The plain twin's
+    # torch.argmin returns the first NaN; so must both argmins of kernel A.
+    rng = np.random.default_rng(5)
+    s, p = 2, 64
+    spec, fit, meta, swarm = _problem(model, s, rng)
+    pso = PSOConfig(iterations=2, inertia_mode="canonical", init_mode="uniform")
+    u = torch.as_tensor(rng.random((s, fused.num_draws(pso), spec.dof, p), dtype=np.float32))
+    u[:, 0, 0, list(nan_ids)] = float("nan")
+    seeds = torch.zeros((s, 2), dtype=torch.int32)
+    gb, gv = _run_host(host_lib, monkeypatch, spec, pso, fit, meta, swarm, seeds, p, u,
+                       threads=threads)
+    want = fused.fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, p, u)
+    assert torch.isnan(gv).all() and same(gb, want[0]) and same(gv, want[1])
+    lim = spec.limits()
+    lo_c, hi_c = torch.clamp_min(lim[0], -fused.TWO_PI), torch.clamp_max(lim[1], fused.TWO_PI)
+    assert same(gb, lo_c + u[:, 0, :, first] * (hi_c - lo_c))
+
+
+@pytest.mark.parametrize("threads", [256, 1024])
+def test_kernel_a_source_scores_nan_poses_at_the_penalty(host_lib, monkeypatch, threads):
+    # Every pose collides (penalty_tie_case's box): poses with a NaN angle
+    # score the collision penalty too, as in the plain twin, and the tie at
+    # the penalty still goes to particle 0. (The capsule collider calls a
+    # NaN pose a hit where the plain one does not: ROADMAP queue C.)
+    spec, pso, fit, meta, swarm, u, n_obs, want = penalty_tie_case(p=64)
+    u = u.clone()
+    u[:, 0, 0, [41, 57]] = float("nan")
+    seeds = torch.zeros((swarm.shape[0], 2), dtype=torch.int32)
+    got = _run_host(host_lib, monkeypatch, spec, pso, fit, meta, swarm, seeds, 64, u, n_obs,
+                    threads=threads)
+    plain = fused.fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, 64, u,
+                                    n_obs)
+    assert same(got[0], plain[0]) and same(got[1], plain[1])
+    assert torch.equal(got[0], want)
 
 
 def test_layout_picks_the_short_bound_up_to_256_particles(monkeypatch):

@@ -14,7 +14,8 @@
     ``_check_args``, before any launch; a smaller one passes.
 (d) The scratch layout's scratch is ``(grid, 2, D, P)`` where lbest is in
     shared memory and ``(grid, 3, D, P)`` where it is not, and the launch
-    is told which.
+    is told which; the cluster layout allocates none and is told its
+    cluster size.
 """
 
 import re
@@ -135,13 +136,14 @@ def test_every_zoo_preset_fits_a_block(model):
     layout = kernels.kernel_a_layout(spec, pre.particles)
     assert layout.smem_bytes <= kernels.SMEM_OPTIN
     topo = kernels.topology_id(spec)
+    lay = MetaLayout(spec)
+    assert layout.cluster == 0  # the zoo's serial chains keep the scratch layout
     if topo == kernels.SERIAL:
         assert layout.scratch and layout.placement in ("shared", "global")
         assert layout.scratch_planes == (2 if layout.placement == "shared" else 3)
     else:
         assert not layout.scratch and layout.scratch_planes == 0
         assert layout.placement == ("shared" if topo in kernels.SHARED_IDS else "registers")
-    lay = MetaLayout(spec)
     planes = {"registers": 0, "shared": 1 if layout.scratch else 2, "global": 0}
     assert layout.smem_bytes == kernels.kernel_a_smem_bytes(
         lay.meta_size, lay.swarm_size, spec.dof, pre.particles, planes[layout.placement])
@@ -151,14 +153,81 @@ def test_serial_placement_follows_the_measured_occupancy():
     # At the snakes' P = 256 four blocks fit an SM with lbest in global
     # scratch: lbest moves to shared memory while two still fit (snake:20
     # keeps three, snake:35 two), not where one does (snake:43, snake:50).
-    placements = {m: kernels.kernel_a_layout(model_spec(m)[0], 256).placement
-                  for m in ("snake:16", "snake:20", "snake:35", "snake:43", "snake:50")}
-    assert placements == {"snake:16": "shared", "snake:20": "shared", "snake:35": "shared",
-                          "snake:43": "global", "snake:50": "global"}
+    # The serial chains keep the scratch layout: the cluster layout ran
+    # slower on each of them.
+    layouts = {m: kernels.kernel_a_layout(model_spec(m)[0], 256)
+               for m in ("snake:16", "snake:20", "snake:35", "snake:43", "snake:50")}
+    assert {m: lay.placement for m, lay in layouts.items()} == {
+        "snake:16": "shared", "snake:20": "shared", "snake:35": "shared",
+        "snake:43": "global", "snake:50": "global"}
+    assert all(lay.scratch and lay.cluster == 0 for lay in layouts.values())
     # At P = 1,024 one block fills an SM's registers anyway: lbest moves
     # where it fits at all.
     assert kernels.kernel_a_layout(model_spec("snake:16")[0], 1024).placement == "shared"
     assert kernels.kernel_a_layout(model_spec("snake:20")[0], 1024).placement == "global"
+    assert kernels.kernel_a_layout(model_spec("snake:100")[0], 32).placement == "shared"
+    # hand21 (on demand, 60 DOFs, a branching tree): two blocks of 256 at
+    # its P = 512, one at 256; a swarm no cluster holds (P = 80, not a
+    # multiple of 32) takes its scratch layout, lbest in shared memory.
+    hand = load_config(str(CONFIG_DIR / "hand21.json")).spec
+    big = kernels.kernel_a_layout(hand, 512)
+    assert (big.cluster, big.scratch, big.placement, big.scratch_planes) == (
+        2, False, "shared", 0)
+    small = kernels.kernel_a_layout(hand, 256)
+    assert (small.cluster, small.scratch, small.placement, small.scratch_planes) == (
+        1, False, "shared", 0)
+    odd = kernels.kernel_a_layout(hand, 80)
+    assert (odd.cluster, odd.scratch, odd.placement, odd.scratch_planes) == (
+        0, True, "shared", 2)
+    # A chain built on demand (snake:20 among boxes: 60 DOFs, no branch)
+    # keeps the scratch layout at any P.
+    snake20 = model_spec("snake:20")[0]
+    assert not kernels.branches(snake20) and kernels.branches(hand)
+    assert not kernels.on_demand_key(snake20, 1, False).cluster
+    assert kernels.kernel_a_layout(snake20, 512, 4, "box").cluster == 0
+    # A tree past CLUSTER_MAX_DOF DOFs (22 nodes: 63) keeps the scratch
+    # layout at any P.
+    wide = _tree([-1] + [0] * 21, [21])
+    assert not kernels.on_demand_key(wide, 0, False).cluster
+    assert kernels.kernel_a_layout(wide, 512).cluster == 0
+
+
+def test_cluster_size_takes_the_least_cluster_that_fits():
+    d, m, k = 150, 53, 330
+    assert kernels.cluster_size(d, 256, m, k) == 2
+    assert kernels.cluster_size(d, 128, m, k) == 1
+    # A block holds at most CLUSTER_THREADS threads, a multiple of 32.
+    assert kernels.cluster_size(60, 1024, m, k) == 4
+    assert kernels.cluster_size(60, 96, m, k) == 1
+    assert kernels.cluster_size(60, 2048, m, k) == 0
+    # No cluster holds the planes of 400 DOFs at 1,024 particles.
+    assert kernels.cluster_smem_bytes(m, k, 400, 256) > kernels.SMEM_OPTIN
+    assert kernels.cluster_size(400, 1024, m, k) == 0
+
+
+def test_cluster_shared_memory_reckoning_matches_the_kernels(tmp_path):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    (tmp_path / "cuda_runtime.h").write_text(STANDIN)
+    for src in kernels.CSRC.glob("*.cuh"):
+        (tmp_path / src.name).write_text(
+            re.sub(r"<<<.*?>>>", "", src.read_text(), flags=re.S))
+    rng = np.random.default_rng(12)
+    cases = [tuple(int(v) for v in row) for row in np.stack(
+        [rng.integers(2, 3000, 40), rng.integers(12, 600, 40), rng.integers(3, 300, 40),
+         rng.integers(1, 9, 40) * 32], axis=1)]
+    main = tmp_path / "smem.cpp"
+    main.write_text('#include <cstdio>\n#include "fused_solve.cuh"\nint main() {\n' + "".join(
+        f'  std::printf("%zu\\n", ikpso::cluster_smem_bytes({m}, {k}, {d}, {p}));\n'
+        for m, k, d, p in cases) + "}\n")
+    exe = tmp_path / "smem"
+    proc = subprocess.run(["g++", "-std=c++17", "-I", str(tmp_path), "-o", str(exe), str(main)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = [int(v) for v in subprocess.run([str(exe)], capture_output=True,
+                                          text=True).stdout.split()]
+    assert got == [kernels.cluster_smem_bytes(*c) for c in cases]
+    assert all(v % 16 == 0 for v in got)  # the planes start 16-byte aligned
 
 
 @pytest.mark.parametrize("name", ["arm7_locality", "arm7_exact", "dual_arm_box", "hand21"])
@@ -173,7 +242,8 @@ def test_every_config_document_fits_a_block(name):
     want = {"arm7_locality": "registers", "arm7_exact": "registers",
             "dual_arm_box": "shared", "hand21": "shared"}[name]
     assert layout.placement == want
-    assert layout.scratch == (name == "hand21")
+    assert not layout.scratch
+    assert layout.cluster == (2 if name == "hand21" else 0)
 
 
 def test_on_demand_keys_carry_their_placement():
@@ -181,7 +251,7 @@ def test_on_demand_keys_carry_their_placement():
     dual = library.dual_arm_14dof()[0]
     arm = library.arm_7dof()[0]
     key = kernels.on_demand_key(hand, 0, False)
-    assert (key.threads, key.scratch, key.shared) == (512, True, True)
+    assert (key.threads, key.scratch, key.shared, key.cluster) == (512, True, True, True)
     assert kernels.on_demand_key(dual, 1, False).shared  # follows DualArm14
     assert not kernels.on_demand_key(arm, 0, False, True).shared  # follows Arm7Dof
     # A new tree in the register layout: shared memory from STREAM_DOF DOFs.
@@ -191,6 +261,7 @@ def test_on_demand_keys_carry_their_placement():
     assert kernels.on_demand_key(mid, 0, False).shared
     # The macro reaches the generated source, and the placement the hash.
     assert "#define IKPSO_OD_SHARED 1" in kernels.on_demand_source(key)
+    assert "#define IKPSO_OD_CLUSTER 1" in kernels.on_demand_source(key)
     assert (kernels.on_demand_path(key)
             != kernels.on_demand_path(key._replace(shared=False)))
 
@@ -222,8 +293,9 @@ def _args(spec, count, particles):
 @pytest.mark.parametrize("model,count,big,small", [
     # v and lbest in shared memory: 147,456 bytes at P = 1,024.
     ("dual_arm_14dof", 1500, 1024, 512),
-    # lbest in shared memory in the scratch layout.
-    ("hand21", 1800, 512, 256),
+    # The cluster layout at P = 512 (four blocks' planes do not fit beside
+    # the scene either), two blocks of 64 at 128.
+    ("hand21", 3100, 512, 128),
     # Registers: the scene alone.
     ("arm_7dof", 4000, 128, None),
 ])
@@ -267,9 +339,11 @@ class _Recorder:
         return call
 
 
-@pytest.mark.parametrize("model,particles,planes", [
-    ("snake:20", 256, 2), ("snake:50", 256, 3), ("snake:20", 1024, 3), ("hand21", 512, 2)])
-def test_scratch_shape_follows_the_placement(model, particles, planes, monkeypatch):
+@pytest.mark.parametrize("model,particles,planes,cluster", [
+    ("snake:20", 256, 2, 0), ("snake:50", 256, 3, 0), ("snake:20", 1024, 3, 0),
+    ("hand21", 512, 0, 2), ("hand21", 256, 0, 1), ("hand21", 80, 2, 0),
+    ("snake:100", 32, 2, 0)])
+def test_scratch_shape_follows_the_placement(model, particles, planes, cluster, monkeypatch):
     spec = (load_config(str(CONFIG_DIR / "hand21.json")).spec if model == "hand21"
             else model_spec(model)[0])
     s = 6
@@ -277,13 +351,13 @@ def test_scratch_shape_follows_the_placement(model, particles, planes, monkeypat
     meta = torch.zeros(lay.meta_size)
     swarm = torch.zeros((s, lay.swarm_size))
     layout = kernels.kernel_a_layout(spec, particles)
-    assert layout.scratch_planes == planes
+    assert (layout.scratch_planes, layout.cluster) == (planes, cluster)
     shapes = []
     scratch = fused._scratch
 
     def spy(*args):
         out = scratch(*args)
-        shapes.append(tuple(out.shape))
+        shapes.append(None if out is None else tuple(out.shape))
         return out
 
     lib = _Recorder(blocks=4)
@@ -297,10 +371,20 @@ def test_scratch_shape_follows_the_placement(model, particles, planes, monkeypat
         key = kernels.on_demand_key(spec, 0, False)
         fused._launch_on_demand(key, 0, 0, 0, (0.0,) * 4, meta, swarm, update, gbest, gval,
                                 particles, layout)
+        if cluster:
+            # The cluster launch and its query are told the cluster size;
+            # the grid is the clusters that fit at once; no scratch.
+            assert lib.calls["ikpso_od_fused_solve_cluster_blocks"][1] == cluster
+            args = lib.calls["ikpso_od_fused_solve_cluster"]
+            assert args[1] == cluster and args[-6] == 4
+            assert "ikpso_od_fused_solve" not in lib.calls and shapes == []
+        else:
+            assert "ikpso_od_fused_solve_cluster" not in lib.calls
+            assert shapes == [(4, planes, spec.dof, particles)]
     else:
         fused._launch_serial(spec, 0, 0, meta, swarm, update, gbest, gval, particles, layout)
         shared = int(planes == 2)
         # The launch and the block-count query are told the placement.
         assert lib.calls["ikpso_fused_solve_serial_blocks"][1] == shared
         assert lib.calls["ikpso_fused_solve_serial"][1] == shared
-    assert shapes == [(4, planes, spec.dof, particles)]
+        assert shapes == [(4, planes, spec.dof, particles)]

@@ -227,16 +227,19 @@ def test_zoo_routing_and_particle_bounds():
     # Not serial: the effector is not the last node, or a node hangs off
     # another than its predecessor; past 16 nodes that is any tree. Each is
     # built on demand, its 48 DOFs in kernel A's scratch layout at a
-    # 512-thread bound.
+    # 512-particle bound; the tree that branches has the cluster layout
+    # beside it, the chain does not.
     n = 17
     lim = np.zeros((n, 3), np.float32)
     chain = list(range(-1, n - 1))
-    for parents, effectors in ((chain, [n - 2]), (chain[:-1] + [0], [n - 1])):
+    for parents, effectors, branched in ((chain, [n - 2], False),
+                                         (chain[:-1] + [0], [n - 1], True)):
         tree = make_chain_spec(parents, [0.0] + [1.0] * (n - 1), lim, lim, effectors)
         assert not kernels.is_serial(tree)
         assert kernels.topology_id(tree) == kernels.ON_DEMAND
         assert kernels.max_particles(tree) == 512
         assert kernels.on_demand_key(tree, 0, False).scratch
+        assert kernels.on_demand_key(tree, 0, False).cluster == branched
     # A serial chain with a scene or an orientation term is built on demand,
     # at its prebuilt topology's bound.
     for n_obs, orient in ((2, False), (0, True)):
