@@ -111,8 +111,10 @@ TREE_PATHS = {"dual_arm_14dof": "dual_arm", "humanoid_45dof": "humanoid",
               "planar_3dof": "planar", "reference_arm": "reference_arm",
               "snake_30dof": "snake_30dof", "snake:50": "snake50"}
 # Timed solves per path after one warm-up (3 where not listed): the humanoid
-# solve runs 49 kernel A launches and 49 tensor-polish calls, ~20 s on the card.
-TREE_ITERS = {"humanoid_45dof": 1}
+# solve runs 49 kernel A launches and 49 tensor-polish calls, ~20 s on the
+# card; snake:50's ~5 s, host-bound (one timed solve keeps the script well
+# inside its time limit).
+TREE_ITERS = {"humanoid_45dof": 1, "snake:50": 1}
 # JAX's records of the same recipes (bench_records/r5_sweep.jsonl r5-dualarm,
 # r5-humanoid-walkfix, r5-planar-S32, r5-snake30, r5-snake150; taken on a
 # TPU, quoted for accuracy only): shares rounded to 4 places, so no failure
@@ -639,6 +641,9 @@ def phase_against(other_root, device, pairs=10):
             alts = {f"this/{t} {'shared' if sh else 'global'}":
                     key._replace(threads=t, shared=sh)
                     for t, sh in ((1024, False), (512, False), (512, True))}
+        elif key.tree:
+            # The tree loop against the general loop in the same placement.
+            alts = {"this/general": key._replace(tree=False)}
         else:
             alts = {f"this/{'registers' if key.shared else 'shared'}":
                     key._replace(shared=not key.shared)}
@@ -777,9 +782,13 @@ def phase_against(other_root, device, pairs=10):
                                     for placement, shared in (("global", False),
                                                               ("shared", True))
                                     if placement != rule}}
+        # A tree's kernel A: the tree loop here, the general loop in a build
+        # that predates it.
+        names = (kernel_names(model)["A"],
+                 kernel_names(model)["A"].replace("_tree_kernel", "_kernel"))
         cases[f"{model} S={swarms}"] = (lambda args_t=args_t: fused_solve(*args_t), reps,
                                         contenders, (spec_t, fit_t, swarm_t, pre.particles),
-                                        ptxas_of(kernel_names(model)["A"]))
+                                        ptxas_of(*dict.fromkeys(names)))
     for tag, swarms, reps in AGAINST_ON_DEMAND:
         spec_d, pso_d, fit_d, p, meta_d, swarm_d, obs_d, orient = od_case(
             tag, device, swarms, rng, philox=True)
@@ -974,6 +983,11 @@ TIE_CHAINS = {
     "arm_7dof": ([-1, 0, 1, 2], [0.0, 1.0, 1.0, 0.0], [3], [6, 7, 8]),
     "dual_arm_14dof": ([-1, 0, 1, 2, 0, 4, 5], [0.0, 1.0, 1.0, 0.0, 1.0, 1.0, 0.0], [3, 6],
                        [6, 7, 8, 15, 16, 17]),
+    # The humanoid's topology (id 4): each effector's own link of length 0.
+    "humanoid_45dof": ([-1, 0, 1, 2, 2, 4, 5, 2, 7, 8, 0, 10, 11, 0, 13, 14],
+                       [0.0, 0.5, 0.5, 0.0, 0.5, 0.5, 0.0, 0.5, 0.5, 0.0, 0.5, 0.5, 0.0, 0.5,
+                        0.5, 0.0], [3, 6, 9, 12, 15],
+                       [d for k in (3, 6, 9, 12, 15) for d in range(3 * (k - 1), 3 * k)]),
     # snake_30dof's topology (id 5) and a 17-node serial chain (the
     # serial-chain variant).
     "snake_30dof": (list(range(-1, 10)), [0.0] + [1.0] * 9 + [0.0], [10], [27, 28, 29]),
@@ -1316,7 +1330,11 @@ def phase_fused_obstacles_replay(device, swarms=1024, particles=128):
 def phase_fused_penalty_ties(device, swarms=4, particles=128):
     """Every pose collides (one box 100 on a side swallows arm_7dof's
     reach): gval must be FLT_MAX and gbest particle 0's initial position,
-    the first-minimum rule on ties at the penalty, with no NaN."""
+    the first-minimum rule on ties at the penalty, with no NaN. Then NaN
+    among those poses: the box collider scores a NaN pose at the penalty
+    (a NaN fails every separating-axis test), the capsule collider calls it
+    no hit (its distances are NaN, jnp.maximum's rule), so it scores NaN
+    and goes first; kernel A as fused_solve_plain gives them."""
     import numpy as np
     import torch
 
@@ -1348,11 +1366,10 @@ def phase_fused_penalty_ties(device, swarms=4, particles=128):
              gbest_equals_particle0_x0=bool(torch.equal(gb, want)), ok=ok)
         if not ok:
             raise AssertionError("kernel A broke a tie at the collision penalty")
-        # NaN among particles tied at the penalty (the box collider; the
-        # capsule's calls a NaN pose a hit where the plain one does not).
-        if shape == "box":
-            _nan_first(f"penalty {shape}", spec, fit, meta, swarm, particles, device,
-                       obs.count, penalty=True)
+        # NaN among particles tied at the penalty: the box's penalty, the
+        # capsule's miss (NaN first, gval NaN).
+        _nan_first(f"penalty {shape}", spec, fit, meta, swarm, particles, device,
+                   obs.count, penalty=shape == "box")
 
 
 def phase_fused_fitness(device, swarms=64, particles=1024):
@@ -1669,9 +1686,10 @@ def _device_ms_readings(prof, kernel):
             "events": len(events)}
 
 
-# Kernel A's kernels (csrc/fused_solve.cuh): the register layout's trees,
-# the short chains, the serial-chain variant and the scratch layout.
-KERNEL_A_NAMES = ("fused_solve_kernel", "fused_solve_short_kernel",
+# Kernel A's kernels (csrc/fused_solve.cuh): the register layout (its
+# general loop, the short chains, the trees' tree loop), the serial-chain
+# variant, the scratch layout and the cluster layout.
+KERNEL_A_NAMES = ("fused_solve_kernel", "fused_solve_short_kernel", "fused_solve_tree_kernel",
                   "fused_solve_serial_kernel", "fused_solve_tree_scratch_kernel",
                   "fused_solve_tree_cluster_kernel")
 # The scan solver's device time by kernel: the step, kernel C (init), torch's
@@ -2313,8 +2331,10 @@ def kernel_names(model):
         return {"A": "fused_solve_serial_kernel", "B": "fk_fitness_serial_kernel",
                 "C": "fused_fitness_serial_kernel"}
     n = spec.num_nodes
-    short = kernels.topology_id(spec) in kernels.SHORT_IDS
-    return {"A": f"fused_solve{'_short' if short else ''}_kernel<Topology<{n}, ",
+    topo = kernels.topology_id(spec)
+    loop = "_short" if topo in kernels.SHORT_IDS else (
+        "_tree" if topo in kernels.TREE_LOOP_IDS else "")
+    return {"A": f"fused_solve{loop}_kernel<Topology<{n}, ",
             "B": f"fk_fitness_kernel<Topology<{n}, ",
             "C": f"fused_fitness_kernel<Topology<{n}, "}
 
@@ -2335,6 +2355,9 @@ def kernel_a_placement(spec, fit, particles, num_obstacles=0, use_orientation=Fa
     if layout.cluster:
         bytes_c = kernels.library().ikpso_kernel_a_cluster_smem_bytes(
             lay.meta_size, lay.swarm_size, spec.dof, particles // layout.cluster)
+    elif layout.tree:
+        bytes_c = kernels.library().ikpso_kernel_a_tree_smem_bytes(lay.meta_size, spec.dof,
+                                                                   particles)
     else:
         bytes_c = kernels.library().ikpso_kernel_a_smem_bytes(
             lay.meta_size, lay.swarm_size, spec.dof, particles, planes)
@@ -2345,7 +2368,8 @@ def kernel_a_placement(spec, fit, particles, num_obstacles=0, use_orientation=Fa
                              f"reckoned in Python, {bytes_c} by the kernels")
     return {"placement": layout.placement, "smem_bytes": layout.smem_bytes,
             "scratch_planes": layout.scratch_planes, "threads": layout.threads,
-            "static_bytes": layout.static_bytes, "cluster": layout.cluster}
+            "static_bytes": layout.static_bytes, "cluster": layout.cluster,
+            "tree": layout.tree}
 
 
 def phase_ptxas():
@@ -3025,9 +3049,11 @@ PARITY_R02_TRIALS = 512
 # The reference's published means (BASELINE.md:17-23), printed beside.
 PUBLISHED_FRAMES = {"iter1": 3.13, "iter2": 4.15, "iter3": 33.1}
 # The locality gate and the native diagnostics: iter3 with 4 LM steps a
-# frame on 32 trials, the four streams written by the port's native binding.
+# frame on 32 trials, the four streams written by the port's native
+# binding. At most 30 frames: trial 0, whose streams are checked, converges
+# in 11-12 (it took 76 frames for all 32, at ~1.2 s of host dispatch a frame).
 EXPERIMENT_POLISH_ARGS = ("--model", "reference_arm", "--particles", "16384",
-                          "--max-frames", "400", "--trials", "32", "--trial-batch", "32",
+                          "--max-frames", "30", "--trials", "32", "--trial-batch", "32",
                           "--polish", "4")
 
 # Tracking (harness/trajectory.py) through the CLI's `track`: the recipe of
@@ -3682,6 +3708,19 @@ HEADLINE_KERNEL_A = (
     r"fused_solve_short_kernelINS_8TopologyILi4ELy8448ELj8EEELi0ELb0ELb0ELi256ELb1E",
     r"fused_solve_kernelINS_8TopologyILi4ELy8448ELj8EEELi0ELb0ELb0EEE")
 WARP_ISSUE_PER_SM_CLOCK = 4  # an H100 SM: four schedulers, one warp instruction a clock each
+# The trees' kernel A in SASS (phase_sass_kernel_a): case -> (swarms,
+# particles, iterations of its path's base solve, the pattern of its Philox
+# instantiation's mangled name, without the orientation term: the tree loop,
+# or the general loop of a build that predates it; an ON_DEMAND_CASES case
+# is read from its on-demand library).
+TREE_SASS = {
+    "humanoid_45dof": (16_384, 512, 60,
+                       r"fused_solve(?:_tree)?_kernelINS_8TopologyILi16E\w*?ELi0ELb0ELb0EEEv"),
+    "dual_arm_14dof": (262_144, 1024, 8,
+                       r"fused_solve(?:_tree)?_kernelINS_8TopologyILi7E\w*?ELi0ELb0ELb0EEEv"),
+    "dual_arm_box": (262_144, 1024, 8,
+                     r"fused_solve(?:_tree)?_kernelINS_16OnDemandTopology\w*?ELi1ELb0ELb0EEEv"),
+}
 
 
 def sass_class(text):
@@ -3753,6 +3792,39 @@ def phase_sass_cluster(tag="hand21"):
     return row
 
 
+def issue_row(sass, pattern, shape, sms, max_hz, nested=False):
+    """One trip of the PSO loop of the first function in ``sass`` whose
+    mangled name matches ``pattern`` (sass_loop_mix), with the issue-rate
+    time of a solve of ``shape`` (swarms, particles, iterations): (iterations
+    + 1) trips a warp at one warp instruction a scheduler a clock over
+    ``sms`` SMs at ``max_hz``; None where no function matches."""
+    function = next((f for f in re.findall(r"Function : (\S+)", sass)
+                     if re.search(pattern, f)), None)
+    if function is None:
+        return None
+    swarms, particles, iterations = shape
+    row = sass_loop_mix(sass, function, nested=nested)
+    row.update(function=function, shape={"swarms": swarms, "particles": particles,
+                                         "iterations": iterations},
+               issue_bound_ms=swarms * particles // 32 * (iterations + 1)
+               * row["path_instructions"] / (WARP_ISSUE_PER_SM_CLOCK * sms * max_hz) * 1e3)
+    return row
+
+
+def tree_sass_rows(sass_of, sms, max_hz):
+    """The trees' kernel A (TREE_SASS) in SASS (issue_row): each case whose
+    library ``sass_of(case)`` gives (cuobjdump -sass text, or None to
+    skip)."""
+    rows = {}
+    for case, (swarms, particles, iterations, pattern) in TREE_SASS.items():
+        sass = sass_of(case)
+        row = None if sass is None else issue_row(sass, pattern,
+                                                  (swarms, particles, iterations), sms, max_hz)
+        if row is not None:
+            rows[case] = row
+    return rows
+
+
 def phase_sass_kernel_a(other_root=None, swarms=HEADLINE_SWARMS, particles=128,
                         iterations=8):
     """The headline instantiation of kernel A in SASS (cuobjdump -sass of
@@ -3762,7 +3834,9 @@ def phase_sass_kernel_a(other_root=None, swarms=HEADLINE_SWARMS, particles=128,
     issue-rate time of the headline's solve, (iterations + 1) loop trips a
     warp (the init's draws and evaluation are about one trip) at one warp
     instruction a scheduler a clock, over the card's SMs at its maximum SM
-    clock. Returns this build's row."""
+    clock. The trees' kernel A likewise (tree_sass_rows: the prebuilt
+    trees, and dual_arm_box's on-demand library where it is built), in
+    ``trees``. Returns this build's row."""
     import torch
 
     from ikpso_tpu_torch.utils import kernels
@@ -3775,9 +3849,10 @@ def phase_sass_kernel_a(other_root=None, swarms=HEADLINE_SWARMS, particles=128,
     if other_root:
         with _sources(other_root) as other:
             libs["other"] = other.build()
-    out = {}
+    objdump = str(Path(kernels._nvcc()).with_name("cuobjdump"))
+    out, trees = {}, {}
     for who, lib in libs.items():
-        sass = run([str(Path(kernels._nvcc()).with_name("cuobjdump")), "-sass", str(lib)])
+        sass = run([objdump, "-sass", str(lib)])
         names = re.findall(r"Function : (\S+)", sass)
         function = next(f for pattern in HEADLINE_KERNEL_A for f in names
                         if re.search(pattern, f))
@@ -3786,7 +3861,18 @@ def phase_sass_kernel_a(other_root=None, swarms=HEADLINE_SWARMS, particles=128,
         row.update(function=function, issue_bound_ms=warps * per_warp / (
             WARP_ISSUE_PER_SM_CLOCK * sms * max_hz) * 1e3)
         out[who] = row
-    emit("sass_kernel_a", **out, sms=sms, max_sm_hz=max_hz,
+        od = {}
+        if who == "this":
+            od = {tag: kernels.on_demand_path(key) for tag, key in od_keys().items()}
+
+        def sass_of(case, sass=sass, od=od):
+            if case not in ON_DEMAND_CASES:
+                return sass
+            return run([objdump, "-sass", str(od[case])]) if case in od and od[
+                case].exists() else None
+
+        trees[who] = tree_sass_rows(sass_of, sms, max_hz)
+    emit("sass_kernel_a", **out, trees=trees, sms=sms, max_sm_hz=max_hz,
          shape={"swarms": swarms, "particles": particles, "iterations": iterations},
          ok=True)
     return out["this"]
@@ -4528,6 +4614,7 @@ def run_phases(device, card, od_ptxas):
     phase_fused_tie(device)
     phase_fused_tie(device, particles=512)  # the short chain's 1,024-thread bound
     phase_fused_tie(device, particles=1024, model="dual_arm_14dof")
+    phase_fused_tie(device, particles=512, model="humanoid_45dof")
     phase_fused_penalty_ties(device)
     phase_fused_philox(device)
     # The short chains' 1,024-thread instantiation (P > 256) on both streams.

@@ -326,11 +326,19 @@ __device__ __forceinline__ float box_frame(const float (&p)[3], const float* __r
   return (fabsf(d0) + fabsf(d1)) + fabsf(d2);
 }
 
-// sum_i max(|q_i| - h_i, 0)^2: squared distance of a box-frame point to the box.
+// max(a, 0) as jnp.maximum takes it: a NaN comes through (fmaxf would
+// return 0 for it). For a number it is fmaxf's value up to the sign of a
+// zero, which every caller squares or copies a sign onto.
+__device__ __forceinline__ float max0_nan(float a) { return a != a ? a : fmaxf(a, 0.0f); }
+
+// sum_i max(|q_i| - h_i, 0)^2: squared distance of a box-frame point to the
+// box; NaN where a coordinate is NaN, so the capsule collider's
+// `<= r^2` fails on it and a NaN pose is no hit, as in JAX's collider
+// (ops/collision.py's jnp.maximum) and the plain twin's clamp_min.
 __device__ __forceinline__ float excess2(const float (&q)[3], const float* __restrict__ ob) {
-  const float d0 = fmaxf(fabsf(q[0]) - ob[3], 0.0f);
-  const float d1 = fmaxf(fabsf(q[1]) - ob[4], 0.0f);
-  const float d2 = fmaxf(fabsf(q[2]) - ob[5], 0.0f);
+  const float d0 = max0_nan(fabsf(q[0]) - ob[3]);
+  const float d1 = max0_nan(fabsf(q[1]) - ob[4]);
+  const float d2 = max0_nan(fabsf(q[2]) - ob[5]);
   return d0 * d0 + d1 * d1 + d2 * d2;
 }
 
@@ -339,8 +347,11 @@ __device__ __forceinline__ float excess2(const float (&q)[3], const float* __res
 // sign. It equals the product of jnp.sign and the clamp up to the sign of
 // a zero (NaN's sign, 0 times the clamp, comes out +-0 as well), and a
 // signed zero moves g only where every term is zero, which g > 0 reads
-// alike. The select and the sign copy replace the product's two compares,
-// integer subtract and int-to-float conversion (I2FP in the SASS).
+// alike. A NaN q needs no NaN here: q = q0 + t b is NaN only where q0 or
+// b = q1 - q0 is, so its term times b is NaN and g > 0 false either way, as
+// with jnp.sign's NaN. The select and the sign copy replace the product's
+// two compares, integer subtract and int-to-float conversion (I2FP in the
+// SASS).
 __device__ __forceinline__ float signed_excess(float q, float h) {
   return q == 0.0f ? 0.0f : copysignf(fmaxf(fabsf(q) - h, 0.0f), q);
 }
@@ -593,8 +604,12 @@ __device__ __forceinline__ JointWeights joint_weights(const float* __restrict__ 
 // meta's locality weights (joint_weights), asked for after the walk.
 // scene is read only when C != kNoCollider, row_slack (box_row_slack of
 // sw) only when C is kBoxCollider; O adds the orientation term;
-// T::kDistance the distance term, T::kExact stock trig.
-template <class T, int C, bool O, class X, class W>
+// T::kDistance the distance term, T::kExact stock trig. With RELOAD_ROOT
+// the root's frame (a constant of the swarm row) is read from sw again
+// for each child of the root, through a volatile load, so no register
+// holds it across the walk of the root's other subtrees (the values, and
+// so the bits, are the same).
+template <class T, int C, bool O, bool RELOAD_ROOT = false, class X, class W>
 __device__ __forceinline__ float fk_fitness_walk(X x, const float* __restrict__ meta,
                                                  const float* __restrict__ sw,
                                                  const float* __restrict__ obs, W weights,
@@ -620,6 +635,15 @@ __device__ __forceinline__ float fk_fitness_walk(X x, const float* __restrict__ 
   for (int k = 1; k < N; ++k) {
     const int d0 = 3 * (k - 1);
     const int p = T::parent(k);
+    if constexpr (RELOAD_ROOT) {
+      if (p == 0) {
+        const volatile float* root = sw;
+#pragma unroll
+        for (int i = 0; i < 9; ++i) rot[0][i] = root[kSwRoot + i];
+#pragma unroll
+        for (int i = 0; i < 3; ++i) pos[0][i] = root[kSwOrigin + i];
+      }
+    }
     const float ax = x(d0), ay = x(d0 + 1), az = x(d0 + 2);
     float local[9];
     rot_xyz<T::kExact>(ax, ay, az, local);

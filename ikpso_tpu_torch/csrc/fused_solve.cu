@@ -29,17 +29,19 @@
 // the prebuilt short chains (below).
 // x (D floats) and lval live in registers for the whole solve; v and
 // lbest (D floats each) beside them for the short chains, and in dynamic
-// shared memory, [D][P] each, for the trees, reference_arm and snake_30dof
-// (StatePlacement in fused_solve.cuh: with all three in registers the
-// humanoid spilled 1,360 bytes and the dual arm 608); the chain's packed
-// meta, the swarm's constant row and the joint limits are copied to shared
-// memory once. The trees and snake_30dof
+// shared memory for the trees, reference_arm and snake_30dof (StatePlacement
+// in fused_solve.cuh: with all three in registers the humanoid spilled
+// 1,360 bytes and the dual arm 608): [D][P] each, or, in the trees' tree
+// loop (fused_solve_tree_kernel, TreeLoop; its notes are in fused_solve.cuh),
+// a float4 row a particle; the chain's packed meta, the swarm's constant row
+// and the joint limits are copied to shared memory once. The trees and snake_30dof
 // draw their uniforms four DOFs at a time next to their use
 // (StreamDraws), so no D-float draw array is live beside x, v and lbest.
 // The TPU kernel's 8x128 tiles, swarm packing, roll-tree reductions and
 // constant hoisting are TPU layout devices and have no counterpart here.
 //
-// gbest (fused_solve_kernel): a block-wide argmin over (lval, particle
+// gbest (fused_solve_kernel; the short chains and the tree loop take one
+// barrier, below and in fused_solve.cuh): a block-wide argmin over (lval, particle
 // id) -- each warp's (least order_key, least id) by two __reduce_min_sync,
 // then one pass over the per-warp winners in shared memory. Ties go to the
 // lowest particle id, the first-minimum semantics of pso/fused.py:255-260,
@@ -191,6 +193,11 @@ extern "C" int ikpso_kernel_a_short_threads() { return ikpso::kShortThreads; }
 // reckoning against the kernels'.
 extern "C" long long ikpso_kernel_a_smem_bytes(int M, int K, int D, int P, int planes) {
   return static_cast<long long>(ikpso::kernel_a_smem_bytes(M, K, D, P, planes));
+}
+
+// Kernel A's tree-loop dynamic shared-memory bytes (tree_smem_bytes).
+extern "C" long long ikpso_kernel_a_tree_smem_bytes(int M, int D, int P) {
+  return static_cast<long long>(ikpso::tree_smem_bytes(M, D, P));
 }
 
 // Kernel A's cluster-layout dynamic shared-memory bytes (cluster_smem_bytes,

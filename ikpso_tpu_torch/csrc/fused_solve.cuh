@@ -1,9 +1,10 @@
-// Kernel A's kernel templates: the register layout (fused_solve_kernel), the
-// scratch layout (scratch_solve: fused_solve_serial_kernel and
-// fused_solve_tree_scratch_kernel) and their helpers. fused_solve.cu
-// instantiates the prebuilt topologies and the serial-chain variant,
-// on_demand.cuh one generated topology; the design notes are in
-// fused_solve.cu.
+// Kernel A's kernel templates: the register layout (fused_solve_kernel, the
+// short chains' fused_solve_short_kernel and the trees'
+// fused_solve_tree_kernel), the scratch layout (scratch_solve:
+// fused_solve_serial_kernel and fused_solve_tree_scratch_kernel) and their
+// helpers. fused_solve.cu instantiates the prebuilt topologies and the
+// serial-chain variant, on_demand.cuh one generated topology; the design
+// notes are in fused_solve.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -818,6 +819,309 @@ static cudaError_t launch_fused_solve_short(bool replay, const float* meta, int 
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// Kernel A's register-layout trees (TreeLoop: DualArm14, Humanoid45 and an
+// on-demand twin placed so), fused_solve_tree_kernel: fused_solve_kernel's
+// arithmetic, draws and first-minimum rule, op for op, with the short
+// chains' devices for what issues around them and for the registers:
+//   - the walk's constants (the swarm row's head, meta's head) and the
+//     limits in 16-byte aligned static shared memory (ShortShared), read at
+//     compile-time offsets, the limits as float4; the angle weight's
+//     division by N - 1 computed once (JointWeights);
+//   - what a thread would otherwise hold in registers across the walk read
+//     again where it is used: the swarm's Philox key from static shared
+//     memory for an update's draws (once, or at a 1,024-thread bound for
+//     each group of four DOFs, its round keys then computed once a group)
+//     and the replay's base at each draw, and the
+//     root's frame (a constant of the swarm row) for each of the root's
+//     children (fk_fitness_walk's RELOAD_ROOT), through volatile loads, so
+//     that x, the walk and the draws fit the registers without a spill (an
+//     H100 build: 128 registers for the humanoid, 64 for the dual arm at
+//     1,024 threads, PERF.md);
+//   - v and lbest in dynamic shared memory as one row a particle (v in
+//     [0, D4), lbest in [D4, 2 D4), D4 = D rounded up to 4; tree_row(D)
+//     floats, an odd number of float4, so the 8 threads of a 16-byte access
+//     phase meet 8 disjoint bank quads), read and written a float4 at a
+//     time at compile-time offsets from the row's start: no address is kept
+//     for a DOF (the [D][P] planes of fused_solve_kernel are P floats apart,
+//     P a run-time value);
+//   - gbest in one barrier: each warp's (least order_key, least id) by two
+//     __reduce_min_sync, the warp copies its winner's lbest row into a warp
+//     slot (a float4 a lane) and lane 0 writes the key and id; after the
+//     barrier every thread takes the first least key over the warp slots
+//     (two more __reduce_min_sync) and reads the winner's row in place. Two
+//     slot sets taken in turn keep a refresh's writes off the previous
+//     refresh's reads, as in the short chains.
+// Must match TREE_LOOP_IDS in ikpso_tpu_torch/utils/kernels.py; an
+// on-demand topology's choice is set in on_demand.cuh (IKPSO_OD_TREE).
+template <class T>
+struct TreeLoop {
+  static constexpr bool value = false;
+};
+template <>
+struct TreeLoop<DualArm14> {
+  static constexpr bool value = true;
+};
+template <>
+struct TreeLoop<Humanoid45> {
+  static constexpr bool value = true;
+};
+
+// A particle's row of v and lbest in fused_solve_tree_kernel: 2 D4 floats
+// rounded up to an odd number of float4.
+__host__ __device__ constexpr int tree_row(int D) {
+  return round4(D) / 2 % 2 ? 2 * round4(D) : 2 * round4(D) + 4;
+}
+// fused_solve_tree_kernel's static shared memory: the short chains' (the
+// constants, the limits and the warp slots), then the swarm's Philox key and
+// the replay's base. Must match tree_static_bytes in
+// ikpso_tpu_torch/utils/kernels.py.
+template <class T, int C, bool O, int TH>
+struct TreeShared {
+  ShortShared<T, C, O, TH> c;
+  unsigned key[2];
+  const float* u;
+};
+// fused_solve_tree_kernel's dynamic shared memory: meta (M floats, rounded
+// up to 4: the scene boxes and, with a scene, the orientation weight), then
+// P rows. Must match tree_smem_bytes in ikpso_tpu_torch/utils/kernels.py.
+static size_t tree_smem_bytes(int M, int D, int P) {
+  return sizeof(float) * (static_cast<size_t>(round4(M)) + static_cast<size_t>(P) * tree_row(D));
+}
+
+template <class T, int C, bool O, bool REPLAY>
+__global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>::value)
+    fused_solve_tree_kernel(const float* __restrict__ meta, int M,
+                            const float* __restrict__ swarm, int K,
+                            const float* __restrict__ limits, const int* __restrict__ seeds,
+                            const float* __restrict__ inertia, int iters, float c1, float c2,
+                            float vscale, int init_mode, Scene scene, Update up,
+                            const float* __restrict__ uniforms, int n_draws,
+                            float* __restrict__ out_gbest, float* __restrict__ out_gval) {
+  constexpr int D = T::D;
+  using Sh = ShortShared<T, C, O, KernelAThreads<T>::value>;
+  constexpr int kD4 = Sh::kD4;
+  constexpr int kGroups = kD4 / 4;
+  constexpr int kRow4 = tree_row(D) / 4;
+  static_assert(kGroups <= 32, "a warp copies a row a float4 a lane");
+  __shared__ __align__(16) TreeShared<T, C, O, KernelAThreads<T>::value> ts;
+  Sh& sh = ts.c;
+  extern __shared__ float smem[];  // meta, then the rows (tree_smem_bytes)
+
+  const int s = blockIdx.x;
+  const int P = blockDim.x;
+  const int p = threadIdx.x;
+  const float* row = swarm + static_cast<long long>(s) * K;
+  for (int i = p; i < Sh::kSw; i += P) sh.sw[i] = i < K ? row[i] : 0.0f;
+  for (int i = p; i < Sh::kMeta; i += P) sh.meta[i] = i < M ? meta[i] : 0.0f;
+  for (int i = p; i < kD4; i += P) {
+    sh.lo[i] = i < D ? limits[i] : 0.0f;
+    sh.hi[i] = i < D ? limits[D + i] : 0.0f;
+  }
+  for (int i = p; i < M; i += P) smem[i] = meta[i];
+  // This particle's row (v in float4 [0, kGroups), lbest in [kGroups, 2
+  // kGroups)); particle q's is (q - p) kRow4 float4 on from it.
+  float4* const v4 = reinterpret_cast<float4*>(smem + round4(M)) + p * kRow4;
+  float4* const lb4 = v4 + kGroups;
+  if (p == 0) {
+    ts.key[0] = static_cast<unsigned>(seeds[2 * s]);
+    ts.key[1] = static_cast<unsigned>(seeds[2 * s + 1]);
+    ts.u = REPLAY ? uniforms + static_cast<long long>(s) * n_draws * D * P : nullptr;
+  }
+  __syncthreads();
+
+  // The swarm's Philox key, read again for an update's draws (for each
+  // group of them, or once: kKeyOnce below) and once for the init's and a
+  // kick's, so no register holds it across the walk; the replay's base,
+  // read at each draw.
+  auto key = [&]() -> uint2 {
+    if constexpr (REPLAY) return make_uint2(0u, 0u);
+    const volatile unsigned* k = ts.key;
+    return make_uint2(k[0], k[1]);
+  };
+  auto u_swarm = [&]() -> const float* {
+    if constexpr (!REPLAY) return nullptr;
+    return *reinterpret_cast<const float* const volatile*>(&ts.u);
+  };
+  const JointWeights jw = joint_weights<T>(sh.meta);
+  const float row_slack = box_row_slack<T, C>(smem, sh.sw, scene);
+  // The walk reads the root's frame again for each of its children
+  // (RELOAD_ROOT), but in the replay with the orientation term, where ptxas
+  // fits the walk without a spill only with the frame held (an H100 build:
+  // PERF.md, tools/kernel_a_tree_variants.py).
+  constexpr bool kReloadRoot = !(REPLAY && O);
+  auto eval = [&](const float (&xe)[D]) {
+    const float* obs = C == kNoCollider ? sh.meta + meta_obs<T>() : smem + meta_obs<T>();
+    return fk_fitness_walk<T, C, O, kReloadRoot>([&](int d) { return xe[d]; }, sh.meta,
+                                                 sh.sw, obs, [&] { return jw; }, scene,
+                                                 row_slack);
+  };
+  auto unpack = [](const float4 q, float (&r)[4]) {
+    r[0] = q.x;
+    r[1] = q.y;
+    r[2] = q.z;
+    r[3] = q.w;
+  };
+  const float4* lo4 = reinterpret_cast<const float4*>(sh.lo);
+  const float4* hi4 = reinterpret_cast<const float4*>(sh.hi);
+
+  float x[D], uc[4], us[4];
+  const int n_init = init_mode == kInitWarm ? 1 : 2;
+  if (init_mode == kInitWarm || (init_mode == kInitHybrid && p == 0)) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) x[d] = sh.sw[kSwAnchor + d];
+  }
+  {
+    const bool draw_x = init_mode == kInitUniform || (init_mode == kInitHybrid && p != 0);
+    const uint2 kd = key();
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      if (draw_x) draw_group<REPLAY>(us, g, 0, D, p, P, kd, u_swarm());
+      draw_group<REPLAY>(uc, g, n_init - 1, D, p, P, kd, u_swarm());
+      float los[4], his[4], vs[4] = {0.0f, 0.0f, 0.0f, 0.0f}, ls[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      unpack(lo4[g], los);
+      unpack(hi4[g], his);
+#pragma unroll
+      for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
+        const int d = 4 * g + j;
+        if (draw_x) {
+          constexpr float kTwoPi = 0x1.921fb6p+2f;
+          const float lo_c = fmaxf(los[j], -kTwoPi);
+          const float hi_c = fminf(his[j], kTwoPi);
+          x[d] = lo_c + us[j] * (hi_c - lo_c);
+        }
+        vs[j] = (uc[j] * 2.0f - 1.0f) * vscale;
+        ls[j] = x[d];
+      }
+      v4[g] = make_float4(vs[0], vs[1], vs[2], vs[3]);
+      lb4[g] = make_float4(ls[0], ls[1], ls[2], ls[3]);
+    }
+  }
+  float lval = eval(x);
+
+  int buf = 0;
+  auto refresh = [&](float& best, int& win) -> const float4* {
+    const unsigned k = order_key(lval);
+    const unsigned wk = __reduce_min_sync(0xffffffffu, k);
+    const unsigned wi =
+        __reduce_min_sync(0xffffffffu, k == wk ? static_cast<unsigned>(p) : 0xffffffffu);
+    const int warp = p >> 5, lane = p & 31;
+    // The winner's lbest row, written by that lane, seen by its warp.
+    __syncwarp();
+    if (lane < kGroups) {
+      reinterpret_cast<float4*>(sh.lb[buf][warp])[lane] =
+          lb4[(static_cast<int>(wi) - p) * kRow4 + lane];
+    }
+    if (lane == 0) {
+      sh.key[buf][warp] = wk;
+      sh.id[buf][warp] = static_cast<int>(wi);
+    }
+    __syncthreads();
+    // The first least key over the warps in order (warps hold ascending ids).
+    const unsigned kw = lane < (P >> 5) ? sh.key[buf][lane] : 0xffffffffu;
+    const unsigned bk = __reduce_min_sync(0xffffffffu, kw);
+    const int ww = static_cast<int>(
+        __reduce_min_sync(0xffffffffu, kw == bk ? static_cast<unsigned>(lane) : 32u));
+    best = key_value(bk);
+    win = sh.id[buf][ww];
+    const float4* g = reinterpret_cast<const float4*>(sh.lb[buf][ww]);
+    buf ^= 1;
+    return g;
+  };
+
+  const int dpi = (up.randomized ? 3 : 2) + (up.rekick_interval > 0 ? 1 : 0);
+  // At a 512-thread bound (128 registers) the update reads the key once,
+  // and the refresh and kick schedules are it % interval, not countdowns
+  // held in registers: the humanoid then fits without a spill and ran 9%
+  // faster than with the key read once a group, which the dual arm's 64
+  // registers need (an H100, PERF.md, tools/kernel_a_tree_variants.py).
+  constexpr bool kKeyOnce = KernelAThreads<T>::value <= 512;
+  // Countdowns to the next gbest refresh and the next kick block start
+  // (it % gbest_interval == 0; it % rekick_interval == 0 and it > 0).
+  int refresh_in = 0;
+  int kick_in = up.rekick_interval;
+  const float4* g_row = reinterpret_cast<const float4*>(sh.lb[0][0]);
+  for (int it = 0; it < iters; ++it) {
+    bool kick, refresh_now;
+    if constexpr (kKeyOnce) {
+      kick = up.rekick_interval > 0 && it > 0 && it % up.rekick_interval == 0;
+      refresh_now = it % up.gbest_interval == 0;
+    } else {
+      kick = up.rekick_interval > 0 && kick_in == 0;
+      kick_in = (kick ? up.rekick_interval : kick_in) - 1;
+      refresh_now = refresh_in == 0;
+      if (refresh_now) refresh_in = up.gbest_interval;
+      --refresh_in;
+    }
+    if (refresh_now) {
+      float best;
+      int win;
+      g_row = refresh(best, win);
+      if (kick && (up.rekick_threshold < 0.0f || best > up.rekick_threshold)) {
+        const int slot = n_init + it * dpi + dpi - 1;
+        const uint2 kd = key();
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          draw_group<REPLAY>(uc, g, slot, D, p, P, kd, u_swarm());
+          float vs[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
+            vs[j] = (uc[j] * 2.0f - 1.0f) * up.rekick_scale;
+          }
+          v4[g] = make_float4(vs[0], vs[1], vs[2], vs[3]);
+        }
+      }
+    }
+    // The inertia term first (w * v, or (w * u_w) * v), rounded into v.
+    const int base = n_init + it * dpi;
+    const float w = inertia[it];
+    const uint2 k_update = kKeyOnce ? key() : make_uint2(0u, 0u);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      const uint2 kd = kKeyOnce ? k_update : key();
+      float uw[4];
+      if (up.randomized) draw_group<REPLAY>(uw, g, base + 2, D, p, P, kd, u_swarm());
+      draw_group<REPLAY>(uc, g, base, D, p, P, kd, u_swarm());
+      draw_group<REPLAY>(us, g, base + 1, D, p, P, kd, u_swarm());
+      float vs[4], ls[4], gs[4], los[4], his[4];
+      unpack(v4[g], vs);
+      unpack(lb4[g], ls);
+      unpack(g_row[g], gs);
+      unpack(lo4[g], los);
+      unpack(hi4[g], his);
+#pragma unroll
+      for (int j = 0; j < 4 && 4 * g + j < D; ++j) {
+        const int d = 4 * g + j;
+        float vd = vs[j];
+        vd = up.randomized ? (w * uw[j]) * vd : w * vd;
+        vd = vd + c1 * uc[j] * (ls[j] - x[d]) + c2 * us[j] * (gs[j] - x[d]);
+        vs[j] = vd;
+        x[d] = fminf(fmaxf(x[d] + vd, los[j]), his[j]);
+      }
+      v4[g] = make_float4(vs[0], vs[1], vs[2], vs[3]);
+    }
+    const float f = eval(x);
+    if (f < lval) {
+      lval = f;
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        lb4[g] = make_float4(x[4 * g], 4 * g + 1 < D ? x[4 * g + 1] : 0.0f,
+                             4 * g + 2 < D ? x[4 * g + 2] : 0.0f,
+                             4 * g + 3 < D ? x[4 * g + 3] : 0.0f);
+      }
+    }
+  }
+
+  float best;
+  int win;
+  refresh(best, win);
+  if (p == win) {
+    const float* lb = reinterpret_cast<const float*>(lb4);
+    for (int d = 0; d < D; ++d) out_gbest[static_cast<long long>(s) * D + d] = lb[d];
+    out_gval[s] = lval;
+  }
+}
+
 template <class T, int C, bool O = false>
 static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
                                       const float* swarm, int K, const float* limits,
@@ -831,6 +1135,28 @@ static cudaError_t launch_fused_solve(bool replay, const float* meta, int M,
     return launch_fused_solve_short<T, C, O, KernelAThreads<T>::value>(
         replay, meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
         scene, up, uniforms, n_draws, gbest, gval, S, P, stream);
+  } else if constexpr (TreeLoop<T>::value) {
+    static_assert(StreamDraws<T>::value && StatePlacement<T>::value == kShared,
+                  "the tree loop streams its draws and keeps v and lbest in shared memory");
+    constexpr size_t kStatic = sizeof(TreeShared<T, C, O, KernelAThreads<T>::value>);
+    static const int most_replay =
+        allow_dynamic_smem(fused_solve_tree_kernel<T, C, O, true>, kStatic);
+    static const int most_philox =
+        allow_dynamic_smem(fused_solve_tree_kernel<T, C, O, false>, kStatic);
+    const size_t smem = tree_smem_bytes(M, T::D, P);
+    if (smem > static_cast<size_t>(replay ? most_replay : most_philox)) {
+      return cudaErrorInvalidValue;
+    }
+    if (replay) {
+      fused_solve_tree_kernel<T, C, O, true><<<S, P, smem, stream>>>(
+          meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+          scene, up, uniforms, n_draws, gbest, gval);
+    } else {
+      fused_solve_tree_kernel<T, C, O, false><<<S, P, smem, stream>>>(
+          meta, M, swarm, K, limits, seeds, inertia, iters, c1, c2, vscale, init_mode,
+          scene, up, uniforms, n_draws, gbest, gval);
+    }
+    return cudaSuccess;
   } else {
     static const int most_replay = allow_dynamic_smem(fused_solve_kernel<T, C, O, true>);
     static const int most_philox = allow_dynamic_smem(fused_solve_kernel<T, C, O, false>);

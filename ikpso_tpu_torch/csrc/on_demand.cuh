@@ -26,6 +26,8 @@
 //                        beside the scratch layout (IKPSO_OD_SCRATCH 1)
 //   IKPSO_OD_SHARED      1: kernel A keeps v and lbest (the scratch layout:
 //                        lbest) in dynamic shared memory (StatePlacement)
+//   IKPSO_OD_TREE        1: kernel A runs the register layout's tree loop
+//                        (TreeLoop: fused_solve_tree_kernel)
 //   IKPSO_OD_COLLIDER    enum Collider
 //   IKPSO_OD_ORIENTATION, IKPSO_OD_DISTANCE, IKPSO_OD_EXACT   0 or 1
 //
@@ -68,6 +70,12 @@ template <>
 struct StatePlacement<OdTopology> {
   static constexpr int value = IKPSO_OD_SHARED != 0 ? kShared : kRegisters;
 };
+template <>
+struct TreeLoop<OdTopology> {
+  static constexpr bool value = IKPSO_OD_TREE != 0;
+};
+static_assert(!IKPSO_OD_TREE || (!IKPSO_OD_SCRATCH && IKPSO_OD_SHARED && IKPSO_OD_STREAM),
+              "the tree loop: the register layout, v and lbest in shared memory, streamed");
 
 // Kernel A's dynamic shared memory at P particles: the [D][P] planes in
 // shared memory are v and lbest in the register layout, lbest in the

@@ -127,6 +127,19 @@ CLUSTER_THREADS = 256
 CLUSTER_SIZES = (1, 2, 4)
 CLUSTER_MAX_DOF = 60
 
+# The prebuilt trees whose kernel A runs the register layout's tree loop
+# (TreeLoop in csrc/fused_solve.cuh: fused_solve_tree_kernel, v and lbest a
+# row a particle in shared memory, the constants at compile-time offsets,
+# one barrier a gbest refresh). Kept where it won at least 8 of 10 pairs
+# against the parent's kernel and no instantiation spills (an H100,
+# PERF.md, tools/kernel_a_tree_variants.py).
+# An on-demand twin of one (OnDemandKey.tree) follows it with the
+# orientation term alone: with the box collider the dual arm's tree loop
+# spilled 572 bytes at its 64 registers (dual_arm_box keeps the general
+# loop); a twin with the distance term or exact trig, and every other tree,
+# keeps the general loop, unmeasured.
+TREE_LOOP_IDS = (3, 4)
+
 # The prebuilt topologies whose v and lbest are in shared memory: the trees,
 # reference_arm and snake_30dof. An on-demand topology in the register
 # layout follows its prebuilt twin's placement, else takes shared memory
@@ -167,10 +180,11 @@ class OnDemandKey(NamedTuple):
     tree, the collider id, the three term flags, and kernel A's traits
     chosen for the topology (:func:`on_demand_key`): its thread bound,
     streamed draws, the scratch layout and its state placement (``shared``:
-    v and lbest, in the scratch layout lbest, in shared memory), and the
+    v and lbest, in the scratch layout lbest, in shared memory), the
     cluster layout beside the scratch one (``cluster``; :func:`tree_cluster`
-    picks one a launch). Kernel A's replay and Philox instantiations share a
-    library."""
+    picks one a launch), and the register layout's tree loop (``tree``,
+    :data:`TREE_LOOP_IDS`). Kernel A's replay and Philox instantiations
+    share a library."""
 
     parents: Tuple[int, ...]
     effectors: Tuple[int, ...]
@@ -183,6 +197,7 @@ class OnDemandKey(NamedTuple):
     scratch: bool
     shared: bool
     cluster: bool = False
+    tree: bool = False
 
     def name(self) -> str:
         """A short readable tag: nodes, collider and terms."""
@@ -359,11 +374,12 @@ def on_demand_key(spec, collider: int, orientation: bool, distance: bool = False
     cluster = (scratch and spec.dof <= CLUSTER_MAX_DOF and branches(spec)
                and cluster_size(spec.dof, threads, SMEM_RESERVE // 4, 0) > 0)
     stream = scratch or (topo in STREAM_IDS if topo is not None else spec.dof >= STREAM_DOF)
+    tree = topo in TREE_LOOP_IDS and not (collider or distance or exact)
     return OnDemandKey(tuple(int(p) for p in spec.parent),
                        tuple(int(e) for e in spec.effector_idx), int(collider),
                        bool(orientation), bool(distance), bool(exact),
                        threads, bool(stream), bool(scratch),
-                       on_demand_shared(spec, threads, scratch), bool(cluster))
+                       on_demand_shared(spec, threads, scratch), bool(cluster), bool(tree))
 
 
 def tree_cluster(key: OnDemandKey, d: int, p: int, m: int, k: int) -> int:
@@ -385,9 +401,11 @@ class KernelALayout(NamedTuple):
     shared memory ("shared") or in the scratch too ("global"); in the
     cluster layout (``cluster``: c > 0 blocks a swarm,
     ``csrc/fused_solve_cluster.cuh``) x is in registers and v and lbest are
-    in each block's shared memory ("shared"), no scratch. A short chain's
-    kernel takes ``static_bytes`` of static shared memory besides
-    (:func:`short_static_bytes`)."""
+    in each block's shared memory ("shared"), no scratch. In the register
+    layout's tree loop (``tree``) v and lbest are a row a particle in
+    shared memory (:func:`tree_smem_bytes`). A short chain's kernel and the
+    tree loop take ``static_bytes`` of static shared memory besides
+    (:func:`short_static_bytes`, :func:`tree_static_bytes`)."""
 
     scratch: bool
     placement: str
@@ -396,6 +414,7 @@ class KernelALayout(NamedTuple):
     threads: int
     static_bytes: int
     cluster: int = 0
+    tree: bool = False
 
 
 def kernel_a_layout(spec, num_particles: int, num_obstacles: int = 0,
@@ -422,21 +441,48 @@ def kernel_a_layout(spec, num_particles: int, num_obstacles: int = 0,
                              CLUSTER_THREADS, 0, c)
     if topo == SERIAL:
         scratch, shared, threads = True, serial_lbest_shared(d, p, m, k), 1024
-        short = False
+        short = tree = False
     elif topo == ON_DEMAND:
         scratch, shared, threads = key.scratch, key.shared, key.threads
-        short = not (key.scratch or key.stream or key.shared)
+        short, tree = not (key.scratch or key.stream or key.shared), key.tree
     else:
         scratch, shared = False, topo in SHARED_IDS
-        short = topo in SHORT_IDS
+        short, tree = topo in SHORT_IDS, topo in TREE_LOOP_IDS
         threads = (SHORT_THREADS if short and p <= SHORT_THREADS
                    else MAX_PARTICLES.get(topo, 1024))
+    if tree:
+        return KernelALayout(False, "shared", tree_smem_bytes(m, d, p), 0, threads,
+                             tree_static_bytes(spec, collider, bool(orient), threads),
+                             tree=True)
     planes = (1 if scratch else 2) if shared else 0
     placement = "shared" if shared else ("global" if scratch else "registers")
     return KernelALayout(scratch, placement, kernel_a_smem_bytes(m, k, d, p, planes),
                          (2 if shared else 3) if scratch else 0, threads,
                          short_static_bytes(spec, collider, bool(orient), threads)
                          if short else 0)
+
+
+def tree_row(d: int) -> int:
+    """A particle's row of v and lbest in the tree loop (``tree_row`` in
+    ``csrc/fused_solve.cuh``): twice ``d`` rounded up to 4, rounded up to
+    an odd number of float4."""
+    d4 = (d + 3) // 4 * 4
+    return 2 * d4 if d4 // 2 % 2 else 2 * d4 + 4
+
+
+def tree_smem_bytes(m: int, d: int, p: int) -> int:
+    """The tree loop's dynamic shared memory (``tree_smem_bytes`` in
+    ``csrc/fused_solve.cuh``): meta (``m`` floats, rounded up to 4), then
+    ``p`` rows (:func:`tree_row`)."""
+    return 4 * ((m + 3) // 4 * 4 + p * tree_row(d))
+
+
+def tree_static_bytes(spec, collider: int, orientation: bool, threads: int) -> int:
+    """The tree loop's static shared memory (``TreeShared`` in
+    ``csrc/fused_solve.cuh``) at ``threads`` threads a block: the short
+    chains' (:func:`short_static_bytes`), then the Philox key and the
+    replay's base, 16 bytes."""
+    return short_static_bytes(spec, collider, orientation, threads) + 16
 
 
 def short_static_bytes(spec, collider: int, orientation: bool, threads: int) -> int:
@@ -577,6 +623,7 @@ SIGNATURES = {
     "ikpso_fused_solve_serial_blocks": [_I, _I, _I, _I, _I, _I],
     "ikpso_kernel_a_cluster_smem_bytes": [_I, _I, _I, _I],  # M, K, D, Pb
     "ikpso_kernel_a_smem_bytes": [_I, _I, _I, _I, _I],  # M, K, D, P, planes
+    "ikpso_kernel_a_tree_smem_bytes": [_I, _I, _I],  # M, D, P
     "ikpso_kernel_a_short_threads": [],
     "ikpso_fused_fitness": [
         _I, _I, _I, *_SCENE,  # topology id, collider id, orientation flag, scene
@@ -634,7 +681,7 @@ def on_demand_source(key: OnDemandKey) -> str:
         "PARENTS": ", ".join(map(str, key.parents)),
         "EFFECTORS": ", ".join(map(str, key.effectors)),
         "THREADS": key.threads, "STREAM": int(key.stream), "SCRATCH": int(key.scratch),
-        "CLUSTER": int(key.cluster), "SHARED": int(key.shared),
+        "CLUSTER": int(key.cluster), "SHARED": int(key.shared), "TREE": int(key.tree),
         "COLLIDER": key.collider, "ORIENTATION": int(key.orientation),
         "DISTANCE": int(key.distance), "EXACT": int(key.exact),
     }
@@ -715,7 +762,8 @@ def library() -> ctypes.CDLL:
         if fn is not None:
             fn.argtypes = argtypes
             fn.restype = _I
-    for name in ("ikpso_kernel_a_smem_bytes", "ikpso_kernel_a_cluster_smem_bytes"):
+    for name in ("ikpso_kernel_a_smem_bytes", "ikpso_kernel_a_cluster_smem_bytes",
+                 "ikpso_kernel_a_tree_smem_bytes"):
         if hasattr(lib, name):
             getattr(lib, name).restype = ctypes.c_longlong
     return lib

@@ -435,6 +435,7 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t
 inline void __syncthreads() {}
 template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
 inline unsigned __reduce_min_sync(unsigned, unsigned v) { return v; }
+inline void __syncwarp(unsigned = 0xffffffffu) {}
 inline unsigned __float_as_uint(float v) {
   unsigned b;
   __builtin_memcpy(&b, &v, sizeof b);

@@ -386,6 +386,32 @@ def test_kernel_b_source_equals_the_plain_tile_bit_for_bit(host_kernels, shape):
         assert 0 < rejected < total, (tag, rejected, total)
 
 
+@pytest.mark.parametrize("shape", ["box", "capsule"])
+def test_kernel_b_source_scores_nan_poses_as_the_plain_tile(host_kernels, shape):
+    # Poses with a NaN angle among the ring, near and rotated scenes,
+    # through the reject and the narrow phase. The box collider calls them a hit (a NaN
+    # fails every separating-axis test), the capsule collider no hit (its
+    # distances are NaN, as jnp.maximum gives them, so `<= r^2` fails):
+    # the penalty or NaN, as fk_fitness_plain scores them.
+    rng = np.random.default_rng(35)
+    spec, problem = library.arm_7dof()
+    for tag, obs in _scenes(spec, rng).items():
+        fit, meta, swarm, x = _case(spec, problem, obs, shape, 4, 64, rng)
+        x[:, ::5, rng.integers(0, spec.dof)] = float("nan")
+        got = host_fk_fitness(host_kernels, spec, x, meta, swarm, obs.count, shape)
+        want = fkm.fk_fitness_plain(spec, x, meta, swarm, num_obstacles=obs.count,
+                                    collision_shape=shape, gizmo_size=GIZMO)
+        nan = torch.isnan(x).any(-1)
+        assert bool(torch.equal(torch.isnan(got), torch.isnan(want))), tag
+        assert torch.equal(got[~torch.isnan(want)], want[~torch.isnan(want)]), tag
+        if shape == "box":
+            assert bool((got[nan] == COLLISION_PENALTY).all()), tag
+        else:
+            # NaN, but the penalty where a node before the NaN angle's hits.
+            assert bool(torch.isnan(got[nan]).any()), tag
+            assert bool((torch.isnan(got[nan]) | (got[nan] == COLLISION_PENALTY)).all()), tag
+
+
 def test_kernel_b_capsule_source_at_box_frame_zeros(host_kernels):
     # planar_3dof (kernel id 0, arm_7dof's code) keeps every link in the
     # z = 0 plane, so an axis-aligned box centered at z = 0 sees box-frame

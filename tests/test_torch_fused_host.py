@@ -16,17 +16,23 @@ at the 256 bound, drawing) and the run-time branches (randomized inertia,
 uniform init, a gbest interval of 2) both; and the first-minimum rule on
 exact ties (``tests/test_torch_fused.py``'s tie and all-colliding cases);
 NaN first on a block whose fitness values mix NaN with numbers (the plain
-twin's ``torch.argmin``), at both short bounds and in the general kernel
-(the dual arm's ``fused_solve_kernel``). Besides, ``kernel_a_layout``'s choice of the bound: 256 threads up to 256
+twin's ``torch.argmin``), at both short bounds and in the trees' tree loop
+(``fused_solve_tree_kernel``: the dual arm and the humanoid, their ties
+across warps, and three on-demand twins built by g++ as well). A pose
+with a NaN angle in a capsule scene is no hit, in JAX's collider and
+solver, the plain twin and kernel A alike; in a box scene, the penalty.
+Besides, ``kernel_a_layout``'s choice of the bound: 256 threads up to 256
 particles, 1,024 above, and a P no instantiation takes raises before any
 launch.
 """
 
 import ctypes
 import dataclasses
+import importlib.util
 import re
 import shutil
 import subprocess
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -42,7 +48,7 @@ from ikpso_tpu_torch.pso.config import PSOConfig
 from ikpso_tpu_torch.pso.polish_soa import anchor_positions_flat
 from ikpso_tpu_torch.utils import kernels
 
-from test_torch_branches import STANDIN as BRANCHES_STANDIN
+from test_torch_branches import COOPERATIVE_GROUPS, STANDIN as BRANCHES_STANDIN
 from test_torch_cluster_host import _problem, same
 from test_torch_fused import penalty_tie_case, tie_case
 
@@ -155,6 +161,80 @@ def host_lib(tmp_path_factory):
             getattr(lib, fn).argtypes = sig
             getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def _chip_smoke():
+    mod_spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod
+
+
+def _od_case(tag, s, rng):
+    """``(spec, pso, fit, meta, swarm, num_obstacles, orientation)``: a
+    ``chip_smoke.py`` on-demand case (its cut recipe), or the humanoid with
+    the orientation term."""
+    smoke = _chip_smoke()
+    if tag == "humanoid_orientation":
+        from ikpso_tpu_torch.harness.trees import tree_configs
+
+        _, pso, fit = tree_configs("humanoid_45dof")
+        pso = dataclasses.replace(pso, iterations=4)
+        fit = dataclasses.replace(fit, orientation_weight=1.0)
+        spec, batched = smoke._problem("humanoid_45dof", s, rng, "cpu", orientation=True)
+        meta, swarm = smoke._packed(spec, batched, fit, use_orientation=True)
+        return spec, pso, fit, meta, swarm, 0, True
+    spec, pso, fit, _, meta, swarm, obs, orient = smoke.od_case(tag, "cpu", s, rng)
+    return spec, pso, fit, meta, swarm, 0 if obs is None else obs.count, orient
+
+
+# The on-demand keys the host tests build: the trees' twins with the
+# orientation term (the tree loop) and with the box scene (dual_arm_box: the
+# general loop, which its register budget keeps).
+OD_TREE_CASES = ("dual_arm_box", "dual_arm_orientation", "humanoid_orientation")
+
+
+def _od_key(spec, fit, n_obs, orient):
+    topo, collider, o = kernels.kernel_variant(spec, n_obs, fit.collision_shape, orient)
+    assert topo == kernels.ON_DEMAND
+    return kernels.on_demand_key(spec, collider, o)
+
+
+@pytest.fixture(scope="module")
+def od_host_libs(tmp_path_factory):
+    """``{key: lib}``: the on-demand library of each ``OD_TREE_CASES`` case,
+    compiled by g++ for this CPU against the threaded stand-in."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    tmp = tmp_path_factory.mktemp("host_kernel_a_od")
+    (tmp / "cuda_runtime.h").write_text("#pragma once\n" + STANDIN)
+    (tmp / "cooperative_groups.h").write_text(COOPERATIVE_GROUPS)
+    for src in kernels.CSRC.glob("*.cu*"):
+        (tmp / src.name).write_text(_host_source(src.read_text()))
+    procs = {}
+    for tag in OD_TREE_CASES:
+        spec, _, fit, _, _, n_obs, orient = _od_case(tag, 1, np.random.default_rng(0))
+        key = _od_key(spec, fit, n_obs, orient)
+        assert key.tree == (tag != "dual_arm_box") and not key.scratch
+        cu = tmp / f"{tag}_host.cu"
+        cu.write_text(RUNNER + kernels.on_demand_source(key))
+        so = cu.with_suffix(".so")
+        procs[key] = (so, subprocess.Popen(
+            ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math", "-shared",
+             "-fPIC", "-pthread", "-I", str(tmp), "-x", "c++", str(cu), "-o", str(so)],
+            stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for key, (so, proc) in procs.items():
+        err = proc.communicate()[1]
+        assert proc.returncode == 0, err[-4000:]
+        lib = ctypes.CDLL(str(so))
+        for fn, sig in kernels.OD_SIGNATURES.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = sig
+                getattr(lib, fn).restype = ctypes.c_int
+        libs[key] = lib
+    return libs
 
 
 def _run_host(lib, monkeypatch, spec, pso, fit, meta, swarm, seeds, p, uniforms=None,
@@ -270,13 +350,14 @@ def test_short_chain_source_keeps_the_first_minimum(host_lib, monkeypatch, threa
 
 
 @pytest.mark.parametrize("threshold", [-1.0, 2.0])  # every swarm; some of them
-@pytest.mark.parametrize("model", ["dual_arm_14dof", "snake_30dof"])
+@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof", "snake_30dof"])
 def test_general_kernel_source_matches_the_plain_solve(host_lib, monkeypatch, model,
                                                        threshold):
-    # fused_solve_kernel (the trees' and snake_30dof's register layout, v
-    # and lbest in shared memory): uniform init, randomized inertia and the
-    # re-kick every 2 iterations, of every swarm or above a threshold that
-    # the block argmin's winning value decides, drawing and replay.
+    # The register layout with v and lbest in shared memory: the trees'
+    # tree loop (fused_solve_tree_kernel) and snake_30dof's
+    # fused_solve_kernel. Uniform init, randomized inertia and the re-kick
+    # every 2 iterations, of every swarm or above a threshold that the
+    # block argmin's winning value decides, drawing and replay.
     rng = np.random.default_rng(30)
     s, p = 3, 64
     spec, fit, meta, swarm = _problem(model, s, rng)
@@ -291,9 +372,100 @@ def test_general_kernel_source_matches_the_plain_solve(host_lib, monkeypatch, mo
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof"])
+def test_tree_loop_source_refreshes_every_other_iteration(host_lib, monkeypatch, model):
+    # The tree loop's refresh and kick schedules (countdowns at the dual
+    # arm's 1,024-thread bound, it % interval at the humanoid's 512): gbest
+    # every 2 iterations and the re-kick every 4, canonical inertia,
+    # hybrid init, drawing and replay, bit for bit against the plain twin.
+    rng = np.random.default_rng(41)
+    s, p = 2, 64
+    spec, fit, meta, swarm = _problem(model, s, rng)
+    pso = PSOConfig(iterations=8, inertia_mode="canonical", init_mode="hybrid",
+                    gbest_interval=2, rekick_interval=4, rekick_threshold=-1.0)
+    seeds = torch.as_tensor(rng.integers(-2**31, 2**31, (s, 2)).astype(np.int32))
+    u = torch.as_tensor(rng.random((s, fused.num_draws(pso), spec.dof, p), dtype=np.float32))
+    for uniforms in (None, u):
+        want = fused.fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, p,
+                                       uniforms)
+        got = _run_host(host_lib, monkeypatch, spec, pso, fit, meta, swarm, seeds, p, uniforms)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("tag", OD_TREE_CASES)
+def test_tree_loop_on_demand_source_matches_the_plain_solve(od_host_libs, monkeypatch, tag):
+    # The trees' twins built on demand: the dual arm and the humanoid with
+    # the orientation term take the tree loop, dual_arm_box (the box scene)
+    # the general loop; drawing and replay at P = 64, bit for bit against
+    # the plain twin.
+    rng = np.random.default_rng(24)
+    s, p = 3, 64
+    spec, pso, fit, meta, swarm, n_obs, orient = _od_case(tag, s, rng)
+    key = _od_key(spec, fit, n_obs, orient)
+    layout = fused._check_args(spec, pso, fit, swarm, spec.limits(),
+                               torch.zeros((s, 2), dtype=torch.int32), p, None, n_obs, orient)
+    assert layout.tree == (tag != "dual_arm_box") and layout.placement == "shared"
+    assert (layout.static_bytes > 0) == bool(layout.tree)
+    seeds = torch.as_tensor(rng.integers(-2**31, 2**31, (s, 2)).astype(np.int32))
+    u = torch.as_tensor(rng.random((s, fused.num_draws(pso), spec.dof, p), dtype=np.float32))
+    monkeypatch.setattr(kernels, "on_demand_library", lambda k: od_host_libs[k])
+    monkeypatch.setattr(kernels, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(kernels, "require_cuda_contiguous", lambda *a: None)
+    for uniforms in (None, u):
+        want = fused.fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, p,
+                                       uniforms, n_obs, use_orientation=orient)
+        got = fused._launch(spec, pso, fit, meta, swarm, spec.limits(), seeds, p, uniforms,
+                            n_obs, orient, layout, fused.gbest_interval(pso))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof"])
+def test_tree_loop_tie_goes_to_the_least_particle_id(host_lib, monkeypatch, model):
+    # The trees' tree loop: the zoo tree with zero-length effector links
+    # (the effectors then ignore their own node's angles, so those DOFs
+    # are free) and limits of +-pi. Particles 20 (warp 0) and 40 (warp 1) step onto the goal
+    # in every DOF the effectors see and tie exactly; every other particle
+    # steps half as far. The free DOFs differ by particle, so gbest must
+    # carry particle 20's: the first minimum by id across the warp slots.
+    from ikpso_tpu_torch.models.chain import IKProblem, make_chain_spec
+
+    zoo = getattr(library, model)()[0]
+    n, s, p = zoo.num_nodes, 2, 64
+    eff = list(zoo.effector_idx)
+    length = zoo.length.clone()
+    length[eff] = 0.0
+    spec = make_chain_spec(list(zoo.parent), length, np.full((n, 3), -np.pi),
+                           np.full((n, 3), np.pi), eff)
+    assert kernels.kernel_a_layout(spec, p).tree
+    free = [d for k in eff for d in range(3 * (k - 1), 3 * k)]
+    problem = IKProblem(pose=torch.zeros(n, 3), origin=torch.zeros(3),
+                        targets=torch.zeros(len(eff), 3))
+    goal = torch.full((spec.dof,), 0.1)
+    goal[free] = 0.0
+    tgt = fk_ops.effector_positions(spec, fk_ops.angles_to_pose(spec, problem.pose[0], goal),
+                                    problem.origin)
+    batched = library.batched_problem(problem, tgt[None].expand(s, len(eff), 3))
+    fit = FitnessConfig(angle_weight=0.0)
+    meta = pack_meta(spec, fit)
+    swarm = pack_swarm(spec, batched, fk_ops.pose_to_angles(spec, batched.pose),
+                       anchor_positions_flat(spec, batched))
+    pso = PSOConfig(iterations=1, inertia_mode="canonical")
+    u = torch.full((s, fused.num_draws(pso), spec.dof, p), 0.55)
+    u[:, 0, :, [20, 40]] = 0.6  # v0 = 2u - 1: x after one step = 0.5 v0 = 0.1, the goal
+    ignored = torch.linspace(0.05, 0.95, p).flip(0)
+    u[:, 0, free, :] = ignored
+    seeds = torch.zeros((s, 2), dtype=torch.int32)
+    gb, gv = _run_host(host_lib, monkeypatch, spec, pso, fit, meta, swarm, seeds, p, u)
+    want = fused.fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, p, u)
+    assert torch.equal(gb, want[0]) and torch.equal(gv, want[1])
+    w20 = np.float32(0.5) * (np.float32(ignored[20].item()) * np.float32(2) - np.float32(1))
+    np.testing.assert_array_equal(gb[:, free].numpy(), np.full((s, len(free)), w20))
+
+
 @pytest.mark.parametrize("nan_ids,first", [((40, 50), 40), ((50, 5), 5)])
 @pytest.mark.parametrize("model,threads", [("arm_7dof", 256), ("arm_7dof", 1024),
-                                           ("dual_arm_14dof", 1024)])
+                                           ("dual_arm_14dof", 1024),
+                                           ("humanoid_45dof", 512)])
 def test_kernel_a_source_puts_nan_first(host_lib, monkeypatch, model, threads, nan_ids,
                                         first):
     # A block whose lvals mix NaN with numbers: uniform init with NaN in
@@ -317,10 +489,12 @@ def test_kernel_a_source_puts_nan_first(host_lib, monkeypatch, model, threads, n
 
 @pytest.mark.parametrize("threads", [256, 1024])
 def test_kernel_a_source_scores_nan_poses_at_the_penalty(host_lib, monkeypatch, threads):
-    # Every pose collides (penalty_tie_case's box): poses with a NaN angle
-    # score the collision penalty too, as in the plain twin, and the tie at
-    # the penalty still goes to particle 0. (The capsule collider calls a
-    # NaN pose a hit where the plain one does not: ROADMAP queue C.)
+    # Every pose collides (penalty_tie_case's box): the box collider scores
+    # a pose with a NaN angle at the collision penalty too (a NaN fails
+    # every separating-axis test, so no axis separates it), as the plain
+    # twin and JAX do, and the tie at the penalty still goes to particle 0.
+    # The capsule collider's rule is the other one: a NaN pose is no hit
+    # (test_kernel_a_source_scores_nan_capsule_poses_as_misses).
     spec, pso, fit, meta, swarm, u, n_obs, want = penalty_tie_case(p=64)
     u = u.clone()
     u[:, 0, 0, [41, 57]] = float("nan")
@@ -331,6 +505,113 @@ def test_kernel_a_source_scores_nan_poses_at_the_penalty(host_lib, monkeypatch, 
                                     n_obs)
     assert same(got[0], plain[0]) and same(got[1], plain[1])
     assert torch.equal(got[0], want)
+
+
+@pytest.mark.parametrize("threads", [256, 1024])
+def test_kernel_a_source_scores_nan_capsule_poses_as_misses(host_lib, monkeypatch, threads):
+    # penalty_tie_case's box as a capsule scene: every finite pose collides,
+    # but the capsule collider's distances of a pose with a NaN angle are
+    # NaN (jnp.maximum's rule), so it is no hit and scores NaN, and NaN goes
+    # first: gbest is particle 41's initial position and gval NaN, as the
+    # plain twin gives them.
+    spec, pso, _, _, swarm, u, n_obs, _ = penalty_tie_case(p=64)
+    fit = FitnessConfig(angle_weight=0.0, collision_shape="capsule")
+    meta = pack_meta(spec, fit, Obstacles.from_boxes([(0.0, 0.0, 0.0)],
+                                                     [(100.0, 100.0, 100.0)]))
+    u = u.clone()
+    u[:, 0, 0, [41, 57]] = float("nan")
+    seeds = torch.zeros((swarm.shape[0], 2), dtype=torch.int32)
+    got = _run_host(host_lib, monkeypatch, spec, pso, fit, meta, swarm, seeds, 64, u, n_obs,
+                    threads=threads)
+    plain = fused.fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, 64, u,
+                                    n_obs)
+    assert same(got[0], plain[0]) and same(got[1], plain[1])
+    lim = spec.limits()
+    lo_c, hi_c = torch.clamp_min(lim[0], -fused.TWO_PI), torch.clamp_max(lim[1], fused.TWO_PI)
+    assert torch.isnan(got[1]).all() and same(got[0], lo_c + u[:, 0, :, 41] * (hi_c - lo_c))
+
+
+def test_capsule_nan_pose_is_a_miss_in_jax_the_plain_twin_and_kernel_a(host_lib,
+                                                                       monkeypatch):
+    # A pose with a NaN angle in a capsule scene. JAX's capsule
+    # collider (ops/collision.py::chain_collides_capsule) and the port's
+    # plain one call it no hit, so its fitness is NaN in JAX and in the
+    # port, not the penalty. Then whole solves of one JAX tile (S=8,
+    # P=128, uniform init, 2 iterations, the replay scene as capsules):
+    # JAX's fused_solve_raw under the Pallas interpreter, fused_solve_plain
+    # and kernel A's source on the same injected uniforms, NaN in particle
+    # 37's first position draw of swarms 1 and 5. The swarms without a NaN
+    # agree to the replay bar (JAX) and bit for bit (kernel A); each NaN
+    # swarm's gval is NaN in all three (a hit would leave it finite: every
+    # other particle is finite), and kernel A's gbest is the plain twin's.
+    # (JAX's gbest there is its argmin's: a NaN minimum matches no id.)
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from ikpso_tpu.models.chain import Obstacles as JObstacles
+    from ikpso_tpu.ops import fitness as jfitness
+    from ikpso_tpu.ops import fk as jfk
+    from ikpso_tpu.ops.collision import chain_collides_capsule as j_capsule
+    from ikpso_tpu.pso.fused import fused_solve_raw
+    from ikpso_tpu_torch.models import convert
+    from ikpso_tpu_torch.ops import fitness as port_fitness
+    from ikpso_tpu_torch.ops.collision import chain_collides_capsule
+    from test_torch_fused import (ATOL_ANGLES, ATOL_VALUE, REPLAY_SCENE, RTOL_VALUE, SW,
+                                  _configs, _jax_case, _packs, tpu_layout)
+
+    rng = np.random.default_rng(17)
+    s, p, nan_rows = 8, 128, [1, 5]
+    spec_j, batched_j = _jax_case(s, rng)
+    pso_j, fit_j = _configs(iterations=2, init_mode="uniform", collision_shape="capsule")
+    obs_j = JObstacles.from_boxes(**REPLAY_SCENE)
+    spec, obs = convert.chain_spec_from(spec_j), convert.obstacles_from(obs_j)
+    fit, pso = convert.fitness_config_from(fit_j), convert.pso_config_from(pso_j)
+
+    # The colliders and the fitness on poses with a NaN angle.
+    ang = np.tile(np.float32([0.3, -0.2, 0.5, 0.1, 0.4, -0.3, 0.2, 0.6, -0.1]), (4, 1))
+    ang[np.arange(4), [0, 3, 5, 8]] = np.nan  # one NaN angle a pose, a node each
+    ang_j = jnp.asarray(ang)
+    pose_j = jfk.angles_to_pose(spec_j, jnp.broadcast_to(batched_j.pose[0, 0], (4, 3)), ang_j)
+    pos_j, rot_j = jfk.fk(spec_j, pose_j, batched_j.origin[0])
+    par = list(spec.parent[1:])
+    hit_j = j_capsule(pos_j[:, 1:], rot_j[:, 1:], pos_j[:, par], spec_j.length[1:],
+                      obs_j.center, obs_j.half_extent, obs_j.rot)
+    pose = fk_ops.angles_to_pose(spec, torch.tensor(np.array(batched_j.pose[0, 0]))
+                                 .expand(4, 3), torch.as_tensor(ang))
+    pos, rot = fk_ops.fk(spec, pose, torch.tensor(np.array(batched_j.origin[0])))
+    hit = chain_collides_capsule(pos[:, 1:], rot[:, 1:], pos[:, par], spec.length[1:],
+                                 obs.center, obs.half_extent, obs.rot)
+    assert not np.asarray(hit_j).any() and not hit.any()
+    problem_j = batched_j.replace(pose=batched_j.pose[0], origin=batched_j.origin[0],
+                                  targets=batched_j.targets[0])
+    f_j = jfitness.fitness(spec_j, ang_j, problem_j, fit_j, obs_j)
+    f = port_fitness.fitness(spec, torch.as_tensor(ang), convert.problem_from(problem_j),
+                             fit, obs)
+    assert np.isnan(np.asarray(f_j)).all() and torch.isnan(f).all()
+
+    # Whole solves.
+    meta_j, swarm_j = _packs(spec_j, batched_j, fit_j, obs_j)
+    limits_j = jnp.stack([spec_j.min_rotation[1:].reshape(-1),
+                          spec_j.max_rotation[1:].reshape(-1)])
+    u = rng.random((s, fused.num_draws(pso), spec.dof, p), dtype=np.float32)
+    u[nan_rows, 0, 0, 37] = np.nan
+    gb_j, gv_j = fused_solve_raw(
+        spec_j, pso_j, fit_j, meta_j, swarm_j, limits_j, jnp.zeros((s, 2), jnp.int32), p,
+        obs_j.count, interpret=pltpu.InterpretParams(), uniforms=jnp.asarray(tpu_layout(u)),
+        swarms_per_tile=SW)
+    meta, swarm = pack_meta(spec, fit, obs), torch.tensor(np.array(swarm_j))
+    seeds = torch.zeros((s, 2), dtype=torch.int32)
+    u = torch.as_tensor(u)
+    gb, gv = fused.fused_solve_plain(spec, pso, fit, meta, swarm, spec.limits(), seeds, p, u,
+                                     obs.count)
+    got = _run_host(host_lib, monkeypatch, spec, pso, fit, meta, swarm, seeds, p, u, obs.count)
+    assert same(got[0], gb) and same(got[1], gv)
+    gb_j, gv_j = np.asarray(gb_j), np.asarray(gv_j)
+    ok = [r for r in range(s) if r not in nan_rows]
+    assert np.isnan(gv_j[nan_rows]).all() and torch.isnan(gv[nan_rows]).all()
+    assert np.isfinite(gv_j[ok]).all() and torch.isfinite(gv[ok]).all()
+    np.testing.assert_allclose(gb[ok].numpy(), gb_j[ok], atol=ATOL_ANGLES)
+    np.testing.assert_allclose(gv[ok].numpy(), gv_j[ok], rtol=RTOL_VALUE, atol=ATOL_VALUE)
 
 
 def test_layout_picks_the_short_bound_up_to_256_particles(monkeypatch):
@@ -344,8 +625,11 @@ def test_layout_picks_the_short_bound_up_to_256_particles(monkeypatch):
     # The box scene too; the trees, the serial variant and an on-demand
     # short chain keep their one bound.
     assert kernels.kernel_a_layout(arm7, 128, 4, "box").threads == 256
-    assert kernels.kernel_a_layout(library.dual_arm_14dof()[0], 128).threads == 1024
-    assert kernels.kernel_a_layout(library.dual_arm_14dof()[0], 128).static_bytes == 0
+    dual = library.dual_arm_14dof()[0]
+    assert kernels.kernel_a_layout(dual, 128).threads == 1024
+    # The trees' tree loop takes static shared memory of its own.
+    assert (kernels.kernel_a_layout(dual, 128).static_bytes
+            == kernels.tree_static_bytes(dual, 0, False, 1024))
     assert kernels.kernel_a_layout(arm7, 128, use_distance=True).threads == 1024
 
     # A P no instantiation takes raises before any library is loaded.
@@ -371,15 +655,24 @@ def test_short_static_bytes_match_the_kernels(tmp_path):
         (tmp_path / src.name).write_text(_host_source(src.read_text()))
     cases = [("Arm7Dof", c, False, t) for c in (0, 1, 2) for t in (256, 1024)]
     cases += [("Arm6Dof", 0, o, t) for o in (False, True) for t in (256, 1024)]
+    # The trees' tree loop (TreeShared) at their thread bounds, with a scene
+    # and the orientation term.
+    tree = [("DualArm14", c, o, 1024) for c, o in ((0, False), (1, False), (0, True))]
+    tree += [("Humanoid45", 0, o, 512) for o in (False, True)]
     main = tmp_path / "static.cpp"
     main.write_text('#include <cstdio>\n#include "fused_solve.cuh"\nint main() {\n' + "".join(
-        f'  std::printf("%zu\\n", sizeof(ikpso::ShortShared<ikpso::{t}, {c}, '
-        f'{str(o).lower()}, {th}>));\n' for t, c, o, th in cases) + "}\n")
+        f'  std::printf("%zu\\n", sizeof(ikpso::{kind}<ikpso::{t}, {c}, '
+        f'{str(o).lower()}, {th}>));\n' for kind, rows in (("ShortShared", cases),
+                                                          ("TreeShared", tree))
+        for t, c, o, th in rows) + "}\n")
     exe = tmp_path / "static"
     proc = subprocess.run(["g++", "-std=c++20", "-pthread", "-I", str(tmp_path), "-o",
                            str(exe), str(main)], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     got = [int(v) for v in subprocess.run([str(exe)], capture_output=True,
                                           text=True).stdout.split()]
-    specs = {"Arm7Dof": library.arm_7dof()[0], "Arm6Dof": library.arm_6dof()[0]}
-    assert got == [kernels.short_static_bytes(specs[t], c, o, th) for t, c, o, th in cases]
+    specs = {"Arm7Dof": library.arm_7dof()[0], "Arm6Dof": library.arm_6dof()[0],
+             "DualArm14": library.dual_arm_14dof()[0],
+             "Humanoid45": library.humanoid_45dof()[0]}
+    assert got == ([kernels.short_static_bytes(specs[t], c, o, th) for t, c, o, th in cases]
+                   + [kernels.tree_static_bytes(specs[t], c, o, th) for t, c, o, th in tree])

@@ -89,10 +89,18 @@ def test_traits_match_their_python_mirrors():
     assert default == "1" and set(min_blocks.values()) == {"2"}
     assert all(t in kernels.SHARED_IDS and kernels.MAX_PARTICLES[t] == 256
                for t in min_blocks)
-    # An on-demand topology takes its placement from the key's macro.
+    # The tree loop: trees that stream their draws and keep v and lbest in
+    # shared memory.
+    tree, default = _trait("TreeLoop")
+    assert default == "false" and set(tree.values()) == {"true"}
+    assert sorted(tree) == sorted(kernels.TREE_LOOP_IDS)
+    assert set(tree) <= set(kernels.STREAM_IDS) & set(kernels.SHARED_IDS)
+    # An on-demand topology takes its placement and loop from the key's macros.
     od = (kernels.CSRC / "on_demand.cuh").read_text()
     assert re.search(r"struct StatePlacement<OdTopology> {\s*static constexpr int value ="
                      r" IKPSO_OD_SHARED", od)
+    assert re.search(r"struct TreeLoop<OdTopology> {\s*static constexpr bool value ="
+                     r" IKPSO_OD_TREE", od)
 
 
 def test_shared_memory_reckoning_matches_the_kernels(tmp_path):
@@ -121,6 +129,37 @@ def test_shared_memory_reckoning_matches_the_kernels(tmp_path):
     assert all(kernels.kernel_a_smem_bytes(m, k, d, p, 0) % 16 == 0 for m, k, d, p, _ in cases)
 
 
+def test_tree_loop_shared_memory_reckoning_matches_the_kernels(tmp_path):
+    # tree_smem_bytes and tree_row, compiled by g++, against the Python
+    # reckoning; each row is an odd number of float4 (conflict-free 16-byte
+    # accesses) and holds v and lbest at D rounded up to 4 each.
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    (tmp_path / "cuda_runtime.h").write_text(STANDIN)
+    for src in kernels.CSRC.glob("*.cuh"):
+        (tmp_path / src.name).write_text(
+            re.sub(r"<<<.*?>>>", "", src.read_text(), flags=re.S))
+    rng = np.random.default_rng(17)
+    cases = [tuple(int(v) for v in row) for row in np.stack(
+        [rng.integers(2, 3000, 40), rng.integers(3, 150, 40), rng.integers(1, 33, 40) * 32],
+        axis=1)]
+    main = tmp_path / "smem.cpp"
+    main.write_text('#include <cstdio>\n#include "fused_solve.cuh"\nint main() {\n' + "".join(
+        f'  std::printf("%zu %d\\n", ikpso::tree_smem_bytes({m}, {d}, {p}), '
+        f'ikpso::tree_row({d}));\n' for m, d, p in cases) + "}\n")
+    exe = tmp_path / "smem"
+    proc = subprocess.run(["g++", "-std=c++17", "-I", str(tmp_path), "-o", str(exe), str(main)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = [int(v) for v in subprocess.run([str(exe)], capture_output=True,
+                                          text=True).stdout.split()]
+    assert got == [v for m, d, p in cases
+                   for v in (kernels.tree_smem_bytes(m, d, p), kernels.tree_row(d))]
+    for _, d, _ in cases:
+        row = kernels.tree_row(d)
+        assert row % 8 == 4 and row >= 2 * ((d + 3) // 4 * 4)
+
+
 # (b) Every preset and config document fits.
 
 
@@ -144,6 +183,14 @@ def test_every_zoo_preset_fits_a_block(model):
     else:
         assert not layout.scratch and layout.scratch_planes == 0
         assert layout.placement == ("shared" if topo in kernels.SHARED_IDS else "registers")
+    # The trees' tree loop keeps v and lbest as a row a thread.
+    assert layout.tree == (topo in kernels.TREE_LOOP_IDS)
+    if layout.tree:
+        assert layout.smem_bytes == kernels.tree_smem_bytes(lay.meta_size, spec.dof,
+                                                            pre.particles)
+        assert layout.static_bytes == kernels.tree_static_bytes(spec, 0, False,
+                                                                layout.threads)
+        return
     planes = {"registers": 0, "shared": 1 if layout.scratch else 2, "global": 0}
     assert layout.smem_bytes == kernels.kernel_a_smem_bytes(
         lay.meta_size, lay.swarm_size, spec.dof, pre.particles, planes[layout.placement])
@@ -244,6 +291,44 @@ def test_every_config_document_fits_a_block(name):
     assert layout.placement == want
     assert not layout.scratch
     assert layout.cluster == (2 if name == "hand21" else 0)
+
+
+def test_each_tree_takes_its_measured_loop():
+    # kernel_a_layout's choice per tree (TREE_LOOP_IDS and on_demand_key, from
+    # the pairs on an H100 in PERF.md): the humanoid and the dual arm run the
+    # tree loop, their twins with the orientation term too; with a scene, the distance term or exact trig they keep the
+    # general loop (dual_arm_box's tree loop spilled), as do reference_arm,
+    # snake_30dof and a tree of their own; hand21 keeps its cluster layout.
+    dual, hum = library.dual_arm_14dof()[0], library.humanoid_45dof()[0]
+    for spec, p in ((dual, 1024), (hum, 512)):
+        lay = kernels.kernel_a_layout(spec, p)
+        assert (lay.tree, lay.placement, lay.scratch, lay.cluster, lay.threads) == (
+            True, "shared", False, 0, p)
+        assert lay.smem_bytes == kernels.tree_smem_bytes(MetaLayout(spec).meta_size,
+                                                         spec.dof, p)
+        assert kernels.kernel_a_layout(spec, p, use_orientation=True).tree
+        assert kernels.on_demand_key(spec, 0, True).tree
+        for shape in ("box", "capsule"):
+            lay = kernels.kernel_a_layout(spec, p, 4, shape)
+            assert (lay.tree, lay.placement, lay.static_bytes) == (False, "shared", 0)
+        assert not kernels.kernel_a_layout(spec, p, use_distance=True).tree
+        assert not kernels.kernel_a_layout(spec, p, trig_impl="exact").tree
+    box = load_config(str(CONFIG_DIR / "dual_arm_box.json"))
+    assert not kernels.kernel_a_layout(box.spec, box.num_particles, box.obstacles.count,
+                                       "box").tree
+    for model in ("reference_arm", "snake_30dof"):
+        assert not kernels.kernel_a_layout(model_spec(model)[0], 256).tree
+    mid = _tree([-1, 0, 1, 2, 3, 4, 5, 6, 1, 8], [7, 9])
+    assert not kernels.on_demand_key(mid, 0, False).tree
+    assert not kernels.kernel_a_layout(mid, 512).tree
+    hand = load_config(str(CONFIG_DIR / "hand21.json")).spec
+    assert (kernels.kernel_a_layout(hand, 512).cluster,
+            kernels.kernel_a_layout(hand, 512).tree) == (2, False)
+    # The macro reaches the generated source.
+    assert "#define IKPSO_OD_TREE 1" in kernels.on_demand_source(
+        kernels.on_demand_key(dual, 0, True))
+    assert "#define IKPSO_OD_TREE 0" in kernels.on_demand_source(
+        kernels.on_demand_key(dual, 1, False))
 
 
 def test_on_demand_keys_carry_their_placement():
