@@ -168,13 +168,15 @@ REPLAY_MODELS = {
 # Timed kernels per model: kernel A against its plain twin at the pair batch
 # (the plain solve's (S, P, D) temporaries at the preset's P) and alone at the
 # preset's batch; kernels B (P=128) and C (P=1,024) against their plain twins
-# at their batches (None: not timed).
+# at their batches (None: not timed). planar_3dof runs the headline's short
+# chain (arm_7dof's topology, its own limits) at the headline's shape.
 TIMED_MODELS = {
     "dual_arm_14dof": (4096, 65_536, 4096),
     "humanoid_45dof": (256, 65_536, 4096),
     "snake_30dof": (1024, 8192, 1024),
     "snake:50": (256, 8192, 1024),
     "reference_arm": (512, None, None),
+    "planar_3dof": (1024, None, None),
 }
 # The JSON-config path (harness/configs.py over cli.build_solver, the
 # solve subcommand's solver): each document of ikpso_tpu_torch/configs at
@@ -1021,7 +1023,7 @@ def phase_fused_tie(device, particles=128, model="arm_7dof"):
     from ikpso_tpu_torch.ops import fk as fk_ops
     from ikpso_tpu_torch.ops.fitness import FitnessConfig
     from ikpso_tpu_torch.pso.config import PSOConfig
-    from ikpso_tpu_torch.pso.fused import fused_solve, num_draws
+    from ikpso_tpu_torch.pso.fused import fused_solve, kernel_a_layout, num_draws
 
     parents, lengths, effectors, wrist_dims = TIE_CHAINS[model]
     n = len(parents)
@@ -1049,7 +1051,9 @@ def phase_fused_tie(device, particles=128, model="arm_7dof"):
     torch.cuda.synchronize()
     got = gb[:, wrist_dims].cpu().numpy()
     ok = bool((got == want).all())
+    layout = kernel_a_layout(spec, fit, swarm, particles)
     emit("fused_tie_lowest_id", model=model, swarms=swarms, particles=particles,
+         tree=layout.tree, cluster=layout.cluster, threads=layout.threads,
          want=float(want), got=got[:, 0].tolist(), ok=ok)
     if not ok:
         raise AssertionError(f"kernel A broke an exact tie away from particle 0 ({model}, "
@@ -1102,6 +1106,7 @@ def _nan_first(tag, spec, fit, meta, swarm, particles, device, num_obstacles=0,
     emit("fused_nan_first", case=tag, particles=particles, nan_particles=[first,
                                                                           particles - 7],
          cluster=layout.cluster, placement=layout.placement, threads=layout.threads,
+         tree=layout.tree,
          equals_plain=same_or_nan(gb, want[0]) and same_or_nan(gv, want[1]), ok=ok)
     if not ok:
         raise AssertionError(f"kernel A did not put NaN first as its plain twin ({tag}, "
@@ -2314,6 +2319,7 @@ def phase_tree_timing(device):
         del x_dp, got, want, meta, swarm, sw_c
     clocks["end"] = card_clocks()
     emit("tree_timing", **times, timed_models=TIMED_MODELS, preset_swarms=TREE_SWARMS,
+         kernel_a={m: kernel_names(m)["A"].split("<")[0] for m in TIMED_MODELS},
          clocks=clocks, max_abs_err_vs_plain={f"{k}_{m}": v for (k, m), v in errs.items()},
          bar="bit-identical kernel A; max abs error 0.0 for B and C")
     return times, counts, errs
@@ -3711,8 +3717,9 @@ WARP_ISSUE_PER_SM_CLOCK = 4  # an H100 SM: four schedulers, one warp instruction
 # The trees' kernel A in SASS (phase_sass_kernel_a): case -> (swarms,
 # particles, iterations of its path's base solve, the pattern of its Philox
 # instantiation's mangled name, without the orientation term: the tree loop,
-# or the general loop of a build that predates it; an ON_DEMAND_CASES case
-# is read from its on-demand library).
+# or the general loop of a build that predates it or of a topology that
+# keeps it; an ON_DEMAND_CASES case is read from its on-demand library).
+# reference_arm (8 nodes) and snake_30dof (11) at their presets' batches.
 TREE_SASS = {
     "humanoid_45dof": (16_384, 512, 60,
                        r"fused_solve(?:_tree)?_kernelINS_8TopologyILi16E\w*?ELi0ELb0ELb0EEEv"),
@@ -3720,6 +3727,10 @@ TREE_SASS = {
                        r"fused_solve(?:_tree)?_kernelINS_8TopologyILi7E\w*?ELi0ELb0ELb0EEEv"),
     "dual_arm_box": (262_144, 1024, 8,
                      r"fused_solve(?:_tree)?_kernelINS_16OnDemandTopology\w*?ELi1ELb0ELb0EEEv"),
+    "reference_arm": (262_144, 256, 100,
+                      r"fused_solve(?:_tree)?_kernelINS_8TopologyILi8E\w*?ELi0ELb0ELb0EEEv"),
+    "snake_30dof": (65_536, 256, 4,
+                    r"fused_solve(?:_tree)?_kernelINS_8TopologyILi11E\w*?ELi0ELb0ELb0EEEv"),
 }
 
 

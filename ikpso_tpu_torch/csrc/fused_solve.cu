@@ -15,7 +15,7 @@
 // Layout: one thread block per swarm, one thread per particle
 // (blockDim = P, a multiple of 32, <= KernelAThreads<T>: 1024, 512 for the
 // 45-DOF humanoid, so a thread may hold 128 registers instead of 64, and
-// 256 for reference_arm and snake_30dof, two blocks an SM at 128
+// 256 for reference_arm and snake_30dof, three blocks an SM at 80
 // registers, KernelAMinBlocks). Serial chains without a compile-time
 // topology run the serial-chain variant, which keeps x and v (and lbest
 // where it does not fit shared memory) in global scratch (scratch_solve in
@@ -31,10 +31,11 @@
 // lbest (D floats each) beside them for the short chains, and in dynamic
 // shared memory for the trees, reference_arm and snake_30dof (StatePlacement
 // in fused_solve.cuh: with all three in registers the humanoid spilled
-// 1,360 bytes and the dual arm 608): [D][P] each, or, in the trees' tree
-// loop (fused_solve_tree_kernel, TreeLoop; its notes are in fused_solve.cuh),
-// a float4 row a particle; the chain's packed meta, the swarm's constant row
-// and the joint limits are copied to shared memory once. The trees and snake_30dof
+// 1,360 bytes and the dual arm 608): [D][P] each, or, in the tree loop
+// that each of these prebuilt topologies runs (fused_solve_tree_kernel,
+// TreeLoop; its notes are in fused_solve.cuh), a float4 row a particle; the
+// chain's packed meta, the swarm's constant row and the joint limits are
+// copied to shared memory once. The trees, reference_arm and snake_30dof
 // draw their uniforms four DOFs at a time next to their use
 // (StreamDraws), so no D-float draw array is live beside x, v and lbest.
 // The TPU kernel's 8x128 tiles, swarm packing, roll-tree reductions and

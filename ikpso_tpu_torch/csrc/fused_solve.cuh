@@ -150,9 +150,10 @@ struct KernelAThreads<OnDemandTopology<PA, EF, TH, ST, DI, EX>> {
 // Whether kernel A draws its uniforms four DOFs at a time next to their
 // use (draw_group) instead of a whole D-float array per slot (draw). The
 // values and the arithmetic are the same either way; what differs is
-// what the registers hold. The trees and snake_30dof stream: two D-float
-// draw arrays beside x, v and lbest exceed the registers a thread has
-// (with whole arrays the humanoid ran 3.8x and the dual arm 8% slower).
+// what the registers hold. The trees, reference_arm and snake_30dof
+// stream (the tree loop's draws are streamed): two D-float draw arrays
+// beside x, v and lbest exceed the registers a thread has (with whole
+// arrays the humanoid ran 3.8x and the dual arm 8% slower).
 // The short chains keep whole arrays: streamed, kernel A ran 2.4-2.7%
 // slower on arm_7dof and 1.0% slower on arm_6dof with orientation
 // (interleaved pairs on an H100, PERF.md); arm_7dof's box scene ran 0.7%
@@ -167,6 +168,10 @@ struct StreamDraws<DualArm14> {
 };
 template <>
 struct StreamDraws<Humanoid45> {
+  static constexpr bool value = true;
+};
+template <>
+struct StreamDraws<ReferenceArm> {
   static constexpr bool value = true;
 };
 template <>
@@ -214,20 +219,24 @@ struct StatePlacement<Snake30> {
 };
 
 // The least blocks of kernel A per SM that ptxas must fit (the second
-// argument of __launch_bounds__): 2 where v and lbest left the registers of
-// a 256-thread topology and x and the walk fit 128 registers without a
-// spill, so two swarms share an SM and hide each other's issue latency.
+// argument of __launch_bounds__): 3 where v and lbest left the registers of
+// a 256-thread topology (reference_arm, snake_30dof: the tree loop, their
+// rows a block 53,248 and 69,632 bytes at P = 256) and x and the walk fit
+// 80 registers without a spill, so three swarms share an SM and hide each
+// other's issue latency. On an H100 both ran faster than at 2 blocks (128
+// registers) and at 4 (64: reference_arm's walk fits with the key read a
+// group, snake_30dof's spills), PERF.md, tools/kernel_a_tree_variants.py.
 template <class T>
 struct KernelAMinBlocks {
   static constexpr int value = 1;
 };
 template <>
 struct KernelAMinBlocks<ReferenceArm> {
-  static constexpr int value = 2;
+  static constexpr int value = 3;
 };
 template <>
 struct KernelAMinBlocks<Snake30> {
-  static constexpr int value = 2;
+  static constexpr int value = 3;
 };
 
 // A particle's v and lbest where StatePlacement puts them: vel(d) and
@@ -820,8 +829,9 @@ static cudaError_t launch_fused_solve_short(bool replay, const float* meta, int 
 }
 
 // ---------------------------------------------------------------------------
-// Kernel A's register-layout trees (TreeLoop: DualArm14, Humanoid45 and an
-// on-demand twin placed so), fused_solve_tree_kernel: fused_solve_kernel's
+// Kernel A's register-layout trees (TreeLoop: DualArm14, Humanoid45,
+// ReferenceArm, Snake30 and an on-demand twin placed so),
+// fused_solve_tree_kernel: fused_solve_kernel's
 // arithmetic, draws and first-minimum rule, op for op, with the short
 // chains' devices for what issues around them and for the registers:
 //   - the walk's constants (the swarm row's head, meta's head) and the
@@ -830,14 +840,15 @@ static cudaError_t launch_fused_solve_short(bool replay, const float* meta, int 
 //     division by N - 1 computed once (JointWeights);
 //   - what a thread would otherwise hold in registers across the walk read
 //     again where it is used: the swarm's Philox key from static shared
-//     memory for an update's draws (once, or at a 1,024-thread bound for
+//     memory for an update's draws (once, or at 64 registers a thread for
 //     each group of four DOFs, its round keys then computed once a group)
 //     and the replay's base at each draw, and the
 //     root's frame (a constant of the swarm row) for each of the root's
 //     children (fk_fitness_walk's RELOAD_ROOT), through volatile loads, so
 //     that x, the walk and the draws fit the registers without a spill (an
 //     H100 build: 128 registers for the humanoid, 64 for the dual arm at
-//     1,024 threads, PERF.md);
+//     1,024 threads, 80 for reference_arm and snake_30dof at 256 threads
+//     and three blocks an SM, PERF.md);
 //   - v and lbest in dynamic shared memory as one row a particle (v in
 //     [0, D4), lbest in [D4, 2 D4), D4 = D rounded up to 4; tree_row(D)
 //     floats, an odd number of float4, so the 8 threads of a 16-byte access
@@ -864,6 +875,14 @@ struct TreeLoop<DualArm14> {
 };
 template <>
 struct TreeLoop<Humanoid45> {
+  static constexpr bool value = true;
+};
+template <>
+struct TreeLoop<ReferenceArm> {
+  static constexpr bool value = true;
+};
+template <>
+struct TreeLoop<Snake30> {
   static constexpr bool value = true;
 };
 
@@ -1030,12 +1049,16 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
   };
 
   const int dpi = (up.randomized ? 3 : 2) + (up.rekick_interval > 0 ? 1 : 0);
-  // At a 512-thread bound (128 registers) the update reads the key once,
-  // and the refresh and kick schedules are it % interval, not countdowns
-  // held in registers: the humanoid then fits without a spill and ran 9%
-  // faster than with the key read once a group, which the dual arm's 64
-  // registers need (an H100, PERF.md, tools/kernel_a_tree_variants.py).
-  constexpr bool kKeyOnce = KernelAThreads<T>::value <= 512;
+  // Where a thread may hold more than 64 registers (the bound and the
+  // least blocks an SM leave it 65,536 / (threads x blocks)) the update
+  // reads the key once, and the refresh and kick schedules are it %
+  // interval, not countdowns held in registers: the humanoid (128) then
+  // fits without a spill and ran 9% faster than with the key read once a
+  // group, and reference_arm (80) fits only so; at 64 registers (the dual
+  // arm's 1,024-thread bound) only the key read once a group fits (an
+  // H100, PERF.md, tools/kernel_a_tree_variants.py).
+  constexpr bool kKeyOnce =
+      65536 / (KernelAThreads<T>::value * KernelAMinBlocks<T>::value) > 64;
   // Countdowns to the next gbest refresh and the next kick block start
   // (it % gbest_interval == 0; it % rekick_interval == 0 and it > 0).
   int refresh_in = 0;

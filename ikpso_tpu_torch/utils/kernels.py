@@ -88,8 +88,8 @@ TRIG_IMPLS = ("poly", "exact")
 # Kernel A's thread-block bound per topology id (its __launch_bounds__,
 # KernelAThreads in csrc/fused_solve.cu): one thread per particle, so the
 # most particles a swarm may have; 1024 where not listed. 256 (the
-# reference_arm and snake presets' P) lets a thread hold 128 registers with
-# two blocks an SM (KernelAMinBlocks), 512 (the humanoid's) 128 with one,
+# reference_arm and snake presets' P) lets a thread hold 80 registers with
+# three blocks an SM (KernelAMinBlocks), 512 (the humanoid's) 128 with one,
 # 1024 only 64.
 MAX_PARTICLES = {1: 256, 4: 512, 5: 256}
 # The prebuilt short chains (ShortChain in csrc/fused_solve.cuh: v and
@@ -101,8 +101,9 @@ MAX_PARTICLES = {1: 256, 4: 512, 5: 256}
 SHORT_IDS = (0, 2)
 SHORT_THREADS = 256
 # The prebuilt topologies whose kernel A streams its draws (StreamDraws in
-# csrc/fused_solve.cuh); an on-demand topology streams from STREAM_DOF DOFs.
-STREAM_IDS = (3, 4, 5)
+# csrc/fused_solve.cuh: every tree-loop topology); an on-demand topology
+# streams from STREAM_DOF DOFs.
+STREAM_IDS = (1, 3, 4, 5)
 STREAM_DOF = 18
 # Past this many DOFs an on-demand topology's kernel A keeps x and v in
 # global scratch (the serial-chain variant's layout), at a 512-thread
@@ -127,18 +128,20 @@ CLUSTER_THREADS = 256
 CLUSTER_SIZES = (1, 2, 4)
 CLUSTER_MAX_DOF = 60
 
-# The prebuilt trees whose kernel A runs the register layout's tree loop
-# (TreeLoop in csrc/fused_solve.cuh: fused_solve_tree_kernel, v and lbest a
-# row a particle in shared memory, the constants at compile-time offsets,
-# one barrier a gbest refresh). Kept where it won at least 8 of 10 pairs
+# The prebuilt topologies whose kernel A runs the register layout's tree
+# loop (TreeLoop in csrc/fused_solve.cuh: fused_solve_tree_kernel, v and
+# lbest a row a particle in shared memory, the constants at compile-time
+# offsets, one barrier a gbest refresh): the dual arm, the humanoid,
+# reference_arm and snake_30dof. Kept where it won at least 8 of 10 pairs
 # against the parent's kernel and no instantiation spills (an H100,
 # PERF.md, tools/kernel_a_tree_variants.py).
 # An on-demand twin of one (OnDemandKey.tree) follows it with the
-# orientation term alone: with the box collider the dual arm's tree loop
-# spilled 572 bytes at its 64 registers (dual_arm_box keeps the general
-# loop); a twin with the distance term or exact trig, and every other tree,
-# keeps the general loop, unmeasured.
-TREE_LOOP_IDS = (3, 4)
+# orientation term alone (reference_arm's and snake_30dof's twins untimed):
+# with the box collider the dual arm's tree loop spilled 572 bytes at its
+# 64 registers (dual_arm_box keeps the general loop); a twin with the
+# distance term or exact trig, and every other tree, keeps the general
+# loop, unmeasured.
+TREE_LOOP_IDS = (1, 3, 4, 5)
 
 # The prebuilt topologies whose v and lbest are in shared memory: the trees,
 # reference_arm and snake_30dof. An on-demand topology in the register

@@ -16,9 +16,11 @@ at the 256 bound, drawing) and the run-time branches (randomized inertia,
 uniform init, a gbest interval of 2) both; and the first-minimum rule on
 exact ties (``tests/test_torch_fused.py``'s tie and all-colliding cases);
 NaN first on a block whose fitness values mix NaN with numbers (the plain
-twin's ``torch.argmin``), at both short bounds and in the trees' tree loop
-(``fused_solve_tree_kernel``: the dual arm and the humanoid, their ties
-across warps, and three on-demand twins built by g++ as well). A pose
+twin's ``torch.argmin``), at both short bounds and in the tree loop
+(``fused_solve_tree_kernel``: the dual arm, the humanoid, reference_arm and
+snake_30dof at their thread bounds, drawing and replay, gbest every other
+iteration, their ties across warps, and three on-demand twins built by g++
+as well). A pose
 with a NaN angle in a capsule scene is no hit, in JAX's collider and
 solver, the plain twin and kernel A alike; in a box scene, the penalty.
 Besides, ``kernel_a_layout``'s choice of the bound: 256 threads up to 256
@@ -171,28 +173,38 @@ def _chip_smoke():
     return mod
 
 
+# The zoo models whose twins with the orientation term the host tests build
+# on demand (chip_smoke.py's ON_DEMAND_CASES has the dual arm's).
+ORIENTATION_TWINS = {"humanoid_orientation": "humanoid_45dof",
+                     "reference_arm_orientation": "reference_arm"}
+
+
 def _od_case(tag, s, rng):
     """``(spec, pso, fit, meta, swarm, num_obstacles, orientation)``: a
-    ``chip_smoke.py`` on-demand case (its cut recipe), or the humanoid with
-    the orientation term."""
+    ``chip_smoke.py`` on-demand case (its cut recipe), or a zoo model of
+    ``ORIENTATION_TWINS`` with the orientation term (its preset cut to 4
+    iterations)."""
     smoke = _chip_smoke()
-    if tag == "humanoid_orientation":
+    if tag in ORIENTATION_TWINS:
         from ikpso_tpu_torch.harness.trees import tree_configs
 
-        _, pso, fit = tree_configs("humanoid_45dof")
+        model = ORIENTATION_TWINS[tag]
+        _, pso, fit = tree_configs(model)
         pso = dataclasses.replace(pso, iterations=4)
         fit = dataclasses.replace(fit, orientation_weight=1.0)
-        spec, batched = smoke._problem("humanoid_45dof", s, rng, "cpu", orientation=True)
+        spec, batched = smoke._problem(model, s, rng, "cpu", orientation=True)
         meta, swarm = smoke._packed(spec, batched, fit, use_orientation=True)
         return spec, pso, fit, meta, swarm, 0, True
     spec, pso, fit, _, meta, swarm, obs, orient = smoke.od_case(tag, "cpu", s, rng)
     return spec, pso, fit, meta, swarm, 0 if obs is None else obs.count, orient
 
 
-# The on-demand keys the host tests build: the trees' twins with the
-# orientation term (the tree loop) and with the box scene (dual_arm_box: the
-# general loop, which its register budget keeps).
-OD_TREE_CASES = ("dual_arm_box", "dual_arm_orientation", "humanoid_orientation")
+# The on-demand keys the host tests build: the twins with the orientation
+# term of the trees and reference_arm (the tree loop, at the prebuilt
+# topology's thread bound) and the dual arm's with the box scene
+# (dual_arm_box: the general loop, which its register budget keeps).
+OD_TREE_CASES = ("dual_arm_box", "dual_arm_orientation", "humanoid_orientation",
+                 "reference_arm_orientation")
 
 
 def _od_key(spec, fit, n_obs, orient):
@@ -350,12 +362,13 @@ def test_short_chain_source_keeps_the_first_minimum(host_lib, monkeypatch, threa
 
 
 @pytest.mark.parametrize("threshold", [-1.0, 2.0])  # every swarm; some of them
-@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof", "snake_30dof"])
+@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof", "snake_30dof",
+                                   "reference_arm"])
 def test_general_kernel_source_matches_the_plain_solve(host_lib, monkeypatch, model,
                                                        threshold):
-    # The register layout with v and lbest in shared memory: the trees'
-    # tree loop (fused_solve_tree_kernel) and snake_30dof's
-    # fused_solve_kernel. Uniform init, randomized inertia and the re-kick
+    # The register layout with v and lbest in shared memory: the tree loop
+    # (fused_solve_tree_kernel) of the trees, snake_30dof and reference_arm,
+    # each at its own thread bound. Uniform init, randomized inertia and the re-kick
     # every 2 iterations, of every swarm or above a threshold that the
     # block argmin's winning value decides, drawing and replay.
     rng = np.random.default_rng(30)
@@ -372,10 +385,13 @@ def test_general_kernel_source_matches_the_plain_solve(host_lib, monkeypatch, mo
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof"])
+@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof", "reference_arm",
+                                   "snake_30dof"])
 def test_tree_loop_source_refreshes_every_other_iteration(host_lib, monkeypatch, model):
-    # The tree loop's refresh and kick schedules (countdowns at the dual
-    # arm's 1,024-thread bound, it % interval at the humanoid's 512): gbest
+    # The tree loop's refresh and kick schedules (countdowns where a thread
+    # has fewer than 128 registers, the dual arm's 1,024-thread bound; it %
+    # interval at 128, the humanoid's 512 and the 256 of reference_arm and
+    # snake_30dof at two blocks an SM): gbest
     # every 2 iterations and the re-kick every 4, canonical inertia,
     # hybrid init, drawing and replay, bit for bit against the plain twin.
     rng = np.random.default_rng(41)
@@ -394,10 +410,10 @@ def test_tree_loop_source_refreshes_every_other_iteration(host_lib, monkeypatch,
 
 @pytest.mark.parametrize("tag", OD_TREE_CASES)
 def test_tree_loop_on_demand_source_matches_the_plain_solve(od_host_libs, monkeypatch, tag):
-    # The trees' twins built on demand: the dual arm and the humanoid with
-    # the orientation term take the tree loop, dual_arm_box (the box scene)
-    # the general loop; drawing and replay at P = 64, bit for bit against
-    # the plain twin.
+    # The twins built on demand: the dual arm, the humanoid and
+    # reference_arm with the orientation term take the tree loop,
+    # dual_arm_box (the box scene) the general loop; drawing and replay at
+    # P = 64, bit for bit against the plain twin.
     rng = np.random.default_rng(24)
     s, p = 3, 64
     spec, pso, fit, meta, swarm, n_obs, orient = _od_case(tag, s, rng)
@@ -419,11 +435,13 @@ def test_tree_loop_on_demand_source_matches_the_plain_solve(od_host_libs, monkey
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof"])
+@pytest.mark.parametrize("model", ["dual_arm_14dof", "humanoid_45dof", "reference_arm",
+                                   "snake_30dof"])
 def test_tree_loop_tie_goes_to_the_least_particle_id(host_lib, monkeypatch, model):
-    # The trees' tree loop: the zoo tree with zero-length effector links
-    # (the effectors then ignore their own node's angles, so those DOFs
-    # are free) and limits of +-pi. Particles 20 (warp 0) and 40 (warp 1) step onto the goal
+    # The tree loop: the zoo tree with zero-length effector links (the
+    # effectors then ignore their own node's angles, so those DOFs are free;
+    # reference_arm's three effector children have no length already) and
+    # limits of +-pi. Particles 20 (warp 0) and 40 (warp 1) step onto the goal
     # in every DOF the effectors see and tie exactly; every other particle
     # steps half as far. The free DOFs differ by particle, so gbest must
     # carry particle 20's: the first minimum by id across the warp slots.
@@ -465,7 +483,8 @@ def test_tree_loop_tie_goes_to_the_least_particle_id(host_lib, monkeypatch, mode
 @pytest.mark.parametrize("nan_ids,first", [((40, 50), 40), ((50, 5), 5)])
 @pytest.mark.parametrize("model,threads", [("arm_7dof", 256), ("arm_7dof", 1024),
                                            ("dual_arm_14dof", 1024),
-                                           ("humanoid_45dof", 512)])
+                                           ("humanoid_45dof", 512),
+                                           ("reference_arm", 256), ("snake_30dof", 256)])
 def test_kernel_a_source_puts_nan_first(host_lib, monkeypatch, model, threads, nan_ids,
                                         first):
     # A block whose lvals mix NaN with numbers: uniform init with NaN in
@@ -659,6 +678,7 @@ def test_short_static_bytes_match_the_kernels(tmp_path):
     # and the orientation term.
     tree = [("DualArm14", c, o, 1024) for c, o in ((0, False), (1, False), (0, True))]
     tree += [("Humanoid45", 0, o, 512) for o in (False, True)]
+    tree += [("ReferenceArm", 0, False, 256), ("Snake30", 0, False, 256)]
     main = tmp_path / "static.cpp"
     main.write_text('#include <cstdio>\n#include "fused_solve.cuh"\nint main() {\n' + "".join(
         f'  std::printf("%zu\\n", sizeof(ikpso::{kind}<ikpso::{t}, {c}, '
@@ -673,6 +693,7 @@ def test_short_static_bytes_match_the_kernels(tmp_path):
                                           text=True).stdout.split()]
     specs = {"Arm7Dof": library.arm_7dof()[0], "Arm6Dof": library.arm_6dof()[0],
              "DualArm14": library.dual_arm_14dof()[0],
-             "Humanoid45": library.humanoid_45dof()[0]}
+             "Humanoid45": library.humanoid_45dof()[0],
+             "ReferenceArm": library.reference_arm()[0], "Snake30": library.snake_30dof()[0]}
     assert got == ([kernels.short_static_bytes(specs[t], c, o, th) for t, c, o, th in cases]
                    + [kernels.tree_static_bytes(specs[t], c, o, th) for t, c, o, th in tree])

@@ -83,10 +83,10 @@ def test_traits_match_their_python_mirrors():
     placement, default = _trait("StatePlacement")
     assert default == "kRegisters" and set(placement.values()) == {"kShared"}
     assert sorted(placement) == sorted(kernels.SHARED_IDS)
-    # Two blocks an SM only where v and lbest left the registers of a
-    # 256-thread topology.
+    # Three blocks an SM only where v and lbest left the registers of a
+    # 256-thread topology (the tree loop's reference_arm and snake_30dof).
     min_blocks, default = _trait("KernelAMinBlocks")
-    assert default == "1" and set(min_blocks.values()) == {"2"}
+    assert default == "1" and set(min_blocks.values()) == {"3"}
     assert all(t in kernels.SHARED_IDS and kernels.MAX_PARTICLES[t] == 256
                for t in min_blocks)
     # The tree loop: trees that stream their draws and keep v and lbest in
@@ -295,12 +295,15 @@ def test_every_config_document_fits_a_block(name):
 
 def test_each_tree_takes_its_measured_loop():
     # kernel_a_layout's choice per tree (TREE_LOOP_IDS and on_demand_key, from
-    # the pairs on an H100 in PERF.md): the humanoid and the dual arm run the
-    # tree loop, their twins with the orientation term too; with a scene, the distance term or exact trig they keep the
-    # general loop (dual_arm_box's tree loop spilled), as do reference_arm,
-    # snake_30dof and a tree of their own; hand21 keeps its cluster layout.
+    # the pairs on an H100 in PERF.md): the humanoid, the dual arm,
+    # reference_arm and snake_30dof (at their 256-thread bound) run the tree
+    # loop, their twins with the orientation term too; with a scene, the
+    # distance term or exact trig they keep the general loop (dual_arm_box's
+    # tree loop spilled), as does a tree of its own; hand21 keeps its
+    # cluster layout.
     dual, hum = library.dual_arm_14dof()[0], library.humanoid_45dof()[0]
-    for spec, p in ((dual, 1024), (hum, 512)):
+    ref, snake = model_spec("reference_arm")[0], model_spec("snake_30dof")[0]
+    for spec, p in ((dual, 1024), (hum, 512), (ref, 256), (snake, 256)):
         lay = kernels.kernel_a_layout(spec, p)
         assert (lay.tree, lay.placement, lay.scratch, lay.cluster, lay.threads) == (
             True, "shared", False, 0, p)
@@ -316,8 +319,11 @@ def test_each_tree_takes_its_measured_loop():
     box = load_config(str(CONFIG_DIR / "dual_arm_box.json"))
     assert not kernels.kernel_a_layout(box.spec, box.num_particles, box.obstacles.count,
                                        "box").tree
-    for model in ("reference_arm", "snake_30dof"):
-        assert not kernels.kernel_a_layout(model_spec(model)[0], 256).tree
+    # reference_arm's row (tree_row(21) = 52 floats, 13 float4) and
+    # snake_30dof's (68 floats) at P = 256.
+    assert kernels.tree_row(ref.dof) == 52 and kernels.tree_row(snake.dof) == 68
+    assert kernels.kernel_a_layout(ref, 256).smem_bytes - 4 * (
+        MetaLayout(ref).meta_size + 3) // 16 * 16 == 53_248
     mid = _tree([-1, 0, 1, 2, 3, 4, 5, 6, 1, 8], [7, 9])
     assert not kernels.on_demand_key(mid, 0, False).tree
     assert not kernels.kernel_a_layout(mid, 512).tree

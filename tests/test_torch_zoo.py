@@ -166,8 +166,14 @@ def test_zoo_tile_matches_pallas_kernel_and_jnp_fitness(name):
 
 # (c) Kernel A's plain version against the interpreted JAX megakernel.
 # snake_30dof with a re-kick every iteration above a threshold, snake:20
-# with hybrid init, and snake:43 (D=129: two 128-lane output rows in JAX).
+# with hybrid init, snake:43 (D=129: two 128-lane output rows in JAX), and
+# reference_arm at its preset's update and fitness (warm init, canonical
+# inertia, no re-kick; position only, no distance term): the instantiation
+# its path runs, which tests/test_torch_fused_host.py holds bit for bit to
+# this plain version.
 REPLAY = {
+    "reference_arm": dict(CANONICAL, init_mode="warm", rekick_scale=0.5,
+                          rekick_threshold=1e-6),
     "snake_30dof": dict(CANONICAL, init_mode="warm", rekick_interval=1, rekick_scale=0.5,
                         rekick_threshold=1e-6),
     "snake:20": dict(CANONICAL, init_mode="hybrid"),
@@ -184,6 +190,10 @@ def test_zoo_replay_matches_jax_interpreted_kernel(name):
     fit_j = JFit(angle_weight=0.0, distance_weight=0.0)
     meta_j, swarm_j = _jax_packs(spec_j, batched_j, fit_j)
     pso = convert.pso_config_from(pso_j)
+    if name == "reference_arm":  # the preset's base solve, cut to 2 iterations
+        _, pso_pre, fit_pre = trees.tree_configs(name)
+        assert pso == dataclasses.replace(pso_pre, iterations=2)
+        assert convert.fitness_config_from(fit_j) == fit_pre
     u = rng.random((s, num_draws(pso), spec_j.dof, p), dtype=np.float32)
     limits_j = jnp.stack([spec_j.min_rotation[1:].reshape(-1),
                           spec_j.max_rotation[1:].reshape(-1)])

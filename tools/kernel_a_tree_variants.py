@@ -1,9 +1,11 @@
 """Kernel A on the register-layout trees in design variants, side by side on the card.
 
-The trees (``DualArm14``, ``Humanoid45``) and their on-demand twins
-(``dual_arm_box``: the dual arm among boxes; the dual arm and the humanoid
-with the orientation term) run kernel A's register layout. Each variant
-runs the same solves through ``pso/fused.py``'s wrapper; the cases are
+The trees (``DualArm14``, ``Humanoid45``), ``ReferenceArm`` and ``Snake30``
+(reference_arm and snake_30dof, each at a 256-thread bound) and the trees'
+on-demand twins (``dual_arm_box``: the dual arm among boxes; the dual arm
+and the humanoid with the orientation term) run kernel A's register
+layout. Each variant runs the same solves through ``pso/fused.py``'s
+wrapper; the cases are
 timed by CUDA events in turns (v1, v2, ..., then in reverse, ``--rounds``
 times) and every variant's output is held bit for bit to the first's. The
 ptxas lines of every variant's tree kernels and one trip of each one's PSO
@@ -16,7 +18,10 @@ Variants: ``final`` (the sources and rules as they are), ``general``
 ``[D][P]`` planes), ``keep_root`` (the tree loop with the walk holding the
 root's frame in registers, ``kReloadRoot`` off), ``key_per_group`` (the
 tree loop reading the Philox key for each group of an update's draws at
-every bound, ``kKeyOnce`` off), ``tree_box`` (dual_arm_box's key in the tree loop, which the
+every bound, ``kKeyOnce`` off), ``mb2`` and ``mb4`` (reference_arm's and
+snake_30dof's ``KernelAMinBlocks`` 2 and 4 instead of 3, so at most 128 and
+64 registers; the key read once an update at 128, for each group at 64, as
+the rule has it), ``tree_box`` (dual_arm_box's key in the tree loop, which the
 rule keeps off with a scene), ``parent`` (``--parent DIR``: another checkout's
 kernel A, its own layout), and the cluster layout
 (``csrc/fused_solve_cluster.cuh``: the tree's on-demand key with the
@@ -30,6 +35,8 @@ threads. A header of other bounds is a copy of ``csrc`` under
 
 Cases: humanoid_45dof (S=16,384, P=512, 60 iterations) and its twin with
 the orientation term, dual_arm_14dof (S=262,144, P=1,024, 8 iterations),
+reference_arm (S=262,144, P=256, 100 iterations), snake_30dof (S=65,536,
+P=256, 4 iterations, a re-kick every 2),
 dual_arm_box (the config document's recipe among its boxes, S=262,144 and
 S=4,096) and the dual arm with the orientation term (S=4,096), Philox
 draws, the presets' recipes.
@@ -66,9 +73,23 @@ CLUSTER = {"cl4_256x1": (4, 256, 1), "cl4_256x2": (4, 256, 2), "cl2_512x1": (2, 
 # The lines of the cluster header that set its bounds.
 CLUSTER_THREADS_LINE = "constexpr int kClusterThreads = 256;\n"
 CLUSTER_BOUNDS_LINE = "__launch_bounds__(kClusterThreads, 1) fused_solve_tree_cluster_kernel("
-# The tree loop's traits of the prebuilt trees.
-TREE_TRAITS = ("struct TreeLoop<DualArm14> {\n  static constexpr bool value = true;",
-               "struct TreeLoop<Humanoid45> {\n  static constexpr bool value = true;")
+# The tree loop's traits of the prebuilt topologies.
+TREE_TRAITS = tuple(f"struct TreeLoop<{t}> {{\n  static constexpr bool value = true;"
+                    for t in ("DualArm14", "Humanoid45", "ReferenceArm", "Snake30"))
+# The least blocks an SM of reference_arm's and snake_30dof's kernel A, and
+# the tree loop's rule for reading the key once an update.
+MIN_BLOCKS = tuple(f"struct KernelAMinBlocks<{t}> {{\n  static constexpr int value = 3;"
+                   for t in ("ReferenceArm", "Snake30"))
+KEY_ONCE = ("constexpr bool kKeyOnce =\n"
+            "      65536 / (KernelAThreads<T>::value * KernelAMinBlocks<T>::value) > 64;")
+
+
+def min_blocks(b):
+    """The replacements of a variant at ``b`` blocks an SM."""
+    return {"fused_solve.cuh": [(m, m.replace("value = 3;", f"value = {b};"))
+                                for m in MIN_BLOCKS]}
+
+
 # Variants of the sources: name -> ({file: [(old, new)]}, the on-demand key's
 # tree loop, None to keep the key's).
 SOURCE_VARIANTS = {
@@ -76,9 +97,10 @@ SOURCE_VARIANTS = {
                 False),
     "keep_root": ({"fused_solve.cuh": [("constexpr bool kReloadRoot = !(REPLAY && O);",
                                         "constexpr bool kReloadRoot = false;")]}, None),
-    "key_per_group": ({"fused_solve.cuh": [(
-        "constexpr bool kKeyOnce = KernelAThreads<T>::value <= 512;",
-        "constexpr bool kKeyOnce = false;")]}, None),
+    "key_per_group": ({"fused_solve.cuh": [(KEY_ONCE, "constexpr bool kKeyOnce = false;")]},
+                      None),
+    "mb2": (min_blocks(2), None),
+    "mb4": (min_blocks(4), None),
 }
 # Variants of the on-demand keys alone: name -> (the key's tree loop, the
 # colliders it applies to).
@@ -87,6 +109,8 @@ KEY_VARIANTS = {"tree_box": (True, (1,))}
 CASES = {"humanoid_45dof S=16384": ("humanoid_45dof", 16_384, False),
          "humanoid_orientation S=16384": ("humanoid_45dof", 16_384, True),
          "dual_arm_14dof S=262144": ("dual_arm_14dof", 262_144, False),
+         "reference_arm S=262144": ("reference_arm", 262_144, False),
+         "snake_30dof S=65536": ("snake_30dof", 65_536, False),
          "dual_arm_box S=262144": ("dual_arm_box", 262_144, False),
          "dual_arm_box S=4096": ("dual_arm_box", 4096, False),
          "dual_arm_orientation S=4096": ("dual_arm_orientation", 4096, False)}
@@ -246,7 +270,7 @@ def main():
                         and CASES[name][0] not in chip_smoke.ON_DEMAND_CASES}
                 print(json.dumps({"root": str(root), "library": "prebuilt",
                                   "ptxas": ptxas_rows(log, lambda n: re.match(
-                                      r"fused_solve(_tree)?_kernel<Topology<(7|16),", n)),
+                                      r"fused_solve(_tree)?_kernel<Topology<(7|8|11|16),", n)),
                                   "sass": rows}), flush=True)
                 if not hasattr(prebuilt[root], "ikpso_kernel_a_smem_bytes"):
                     prebuilt[root] = chip_smoke._OlderLibrary(prebuilt[root])
