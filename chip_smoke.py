@@ -245,10 +245,11 @@ JAX_CONFIGS = {
 CONFIG_COLLIDING_PER_SWARM = 1e-4
 # Kernels A, B and C built on demand, each held bit for bit against its
 # plain twin: (source, particles, PSOConfig fields over the source's recipe
-# for the replays (None: the recipe), scene, orientation). A source is a
-# document of ikpso_tpu_torch/configs or a zoo model with its preset's
-# recipe; "near" is a 4-box ring at 0.35 of the chain's reach, where
-# random poses hit it.
+# for the replays (None: the recipe), scene, orientation[, FitnessConfig
+# fields over the source's]). A source is a document of
+# ikpso_tpu_torch/configs, a tree cut from one (CUT_TREES) or a zoo model
+# with its preset's recipe; "near" is a 4-box ring at 0.35 of the chain's
+# reach, where random poses hit it.
 ON_DEMAND_CASES = {
     "distance": ("arm7_locality", 128, None, None, False),
     "exact": ("arm7_exact", 128, None, None, False),
@@ -256,7 +257,21 @@ ON_DEMAND_CASES = {
     "hand21": ("hand21", 512, dict(iterations=8), None, False),
     "dual_arm_orientation": ("dual_arm_14dof", 1024, None, None, True),
     "snake20_box": ("snake:20", 256, None, "near", False),
+    # Keys of kernel A's tree-loop rule beside dual_arm_box and
+    # dual_arm_orientation: the dual arm with the capsule collider, the
+    # distance term or exact trig, and an on-demand tree of 36 DOFs with
+    # and without the box scene.
+    "dual_arm_capsule": ("dual_arm_box", 1024, None, "near", False,
+                         dict(collision_shape="capsule")),
+    "dual_arm_distance": ("dual_arm_14dof", 1024, None, None, False,
+                          dict(angle_weight=3.0, distance_weight=0.7)),
+    "dual_arm_exact": ("dual_arm_14dof", 1024, None, None, False, dict(trig_impl="exact")),
+    "hand12": ("hand12", 512, dict(iterations=8), None, False),
+    "hand12_box": ("hand12", 512, dict(iterations=8), "near", False),
 }
+# Trees cut from a config document: name -> (document, nodes kept, their
+# effectors). hand12 is hand21 less its last two fingers: 13 nodes, 36 DOFs.
+CUT_TREES = {"hand12": ("hand21", 13, (4, 8, 12))}
 # Swarms of the kernel A replays and Philox runs (the scratch layout's
 # Philox run strides: more swarms than the grid holds).
 OD_REPLAY_SWARMS, OD_PHILOX_SWARMS = 64, {"hand21": 2048, "snake20_box": 2048}
@@ -264,7 +279,10 @@ OD_REPLAY_SWARMS, OD_PHILOX_SWARMS = 64, {"hand21": 2048, "snake20_box": 2048}
 # and C (P=1,024) against theirs (swarms).
 OD_TIMED = {"distance": (65_536, 65_536, 1024), "exact": (65_536, 65_536, 1024),
             "dual_arm_box": (4096, 8192, 256), "hand21": (1024, 8192, 256),
-            "dual_arm_orientation": (4096, 8192, 256), "snake20_box": (1024, 8192, 256)}
+            "dual_arm_orientation": (4096, 8192, 256), "snake20_box": (1024, 8192, 256),
+            "dual_arm_capsule": (4096, 8192, 256), "dual_arm_distance": (4096, 8192, 256),
+            "dual_arm_exact": (4096, 8192, 256), "hand12": (1024, 8192, 256),
+            "hand12_box": (1024, 8192, 256)}
 POLISH_CARD_CPU_ATOL = 1e-5  # rad: the tensor polish, card against CPU
 D_RTOL = 1e-6  # kernel D vs plain: fmaf vs a float64 FMA, libdevice sinf vs torch.sin
 D_STEPS = 4  # a step count at which every recurrence stays finite
@@ -567,9 +585,12 @@ AGAINST_TREES = (("dual_arm_14dof", 262_144, 3), ("humanoid_45dof", 16_384, 3),
                  ("reference_arm", 262_144, 1), ("snake_30dof", 65_536, 3),
                  ("snake:16", 65_536, 3), ("snake:20", 65_536, 3), ("snake:35", 65_536, 1),
                  ("snake:50", 65_536, 1))
-AGAINST_ON_DEMAND = (("dual_arm_box", 4096, 3), ("dual_arm_orientation", 4096, 3),
-                     ("hand21", 16_384, 1), ("snake20_box", 1024, 3),
-                     ("distance", 65_536, 10), ("exact", 65_536, 10))
+AGAINST_ON_DEMAND = (("dual_arm_box", 4096, 3), ("dual_arm_box", 262_144, 1),
+                     ("dual_arm_orientation", 4096, 3), ("hand21", 16_384, 1),
+                     ("snake20_box", 1024, 3), ("distance", 65_536, 10),
+                     ("exact", 65_536, 10), ("dual_arm_capsule", 4096, 3),
+                     ("dual_arm_distance", 4096, 3), ("dual_arm_exact", 4096, 3),
+                     ("hand12", 16_384, 1), ("hand12_box", 16_384, 1))
 
 
 def phase_against(other_root, device, pairs=10):
@@ -584,8 +605,8 @@ def phase_against(other_root, device, pairs=10):
     placements); and the on-demand cases, where this build's key in each
     state placement (in the scratch layout, at either thread bound; a
     cluster key in its other layout, and in the cluster layout at another
-    cluster size) meets the other build's key (for a cluster key, the
-    scratch layout's key, as the other build's rule had it). Each
+    cluster size) meets the other build's key as the other checkout's
+    rules route it (its ``on_demand_key``). Each
     contender's row holds its placement, shared-memory bytes, ptxas lines,
     times, median and spread; a line per case, then one for all."""
     import dataclasses
@@ -616,19 +637,18 @@ def phase_against(other_root, device, pairs=10):
          changed=changed, only_this=sorted(mine.keys() - theirs.keys()),
          only_other=sorted(theirs.keys() - mine.keys()))
 
-    # On-demand contenders: this build's key, the other build's same key
-    # (the same placement and thread bound, where its sources read them;
-    # sources that predate IKPSO_OD_SHARED run their own placement), and
-    # this build's key in the other placements (in the scratch layout, at
-    # either bound).
+    # On-demand contenders: this build's key, the other build's key as the
+    # other checkout's rules route it (its utils/kernels.py; sources that
+    # predate IKPSO_OD_SHARED run their own placement), and this build's
+    # key in the other placements (in the scratch layout, at either bound).
     od_contenders, od_cluster, keys = {}, {}, od_keys()
+    theirs_keys = od_keys(checkout_kernels(other_root))
     for tag, _, _ in AGAINST_ON_DEMAND:
         key = keys[tag]
-        other = key
+        other = theirs_keys[tag]
         if not (key.scratch or key.stream or key.shared):
             alts = {}  # a short chain: its one kernel
         elif key.cluster:
-            other = key._replace(cluster=False)
             spec_c, _, fit_c, p_c, meta_c, swarm_c, obs_c, orient_c = od_case(
                 tag, "cpu", 1, np.random.default_rng(0))
             rule = kernel_a_layout(spec_c, fit_c, swarm_c, p_c,
@@ -2659,6 +2679,42 @@ def phase_bounds(times, counts, roof_timed, roof_counts, card):
     return out
 
 
+# The on-demand keys kernel A's tree-loop rule (kernels.on_demand_key) was
+# measured on, ON_DEMAND_CASES tags: the tree loop (fused_solve_tree_kernel)
+# for each but dual_arm_box, which keeps the general loop.
+TREE_LOOP_KEYS = ("dual_arm_box", "dual_arm_capsule", "dual_arm_distance", "dual_arm_exact",
+                  "hand12", "hand12_box")
+
+
+def phase_tree_loop_keys(times, bounds, od_ptxas, trees):
+    """Each of ``TREE_LOOP_KEYS``: the loop it runs, its ptxas lines
+    (registers and spill bytes of the Philox and the replay instantiation),
+    and its kernel A time at ``OD_TIMED``'s shape beside its bound (phase
+    bounds) and its issue-rate time there (``trees``, sass_kernel_a's rows,
+    scaled from the ``TREE_SASS`` swarms to the timed ones)."""
+    rows = {}
+    for tag in TREE_LOOP_KEYS:
+        swarms = OD_TIMED[tag][0]
+        kernel_a = [r for r in od_ptxas[tag] if r["kernel"].startswith("fused_solve")]
+        row = trees.get(tag)
+        rows[tag] = {
+            "loop": "tree" if any("_tree_kernel" in r["kernel"] for r in kernel_a)
+                    else "general",
+            "ptxas": [{"kernel": r["kernel"], "registers": r.get("registers"),
+                       "spill_store_bytes": r.get("spill_stores", 0),
+                       "spill_load_bytes": r.get("spill_loads", 0)} for r in kernel_a],
+            "swarms": swarms, "ms": times[f"a_{tag}_ms"],
+            "bound_ms": bounds[f"A {tag}"]["bound_ms"],
+            "bound_by": bounds[f"A {tag}"]["bound_by"],
+            "issue_bound_ms": None if row is None
+                              else row["issue_bound_ms"] * swarms / TREE_SASS[tag][0],
+            "loop_trip_instructions": None if row is None else row["path_instructions"]}
+    emit("tree_loop_keys", keys=rows,
+         max_spill_store_bytes=max(p["spill_store_bytes"] for r in rows.values()
+                                   for p in r["ptxas"]))
+    return rows
+
+
 def _config(name, device):
     from ikpso_tpu_torch.utils.configio import load_config
 
@@ -2692,14 +2748,18 @@ def od_case(tag, device, swarms, rng, philox=False):
     from ikpso_tpu_torch.models import library
     from ikpso_tpu_torch.ops import fk as fk_ops
 
-    source, particles, cut, scene, orient = ON_DEMAND_CASES[tag]
+    source, particles, cut, scene, orient, *fields = ON_DEMAND_CASES[tag]
     if source in CONFIGS:
         cfg = _config(source, device)
         spec, base, pso, fit = cfg.spec, cfg.problem, cfg.pso, cfg.fitness
+    elif source in CUT_TREES:
+        spec, base, pso, fit = _cut_tree(source, device)
     else:
         spec, base = model_spec(source, device)
         _, pso, fit = tree_configs(source)
         fit = dataclasses.replace(fit, orientation_weight=1.0 if orient else 0.0)
+    if fields:
+        fit = dataclasses.replace(fit, **fields[0])
     if cut and not philox:
         pso = dataclasses.replace(pso, **cut)
     obs = _near_scene(spec, device) if scene == "near" else None
@@ -2717,14 +2777,33 @@ def od_case(tag, device, swarms, rng, philox=False):
     return spec, pso, fit, particles, meta, swarm, obs, orient
 
 
+def _cut_tree(name, device):
+    """``(spec, problem, pso, fit)`` of a ``CUT_TREES`` tree: its document's
+    first nodes, their limits, lengths and effector weights, the document's
+    recipe."""
+    from ikpso_tpu_torch.models.chain import IKProblem, make_chain_spec
+
+    doc, n, effectors = CUT_TREES[name]
+    cfg = _config(doc, device)
+    full, base = cfg.spec, cfg.problem
+    spec = make_chain_spec(full.parent[:n], full.length[:n].cpu(),
+                           full.min_rotation[:n].cpu(), full.max_rotation[:n].cpu(),
+                           effectors, full.effector_weight[:n].cpu(), device=device)
+    problem = IKProblem(pose=base.pose[:n], origin=base.origin,
+                        targets=base.targets[:len(effectors)])
+    return spec, problem, cfg.pso, cfg.fitness
+
+
 def _t(a, device):
     import torch
 
     return torch.as_tensor(a, device=device)
 
 
-def od_keys():
-    """The on-demand library of every ``ON_DEMAND_CASES`` case."""
+def od_keys(rules=None):
+    """The on-demand library of every ``ON_DEMAND_CASES`` case, by this
+    checkout's rules or by ``rules``, another checkout's ``utils/kernels.py``
+    (``checkout_kernels``), as this checkout's key type."""
     from ikpso_tpu_torch.pso.fused import uses_distance
     from ikpso_tpu_torch.utils import kernels
 
@@ -2738,9 +2817,21 @@ def od_keys():
             uses_distance(fit), fit.trig_impl)
         if topo != kernels.ON_DEMAND:
             raise AssertionError(f"{tag} routes to a prebuilt kernel")
-        keys[tag] = kernels.on_demand_key(spec, collider, o, uses_distance(fit),
-                                          fit.trig_impl == "exact")
+        keys[tag] = kernels.OnDemandKey(*(rules or kernels).on_demand_key(
+            spec, collider, o, uses_distance(fit), fit.trig_impl == "exact"))
     return keys
+
+
+def checkout_kernels(root):
+    """``<root>/ikpso_tpu_torch/utils/kernels.py`` imported as a module of its
+    own: another checkout's routing rules (its ``on_demand_key``)."""
+    import importlib.util
+
+    path = Path(root).resolve() / "ikpso_tpu_torch" / "utils" / "kernels.py"
+    spec = importlib.util.spec_from_file_location(f"kernels_at_{path.parents[2].name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def od_variant(tag):
@@ -3731,6 +3822,12 @@ TREE_SASS = {
                       r"fused_solve(?:_tree)?_kernelINS_8TopologyILi8E\w*?ELi0ELb0ELb0EEEv"),
     "snake_30dof": (65_536, 256, 4,
                     r"fused_solve(?:_tree)?_kernelINS_8TopologyILi11E\w*?ELi0ELb0ELb0EEEv"),
+    **{case: (swarms, particles, iterations,
+              rf"fused_solve(?:_tree)?_kernelINS_16OnDemandTopology\w*?ELi{c}ELb0ELb0EEEv")
+       for case, swarms, particles, iterations, c in (
+           ("dual_arm_capsule", 262_144, 1024, 8, 2), ("dual_arm_distance", 262_144, 1024, 8, 0),
+           ("dual_arm_exact", 262_144, 1024, 8, 0), ("hand12", 16_384, 512, 60, 0),
+           ("hand12_box", 16_384, 512, 60, 1))},
 }
 
 
@@ -3846,8 +3943,8 @@ def phase_sass_kernel_a(other_root=None, swarms=HEADLINE_SWARMS, particles=128,
     warp (the init's draws and evaluation are about one trip) at one warp
     instruction a scheduler a clock, over the card's SMs at its maximum SM
     clock. The trees' kernel A likewise (tree_sass_rows: the prebuilt
-    trees, and dual_arm_box's on-demand library where it is built), in
-    ``trees``. Returns this build's row."""
+    trees, and the on-demand cases' libraries where they are built), in
+    ``trees``. Returns this build's row and its trees' rows."""
     import torch
 
     from ikpso_tpu_torch.utils import kernels
@@ -3886,7 +3983,7 @@ def phase_sass_kernel_a(other_root=None, swarms=HEADLINE_SWARMS, particles=128,
     emit("sass_kernel_a", **out, trees=trees, sms=sms, max_sm_hz=max_hz,
          shape={"swarms": swarms, "particles": particles, "iterations": iterations},
          ok=True)
-    return out["this"]
+    return out["this"], trees["this"]
 
 
 # This slice's paths: GJK on the card (agreement with SAT, and the GJK
@@ -4647,7 +4744,7 @@ def run_phases(device, card, od_ptxas):
     phase_sass_sincos()
     phase_sass_bisection()
     e_per_call = phase_sass_philox()
-    a_sass = phase_sass_kernel_a()
+    a_sass, a_trees = phase_sass_kernel_a()
     phase_tensor_polish(device)
     paths = {
         "headline": phase_headline(device, HEADLINE_SWARMS, card),
@@ -4689,6 +4786,7 @@ def run_phases(device, card, od_ptxas):
     t.update(step_t)
     counts.update(step_counts)
     bounds = phase_bounds(t, counts, roof_timed, roof_counts, card)
+    phase_tree_loop_keys(t, bounds, od_ptxas, a_trees)
 
     def by_path(name):
         return {k: v[name] for k, v in paths.items()}

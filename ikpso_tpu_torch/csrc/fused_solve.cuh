@@ -830,8 +830,9 @@ static cudaError_t launch_fused_solve_short(bool replay, const float* meta, int 
 
 // ---------------------------------------------------------------------------
 // Kernel A's register-layout trees (TreeLoop: DualArm14, Humanoid45,
-// ReferenceArm, Snake30 and an on-demand twin placed so),
-// fused_solve_tree_kernel: fused_solve_kernel's
+// ReferenceArm, Snake30, and an on-demand key placed so: their twins with
+// the orientation or distance term, exact trig or a scene, and the trees
+// of 18-45 DOFs), fused_solve_tree_kernel: fused_solve_kernel's
 // arithmetic, draws and first-minimum rule, op for op, with the short
 // chains' devices for what issues around them and for the registers:
 //   - the walk's constants (the swarm row's head, meta's head) and the
@@ -848,7 +849,8 @@ static cudaError_t launch_fused_solve_short(bool replay, const float* meta, int 
 //     that x, the walk and the draws fit the registers without a spill (an
 //     H100 build: 128 registers for the humanoid, 64 for the dual arm at
 //     1,024 threads, 80 for reference_arm and snake_30dof at 256 threads
-//     and three blocks an SM, PERF.md);
+//     and three blocks an SM, PERF.md); with a scene at 64 registers also
+//     lval (from the particle's row) and the locality weights (kLean);
 //   - v and lbest in dynamic shared memory as one row a particle (v in
 //     [0, D4), lbest in [D4, 2 D4), D4 = D rounded up to 4; tree_row(D)
 //     floats, an odd number of float4, so the 8 threads of a 16-byte access
@@ -887,19 +889,24 @@ struct TreeLoop<Snake30> {
 };
 
 // A particle's row of v and lbest in fused_solve_tree_kernel: 2 D4 floats
-// rounded up to an odd number of float4.
+// rounded up to an odd number of float4 (2 D4 + 4: 2 D4 is a multiple of
+// 8), the first float after them lval with kLean.
 __host__ __device__ constexpr int tree_row(int D) {
   return round4(D) / 2 % 2 ? 2 * round4(D) : 2 * round4(D) + 4;
 }
 // fused_solve_tree_kernel's static shared memory: the short chains' (the
-// constants, the limits and the warp slots), then the swarm's Philox key and
-// the replay's base. Must match tree_static_bytes in
-// ikpso_tpu_torch/utils/kernels.py.
+// constants, the limits and the warp slots), then the swarm's Philox key,
+// the replay's base and the two locality weights over the joint count
+// (JointWeights, read there with kLean), its size a multiple of 16 bytes
+// (the card rounds a kernel's static shared memory so, and the launcher
+// subtracts this size from the opt-in maximum). Must match
+// tree_static_bytes in ikpso_tpu_torch/utils/kernels.py.
 template <class T, int C, bool O, int TH>
-struct TreeShared {
+struct __align__(16) TreeShared {
   ShortShared<T, C, O, TH> c;
   unsigned key[2];
   const float* u;
+  float jw[2];
 };
 // fused_solve_tree_kernel's dynamic shared memory: meta (M floats, rounded
 // up to 4: the scene boxes and, with a scene, the orientation weight), then
@@ -923,6 +930,25 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
   constexpr int kGroups = kD4 / 4;
   constexpr int kRow4 = tree_row(D) / 4;
   static_assert(kGroups <= 32, "a warp copies a row a float4 a lane");
+  static_assert(tree_row(D) > 2 * kD4, "lval's place in the row");
+  // Where a thread may hold more than 64 registers (the bound and the
+  // least blocks an SM leave it 65,536 / (threads x blocks)) the update
+  // reads the key once, and the refresh and kick schedules are it %
+  // interval, not countdowns held in registers: the humanoid (128) then
+  // fits without a spill and ran 9% faster than with the key read once a
+  // group, and reference_arm (80) fits only so; at 64 registers (the dual
+  // arm's 1,024-thread bound) only the key read once a group fits (an
+  // H100, PERF.md, tools/kernel_a_tree_variants.py).
+  constexpr bool kKeyOnce =
+      65536 / (KernelAThreads<T>::value * KernelAMinBlocks<T>::value) > 64;
+  // With a scene at 64 registers (the dual arm's capsule twin) the
+  // collider takes the registers that lval, the locality weights and the
+  // countdowns held across the solve: lval lives in the particle's row, the
+  // weights in static shared memory, read where the walk adds them, and the
+  // schedules are it % interval (the capsule twin spilled 24 bytes without,
+  // 0 with; the trees without a scene ran ~1% slower with such reads,
+  // PERF.md).
+  constexpr bool kLean = C != kNoCollider && !kKeyOnce;
   __shared__ __align__(16) TreeShared<T, C, O, KernelAThreads<T>::value> ts;
   Sh& sh = ts.c;
   extern __shared__ float smem[];  // meta, then the rows (tree_smem_bytes)
@@ -943,6 +969,11 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
   float4* const v4 = reinterpret_cast<float4*>(smem + round4(M)) + p * kRow4;
   float4* const lb4 = v4 + kGroups;
   if (p == 0) {
+    if constexpr (kLean) {
+      const JointWeights w = joint_weights<T>(meta);
+      ts.jw[0] = w.angle;
+      ts.jw[1] = w.distance;
+    }
     ts.key[0] = static_cast<unsigned>(seeds[2 * s]);
     ts.key[1] = static_cast<unsigned>(seeds[2 * s + 1]);
     ts.u = REPLAY ? uniforms + static_cast<long long>(s) * n_draws * D * P : nullptr;
@@ -962,18 +993,25 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
     if constexpr (!REPLAY) return nullptr;
     return *reinterpret_cast<const float* const volatile*>(&ts.u);
   };
-  const JointWeights jw = joint_weights<T>(sh.meta);
+  const JointWeights jw = kLean ? JointWeights{0.0f, 0.0f} : joint_weights<T>(sh.meta);
   const float row_slack = box_row_slack<T, C>(smem, sh.sw, scene);
   // The walk reads the root's frame again for each of its children
   // (RELOAD_ROOT), but in the replay with the orientation term, where ptxas
   // fits the walk without a spill only with the frame held (an H100 build:
   // PERF.md, tools/kernel_a_tree_variants.py).
   constexpr bool kReloadRoot = !(REPLAY && O);
+  auto weights = [&] {
+    if constexpr (kLean) {
+      const volatile float* w = ts.jw;
+      return JointWeights{w[0], w[1]};
+    } else {
+      return jw;
+    }
+  };
   auto eval = [&](const float (&xe)[D]) {
     const float* obs = C == kNoCollider ? sh.meta + meta_obs<T>() : smem + meta_obs<T>();
     return fk_fitness_walk<T, C, O, kReloadRoot>([&](int d) { return xe[d]; }, sh.meta,
-                                                 sh.sw, obs, [&] { return jw; }, scene,
-                                                 row_slack);
+                                                 sh.sw, obs, weights, scene, row_slack);
   };
   auto unpack = [](const float4 q, float (&r)[4]) {
     r[0] = q.x;
@@ -1016,11 +1054,25 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
       lb4[g] = make_float4(ls[0], ls[1], ls[2], ls[3]);
     }
   }
-  float lval = eval(x);
+  // lval: in the particle's row with kLean, else in a register.
+  float lval_reg = 0.0f;
+  volatile float* const s_lval = reinterpret_cast<float*>(lb4 + kGroups);
+  auto lval = [&]() -> float {
+    if constexpr (kLean) return *s_lval;
+    return lval_reg;
+  };
+  auto set_lval = [&](float v) {
+    if constexpr (kLean) {
+      *s_lval = v;
+    } else {
+      lval_reg = v;
+    }
+  };
+  set_lval(eval(x));
 
   int buf = 0;
   auto refresh = [&](float& best, int& win) -> const float4* {
-    const unsigned k = order_key(lval);
+    const unsigned k = order_key(lval());
     const unsigned wk = __reduce_min_sync(0xffffffffu, k);
     const unsigned wi =
         __reduce_min_sync(0xffffffffu, k == wk ? static_cast<unsigned>(p) : 0xffffffffu);
@@ -1049,16 +1101,7 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
   };
 
   const int dpi = (up.randomized ? 3 : 2) + (up.rekick_interval > 0 ? 1 : 0);
-  // Where a thread may hold more than 64 registers (the bound and the
-  // least blocks an SM leave it 65,536 / (threads x blocks)) the update
-  // reads the key once, and the refresh and kick schedules are it %
-  // interval, not countdowns held in registers: the humanoid (128) then
-  // fits without a spill and ran 9% faster than with the key read once a
-  // group, and reference_arm (80) fits only so; at 64 registers (the dual
-  // arm's 1,024-thread bound) only the key read once a group fits (an
-  // H100, PERF.md, tools/kernel_a_tree_variants.py).
-  constexpr bool kKeyOnce =
-      65536 / (KernelAThreads<T>::value * KernelAMinBlocks<T>::value) > 64;
+  constexpr bool kModSchedule = kKeyOnce || kLean;
   // Countdowns to the next gbest refresh and the next kick block start
   // (it % gbest_interval == 0; it % rekick_interval == 0 and it > 0).
   int refresh_in = 0;
@@ -1066,7 +1109,7 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
   const float4* g_row = reinterpret_cast<const float4*>(sh.lb[0][0]);
   for (int it = 0; it < iters; ++it) {
     bool kick, refresh_now;
-    if constexpr (kKeyOnce) {
+    if constexpr (kModSchedule) {
       kick = up.rekick_interval > 0 && it > 0 && it % up.rekick_interval == 0;
       refresh_now = it % up.gbest_interval == 0;
     } else {
@@ -1124,8 +1167,8 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
       v4[g] = make_float4(vs[0], vs[1], vs[2], vs[3]);
     }
     const float f = eval(x);
-    if (f < lval) {
-      lval = f;
+    if (f < lval()) {
+      set_lval(f);
 #pragma unroll
       for (int g = 0; g < kGroups; ++g) {
         lb4[g] = make_float4(x[4 * g], 4 * g + 1 < D ? x[4 * g + 1] : 0.0f,
@@ -1141,7 +1184,7 @@ __global__ void __launch_bounds__(KernelAThreads<T>::value, KernelAMinBlocks<T>:
   if (p == win) {
     const float* lb = reinterpret_cast<const float*>(lb4);
     for (int d = 0; d < D; ++d) out_gbest[static_cast<long long>(s) * D + d] = lb[d];
-    out_gval[s] = lval;
+    out_gval[s] = lval();
   }
 }
 

@@ -135,12 +135,19 @@ CLUSTER_MAX_DOF = 60
 # reference_arm and snake_30dof. Kept where it won at least 8 of 10 pairs
 # against the parent's kernel and no instantiation spills (an H100,
 # PERF.md, tools/kernel_a_tree_variants.py).
-# An on-demand twin of one (OnDemandKey.tree) follows it with the
-# orientation term alone (reference_arm's and snake_30dof's twins untimed):
-# with the box collider the dual arm's tree loop spilled 572 bytes at its
-# 64 registers (dual_arm_box keeps the general loop); a twin with the
-# distance term or exact trig, and every other tree, keeps the general
-# loop, unmeasured.
+# An on-demand key (OnDemandKey.tree) takes it wherever it streams its
+# draws and keeps v and lbest in shared memory and a block fits at its
+# thread bound (tree_fits): the twins of these with the orientation term,
+# the capsule collider, the distance term or exact trig, and the trees of
+# STREAM_DOF to SCRATCH_DOF DOFs of a user's config, with or without a
+# scene. Held to it on an H100: the dual arm's twins with the capsule
+# collider, the distance term and exact trig, and hand12 (36 DOFs) with
+# and without the box scene; the humanoid's, reference_arm's and
+# snake_30dof's twins with a scene follow the same rule, untimed.
+# The box scene at 64 registers a thread (a 1,024-thread bound:
+# dual_arm_box) keeps the general loop: the tree loop's forms that spilled
+# nothing there lost to it (the box narrow phase's state in shared memory,
+# or deferred to a queue a warp), and the one that won spilled.
 TREE_LOOP_IDS = (1, 3, 4, 5)
 
 # The prebuilt topologies whose v and lbest are in shared memory: the trees,
@@ -370,19 +377,33 @@ def on_demand_key(spec, collider: int, orientation: bool, distance: bool = False
     it branches (:func:`branches`), has at most :data:`CLUSTER_MAX_DOF`
     DOFs and a cluster of blocks holds its state at the topology's thread
     bound with :data:`SMEM_RESERVE` to spare, the cluster layout beside it
-    (:func:`tree_cluster` picks one a launch)."""
+    (:func:`tree_cluster` picks one a launch). One in the register layout
+    that streams its draws and keeps v and lbest in shared memory takes the
+    tree loop where its block fits (:func:`tree_fits`), but for the box
+    scene at 64 registers a thread (:data:`TREE_LOOP_IDS`)."""
     topo = _prebuilt_id(spec)
     threads = on_demand_threads(spec)
     scratch = topo is None and spec.dof > SCRATCH_DOF
     cluster = (scratch and spec.dof <= CLUSTER_MAX_DOF and branches(spec)
                and cluster_size(spec.dof, threads, SMEM_RESERVE // 4, 0) > 0)
     stream = scratch or (topo in STREAM_IDS if topo is not None else spec.dof >= STREAM_DOF)
-    tree = topo in TREE_LOOP_IDS and not (collider or distance or exact)
+    shared = on_demand_shared(spec, threads, scratch)
+    box_at_64 = collider == COLLIDERS["box"] and 65_536 // threads <= 64
+    tree = (stream and shared and not scratch and not box_at_64
+            and tree_fits(spec, collider, orientation, threads))
     return OnDemandKey(tuple(int(p) for p in spec.parent),
                        tuple(int(e) for e in spec.effector_idx), int(collider),
                        bool(orientation), bool(distance), bool(exact),
-                       threads, bool(stream), bool(scratch),
-                       on_demand_shared(spec, threads, scratch), bool(cluster), bool(tree))
+                       threads, bool(stream), bool(scratch), bool(shared), bool(cluster),
+                       bool(tree))
+
+
+def tree_fits(spec, collider: int, orientation: bool, threads: int) -> bool:
+    """Whether a block of the tree loop holds ``threads`` particles of
+    ``spec`` (:func:`tree_smem_bytes`, :func:`tree_static_bytes`) with
+    :data:`SMEM_RESERVE` to spare for meta."""
+    return (tree_smem_bytes(SMEM_RESERVE // 4, spec.dof, threads)
+            + tree_static_bytes(spec, collider, orientation, threads) <= SMEM_OPTIN)
 
 
 def tree_cluster(key: OnDemandKey, d: int, p: int, m: int, k: int) -> int:
@@ -483,9 +504,10 @@ def tree_smem_bytes(m: int, d: int, p: int) -> int:
 def tree_static_bytes(spec, collider: int, orientation: bool, threads: int) -> int:
     """The tree loop's static shared memory (``TreeShared`` in
     ``csrc/fused_solve.cuh``) at ``threads`` threads a block: the short
-    chains' (:func:`short_static_bytes`), then the Philox key and the
-    replay's base, 16 bytes."""
-    return short_static_bytes(spec, collider, orientation, threads) + 16
+    chains' (:func:`short_static_bytes`), then the Philox key, the replay's
+    base and the two locality weights, 24 bytes padded to 32 (16-byte
+    alignment)."""
+    return short_static_bytes(spec, collider, orientation, threads) + 32
 
 
 def short_static_bytes(spec, collider: int, orientation: bool, threads: int) -> int:

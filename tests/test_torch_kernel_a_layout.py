@@ -294,15 +294,17 @@ def test_every_config_document_fits_a_block(name):
 
 
 def test_each_tree_takes_its_measured_loop():
-    # kernel_a_layout's choice per tree (TREE_LOOP_IDS and on_demand_key, from
-    # the pairs on an H100 in PERF.md): the humanoid, the dual arm,
-    # reference_arm and snake_30dof (at their 256-thread bound) run the tree
-    # loop, their twins with the orientation term too; with a scene, the
-    # distance term or exact trig they keep the general loop (dual_arm_box's
-    # tree loop spilled), as does a tree of its own; hand21 keeps its
+    # kernel_a_layout's choice per tree (on_demand_key, from the pairs on an
+    # H100 in PERF.md): the humanoid, the dual arm, reference_arm and
+    # snake_30dof (at their 256-thread bound) run the tree loop, and so do
+    # their twins with the orientation term, a scene, the distance term or
+    # exact trig, but the box scene at 64 registers a thread (the dual arm's
+    # 1,024-thread bound: dual_arm_box keeps the general loop), and a tree
+    # of 18-45 DOFs of its own, with or without a scene; hand21 keeps its
     # cluster layout.
     dual, hum = library.dual_arm_14dof()[0], library.humanoid_45dof()[0]
     ref, snake = model_spec("reference_arm")[0], model_spec("snake_30dof")[0]
+    box = kernels.COLLIDERS["box"]
     for spec, p in ((dual, 1024), (hum, 512), (ref, 256), (snake, 256)):
         lay = kernels.kernel_a_layout(spec, p)
         assert (lay.tree, lay.placement, lay.scratch, lay.cluster, lay.threads) == (
@@ -312,29 +314,102 @@ def test_each_tree_takes_its_measured_loop():
         assert kernels.kernel_a_layout(spec, p, use_orientation=True).tree
         assert kernels.on_demand_key(spec, 0, True).tree
         for shape in ("box", "capsule"):
+            c = kernels.COLLIDERS[shape]
+            assert kernels.tree_fits(spec, c, False, p)
+            tree = spec is not dual or shape != "box"
             lay = kernels.kernel_a_layout(spec, p, 4, shape)
-            assert (lay.tree, lay.placement, lay.static_bytes) == (False, "shared", 0)
-        assert not kernels.kernel_a_layout(spec, p, use_distance=True).tree
-        assert not kernels.kernel_a_layout(spec, p, trig_impl="exact").tree
-    box = load_config(str(CONFIG_DIR / "dual_arm_box.json"))
-    assert not kernels.kernel_a_layout(box.spec, box.num_particles, box.obstacles.count,
-                                       "box").tree
+            assert (lay.tree, lay.placement) == (tree, "shared")
+            assert lay.static_bytes == (kernels.tree_static_bytes(spec, c, False, p)
+                                        if tree else 0)
+            if tree:
+                assert lay.smem_bytes == kernels.tree_smem_bytes(
+                    MetaLayout(spec, 4).meta_size, spec.dof, p)
+        assert kernels.kernel_a_layout(spec, p, use_distance=True).tree
+        assert kernels.kernel_a_layout(spec, p, trig_impl="exact").tree
+    cfg = load_config(str(CONFIG_DIR / "dual_arm_box.json"))
+    lay = kernels.kernel_a_layout(cfg.spec, cfg.num_particles, cfg.obstacles.count, "box")
+    assert not lay.tree and lay.smem_bytes <= kernels.SMEM_OPTIN
+    # The dual arm's row: v and lbest (20 floats each) and 4 more (lval with
+    # a scene at 64 registers), 44 floats (11 float4).
+    assert kernels.tree_row(dual.dof) == 44
     # reference_arm's row (tree_row(21) = 52 floats, 13 float4) and
     # snake_30dof's (68 floats) at P = 256.
     assert kernels.tree_row(ref.dof) == 52 and kernels.tree_row(snake.dof) == 68
     assert kernels.kernel_a_layout(ref, 256).smem_bytes - 4 * (
         MetaLayout(ref).meta_size + 3) // 16 * 16 == 53_248
+    # A tree of its own of 18-45 DOFs (27 here) runs the tree loop too, at
+    # its 512-thread bound.
     mid = _tree([-1, 0, 1, 2, 3, 4, 5, 6, 1, 8], [7, 9])
-    assert not kernels.on_demand_key(mid, 0, False).tree
-    assert not kernels.kernel_a_layout(mid, 512).tree
+    assert kernels.on_demand_key(mid, 0, False).tree
+    assert kernels.on_demand_key(mid, box, False).tree
+    lay = kernels.kernel_a_layout(mid, 512, 4, "box")
+    assert (lay.tree, lay.threads) == (True, 512)
     hand = load_config(str(CONFIG_DIR / "hand21.json")).spec
     assert (kernels.kernel_a_layout(hand, 512).cluster,
             kernels.kernel_a_layout(hand, 512).tree) == (2, False)
     # The macro reaches the generated source.
     assert "#define IKPSO_OD_TREE 1" in kernels.on_demand_source(
         kernels.on_demand_key(dual, 0, True))
+    assert "#define IKPSO_OD_TREE 1" in kernels.on_demand_source(
+        kernels.on_demand_key(hum, box, False))
     assert "#define IKPSO_OD_TREE 0" in kernels.on_demand_source(
-        kernels.on_demand_key(dual, 1, False))
+        kernels.on_demand_key(dual, box, False))
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_tree_loop_keys_match_the_kernels_bytes(tmp_path):
+    # Every on-demand key of chip_smoke.py's TREE_LOOP_KEYS (the dual arm
+    # among boxes and capsules, with the distance term or exact trig, hand12
+    # without and with boxes): on_demand_key's tree flag (the tree loop but
+    # for dual_arm_box), and for those in it kernel_a_layout's dynamic and
+    # static bytes at the case's P and scene against the kernels' own
+    # (tree_smem_bytes and sizeof(TreeShared) of the key's OnDemandTopology,
+    # compiled by g++).
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this machine")
+    smoke = _chip_smoke()
+    (tmp_path / "cuda_runtime.h").write_text(STANDIN)
+    for src in kernels.CSRC.glob("*.cuh"):
+        (tmp_path / src.name).write_text(
+            re.sub(r"<<<.*?>>>", "", src.read_text(), flags=re.S))
+    keys, rows, lines = smoke.od_keys(), [], []
+    for tag in smoke.TREE_LOOP_KEYS:
+        key = keys[tag]
+        assert key.tree == (tag != "dual_arm_box")
+        if not key.tree:
+            continue
+        assert key.shared and key.stream and not key.scratch
+        spec, _, fit, p, meta, swarm, obs, orient = smoke.od_case(
+            tag, "cpu", 2, np.random.default_rng(0))
+        n_obs = 0 if obs is None else obs.count
+        layout = fused.kernel_a_layout(spec, fit, swarm, p, n_obs, orient)
+        assert layout.tree and layout.threads == key.threads
+        topo = (f"ikpso::OnDemandTopology<ikpso::IntList<{', '.join(map(str, key.parents))}>, "
+                f"ikpso::IntList<{', '.join(map(str, key.effectors))}>, {key.threads}, true, "
+                f"{str(key.distance).lower()}, {str(key.exact).lower()}>")
+        lines.append(f'  std::printf("%zu %zu\\n", ikpso::tree_smem_bytes({meta.numel()}, '
+                     f'{spec.dof}, {p}), sizeof(ikpso::TreeShared<{topo}, '
+                     f'{key.collider}, {str(key.orientation).lower()}, {key.threads}>));\n')
+        rows.append((layout.smem_bytes, layout.static_bytes))
+    main = tmp_path / "tree.cpp"
+    main.write_text('#include <cstdio>\n#include "fused_solve.cuh"\nint main() {\n'
+                    + "".join(lines) + "}\n")
+    exe = tmp_path / "tree"
+    proc = subprocess.run(["g++", "-std=c++17", "-I", str(tmp_path), "-o", str(exe), str(main)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    got = [int(v) for v in subprocess.run([str(exe)], capture_output=True,
+                                          text=True).stdout.split()]
+    assert got == [v for row in rows for v in row]
 
 
 def test_on_demand_keys_carry_their_placement():

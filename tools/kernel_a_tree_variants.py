@@ -21,9 +21,9 @@ tree loop reading the Philox key for each group of an update's draws at
 every bound, ``kKeyOnce`` off), ``mb2`` and ``mb4`` (reference_arm's and
 snake_30dof's ``KernelAMinBlocks`` 2 and 4 instead of 3, so at most 128 and
 64 registers; the key read once an update at 128, for each group at 64, as
-the rule has it), ``tree_box`` (dual_arm_box's key in the tree loop, which the
-rule keeps off with a scene), ``parent`` (``--parent DIR``: another checkout's
-kernel A, its own layout), and the cluster layout
+the rule has it), ``tree_box`` (a box key in the tree loop where the rule
+keeps it off: dual_arm_box at 64 registers), ``parent`` (``--parent DIR``:
+another checkout's kernel A, its own layout), and the cluster layout
 (``csrc/fused_solve_cluster.cuh``: the tree's on-demand key with the
 cluster layout, a swarm over c blocks, x in registers, v and lbest in each
 block's shared memory) at c blocks of at most T threads and B blocks an SM
@@ -37,9 +37,12 @@ Cases: humanoid_45dof (S=16,384, P=512, 60 iterations) and its twin with
 the orientation term, dual_arm_14dof (S=262,144, P=1,024, 8 iterations),
 reference_arm (S=262,144, P=256, 100 iterations), snake_30dof (S=65,536,
 P=256, 4 iterations, a re-kick every 2),
-dual_arm_box (the config document's recipe among its boxes, S=262,144 and
-S=4,096) and the dual arm with the orientation term (S=4,096), Philox
-draws, the presets' recipes.
+dual_arm_box (the config document's recipe in ``chip_smoke.py``'s near
+box ring, S=262,144 and S=4,096), the dual arm with the capsule collider
+there (S=262,144 and S=4,096), with the distance term and with exact trig
+(S=262,144), with the orientation term (S=4,096), and hand12 without and
+with the near ring (hand21's recipe, S=16,384, P=512), Philox draws, the
+presets' recipes.
 
 Run from the repository root on a machine with a card:
 ``python3 tools/kernel_a_tree_variants.py [--parent DIR] [--rounds N]
@@ -113,7 +116,13 @@ CASES = {"humanoid_45dof S=16384": ("humanoid_45dof", 16_384, False),
          "snake_30dof S=65536": ("snake_30dof", 65_536, False),
          "dual_arm_box S=262144": ("dual_arm_box", 262_144, False),
          "dual_arm_box S=4096": ("dual_arm_box", 4096, False),
-         "dual_arm_orientation S=4096": ("dual_arm_orientation", 4096, False)}
+         "dual_arm_capsule S=262144": ("dual_arm_capsule", 262_144, False),
+         "dual_arm_capsule S=4096": ("dual_arm_capsule", 4096, False),
+         "dual_arm_distance S=262144": ("dual_arm_distance", 262_144, False),
+         "dual_arm_exact S=262144": ("dual_arm_exact", 262_144, False),
+         "dual_arm_orientation S=4096": ("dual_arm_orientation", 4096, False),
+         "hand12 S=16384": ("hand12", 16_384, False),
+         "hand12_box S=16384": ("hand12_box", 16_384, False)}
 
 
 def variant_root(name, replace):
@@ -151,13 +160,14 @@ def case_inputs(name, device, rng):
     return spec, pso, fit, pre.particles, meta, swarm, 0, orient
 
 
-def case_key(spec, fit, n_obs, orient):
+def case_key(spec, fit, n_obs, orient, rules=kernels):
     """The on-demand key of a case's tree, scene and terms (for a prebuilt
-    tree, the key its twin would have)."""
+    tree, the key its twin would have), by this checkout's rules or by
+    ``rules``, another checkout's ``utils/kernels.py``."""
     _, collider, _ = kernels.kernel_variant(spec, n_obs, fit.collision_shape, orient,
                                             fused.uses_distance(fit), fit.trig_impl)
-    return kernels.on_demand_key(spec, collider, bool(orient), fused.uses_distance(fit),
-                                 fit.trig_impl == "exact")
+    return kernels.OnDemandKey(*rules.on_demand_key(
+        spec, collider, bool(orient), fused.uses_distance(fit), fit.trig_impl == "exact"))
 
 
 def cluster_key(key):
@@ -166,17 +176,18 @@ def cluster_key(key):
     return key._replace(scratch=True, cluster=True, tree=False)
 
 
-def plan(todo, keys, wanted, roots):
+def plan(todo, keys, wanted, roots, parent_keys=None):
     """``{variant: {case: (root, on-demand key or None, cluster size)}}``:
     where each variant takes each case from; a key of None runs the root's
-    prebuilt library."""
+    prebuilt library; the parent runs its own key (``parent_keys``)."""
     uses = {}
     for v in sorted(wanted):
         table = {}
         for name, c in todo.items():
             spec, fit, p, n_obs, orient, key = c[0], c[2], c[3], c[6], c[7], keys[name]
-            od = kernels.kernel_variant(spec, n_obs, fit.collision_shape,
-                                        orient)[0] == kernels.ON_DEMAND
+            od = kernels.kernel_variant(spec, n_obs, fit.collision_shape, orient,
+                                        fused.uses_distance(fit),
+                                        fit.trig_impl)[0] == kernels.ON_DEMAND
             if v in CLUSTER:
                 cl, t, b = CLUSTER[v]
                 if p % (32 * cl) or p // cl > t:
@@ -192,7 +203,8 @@ def plan(todo, keys, wanted, roots):
                 od_key = key if tree is None else key._replace(tree=tree)
                 table[name] = (roots[v], od_key if od else None, 0)
             else:
-                table[name] = (roots[v], key if od else None, 0)
+                own = parent_keys[name] if v == "parent" else key
+                table[name] = (roots[v], own if od else None, 0)
         uses[v] = table
     return uses
 
@@ -249,7 +261,12 @@ def main():
         return (contextlib.nullcontext(kernels) if root == ROOT
                 else chip_smoke._sources(root))
 
-    uses, prebuilt, od_libs = plan(todo, keys, wanted, roots), {}, {}
+    parent_keys = None
+    if "parent" in wanted:
+        rules = chip_smoke.checkout_kernels(roots["parent"])
+        parent_keys = {name: case_key(c[0], c[2], c[6], c[7], rules)
+                       for name, c in todo.items()}
+    uses, prebuilt, od_libs = plan(todo, keys, wanted, roots, parent_keys), {}, {}
     od_wanted = {}  # root -> {key: the first case that runs it}
     for table in uses.values():
         for name, (root, key, _) in table.items():
