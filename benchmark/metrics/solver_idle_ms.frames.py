@@ -1,0 +1,6 @@
+"""``solver_idle_ms`` in the frame cell, where it moves
+``frame_solves_per_s``."""
+
+from benchmark.core import loader
+
+read = loader.module("metrics", "solver_idle_ms").read

@@ -1,0 +1,6 @@
+"""``solver_prologue_ms`` in the frame cell, where it moves
+``frame_solves_per_s``."""
+
+from benchmark.core import loader
+
+read = loader.module("metrics", "solver_prologue_ms").read

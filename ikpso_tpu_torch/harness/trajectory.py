@@ -46,6 +46,7 @@ from ikpso_tpu_torch.pso.restarts import wrap_with_topk_retries
 from ikpso_tpu_torch.utils import checkpoint as ckpt
 from ikpso_tpu_torch.utils import seeds
 from ikpso_tpu_torch.utils.guards import check_solve_result
+from ikpso_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -107,10 +108,12 @@ def build_solver(spec: ChainSpec, *, pso: PSOConfig = PSOConfig(),
                            num_particles=num_particles, gbest_reduce=gbest_reduce)
 
     def _solve(problem: IKProblem, generator: torch.Generator):
-        return solve(spec, problem, generator, pso=pso, fit=fit, obstacles=obstacles,
-                     num_particles=num_particles,
-                     fitness_fn=make_kernel_fitness(spec, problem, fit, obstacles),
-                     gbest_reduce=gbest_reduce)
+        with span("ikpso.solve"):
+            with span("ikpso.solve.pack"):
+                fitness_fn = make_kernel_fitness(spec, problem, fit, obstacles)
+            return solve(spec, problem, generator, pso=pso, fit=fit, obstacles=obstacles,
+                         num_particles=num_particles, fitness_fn=fitness_fn,
+                         gbest_reduce=gbest_reduce)
 
     return _solve
 

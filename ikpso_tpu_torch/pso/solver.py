@@ -45,6 +45,7 @@ from ikpso_tpu_torch.ops.fitness import FitnessConfig, fitness, true_effector_er
 from ikpso_tpu_torch.ops.fitness_kernel import TWO_PI, KernelFitness
 from ikpso_tpu_torch.ops.philox import step_uniforms
 from ikpso_tpu_torch.pso.config import PSOConfig
+from ikpso_tpu_torch.utils.profiling import span
 
 FitnessFn = Callable[[torch.Tensor], torch.Tensor]  # (S, P, D) -> (S, P)
 # Cross-rank reduction of the per-rank gbest candidate:
@@ -375,41 +376,43 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
     reduces the gbest candidates across ranks.
     ``vary_axes`` is accepted for JAX's signature: it marks the carry as
     rank-varying for ``shard_map``'s types, and a rank's torch tensors
-    need no such mark.
+    need no such mark. Everything before the iterations is the span
+    ``ikpso.solve.init`` (``utils.profiling.span``).
     """
     del vary_axes
-    anchor_angles = fk_ops.pose_to_angles(spec, problem.pose)
-    if anchor_angles.dim() != 2:
-        raise ValueError(
-            "solve() expects a single leading swarm axis; got pose shape "
-            f"{tuple(problem.pose.shape)}. Use solve_single() for unbatched problems."
-        )
-    if uniforms is None and generator is None:
-        raise ValueError("solve() needs a generator or injected uniforms")
-    if fitness_fn is None:
-        anchor_positions = fk_ops.fk_points(spec, problem.pose, problem.origin)
+    with span("ikpso.solve.init"):
+        anchor_angles = fk_ops.pose_to_angles(spec, problem.pose)
+        if anchor_angles.dim() != 2:
+            raise ValueError(
+                "solve() expects a single leading swarm axis; got pose shape "
+                f"{tuple(problem.pose.shape)}. Use solve_single() for unbatched problems."
+            )
+        if uniforms is None and generator is None:
+            raise ValueError("solve() needs a generator or injected uniforms")
+        if fitness_fn is None:
+            anchor_positions = fk_ops.fk_points(spec, problem.pose, problem.origin)
 
-        def fitness_fn(x):
-            return fitness(spec, x, problem, fit, obstacles=obstacles,
-                           anchor_angles=anchor_angles,
-                           anchor_positions=anchor_positions)
+            def fitness_fn(x):
+                return fitness(spec, x, problem, fit, obstacles=obstacles,
+                               anchor_angles=anchor_angles,
+                               anchor_positions=anchor_positions)
 
-    lo, hi = spec.limits().to(anchor_angles.device)
-    state = init_swarm(generator, anchor_angles, num_particles, fitness_fn, pso,
-                       limits=(lo, hi),
-                       uniforms=None if uniforms is None
-                       else (uniforms.position, uniforms.velocity),
-                       gbest_reduce=gbest_reduce)
-    trace = [state[5]]
-    on_card = step_route(fitness_fn, anchor_angles.device)
-    if on_card:
-        state = step_buffers(state)
-        limits = torch.stack((lo, hi)).contiguous()
-        work = step_work(state[0].shape[0], num_particles, anchor_angles.device)
-        # The drawing step: the iterations' uniforms from these seed words,
-        # in the kernel.
-        seeds = (None if uniforms is not None
-                 else step_seeds(generator, state[0].shape[0], anchor_angles.device))
+        lo, hi = spec.limits().to(anchor_angles.device)
+        state = init_swarm(generator, anchor_angles, num_particles, fitness_fn, pso,
+                           limits=(lo, hi),
+                           uniforms=None if uniforms is None
+                           else (uniforms.position, uniforms.velocity),
+                           gbest_reduce=gbest_reduce)
+        trace = [state[5]]
+        on_card = step_route(fitness_fn, anchor_angles.device)
+        if on_card:
+            state = step_buffers(state)
+            limits = torch.stack((lo, hi)).contiguous()
+            work = step_work(state[0].shape[0], num_particles, anchor_angles.device)
+            # The drawing step: the iterations' uniforms from these seed words,
+            # in the kernel.
+            seeds = (None if uniforms is not None
+                     else step_seeds(generator, state[0].shape[0], anchor_angles.device))
     n = draws_per_iteration(pso)
     for it in range(pso.iterations):
         if on_card:
