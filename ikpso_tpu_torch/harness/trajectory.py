@@ -86,12 +86,17 @@ def build_solver(spec: ChainSpec, *, pso: PSOConfig = PSOConfig(),
                  gbest_reduce=None):
     """``(problem, generator) -> SolveResult`` on ``device``: kernel A
     (``impl="fused"``) or the scan solver (``"jnp"``), whose fitness is
-    kernel C on the card, packed for each problem it is given, and the
-    plain fitness on the CPU or with a GJK scene (:func:`fitness_impl`).
+    kernel C on the card, its per-chain constants packed once and its
+    per-swarm ones for each problem it is given, and the plain fitness on
+    the CPU or with a GJK scene (:func:`fitness_impl`). On the card a
+    kernel-C call replays its shape's CUDA graph, captured after the
+    shape's first call (``pso/graphs.py``: the same answer, bit for bit).
     ``gbest_reduce`` (the scan solver only) reduces each swarm's gbest
-    across the ranks of a particle-sharded solve."""
-    from ikpso_tpu_torch.ops.fitness_kernel import make_kernel_fitness
+    across the ranks of a particle-sharded solve; such a solve stays
+    eager."""
+    from ikpso_tpu_torch.ops.fitness_kernel import kernel_fitness_packer
     from ikpso_tpu_torch.pso.fused import make_fused_solver
+    from ikpso_tpu_torch.pso.graphs import CapturedSolve, GraphCache, graph_key, route
     from ikpso_tpu_torch.pso.solver import make_solver, solve
 
     device = torch.device(device)
@@ -107,13 +112,29 @@ def build_solver(spec: ChainSpec, *, pso: PSOConfig = PSOConfig(),
         return make_solver(spec, pso=pso, fit=fit, obstacles=obstacles,
                            num_particles=num_particles, gbest_reduce=gbest_reduce)
 
+    pack = kernel_fitness_packer(spec, fit, obstacles)
+    graphs = GraphCache()
+
+    def run(problem: IKProblem, generator=None, uniforms=None):
+        with span("ikpso.solve.pack"):
+            fitness_fn = pack(problem)
+        return solve(spec, problem, generator, pso=pso, fit=fit, obstacles=obstacles,
+                     num_particles=num_particles, fitness_fn=fitness_fn, uniforms=uniforms,
+                     gbest_reduce=gbest_reduce)
+
     def _solve(problem: IKProblem, generator: torch.Generator):
         with span("ikpso.solve"):
-            with span("ikpso.solve.pack"):
-                fitness_fn = make_kernel_fitness(spec, problem, fit, obstacles)
-            return solve(spec, problem, generator, pso=pso, fit=fit, obstacles=obstacles,
-                         num_particles=num_particles, fitness_fn=fitness_fn,
-                         gbest_reduce=gbest_reduce)
+            device = problem.pose.device
+            key = graph_key(problem, num_particles)
+            how = route(device, fitness_impl(fit, obstacles, impl, device), gbest_reduce,
+                        key in graphs)
+            if how == "replay":
+                return graphs[key](problem, generator)
+            res = run(problem, generator)
+            if how == "capture":
+                graphs.add(key, CapturedSolve(lambda p, u: run(p, uniforms=u), problem, pso,
+                                              num_particles, spec.dof))
+            return res
 
     return _solve
 

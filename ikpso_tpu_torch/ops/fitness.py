@@ -16,7 +16,8 @@ hit a box costs ``COLLISION_PENALTY`` instead.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -124,11 +125,20 @@ def fitness(
     return cost
 
 
+@functools.lru_cache(maxsize=64)
+def effector_index(effector_idx: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``ChainSpec.effector_idx`` as an int64 index tensor on ``device``,
+    made once per index tuple and device. It gathers the rows a Python
+    list gathers; the list's index is a pageable host copy on every call,
+    which waits for the device's queue (and a CUDA graph cannot hold it)."""
+    return torch.tensor(effector_idx, dtype=torch.int64, device=device)
+
+
 def true_effector_error(
     spec: ChainSpec, pose: torch.Tensor, problem: IKProblem
 ) -> torch.Tensor:
     """Sum of Euclidean effector distances (the reference's host oracle
     ``checkDistance``), a different space than the squared fitness."""
     positions = fk_ops.fk_points(spec, pose, problem.origin)
-    d = positions[..., list(spec.effector_idx), :] - problem.targets
+    d = positions[..., effector_index(spec.effector_idx, positions.device), :] - problem.targets
     return torch.sum(torch.sqrt(torch.sum(d * d, dim=-1)), dim=-1)

@@ -42,7 +42,7 @@ import torch
 
 from ikpso_tpu_torch.models.chain import ChainSpec, IKProblem, Obstacles
 from ikpso_tpu_torch.ops import fk as fk_ops
-from ikpso_tpu_torch.ops.fitness import COLLISION_PENALTY, FitnessConfig
+from ikpso_tpu_torch.ops.fitness import COLLISION_PENALTY, FitnessConfig, effector_index
 from ikpso_tpu_torch.ops.collision import SAT_EPS, SEGMENT_OBB_ITERATIONS
 from ikpso_tpu_torch.ops.rotations import euler_xyz_to_matrix
 from ikpso_tpu_torch.utils import kernels
@@ -381,7 +381,8 @@ def pack_meta(spec: ChainSpec, fit: FitnessConfig, obstacles: Obstacles = None,
     weights = torch.tensor(
         [fit.angle_weight, fit.distance_weight], dtype=torch.float32, device=dev
     )
-    parts = [weights, spec.length[1:], spec.effector_weight[list(spec.effector_idx)]]
+    parts = [weights, spec.length[1:],
+             spec.effector_weight[effector_index(spec.effector_idx, dev)]]
     if obstacles is not None and obstacles.count > 0:
         parts.append(torch.cat(
             [obstacles.center, obstacles.half_extent,
@@ -796,12 +797,14 @@ class KernelFitness:
                 on_demand=lambda lib, scene: lib.ikpso_od_scan_step(*scene, *tail))
 
 
-def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
-                        fit: FitnessConfig = FitnessConfig(),
-                        obstacles: Obstacles = None) -> KernelFitness:
-    """A scan-solver ``fitness_fn`` backed by kernel C
-    (``make_pallas_fitness``): a :class:`KernelFitness`, whose per-chain
-    and per-swarm constants are packed once, here."""
+def kernel_fitness_packer(spec: ChainSpec, fit: FitnessConfig = FitnessConfig(),
+                          obstacles: Obstacles = None):
+    """``problem -> KernelFitness``: :func:`make_kernel_fitness` for each
+    problem, with the per-chain constants (:func:`pack_meta`) packed once
+    for each value of the orientation flag they depend on, at the first
+    call that needs it, and only the per-swarm ones packed each call.
+    ``pack_meta`` ends in host copies that wait for the device's queue;
+    the per-swarm packing queues device work alone."""
     num_obstacles = 0 if obstacles is None else obstacles.count
     if num_obstacles and fit.collision_backend == "gjk":
         raise NotImplementedError(
@@ -810,14 +813,30 @@ def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
             "plain fitness (--impl jnp, harness.trajectory.build_solver)"
         )
     use_distance = float(fit.distance_weight) != 0.0
-    use_orientation = (problem.target_rot is not None
-                       and float(fit.orientation_weight) != 0.0)
     _check_branches(trig_impl=fit.trig_impl, collision_shape=fit.collision_shape)
-    meta = pack_meta(spec, fit, obstacles, use_orientation).to(problem.pose.device)
-    swarm = pack_swarm(spec, problem, fk_ops.pose_to_angles(spec, problem.pose),
-                       fk_ops.fk_points(spec, problem.pose, problem.origin),
-                       use_orientation)
-    return KernelFitness(spec, meta, swarm, dict(
-        num_obstacles=num_obstacles, collision_shape=fit.collision_shape,
-        gizmo_size=fit.gizmo_size, use_orientation=use_orientation,
-        use_distance_term=use_distance, trig_impl=fit.trig_impl))
+    metas = {}
+
+    def pack(problem: IKProblem) -> KernelFitness:
+        use_orientation = (problem.target_rot is not None
+                           and float(fit.orientation_weight) != 0.0)
+        if use_orientation not in metas:
+            metas[use_orientation] = pack_meta(spec, fit, obstacles, use_orientation)
+        meta = metas[use_orientation].to(problem.pose.device)
+        swarm = pack_swarm(spec, problem, fk_ops.pose_to_angles(spec, problem.pose),
+                           fk_ops.fk_points(spec, problem.pose, problem.origin),
+                           use_orientation)
+        return KernelFitness(spec, meta, swarm, dict(
+            num_obstacles=num_obstacles, collision_shape=fit.collision_shape,
+            gizmo_size=fit.gizmo_size, use_orientation=use_orientation,
+            use_distance_term=use_distance, trig_impl=fit.trig_impl))
+
+    return pack
+
+
+def make_kernel_fitness(spec: ChainSpec, problem: IKProblem,
+                        fit: FitnessConfig = FitnessConfig(),
+                        obstacles: Obstacles = None) -> KernelFitness:
+    """A scan-solver ``fitness_fn`` backed by kernel C
+    (``make_pallas_fitness``): a :class:`KernelFitness`, whose per-chain
+    and per-swarm constants are packed once, here."""
+    return kernel_fitness_packer(spec, fit, obstacles)(problem)

@@ -131,6 +131,26 @@ def drawing_route_draws(generator: torch.Generator, pso: PSOConfig, num_swarms: 
                      StepDraws(seeds, draws_per_iteration(pso), num_particles, dof))
 
 
+def draw_into(draws: ScanDraws, generator: torch.Generator) -> None:
+    """Draw into the buffers of ``draws`` (the position block or None, the
+    velocity block and its :class:`StepDraws`' seed words) what
+    :func:`drawing_route_draws` draws from ``generator``: the same calls in
+    the same order, so the same bits and the generator left as that leaves
+    it. A buffer on another kind of device than the generator gets its
+    draw copied in, as ``drawing_route_draws`` moves its own."""
+
+    def fill(buf: torch.Tensor, draw) -> None:
+        if buf.device.type == generator.device.type:
+            draw(buf)
+        else:
+            buf.copy_(draw(torch.empty(buf.shape, dtype=buf.dtype, device=generator.device)))
+
+    for block in (draws.position, draws.velocity):
+        if block is not None:
+            fill(block, lambda t: t.uniform_(0.0, 1.0, generator=generator))
+    fill(draws.steps.seeds, lambda t: t.random_(-2**31, 2**31, generator=generator))
+
+
 def _scale(u: torch.Tensor, lo, hi) -> torch.Tensor:
     """``jax.random.uniform``'s map of U[0, 1) floats onto ``[lo, hi)``."""
     return torch.clamp_min(u * (hi - lo) + lo, lo)
@@ -371,8 +391,9 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
 
     ``fitness_fn`` overrides the plain fitness (e.g. kernel C's
     ``make_kernel_fitness``, whose iterations on the card are launches of
-    the drawing scan step, or of the replay step under ``uniforms``);
-    ``uniforms`` replaces the generator; ``gbest_reduce``
+    the drawing scan step, or of the replay step under ``uniforms``, but
+    the drawing step where their steps are :class:`StepDraws`: its seed
+    words); ``uniforms`` replaces the generator; ``gbest_reduce``
     reduces the gbest candidates across ranks.
     ``vary_axes`` is accepted for JAX's signature: it marks the carry as
     rank-varying for ``shard_map``'s types, and a rank's torch tensors
@@ -410,9 +431,12 @@ def solve(spec: ChainSpec, problem: IKProblem, generator: Optional[torch.Generat
             limits = torch.stack((lo, hi)).contiguous()
             work = step_work(state[0].shape[0], num_particles, anchor_angles.device)
             # The drawing step: the iterations' uniforms from these seed words,
-            # in the kernel.
-            seeds = (None if uniforms is not None
-                     else step_seeds(generator, state[0].shape[0], anchor_angles.device))
+            # in the kernel (injected StepDraws bring their own).
+            if uniforms is None:
+                seeds = step_seeds(generator, state[0].shape[0], anchor_angles.device)
+            else:
+                seeds = (uniforms.steps.seeds if isinstance(uniforms.steps, StepDraws)
+                         else None)
     n = draws_per_iteration(pso)
     for it in range(pso.iterations):
         if on_card:

@@ -602,6 +602,35 @@ def test_scan_draws_select_the_replay_step(host_step, monkeypatch, torch_single_
     assert torch.equal(got.angles, want.angles) and torch.equal(got.trace, want.trace)
 
 
+@pytest.mark.parametrize("init_mode", ["warm", "uniform"])
+def test_injected_step_draws_select_the_drawing_step(host_step, init_mode, monkeypatch,
+                                                     torch_single_thread):
+    # The CUDA graph's solve: injected ScanDraws whose steps are StepDraws
+    # (draw_into's buffers) run the drawing step from their seed words, and
+    # equal the card's own route on the same generator bit for bit.
+    pso = PSOConfig(iterations=3, inertia_mode="randomized", init_mode=init_mode,
+                    rekick_interval=2)
+    spec, batched, fit, fitness = _route_case(np.random.default_rng(10), pso)
+    p = 200
+    steps = []
+    _host_route(monkeypatch, host_step, steps)
+    want = solver.solve(spec, batched, torch.Generator().manual_seed(5), pso, fit,
+                        num_particles=p, fitness_fn=fitness)
+    shape = (3, p, spec.dof)
+    draws = solver.ScanDraws(torch.empty(shape) if init_mode == "uniform" else None,
+                             torch.empty(shape),
+                             solver.StepDraws(torch.empty((3, 2), dtype=torch.int32),
+                                              solver.draws_per_iteration(pso), p, spec.dof))
+    solver.draw_into(draws, torch.Generator().manual_seed(5))
+    steps.clear()
+    got = solver.solve(spec, batched, None, pso, fit, num_particles=p, fitness_fn=fitness,
+                       uniforms=draws)
+    assert steps == [(False, True)] * pso.iterations  # seeds, never u
+    for a, b in zip((got.angles, got.fitness, got.pose, got.effector_error, got.trace),
+                    (want.angles, want.fitness, want.pose, want.effector_error, want.trace)):
+        assert torch.equal(a, b)
+
+
 def test_scan_step_takes_either_u_or_seeds():
     rng = np.random.default_rng(9)
     spec, batched = _scan_problem(2, rng)

@@ -1,7 +1,8 @@
 """The scan solver's host time in a traced run of a benchmark cell, split by
 the port's spans (``ikpso.solve`` > ``ikpso.solve.pack``,
-``ikpso.solve.init``): each traced call's device idle in ``pack``, in
-``init``, in the root's self time and outside ``ikpso.solve`` (the
+``ikpso.solve.init`` and, on the CUDA-graph route, ``ikpso.solve.replay``):
+each traced call's device idle in ``pack``, in ``init``, in ``replay``, in
+the root's self time and outside ``ikpso.solve`` (the
 latter by the innermost ``bench.*`` span or runtime call, the spans
 placed as the port's are), the CUDA
 runtime calls that start in each part, the enqueues of each call, and
@@ -42,6 +43,8 @@ from benchmark.core.trace import HOST_CATS, MARK, Trace, Tracer, symbol  # noqa:
 from ikpso_tpu_torch.utils import profiling  # noqa: E402
 
 KERNEL_C = "fused_fitness_kernel"
+REPLAY = "ikpso.solve.replay"
+PARTS = (("pack", spans.PROLOGUE[0]), ("init", spans.PROLOGUE[1]), ("replay", REPLAY))
 STRADDLE_US = 5.0
 
 
@@ -130,10 +133,9 @@ def split(trace, recs, bench):
     calls = trace.calls
     gaps = trace.gaps()
     by = {n: spans.union([(a, b) for m, a, b, _ in recs if m == n])
-          for n in (spans.SOLVE, *spans.PROLOGUE)}
-    idle = {p: spans.overlap_s(gaps, by[n]) for p, n in
-            (("root", spans.SOLVE), ("pack", spans.PROLOGUE[0]), ("init", spans.PROLOGUE[1]))}
-    idle["self"] = idle["root"] - idle["pack"] - idle["init"]
+          for n in (spans.SOLVE, *(n for _, n in PARTS))}
+    idle = {p: spans.overlap_s(gaps, by[n]) for p, n in (("root", spans.SOLVE), *PARTS)}
+    idle["self"] = idle["root"] - sum(idle[p] for p, _ in PARTS)
     outside = subtract(gaps, by[spans.SOLVE])
     idle["outside"] = sum(b - a for a, b in outside)
     labels = collections.defaultdict(float)
@@ -141,11 +143,9 @@ def split(trace, recs, bench):
                       + bench, trace.window_s, calls)
     for (a, b), label in zip(outside, relabeled.host_at([(a + b) / 2 for a, b in outside])):
         labels[label] += b - a
-    span_s = {p: sum(b - a for a, b in by[n]) for p, n in
-              (("root", spans.SOLVE), ("pack", spans.PROLOGUE[0]), ("init", spans.PROLOGUE[1]))}
-    span_s["self"] = span_s["root"] - span_s["pack"] - span_s["init"]
-    parts = [("pack", by[spans.PROLOGUE[0]]), ("init", by[spans.PROLOGUE[1]]),
-             ("self", by[spans.SOLVE])]
+    span_s = {p: sum(b - a for a, b in by[n]) for p, n in (("root", spans.SOLVE), *PARTS)}
+    span_s["self"] = span_s["root"] - sum(span_s[p] for p, _ in PARTS)
+    parts = [(p, by[n]) for p, n in PARTS] + [("self", by[spans.SOLVE])]
     runtime = collections.defaultdict(lambda: collections.defaultdict(lambda: [0, 0.0]))
     for a, b, name in trace.host:
         if not name.startswith("bench."):
