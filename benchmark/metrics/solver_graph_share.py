@@ -1,11 +1,8 @@
 """The share of the traced window's scan-solver calls that replayed a CUDA
 graph: the port's ``ikpso.solve`` spans holding an ``ikpso.solve.replay``
 child, over every ``ikpso.solve`` span of the window
-(``benchmark/core/spans.py``). None where the window holds no
-``ikpso.solve`` span, or the port has no graph route
-(``ikpso_tpu_torch.pso.graphs``) to record the child."""
-
-import importlib.util
+(``benchmark/core/spans.py``); 0 where no call replayed. None where the
+window holds no ``ikpso.solve`` span."""
 
 from benchmark.core import spans
 
@@ -15,8 +12,6 @@ REPLAY = "ikpso.solve.replay"
 def read(ctx):
     from ikpso_tpu_torch.utils import profiling
 
-    if importlib.util.find_spec("ikpso_tpu_torch.pso.graphs") is None:
-        return None
     got = spans.window_spans(ctx, getattr(profiling, "spans", list)())
     if got is None:
         return None

@@ -1,9 +1,8 @@
 """``solver_graph_share`` (and its ``.frames`` alias) on made-up port
 spans over the made-up trace of ``test_bench_program_spans``: the share of
 the window's ``ikpso.solve`` calls that hold an ``ikpso.solve.replay``
-child, and nothing read without a root or without the port's graph route."""
-
-import importlib.util
+child (0 on a port without the graph route), and nothing read without a
+root in the window."""
 
 import pytest
 
@@ -46,14 +45,11 @@ def test_the_share_of_calls_that_replayed(monkeypatch, replays, want):
         assert read(name, ctx()) == pytest.approx(want)
 
 
-@pytest.mark.parametrize("case", ["no_roots", "no_graph_route"])
+@pytest.mark.parametrize("case", ["no_roots", "roots_before_the_window"])
 def test_nothing_read_without_roots_or_a_graph_route(monkeypatch, case):
     if case == "no_roots":
         record(monkeypatch, [Span("ikpso.solve.replay", us(5), us(10), 2, 1, 1)])
-    else:  # the parent's port: spans, but no graph route that records a replay
-        record(monkeypatch, call(10, 0, False))
-        real = importlib.util.find_spec
-        monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: None
-                            if name == "ikpso_tpu_torch.pso.graphs" else real(name, *a))
+    else:  # the calls, replayed, all end before the window starts
+        record(monkeypatch, call(10, -5e5, True) + call(20, -4e5, True))
     for name in NAMES:
         assert read(name, ctx()) is None

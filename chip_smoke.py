@@ -394,19 +394,30 @@ def _wrappers():
 
 
 def reset_counts():
-    """Set every kernel wrapper's launch counts to 0."""
+    """Set every kernel wrapper's launch counts, and the scan solver's
+    CUDA-graph captures and replays, to 0."""
+    from ikpso_tpu_torch.pso.graphs import CapturedSolve
+
     for fn in _wrappers().values():
         fn.launches = 0
     _wrappers()["fused_solve"].variant_launches = {}
     _wrappers()["scan_step"].replay_launches = 0
+    CapturedSolve.captures = CapturedSolve.replays = 0
 
 
 def read_counts():
-    """Every wrapper's launches; ``scan_step_replay``: the scan step's
-    launches of its replay instantiation (the rest drew their uniforms)."""
+    """Every wrapper's launches (a launch into a captured CUDA graph counts
+    once, at its capture); ``scan_step_replay``: the scan step's launches
+    of its replay instantiation (the rest drew their uniforms);
+    ``graph_captures`` and ``graph_replays``: the scan solver's CUDA
+    graphs captured and replayed (``pso/graphs.py``)."""
+    from ikpso_tpu_torch.pso.graphs import CapturedSolve
+
     counts = {name: fn.launches for name, fn in _wrappers().items()}
     counts["fused_solve_variants"] = dict(_wrappers()["fused_solve"].variant_launches)
     counts["scan_step_replay"] = _wrappers()["scan_step"].replay_launches
+    counts["graph_captures"] = CapturedSolve.captures
+    counts["graph_replays"] = CapturedSolve.replays
     return counts
 
 
@@ -3235,6 +3246,8 @@ def phase_experiment(device, card):
             wall_s=s["wall_time_s"], process_s=time.perf_counter() - t0,
             fused_fitness_launches=read_counts()["fused_fitness"] - before["fused_fitness"],
             scan_step_launches=read_counts()["scan_step"] - before["scan_step"],
+            graph_captures=read_counts()["graph_captures"] - before["graph_captures"],
+            graph_replays=read_counts()["graph_replays"] - before["graph_replays"],
             angle_delta=s.get("angle_delta"), pos_delta=s.get("pos_delta"),
             jax_parity_r02_mean=mean_j, bar=f"|mean - {mean_j:.4f}| <= {bar:.4f}",
             published_mean=PUBLISHED_FRAMES[name],
@@ -3256,7 +3269,8 @@ def phase_experiment(device, card):
           and launches["scan_step_replay"] == 0
           and all(r["fused_fitness_launches"] > 0
                   and r["scan_step_launches"] == cfg.pso.iterations
-                  * r["fused_fitness_launches"] for r in rows.values()))
+                  * r["fused_fitness_launches"] and r["graph_replays"] > 0
+                  for r in rows.values()))
     emit("experiment", protocols=rows, trials=EXPERIMENT_TRIALS,
          particles=cfg.num_particles, trial_batch=batch,
          max_frames=_flag(EXPERIMENT_ARGS, "--max-frames"), launches=launches, stages=stages,

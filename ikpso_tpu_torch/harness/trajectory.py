@@ -89,8 +89,8 @@ def build_solver(spec: ChainSpec, *, pso: PSOConfig = PSOConfig(),
     kernel C on the card, its per-chain constants packed once and its
     per-swarm ones for each problem it is given, and the plain fitness on
     the CPU or with a GJK scene (:func:`fitness_impl`). On the card a
-    kernel-C call replays its shape's CUDA graph, captured after the
-    shape's first call (``pso/graphs.py``: the same answer, bit for bit).
+    kernel-C call replays its shape's CUDA graph, captured at the shape's
+    second call (``pso/graphs.py``: the same answer, bit for bit).
     ``gbest_reduce`` (the scan solver only) reduces each swarm's gbest
     across the ranks of a particle-sharded solve; such a solve stays
     eager."""
@@ -113,7 +113,6 @@ def build_solver(spec: ChainSpec, *, pso: PSOConfig = PSOConfig(),
                            num_particles=num_particles, gbest_reduce=gbest_reduce)
 
     pack = kernel_fitness_packer(spec, fit, obstacles)
-    graphs = GraphCache()
 
     def run(problem: IKProblem, generator=None, uniforms=None):
         with span("ikpso.solve.pack"):
@@ -122,19 +121,26 @@ def build_solver(spec: ChainSpec, *, pso: PSOConfig = PSOConfig(),
                      num_particles=num_particles, fitness_fn=fitness_fn, uniforms=uniforms,
                      gbest_reduce=gbest_reduce)
 
+    if gbest_reduce is not None:
+        def _eager(problem: IKProblem, generator: torch.Generator):
+            with span("ikpso.solve"):
+                return run(problem, generator)
+
+        return _eager
+
+    graphs = GraphCache()
+
     def _solve(problem: IKProblem, generator: torch.Generator):
         with span("ikpso.solve"):
-            device = problem.pose.device
             key = graph_key(problem, num_particles)
-            how = route(device, fitness_impl(fit, obstacles, impl, device), gbest_reduce,
-                        key in graphs)
-            if how == "replay":
-                return graphs[key](problem, generator)
-            res = run(problem, generator)
+            how = route(problem.pose.device, graphs.seen(key), key in graphs)
+            if how == "eager":
+                graphs.see(key)
+                return run(problem, generator)
             if how == "capture":
                 graphs.add(key, CapturedSolve(lambda p, u: run(p, uniforms=u), problem, pso,
-                                              num_particles, spec.dof))
-            return res
+                                              num_particles, spec.dof, graphs.pool))
+            return graphs[key](problem, generator)
 
     return _solve
 

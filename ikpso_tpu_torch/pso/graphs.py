@@ -19,12 +19,17 @@ replays it:
 
 The graph holds the eager route's launches on the same inputs and draws,
 so its answer is the eager one bit for bit. :func:`route` decides from
-what a call carries; a shape's first call runs eagerly and then captures
-(the warm-up torch asks for before a capture: the kernels' builds and
-the allocator have run). A solver keeps ``GRAPH_KEYS`` shapes
-(:class:`GraphCache`), each graph with its own memory pool, and drops the
-oldest first. A shape's graph has one set of inputs and draw buffers, so
-one solver serves one thread at a time.
+what a call carries: a shape's first call runs eagerly (a caller that
+sees a shape once pays nothing for the graph), its second captures and
+replays, and every later one replays. The first call is also the
+warm-up torch asks for before a capture: the kernels' builds and the
+allocator have run. A solver keeps ``GRAPH_KEYS`` captured shapes and as
+many shapes seen once (:class:`GraphCache`), and drops the oldest
+first; its graphs share one memory pool, as their replays run one after
+another. A shape's graph has one set of inputs and draw buffers, so one
+solver serves one thread at a time. The kernel wrappers count a
+captured launch once, at its capture; :attr:`CapturedSolve.replays`
+counts the replays.
 """
 
 from __future__ import annotations
@@ -59,25 +64,28 @@ def graph_key(problem: IKProblem, num_particles: int) -> tuple:
             + tuple((tuple(t.shape), t.dtype) for t in fields))
 
 
-def route(device, fitness: str, gbest_reduce, seen: bool) -> str:
-    """How a ``build_solver`` scan-solver call runs: ``"replay"`` (its
-    shape's graph), ``"capture"`` (eagerly, then captured: a card solve on
-    kernel C's fitness whose shape has no graph yet) or ``"eager"`` (off
-    the card; the plain or GJK fitness; a ``gbest_reduce`` hook, a
-    collective an iteration). Injected ``ScanDraws``, the replay step's
-    test hook, enter through ``pso.solver.solve``, which never captures."""
-    if (torch.device(device).type != "cuda" or fitness != "kernel-C"
-            or gbest_reduce is not None):
+def route(device, seen: bool, captured: bool) -> str:
+    """How a call of ``build_solver``'s graph-routed scan solver runs:
+    ``"replay"`` (its shape's graph), ``"capture"`` (the shape's second
+    call: captured, then replayed) or ``"eager"`` (off the card; the
+    shape's first call). Solvers whose fitness is not kernel C's, or that
+    reduce gbest across ranks, are eager throughout (``build_solver``)."""
+    if torch.device(device).type != "cuda":
         return "eager"
-    return "replay" if seen else "capture"
+    if captured:
+        return "replay"
+    return "capture" if seen else "eager"
 
 
 class GraphCache:
-    """At most ``GRAPH_KEYS`` captured solves by :func:`graph_key`; adding
-    one more drops the oldest."""
+    """At most ``GRAPH_KEYS`` captured solves by :func:`graph_key`, and as
+    many keys seen once; adding one more of either drops its oldest. The
+    first graph's memory pool (``pool``) is every later one's."""
 
     def __init__(self):
         self._by_key: dict = {}
+        self._seen: dict = {}
+        self.pool = None
 
     def __contains__(self, key: Hashable) -> bool:
         return key in self._by_key
@@ -85,30 +93,37 @@ class GraphCache:
     def __getitem__(self, key: Hashable):
         return self._by_key[key]
 
+    def seen(self, key: Hashable) -> bool:
+        return key in self._seen
+
+    def see(self, key: Hashable) -> None:
+        self._seen[key] = None
+        _keep_newest(self._seen)
+
     def add(self, key: Hashable, captured) -> None:
+        self._seen.pop(key, None)
         self._by_key[key] = captured
-        while len(self._by_key) > GRAPH_KEYS:
-            del self._by_key[next(iter(self._by_key))]
+        if self.pool is None:
+            self.pool = captured.pool
+        _keep_newest(self._by_key)
 
 
-def _launch_counters():
-    """The kernel wrappers' launch counts a scan solve moves, as
-    ``(function, attribute)``: a replay adds what its capture recorded."""
-    from ikpso_tpu_torch.ops.fitness_kernel import fused_fitness
-    from ikpso_tpu_torch.pso.solver import scan_step
-
-    return ((fused_fitness, "launches"), (scan_step, "launches"),
-            (scan_step, "replay_launches"))
+def _keep_newest(d: dict) -> None:
+    while len(d) > GRAPH_KEYS:
+        del d[next(iter(d))]
 
 
 class CapturedSolve:
     """One shape's scan solve as a CUDA graph: ``run(inputs, draws)``
     captured on static inputs (copies of ``problem``'s tensors) and draw
-    buffers of the shape; called as ``(problem, generator) ->
-    SolveResult``."""
+    buffers of the shape, in ``pool`` (another graph's, or None: a pool of
+    its own); called as ``(problem, generator) -> SolveResult``."""
+
+    captures = 0  # graphs captured in this process
+    replays = 0  # and replayed
 
     def __init__(self, run: DrawnSolve, problem: IKProblem, pso: PSOConfig,
-                 num_particles: int, dof: int):
+                 num_particles: int, dof: int, pool=None):
         dev = problem.pose.device
         self.inputs = IKProblem(*(None if t is None else t.clone() for t in _tensors(problem)))
         s = problem.pose.shape[0]
@@ -121,16 +136,11 @@ class CapturedSolve:
             block() if pso.init_mode in ("uniform", "hybrid") else None, block(),
             StepDraws(torch.empty((s, 2), dtype=torch.int32, device=dev),
                       draws_per_iteration(pso), num_particles, dof))
-        self.counters = _launch_counters()
-        before = [getattr(fn, name) for fn, name in self.counters]
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
             self.out: SolveResult = run(self.inputs, self.draws)
-        # The capture launched nothing; each replay launches what it recorded.
-        self.launches = []
-        for (fn, name), was in zip(self.counters, before):
-            self.launches.append(getattr(fn, name) - was)
-            setattr(fn, name, was)
+        self.pool = self.graph.pool()
+        CapturedSolve.captures += 1
 
     def __call__(self, problem: IKProblem, generator: Optional[torch.Generator]
                  ) -> SolveResult:
@@ -144,6 +154,5 @@ class CapturedSolve:
             draw_into(self.draws, generator)
         with span("ikpso.solve.replay"):
             self.graph.replay()
-            for (fn, name), n in zip(self.counters, self.launches):
-                setattr(fn, name, getattr(fn, name) + n)
+            CapturedSolve.replays += 1
             return SolveResult(*(t.clone() for t in _tensors(self.out)))

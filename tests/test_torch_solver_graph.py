@@ -11,9 +11,9 @@ kernel C's per-chain constants packed once against packed anew.
 
 On the card (marker ``card``; they skip without one): the replayed
 answers bit for bit against eager solves of the same seeds (on the
-card's generators and on a host one), the generator's state after each,
-earlier answers untouched by later replays, no host sync in a replay,
-its spans, and the launch counts.
+card's generators and on a host one, and a capture under the profiler),
+the generator's state after each, earlier answers untouched by later
+replays, no host sync in a replay, its spans, and the launch counts.
 This file imports no JAX, so the card's machine runs it alone:
 ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_solver_graph.py``.
 """
@@ -21,6 +21,7 @@ This file imports no JAX, so the card's machine runs it alone:
 from __future__ import annotations
 
 import dataclasses
+import types
 
 import pytest
 import torch
@@ -73,27 +74,74 @@ def _fields(res):
 # --- the route, the key, the cache (CPU) ----------------------------------------
 
 
-@pytest.mark.parametrize("case, want", [
-    (dict(device="cpu"), "eager"),
-    (dict(fitness="plain"), "eager"),
-    (dict(fitness="plain-gjk"), "eager"),
-    (dict(gbest_reduce=lambda v, c: (v, c)), "eager"),
-    (dict(), "capture"),  # a shape's first call: eager, then captured
-    (dict(seen=True), "replay"),
-], ids=["cpu", "plain", "plain_gjk", "gbest_reduce", "first_call", "seen"])
-def test_route_follows_what_the_call_carries(case, want):
-    call = {**dict(device="cuda", fitness="kernel-C", gbest_reduce=None, seen=False), **case}
-    assert graphs.route(call["device"], call["fitness"], call["gbest_reduce"],
-                        call["seen"]) == want
+class _FakeCapture:
+    """Stands in for ``CapturedSolve`` on the CPU: records what it was
+    built from and what it replays."""
+
+    made = []
+
+    def __init__(self, run, problem, pso, num_particles, dof, pool=None):
+        self.run, self.shape, self.replays = run, tuple(problem.pose.shape), 0
+        self.given_pool, self.pool = pool, ("pool", len(_FakeCapture.made))
+        _FakeCapture.made.append(self)
+
+    def __call__(self, problem, generator):
+        self.replays += 1
+        return ("replayed", self.shape)
 
 
-def test_the_cpu_and_the_plain_fitness_never_reach_the_graph():
-    # What build_solver's closure hands route for a CPU problem or a GJK scene.
-    box = Obstacles.from_boxes([[0.0, 0.0, 5.0]], [[0.1, 0.1, 0.1]])
-    gjk = FitnessConfig(collision_backend="gjk")
-    for fit, obstacles, device in ((FitnessConfig(), None, "cpu"), (gjk, box, "cuda")):
-        fitness = trajectory.fitness_impl(fit, obstacles, "jnp", device)
-        assert graphs.route(device, fitness, None, True) == "eager"
+def _fake_card(monkeypatch, kernel_c=True, on_card=True):
+    """``build_solver``'s solvers on CPU tensors as on the card: with
+    ``kernel_c`` kernel C's fitness (its plain twin runs the eager calls),
+    with ``on_card`` route seeing the card's device, and the capture
+    faked."""
+    if kernel_c:
+        monkeypatch.setattr(trajectory, "fitness_impl", lambda *a: "kernel-C")
+    if on_card:
+        real = graphs.route
+        monkeypatch.setattr(graphs, "route", lambda device, seen, captured:
+                            real("cuda", seen, captured))
+    monkeypatch.setattr(graphs, "CapturedSolve", _FakeCapture)
+    _FakeCapture.made = []
+
+
+def _routes(sv, problems):
+    """How each call of ``sv`` on ``problems`` ran: ``"eager"``,
+    ``"capture"`` (captured, then replayed) or ``"replay"``."""
+    out = []
+    for i, problem in enumerate(problems):
+        made = len(_FakeCapture.made)
+        res = sv(problem, torch.Generator().manual_seed(i))
+        out.append("capture" if len(_FakeCapture.made) > made
+                   else "replay" if isinstance(res, tuple) else "eager")
+    return out
+
+
+@pytest.mark.parametrize("case", ["cpu", "plain", "plain_gjk", "gbest_reduce", "first_call",
+                                  "seen"])
+def test_route_follows_what_the_call_carries(case, monkeypatch, one_thread):
+    # cpu: kernel C on CPU tensors (route sees their device); plain: the
+    # CPU's fitness; plain_gjk: a GJK scene; gbest_reduce: a collective an
+    # iteration; first_call: three shapes once each; seen: one shape three
+    # times, eager, then captured and replayed, then replayed.
+    spec, _ = library.arm_7dof()
+    pso, build = PSOConfig(iterations=2), dict(num_particles=16, impl="jnp", device="cpu")
+    _fake_card(monkeypatch, kernel_c=case not in ("plain", "plain_gjk"), on_card=case != "cpu")
+    if case == "plain_gjk":
+        build.update(obstacles=Obstacles.from_boxes([[0.0, 0.0, 5.0]], [[0.1, 0.1, 0.1]]),
+                     fit=FitnessConfig(collision_backend="gjk"))
+    if case == "gbest_reduce":
+        build.update(gbest_reduce=lambda v, c: (v, c))
+    sv = trajectory.build_solver(spec, pso=pso, **build)
+    shapes = (2, 3, 4) if case == "first_call" else (2, 2, 2)
+    got = _routes(sv, [_batch("arm_7dof", s, "cpu", s)[1] for s in shapes])
+    assert got == (["eager", "capture", "replay"] if case == "seen" else ["eager"] * 3)
+
+
+def test_route_on_the_card_and_off_it():
+    assert graphs.route("cpu", True, True) == "eager"
+    assert [graphs.route("cuda", seen, captured) for seen, captured in
+            ((False, False), (True, False), (False, True))] == ["eager", "capture", "replay"]
 
 
 def _key_variants():
@@ -118,54 +166,51 @@ def test_the_key_changes_with_the_shape(change):
 
 def test_the_cache_keeps_four_keys_and_drops_the_oldest():
     cache = graphs.GraphCache()
+    held = [types.SimpleNamespace(pool=("pool", k)) for k in range(6)]
     for k in range(graphs.GRAPH_KEYS):
-        cache.add(("key", k), k)
+        cache.add(("key", k), held[k])
     assert all(("key", k) in cache for k in range(4))
-    cache.add(("key", 4), 4)
+    cache.add(("key", 4), held[4])
     assert ("key", 0) not in cache
-    assert all(cache[("key", k)] == k for k in range(1, 5))
-    cache.add(("key", 5), 5)  # the next oldest goes next
+    assert all(cache[("key", k)] is held[k] for k in range(1, 5))
+    cache.add(("key", 5), held[5])  # the next oldest goes next
     assert ("key", 1) not in cache and ("key", 2) in cache
-
-
-class _FakeCapture:
-    """Stands in for ``CapturedSolve`` on the CPU: records what it was
-    built from and what it replays."""
-
-    made = []
-
-    def __init__(self, run, problem, pso, num_particles, dof):
-        self.run, self.shape, self.replays = run, tuple(problem.pose.shape), 0
-        _FakeCapture.made.append(self)
-
-    def __call__(self, problem, generator):
-        self.replays += 1
-        return ("replayed", self.shape)
+    assert cache.pool == ("pool", 0)  # the first graph's, kept for the later ones
 
 
 def test_the_solver_captures_after_a_shapes_first_call(monkeypatch, one_thread):
-    # CPU tensors stand in for the card's: the route is forced and the
-    # capture faked; the eager calls run kernel C's plain twin.
-    monkeypatch.setattr(trajectory, "fitness_impl", lambda *a: "kernel-C")
-    monkeypatch.setattr(graphs, "route", lambda device, fitness, reduce, seen:
-                        "replay" if seen else "capture")
-    monkeypatch.setattr(graphs, "CapturedSolve", _FakeCapture)
-    _FakeCapture.made = []
+    # CPU tensors stand in for the card's: the route sees the card and the
+    # capture is faked; the eager calls run kernel C's plain twin.
+    _fake_card(monkeypatch)
     spec, _ = library.arm_7dof()
     sv = trajectory.build_solver(spec, pso=PSOConfig(iterations=2), num_particles=16,
                                  impl="jnp", device="cpu")
     batches = {s: _batch("arm_7dof", s, "cpu", s)[1] for s in (2, 3, 4, 5, 6)}
-    first = sv(batches[2], torch.Generator().manual_seed(1))
-    assert isinstance(first, solver.SolveResult) and len(_FakeCapture.made) == 1
-    assert sv(batches[2], torch.Generator().manual_seed(2)) == ("replayed", (2, 4, 3))
-    assert _FakeCapture.made[0].replays == 1
-    for s in (3, 4, 5, 6):  # four more shapes: the first one is dropped
-        assert isinstance(sv(batches[s], torch.Generator().manual_seed(s)),
-                          solver.SolveResult)
+    assert _routes(sv, [batches[2]] * 3) == ["eager", "capture", "replay"]
+    assert len(_FakeCapture.made) == 1 and _FakeCapture.made[0].replays == 2
+    for s in (3, 4, 5, 6):  # four more shapes captured: the first one is dropped
+        assert _routes(sv, [batches[s]] * 2) == ["eager", "capture"]
     assert len(_FakeCapture.made) == 5
-    assert isinstance(sv(batches[2], torch.Generator().manual_seed(7)), solver.SolveResult)
-    assert len(_FakeCapture.made) == 6  # captured again
-    assert sv(batches[6], torch.Generator().manual_seed(8)) == ("replayed", (6, 4, 3))
+    # Its graph is gone, and so is its first call: it starts over.
+    assert _routes(sv, [batches[2]] * 3) == ["eager", "capture", "replay"]
+    assert len(_FakeCapture.made) == 6
+    assert _routes(sv, [batches[6]]) == ["replay"]
+    # One memory pool for every graph of the solver: the first one's.
+    assert _FakeCapture.made[0].given_pool is None
+    assert all(c.given_pool == ("pool", 0) for c in _FakeCapture.made[1:])
+
+
+def test_a_shape_seen_once_is_forgotten_after_four_more(monkeypatch, one_thread):
+    _fake_card(monkeypatch)
+    spec, _ = library.arm_7dof()
+    sv = trajectory.build_solver(spec, pso=PSOConfig(iterations=1), num_particles=16,
+                                 impl="jnp", device="cpu")
+    batches = {s: _batch("arm_7dof", s, "cpu", s)[1] for s in (2, 3, 4, 5, 6, 7)}
+    assert _routes(sv, [batches[s] for s in (2, 3, 4, 5)]) == ["eager"] * 4
+    assert _routes(sv, [batches[3]]) == ["capture"]  # still remembered
+    # 6 makes four shapes seen once (2, 4, 5, 6) and 7 drops the oldest, 2.
+    assert _routes(sv, [batches[s] for s in (6, 7, 2, 2)]) == ["eager"] * 3 + ["capture"]
+    assert len(_FakeCapture.made) == 2
 
 
 # --- the draws, the effector gather, the packing (CPU) ---------------------------
@@ -266,7 +311,7 @@ def _card_solver(card, name):
 def test_replays_equal_eager_solves_bit_for_bit(card, name):
     sv, eager, batch = _card_solver(card, name)
     kept, problem = [], batch
-    for seed in (21, 22, 23, 24):  # the first call captures; three replays
+    for seed in (21, 22, 23, 24):  # eager; captured and replayed; two replays
         g_graph = torch.Generator(device=card).manual_seed(seed)
         g_eager = torch.Generator(device=card).manual_seed(seed)
         got = sv(problem, g_graph)
@@ -297,27 +342,38 @@ def test_replays_on_a_host_generator_equal_eager_solves(card):
 
 @pytest.mark.card
 def test_a_replay_queues_no_host_sync_and_counts_its_launches(card):
+    # The wrappers count where they launch: the eager first call and the
+    # second call's capture once each; a replay launches through the graph
+    # and counts as a replay alone.
     sv, _, batch = _card_solver(card, "reference_arm")
-    sv(batch, torch.Generator(device=card).manual_seed(1))
-    before = fkm.fused_fitness.launches, solver.scan_step.launches
+    iterations = CARD_CASES["reference_arm"][3].iterations
+
+    def counts():
+        return (fkm.fused_fitness.launches, solver.scan_step.launches,
+                graphs.CapturedSolve.captures, graphs.CapturedSolve.replays)
+
+    start = counts()
+    for seed in (1, 2):
+        sv(batch, torch.Generator(device=card).manual_seed(seed))
+    mid = counts()
+    assert tuple(b - a for a, b in zip(start, mid)) == (2, 2 * iterations, 1, 1)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        sv(batch, torch.Generator(device=card).manual_seed(2))
+        sv(batch, torch.Generator(device=card).manual_seed(3))
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize(card)
-    iterations = CARD_CASES["reference_arm"][3].iterations
-    assert (fkm.fused_fitness.launches - before[0],
-            solver.scan_step.launches - before[1]) == (1, iterations)
+    assert tuple(b - a for a, b in zip(mid, counts())) == (0, 0, 0, 1)
 
 
 @pytest.mark.card
 def test_a_replay_records_its_spans(card):
     sv, _, batch = _card_solver(card, "arm_7dof")
-    sv(batch, torch.Generator(device=card).manual_seed(1))
+    for seed in (1, 2):  # eager, then captured
+        sv(batch, torch.Generator(device=card).manual_seed(seed))
     profiling.clear_spans()
     with profile(activities=[ProfilerActivity.CPU]):
-        sv(batch, torch.Generator(device=card).manual_seed(2))
+        sv(batch, torch.Generator(device=card).manual_seed(3))
     got = profiling.spans()
     profiling.clear_spans()
     names = [s.name for s in got]
@@ -326,3 +382,41 @@ def test_a_replay_records_its_spans(card):
     root = got[-1]
     assert root.parent is None and all(s.parent == root.id for s in got[:-1])
     assert got[0].end <= got[1].start and got[1].end <= got[2].start
+
+
+@pytest.mark.card
+def test_a_capture_under_the_profiler_equals_the_eager_solve(card):
+    # A benchmark's traced window starts at a shape's second call: its
+    # capture runs under the profiler, with the card's activity on.
+    sv, eager, batch = _card_solver(card, "reference_arm")
+    sv(batch, torch.Generator(device=card).manual_seed(41))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = [sv(batch, torch.Generator(device=card).manual_seed(s)) for s in (42, 43)]
+        torch.cuda.synchronize(card)
+    for res, seed in zip(got, (42, 43)):
+        want = eager(batch, torch.Generator(device=card).manual_seed(seed))
+        for a, b in zip(_fields(res), _fields(want)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.card
+def test_two_shapes_share_a_pool_and_replay_in_turns(card):
+    # The second shape's graph is captured into the first's memory pool;
+    # their replays in either order leave each other's answers alone.
+    sv, eager, batch = _card_solver(card, "arm_7dof")
+    half = batch.replace(pose=batch.pose[:32], targets=batch.targets[:32],
+                         origin=batch.origin[:32])
+    for seed in (51, 52):
+        for problem in (batch, half):
+            sv(problem, torch.Generator(device=card).manual_seed(seed))
+    kept = []
+    for seed, problem in ((53, batch), (54, half), (55, half), (56, batch)):
+        got = sv(problem, torch.Generator(device=card).manual_seed(seed))
+        want = eager(problem, torch.Generator(device=card).manual_seed(seed))
+        for a, b in zip(_fields(got), _fields(want)):
+            assert torch.equal(a, b)
+        kept.append((_fields(got), _fields(want)))
+    torch.cuda.synchronize(card)
+    for held, want in kept:
+        for a, b in zip(held, want):
+            assert torch.equal(a, b)
